@@ -1,0 +1,83 @@
+"""Trajectory container, seeded split and synthetic kitchen data.
+
+Port of the numpy parts of `beso_tpu/data/trajectories.py` that the kitchen
+serving path needs. Importing `beso_tpu.data` would pull in JAX, so these
+are carried here as plain numpy (and torch for the split permutation, which
+must reproduce the reference's `torch.randperm` indices exactly:
+`beso/envs/utils.py:6-10`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajectoryData:
+    """Padded trajectory arrays, host-side numpy."""
+
+    observations: np.ndarray          # [N, Tmax, obs_dim]
+    actions: np.ndarray               # [N, Tmax, act_dim]
+    lengths: np.ndarray               # [N] int32 valid lengths
+    onehot_goals: Optional[np.ndarray] = None  # [N, Tmax, K]
+
+    @property
+    def num_trajectories(self) -> int:
+        return self.observations.shape[0]
+
+    @property
+    def obs_dim(self) -> int:
+        return self.observations.shape[-1]
+
+    @property
+    def act_dim(self) -> int:
+        return self.actions.shape[-1]
+
+    def all_observations(self) -> np.ndarray:
+        """Concatenated valid observations (dataloader.py:49-55)."""
+        return np.concatenate(
+            [self.observations[i, : self.lengths[i]] for i in range(self.num_trajectories)])
+
+    def all_actions(self) -> np.ndarray:
+        """Concatenated valid actions (dataloader.py:41-47)."""
+        return np.concatenate(
+            [self.actions[i, : self.lengths[i]] for i in range(self.num_trajectories)])
+
+
+def get_split_idx(n: int, seed: int, train_fraction: float = 0.95):
+    """Seeded randperm split with torch-identical indices (envs/utils.py:6-10)."""
+    rng = torch.Generator().manual_seed(seed)
+    idx = torch.randperm(n, generator=rng).tolist()
+    l_train = int(n * train_fraction)
+    return idx[:l_train], idx[l_train:]
+
+
+def synthetic_kitchen_data(n_traj: int = 32, t_max: int = 120,
+                           seed: int = 0) -> TrajectoryData:
+    """Smooth random trajectories with the kitchen shapes (obs 30, act 9,
+    7 onehot tasks), drawn exactly as `beso_tpu`'s stand-in for the
+    unvendored relay-kitchen dataset."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(t_max // 2, t_max + 1, size=n_traj).astype(np.int32)
+    obs = np.zeros((n_traj, t_max, 30), np.float32)
+    act = np.zeros((n_traj, t_max, 9), np.float32)
+    goals = np.zeros((n_traj, t_max, 7), np.float32)
+    for i in range(n_traj):
+        T = lengths[i]
+        # smooth random walk
+        a = rng.randn(T, 9).astype(np.float32) * 0.3
+        act[i, :T] = np.clip(np.cumsum(a, 0) * 0.1 + a, -1, 1)
+        o = rng.randn(30) + np.cumsum(rng.randn(T, 30) * 0.05, 0)
+        obs[i, :T] = o
+        # 2-4 tasks "completed" at increasing frames
+        n_tasks = rng.randint(2, 5)
+        tasks = rng.choice(7, size=n_tasks, replace=False)
+        frames = np.sort(rng.choice(np.arange(T // 4, T), n_tasks, replace=False))
+        for task, f in zip(tasks, frames):
+            goals[i, f:, task] = 0.0
+            goals[i, f, task] = 1.0
+    return TrajectoryData(obs, act, lengths, goals)

@@ -1,0 +1,258 @@
+"""Noise-conditioned causal transformer ("DiffusionGPT"), inference forward.
+
+Torch port of `beso_tpu/models/gpt.py` (itself the reference's
+`score_gpts.py:15-374`):
+
+token layout   [sigma_emb, g_1..g_G, s_1, a_1, ..., s_T, a_T]
+sigma token    Linear(log(sigma)/4)         (score_gpts.py:284-286)
+tok_emb        shared Linear for states AND goals, unless goal_dim differs
+               from state_dim, where goals get their own `goal_emb`
+pos_emb        learned, shared between s_t and a_t
+head           linear, or Linear(D,100)+SiLU+Linear(100,A)
+output         action-slot tokens of the second half
+
+Numerics follow the JAX package: the "broadcast" attention form with f32
+softmax, tanh GELU (`gpt.py:127,175`; torch's own default is erf), LayerNorm
+statistics in f32 with variance E[x^2] - mu^2, and every Linear computed as
+an f32-accumulated product of `dtype` operands plus an f32 bias, rounded to
+`dtype` once. Parameters stay f32; `dtype` is the compute type.
+
+Only the inference forward (`train=False`) is ported. Dropout, CFG goal
+masking while training and the loss wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """`x @ weight.T + bias` with `dtype` operands, f32 accumulation and f32
+    bias, rounded to `dtype` (the `_dense` of `beso_tpu/models/cached.py`).
+    `weight` is [out, in], torch's Linear convention."""
+    y = F.linear(x.to(dtype).float(), weight.to(dtype).float(), bias.float())
+    return y.to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm over the last axis, f32 statistics, var = E[x^2] - mu^2,
+    eps 1e-5, output in `dtype`."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    return ((xf - mu) * torch.rsqrt(var + 1e-5) * scale + bias).to(dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh GELU in f32, returned in the input's dtype."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """Broadcast-form attention: q [B,Tq,H,hd], k/v [B,S,H,hd], mask [Tq,S]
+    bool. Scores in f32 over the true head dim, probabilities rounded to
+    v's dtype, output [B, Tq, H*hd] in q's dtype."""
+    B, Tq, H, hd = q.shape
+    dtype = q.dtype
+    scores = torch.einsum("bthd,bshd->btsh", q.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    scores = scores.masked_fill(~mask[None, :, :, None], float("-inf"))
+    probs = torch.softmax(scores, dim=2).to(v.dtype)
+    y = torch.einsum("btsh,bshd->bthd", probs.float(), v.float())
+    return y.to(dtype).reshape(B, Tq, H * hd)
+
+
+def block_forward(lp: dict, x: torch.Tensor, n_heads: int, dtype: torch.dtype,
+                  mask: torch.Tensor, kv_prefix=None):
+    """One pre-LN block (score_gpts.py:83-115) over tokens x [B, T, D] with
+    weights `lp` (`Block.weights()` names, Linear weights [out, in]).
+    Queries attend to [kv_prefix ++ own K/V] under mask [T, P+T]. Returns
+    (x_out, (k, v)) with the block's own k, v as [B, T, H, hd]."""
+    B, T, D = x.shape
+    h = layer_norm(x, lp["ln1_s"], lp["ln1_b"], dtype)
+    q, k, v = dense(h, lp["wqkv"], lp["bqkv"], dtype).split(D, dim=-1)
+    q, k, v = (a.reshape(B, T, n_heads, D // n_heads) for a in (q, k, v))
+    k_all, v_all = k, v
+    if kv_prefix is not None:
+        k_all = torch.cat([kv_prefix[0].to(k.dtype), k], dim=1)
+        v_all = torch.cat([kv_prefix[1].to(v.dtype), v], dim=1)
+    x = x + dense(attend(q, k_all, v_all, mask), lp["wproj"], lp["bproj"], dtype)
+    h = layer_norm(x, lp["ln2_s"], lp["ln2_b"], dtype)
+    h = gelu(dense(h, lp["wfc"], lp["bfc"], dtype))
+    return x + dense(h, lp["wfc2"], lp["bfc2"], dtype), (k, v)
+
+
+def _normal_linear(n_in, n_out, generator, device):
+    """miniGPT init: normal(0, 0.02) weights, zero bias (score_gpts.py:202-209)."""
+    lin = nn.Linear(n_in, n_out, device=device)
+    with torch.no_grad():
+        nn.init.normal_(lin.weight, 0.0, 0.02, generator=generator)
+        lin.bias.zero_()
+    return lin
+
+
+def _lecun_linear(n_in, n_out, generator, device):
+    """flax `nn.Dense` default: lecun-normal (truncated normal at 2 std,
+    variance 1/fan_in) weights, zero bias."""
+    lin = nn.Linear(n_in, n_out, device=device)
+    # std of a unit normal truncated to [-2, 2] (flax variance_scaling)
+    std = math.sqrt(1.0 / n_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(lin.weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        lin.bias.zero_()
+    return lin
+
+
+class CausalSelfAttention(nn.Module):
+    """Fused-QKV causal self-attention weights (score_gpts.py:15-80); the
+    math is in `block_forward`."""
+
+    def __init__(self, n_embd: int, n_heads: int, generator=None, device=None):
+        super().__init__()
+        self.n_heads = n_heads
+        self.qkv = _lecun_linear(n_embd, 3 * n_embd, generator, device)
+        self.proj = _lecun_linear(n_embd, n_embd, generator, device)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block with a 4x tanh-GELU MLP (score_gpts.py:83-115)."""
+
+    def __init__(self, n_embd: int, n_heads: int, generator=None, device=None):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(n_embd, eps=1e-5, device=device)
+        self.attn = CausalSelfAttention(n_embd, n_heads, generator, device)
+        self.ln2 = nn.LayerNorm(n_embd, eps=1e-5, device=device)
+        self.fc = _lecun_linear(n_embd, 4 * n_embd, generator, device)
+        self.fc_proj = _lecun_linear(4 * n_embd, n_embd, generator, device)
+
+    def weights(self) -> dict:
+        """The block's parameters under `block_forward`'s names."""
+        a = self.attn
+        return dict(ln1_s=self.ln1.weight, ln1_b=self.ln1.bias,
+                    wqkv=a.qkv.weight, bqkv=a.qkv.bias,
+                    wproj=a.proj.weight, bproj=a.proj.bias,
+                    ln2_s=self.ln2.weight, ln2_b=self.ln2.bias,
+                    wfc=self.fc.weight, bfc=self.fc.bias,
+                    wfc2=self.fc_proj.weight, bfc2=self.fc_proj.bias)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        T = x.shape[1]
+        causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        return block_forward(self.weights(), x, self.attn.n_heads, dtype,
+                             causal)[0]
+
+
+class DiffusionGPT(nn.Module):
+    """Goal-conditioned noise-aware causal GPT over state/action tokens."""
+
+    def __init__(self, state_dim: int, action_dim: int, embed_dim: int,
+                 n_layers: int, n_heads: int, goal_seq_len: int,
+                 obs_seq_len: int, goal_conditioned: bool = True,
+                 linear_output: bool = True, goal_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.state_dim = state_dim
+        self.action_dim = action_dim
+        self.embed_dim = embed_dim
+        self.n_layers = n_layers
+        self.n_heads = n_heads
+        self.goal_seq_len = goal_seq_len
+        self.obs_seq_len = obs_seq_len
+        self.goal_conditioned = goal_conditioned
+        self.linear_output = linear_output
+        self.goal_dim = goal_dim
+        self.dtype = dtype
+
+        g, dev, D = generator, device, embed_dim
+        self.sigma_emb = _normal_linear(1, D, g, dev)
+        self.tok_emb = _normal_linear(state_dim, D, g, dev)
+        self.goal_emb = (_normal_linear(goal_dim, D, g, dev)
+                         if self.has_goal_emb else None)
+        self.action_emb = _normal_linear(action_dim, D, g, dev)
+        self.pos_emb = nn.Parameter(torch.empty(1, self.seq_size, D, device=dev))
+        with torch.no_grad():
+            nn.init.normal_(self.pos_emb, 0.0, 0.02, generator=g)
+        self.blocks = nn.ModuleList(
+            [Block(D, n_heads, g, dev) for _ in range(n_layers)])
+        self.ln_f = nn.LayerNorm(D, eps=1e-5, device=dev)
+        if linear_output:
+            self.action_pred = _normal_linear(D, action_dim, g, dev)
+        else:
+            self.action_pred_fc = _normal_linear(D, 100, g, dev)
+            self.action_pred_out = _normal_linear(100, action_dim, g, dev)
+
+    @property
+    def has_goal_emb(self) -> bool:
+        return self.goal_dim is not None and self.goal_dim != self.state_dim
+
+    @property
+    def eff_goal_len(self) -> int:
+        return self.goal_seq_len if self.goal_conditioned else 0
+
+    @property
+    def seq_size(self) -> int:
+        return self.eff_goal_len + self.obs_seq_len + 1
+
+    def embed_sigma(self, sigma: torch.Tensor) -> torch.Tensor:
+        """Sigma token [..., 1, D] from sigma [...]: Linear(log(sigma)/4)."""
+        sig = (torch.log(sigma.float()) / 4.0)[..., None, None]
+        return dense(sig, self.sigma_emb.weight, self.sigma_emb.bias, self.dtype)
+
+    def embed_goals(self, goals: torch.Tensor) -> torch.Tensor:
+        """Goal tokens [B, G, D] (f32: the f32 pos_emb promotes them)."""
+        emb = self.goal_emb if self.has_goal_emb else self.tok_emb
+        G = self.eff_goal_len
+        return dense(goals, emb.weight, emb.bias, self.dtype) + self.pos_emb[:, :G]
+
+    def embed_suffix(self, states: torch.Tensor,
+                     actions: torch.Tensor) -> torch.Tensor:
+        """Interleaved [s_1, a_1, ..., s_T, a_T] tokens [B, 2T, D] in dtype."""
+        B, T, _ = states.shape
+        G = self.eff_goal_len
+        pos = self.pos_emb[:, G:G + T]
+        state_x = dense(states, self.tok_emb.weight, self.tok_emb.bias,
+                        self.dtype) + pos
+        action_x = dense(actions, self.action_emb.weight, self.action_emb.bias,
+                         self.dtype) + pos
+        seq = torch.stack([state_x, action_x], dim=2)
+        return seq.reshape(B, 2 * T, self.embed_dim).to(self.dtype)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Action head over action-slot tokens, f32 output."""
+        if self.linear_output:
+            return F.linear(x.float(), self.action_pred.weight.float(),
+                            self.action_pred.bias.float())
+        h = dense(x, self.action_pred_fc.weight, self.action_pred_fc.bias,
+                  self.dtype)
+        h = F.silu(h.float()).to(self.dtype)
+        return F.linear(h.float(), self.action_pred_out.weight.float(),
+                        self.action_pred_out.bias.float())
+
+    def forward(self, states: torch.Tensor, actions: torch.Tensor,
+                goals: torch.Tensor, sigma: torch.Tensor, *,
+                uncond: bool = False) -> torch.Tensor:
+        """[B,T,state], [B,T,action], [B,G,goal], [B] -> [B,T,action] f32."""
+        B, T, _ = states.shape
+        G = self.eff_goal_len
+        parts = [self.embed_sigma(sigma)]
+        if self.goal_conditioned:
+            if uncond:
+                goals = torch.zeros_like(goals)
+            parts.append(self.embed_goals(goals))
+        parts.append(self.embed_suffix(states, actions))
+        x = torch.cat([p.to(self.dtype) for p in parts], dim=1)
+        for blk in self.blocks:
+            x = blk(x, self.dtype)
+        x = layer_norm(x, self.ln_f.weight, self.ln_f.bias, self.dtype)
+        x = x[:, G + 1:].reshape(B, T, 2, self.embed_dim)[:, :, 1]
+        return self.head(x)

@@ -1,0 +1,200 @@
+"""Kernel B1's port: the plain version of `fused_layer_prefix` against the
+JAX TPU kernel `fused_layer_prefix_tl_v2` (interpret mode, f32) and against
+the port's plain cached engine; the wrapper's CPU dispatch and checks.
+
+The CUDA kernel itself runs only on the card: `test_kernel_matches_plain`
+is marked `gpu` and skips here (chip_smoke.py runs the same comparison).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import TOL, make_inputs, make_models, t
+
+from beso_tpu.ops import fused_layer as jfl
+from beso_tpu_torch.models.cached import (build_prefix, extract_gpt_params,
+                                          grid_index, suffix_forward)
+from beso_tpu_torch.models.gpt import layer_norm
+from beso_tpu_torch.ops import fused_layer as fl
+
+
+def _layer(D, seed):
+    """One layer's weights in flax orientation ([in, out]) as numpy."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+
+    def w(i, o):
+        return (rng.randn(i, o) / np.sqrt(i)).astype(f)
+
+    def v(n, base=0.0):
+        return (base + 0.1 * rng.randn(n)).astype(f)
+
+    return dict(wqkv=w(D, 3 * D), bqkv=v(3 * D), wproj=w(D, D), bproj=v(D),
+                wfc=w(D, 4 * D), bfc=v(4 * D), wfc2=w(4 * D, D), bfc2=v(D),
+                ln1_s=v(D, 1.0), ln1_b=v(D), ln2_s=v(D, 1.0), ln2_b=v(D))
+
+
+def _port_params(lw, H, dtype=torch.float32):
+    lp = {k: t(a.T) if k.startswith("w") else t(a) for k, a in lw.items()}
+    return fl.prepare_layer_params(lp, H, dtype)
+
+
+def _case(D, H, P, T2, S, M, B, seed):
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    x = rng.randn(B, T2, D).astype(f)
+    pk = rng.randn(S, B, P, D).astype(f)
+    pv = rng.randn(S, B, P, D).astype(f)
+    epi = (rng.rand(D).astype(f) + 0.5, 0.1 * rng.randn(D).astype(f),
+           (rng.randn(M, D) / np.sqrt(D)).astype(f), 0.1 * rng.randn(M).astype(f))
+    return x, pk, pv, _layer(D, seed + 1), epi
+
+
+# (D, H, P, T2, S, M, qbatch, epilogue): kitchen-like and push-like heads
+JAX_CASES = {
+    "kitchen_like": (48, 2, 3, 8, 3, 9, False, True),
+    "push_like": (40, 4, 2, 10, 2, 2, True, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_CASES))
+def test_plain_matches_jax_tpu_kernel(name):
+    D, H, P, T2, S, M, qbatch, use_epi = JAX_CASES[name]
+    B, E = 8, 8
+    x, pk, pv, lw, epi = _case(D, H, P, T2, S, M, B, seed=11)
+    idx = np.asarray([S - 1], np.int32)
+
+    # JAX: token-merged-lanes layout, head dim padded to hdp >= 32
+    jp = jfl.prepare_layer_params(
+        *(jnp.asarray(lw[k]) for k in ("wqkv", "bqkv", "wproj", "bproj", "wfc",
+                                       "bfc", "wfc2", "bfc2", "ln1_s", "ln1_b",
+                                       "ln2_s", "ln2_b")),
+        n_heads=H, dtype=jnp.float32)
+    hd, hdp = D // H, jfl.padded_head_dim(D // H)
+
+    def kv_tl(a):   # [S, B, P, D] -> [S, nB, H*hdp, P*E]
+        a = np.pad(a.reshape(S, B, P, H, hd), [(0, 0)] * 4 + [(0, hdp - hd)])
+        a = a.reshape(S, B // E, E, P, H * hdp).transpose(0, 1, 4, 3, 2)
+        return jnp.asarray(a.reshape(S, B // E, H * hdp, P * E))
+
+    x_tl = x.reshape(B // E, E, T2, D).transpose(0, 3, 2, 1).reshape(B // E, D, T2 * E)
+    jepi = None
+    if use_epi:
+        Mp = -(-M // 8) * 8
+        jepi = (jnp.asarray(epi[0][:, None]), jnp.asarray(epi[1][:, None]),
+                jnp.asarray(np.pad(epi[2], ((0, Mp - M), (0, 0)))),
+                jnp.asarray(np.pad(epi[3], (0, Mp - M))[:, None]))
+    jout = jfl.fused_layer_prefix_tl_v2(
+        jnp.asarray(x_tl), kv_tl(pk), kv_tl(pv), jnp.asarray(idx), jp,
+        n_heads=H, head_dim=hd, suffix_len=T2, qbatch=qbatch, epilogue=jepi,
+        interpret=True)
+
+    def from_tl(a):   # [nB, C, T2*E] -> [B, T2, C]
+        a = np.asarray(a)
+        return a.reshape(B // E, a.shape[1], T2, E).transpose(0, 3, 2, 1).reshape(B, T2, -1)
+
+    tepi = fl.FusedEpilogue(*(t(a) for a in epi)) if use_epi else None
+    out = fl.fused_layer_prefix_reference(
+        t(x), t(pk), t(pv), t(idx), _port_params(lw, H), n_heads=H, epilogue=tepi)
+    if use_epi:
+        np.testing.assert_allclose(out[0].numpy(), from_tl(jout[0]), **TOL)
+        np.testing.assert_allclose(out[1].numpy(), from_tl(jout[1])[..., :M], **TOL)
+    else:
+        np.testing.assert_allclose(out.numpy(), from_tl(jout), **TOL)
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_plain_chain_matches_suffix_forward(epilogue):
+    """Six-layer use as the fused engine makes it, against the plain cached
+    engine's `suffix_forward`: same prefix cache, same grid row."""
+    kw, _, _, tden = make_models(seed=21, n_layers=3)
+    model = tden.inner_model
+    s, a, g, _ = make_inputs(kw, B=6, seed=22)
+    sigmas = np.asarray([1.0, 0.18, 0.032], np.float32)
+    rp = extract_gpt_params(model)
+    with torch.no_grad():
+        prefix = build_prefix(model, rp, t(g), sigmas)
+        sig = torch.full((6,), 0.18)
+        ref = suffix_forward(model, rp, prefix, t(s), t(a), sig)
+        S, L, B, P = prefix.k.shape[:4]
+        D, H = model.embed_dim, model.n_heads
+        idx = grid_index(sig, prefix.sigmas).to(torch.int32)
+        assert idx.tolist() == [1]
+        x = model.embed_suffix(t(s), t(a))
+        w, b = rp.head
+        epi = fl.FusedEpilogue(rp.lnf_scale, rp.lnf_bias, w, b)
+        for li, lp in enumerate(rp.layers):
+            last = epilogue and li == L - 1
+            x = fl.fused_layer_prefix(
+                x, prefix.k[:, li].reshape(S, B, P, D),
+                prefix.v[:, li].reshape(S, B, P, D), idx,
+                fl.prepare_layer_params(lp, H, torch.float32), n_heads=H,
+                epilogue=epi if last else None)
+        if epilogue:
+            out = x[1][:, 1::2]
+        else:
+            out = model.head(layer_norm(x, rp.lnf_scale, rp.lnf_bias,
+                                        torch.float32)[:, 1::2])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+
+
+def test_wrapper_cpu_dispatch_counts_no_launch():
+    x, pk, pv, lw, _ = _case(48, 2, 3, 8, 3, 9, 5, seed=31)
+    p = _port_params(lw, 2)
+    idx = torch.tensor([2], dtype=torch.int32)
+    before = fl.fused_layer_prefix.launches
+    out = fl.fused_layer_prefix(t(x), t(pk), t(pv), idx, p, n_heads=2)
+    ref = fl.fused_layer_prefix_reference(t(x), t(pk), t(pv), idx, p, n_heads=2)
+    assert fl.fused_layer_prefix.launches == before
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fl.fused_layer_prefix(t(x).to("meta"), t(pk), t(pv), idx, p, n_heads=2)
+
+
+@pytest.mark.parametrize("D,H,shapes", [
+    (360, 6, dict(wqkv=(1152, 368), wproj=(368, 384), wfc=(1440, 368),
+                  wfc2=(368, 1440), bqkv=(1152,), bproj=(368,))),
+    (240, 12, dict(wqkv=(1152, 240), wproj=(240, 384), wfc=(960, 240),
+                   wfc2=(240, 960), bqkv=(1152,), bproj=(240,))),
+])
+def test_prepare_pads_to_16(D, H, shapes):
+    """Kitchen (hd 60 -> 64, D 360 -> 368) and block push (hd 20 -> 32);
+    padding is zero, and the bf16 weights are contiguous."""
+    lw = _layer(D, seed=41)
+    p = _port_params(lw, H, torch.bfloat16)
+    for name, shape in shapes.items():
+        assert tuple(getattr(p, name).shape) == shape
+        assert getattr(p, name).is_contiguous()
+    assert p.wqkv.dtype == torch.bfloat16 and p.bqkv.dtype == torch.float32
+    hd = D // H
+    hdp = -(-hd // 16) * 16
+    q = p.wqkv.float().reshape(3, H, hdp, -1)
+    assert q[:, :, hd:].abs().sum() == 0 and q[..., D:].abs().sum() == 0
+    assert p.wproj.float().reshape(-1, H, hdp)[:, :, hd:].abs().sum() == 0
+
+
+def test_library_path_keyed_by_sources():
+    path = fl.kernel_library_path()
+    assert path == fl.kernel_library_path()
+    assert path.name.startswith("libbeso_kernels_") and path.suffix == ".so"
+    assert path.parent.parts[-2:] == ("build", "kernels")
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain():
+    """On the card: the CUDA kernel against its plain version in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
+    dev = torch.device("cuda")
+    x, pk, pv, lw, epi = _case(360, 6, 3, 8, 3, 9, 37, seed=51)
+    p = fl.FusedLayerParams(*(v.to(dev) for v in _port_params(lw, 6, torch.bfloat16)))
+    e = fl.FusedEpilogue(*(t(a).to(dev) for a in epi))
+    args = [t(v).to(dev, torch.bfloat16) for v in (x, pk, pv)]
+    idx = torch.tensor([1], dtype=torch.int32, device=dev)
+    out, pred = fl.fused_layer_prefix(*args, idx, p, n_heads=6, epilogue=e)
+    ref, ref_pred = fl.fused_layer_prefix_reference(*args, idx, p, n_heads=6,
+                                                    epilogue=e)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max() <= 2 ** -5 * ref.float().abs().max()
+    assert (pred - ref_pred).abs().max() <= 2 ** -5 * ref_pred.abs().max()

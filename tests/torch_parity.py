@@ -1,0 +1,74 @@
+"""Shared helpers for the `beso_tpu_torch` parity tests (test_torch_*.py).
+
+Builds a small DiffusionGPT in both packages with the same weights: flax
+initialises the tree, every leaf is then redrawn from a seeded numpy
+RandomState (so the weights are not near-zero and the comparison has
+teeth), and `params_from_jax` copies the tree into the torch module.
+Inputs are drawn with numpy and handed to both packages.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from beso_tpu.models import DiffusionGPT as JaxGPT
+from beso_tpu.models import GCDenoiser as JaxDenoiser
+from beso_tpu_torch.models.convert import params_from_jax
+from beso_tpu_torch.models.denoiser import GCDenoiser
+from beso_tpu_torch.models.gpt import DiffusionGPT
+
+torch.set_num_threads(1)
+
+# 2 layers x 48 wide x 2 heads at the kitchen token layout (G=2, window 4)
+SMALL = dict(state_dim=30, action_dim=9, embed_dim=48, n_layers=2, n_heads=2,
+             goal_seq_len=2, obs_seq_len=4)
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _redraw(params, seed: int):
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, a):
+        name = jax.tree_util.keystr(path)
+        a = np.asarray(a)
+        if "scale" in name:                      # LayerNorm gains
+            return (1.0 + 0.1 * rng.randn(*a.shape)).astype(np.float32)
+        fan_in = a.shape[0] if a.ndim == 2 else a.shape[-1]
+        std = 0.1 if "bias" in name else 1.0 / np.sqrt(fan_in)
+        return (std * rng.randn(*a.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def make_models(seed: int = 0, **overrides):
+    """(kw, jax GCDenoiser, numpy flax params, torch GCDenoiser)."""
+    kw = {**SMALL, **overrides}
+    jden = JaxDenoiser(JaxGPT(**kw), sigma_data=0.5)
+    T, G = kw["obs_seq_len"], kw["goal_seq_len"]
+    gdim = kw.get("goal_dim") or kw["state_dim"]
+    params = jden.init(jax.random.PRNGKey(seed), jnp.zeros((2, T, kw["state_dim"])),
+                       jnp.zeros((2, T, kw["action_dim"])),
+                       jnp.zeros((2, G, gdim)), jnp.full((2,), 0.5))
+    params = _redraw(params, seed)
+    tmodel = DiffusionGPT(**kw)
+    params_from_jax(params, tmodel)
+    return kw, jden, params, GCDenoiser(tmodel, sigma_data=0.5)
+
+
+def make_inputs(kw, B: int, seed: int):
+    """numpy (states, actions, goals, sigma) for a batch of B."""
+    rng = np.random.RandomState(seed)
+    T, G = kw["obs_seq_len"], kw["goal_seq_len"]
+    gdim = kw.get("goal_dim") or kw["state_dim"]
+    f32 = np.float32
+    return (rng.randn(B, T, kw["state_dim"]).astype(f32),
+            rng.randn(B, T, kw["action_dim"]).astype(f32),
+            rng.randn(B, G, gdim).astype(f32),
+            np.exp(rng.uniform(-5, 0, size=B)).astype(f32))
+
+
+def t(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a))
