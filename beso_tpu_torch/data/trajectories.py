@@ -1,10 +1,10 @@
 """Trajectory container, seeded split and synthetic kitchen data.
 
 Port of the numpy parts of `beso_tpu/data/trajectories.py` that the kitchen
-serving path needs. Importing `beso_tpu.data` would pull in JAX, so these
-are carried here as plain numpy (and torch for the split permutation, which
-must reproduce the reference's `torch.randperm` indices exactly:
-`beso/envs/utils.py:6-10`).
+serving and training paths need (the `.npy`/`.pth` dataset loaders wait).
+Importing `beso_tpu.data` would pull in JAX, so these are carried here as
+plain numpy (and torch for the split permutation, which must reproduce the
+reference's `torch.randperm` indices exactly: `beso/envs/utils.py:6-10`).
 """
 
 from __future__ import annotations
@@ -47,6 +47,15 @@ class TrajectoryData:
         return np.concatenate(
             [self.actions[i, : self.lengths[i]] for i in range(self.num_trajectories)])
 
+    def subset(self, indices) -> "TrajectoryData":
+        idx = np.asarray(indices)
+        return TrajectoryData(
+            observations=self.observations[idx],
+            actions=self.actions[idx],
+            lengths=self.lengths[idx],
+            onehot_goals=None if self.onehot_goals is None else self.onehot_goals[idx],
+        )
+
 
 def get_split_idx(n: int, seed: int, train_fraction: float = 0.95):
     """Seeded randperm split with torch-identical indices (envs/utils.py:6-10)."""
@@ -54,6 +63,13 @@ def get_split_idx(n: int, seed: int, train_fraction: float = 0.95):
     idx = torch.randperm(n, generator=rng).tolist()
     l_train = int(n * train_fraction)
     return idx[:l_train], idx[l_train:]
+
+
+def split_trajectories(data: TrajectoryData, seed: int = 42,
+                       train_fraction: float = 0.95):
+    """Train/val split over whole trajectories (trajectory_loader.py:235-272)."""
+    train_idx, val_idx = get_split_idx(data.num_trajectories, seed, train_fraction)
+    return data.subset(train_idx), data.subset(val_idx)
 
 
 def synthetic_kitchen_data(n_traj: int = 32, t_max: int = 120,

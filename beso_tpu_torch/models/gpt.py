@@ -1,4 +1,4 @@
-"""Noise-conditioned causal transformer ("DiffusionGPT"), inference forward.
+"""Noise-conditioned causal transformer ("DiffusionGPT"), with its training forward.
 
 Torch port of `beso_tpu/models/gpt.py` (itself the reference's
 `score_gpts.py:15-374`):
@@ -17,18 +17,36 @@ statistics in f32 with variance E[x^2] - mu^2, and every Linear computed as
 an f32-accumulated product of `dtype` operands plus an f32 bias, rounded to
 `dtype` once. Parameters stay f32; `dtype` is the compute type.
 
-Only the inference forward (`train=False`) is ported. Dropout, CFG goal
-masking while training and the loss wait for the training slice.
+`train=True` adds the training-time randomness of `beso_tpu/models/gpt.py`,
+drawn from an explicit `torch.Generator`: dropout on the embeddings
+(`embed_pdrob`), on the attention probabilities of the broadcast form
+(`attn_pdrop`) and after the projection and the MLP (`resid_pdrop`), each
+as flax's `nn.Dropout` (keep with 1 - p, scale by 1/(1 - p)); and the CFG
+goal mask, an elementwise Bernoulli(`cond_mask_prob`) zeroing of the goals.
+The whole forward is differentiable.
+
+`attention` picks the attention form as the JAX package does (`gpt.py:78-94`):
+"broadcast" (plain PyTorch), "pallas" (the flash-attention kernels B5/B6 of
+`ops/flash_attention.py`, CUDA on the card; the config keeps the JAX name)
+or "auto" (flash at >= 64 tokens unless attention dropout is active).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from beso_tpu_torch.ops.flash_attention import flash_attention
+
+# token count at/above which "auto" attention takes the flash kernels
+# (`beso_tpu/models/gpt.py:40`)
+_FLASH_THRESHOLD = 64
+
+Drop = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -55,39 +73,65 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float(), approximate="tanh").to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout` in training: keep with probability 1 - rate, scale
+    the kept values by 1/(1 - rate) in x's dtype."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
+           mask: torch.Tensor, drop: Drop = None) -> torch.Tensor:
     """Broadcast-form attention: q [B,Tq,H,hd], k/v [B,S,H,hd], mask [Tq,S]
-    bool. Scores in f32 over the true head dim, probabilities rounded to
-    v's dtype, output [B, Tq, H*hd] in q's dtype."""
+    bool. Scores in f32 over the true head dim, probabilities (after the
+    optional dropout `drop`) rounded to v's dtype, output [B, Tq, H*hd] in
+    q's dtype."""
     B, Tq, H, hd = q.shape
     dtype = q.dtype
     scores = torch.einsum("bthd,bshd->btsh", q.float(), k.float())
     scores = scores / math.sqrt(hd)
     scores = scores.masked_fill(~mask[None, :, :, None], float("-inf"))
-    probs = torch.softmax(scores, dim=2).to(v.dtype)
+    probs = torch.softmax(scores, dim=2)
+    if drop is not None:
+        probs = drop(probs)
+    probs = probs.to(v.dtype)
     y = torch.einsum("btsh,bshd->bthd", probs.float(), v.float())
     return y.to(dtype).reshape(B, Tq, H * hd)
 
 
 def block_forward(lp: dict, x: torch.Tensor, n_heads: int, dtype: torch.dtype,
-                  mask: torch.Tensor, kv_prefix=None):
+                  mask: Optional[torch.Tensor], kv_prefix=None, *,
+                  flash: bool = False, attn_drop: Drop = None,
+                  resid_drop: Drop = None):
     """One pre-LN block (score_gpts.py:83-115) over tokens x [B, T, D] with
     weights `lp` (`Block.weights()` names, Linear weights [out, in]).
-    Queries attend to [kv_prefix ++ own K/V] under mask [T, P+T]. Returns
-    (x_out, (k, v)) with the block's own k, v as [B, T, H, hd]."""
+    Queries attend to [kv_prefix ++ own K/V] under mask [T, P+T], or, with
+    `flash`, causally to their own K/V through the flash kernels. The
+    optional dropouts act on the attention probabilities and after the
+    projection and the MLP. Returns (x_out, (k, v)) with the block's own k,
+    v as [B, T, H, hd]."""
     B, T, D = x.shape
     h = layer_norm(x, lp["ln1_s"], lp["ln1_b"], dtype)
     q, k, v = dense(h, lp["wqkv"], lp["bqkv"], dtype).split(D, dim=-1)
     q, k, v = (a.reshape(B, T, n_heads, D // n_heads) for a in (q, k, v))
-    k_all, v_all = k, v
-    if kv_prefix is not None:
-        k_all = torch.cat([kv_prefix[0].to(k.dtype), k], dim=1)
-        v_all = torch.cat([kv_prefix[1].to(v.dtype), v], dim=1)
-    x = x + dense(attend(q, k_all, v_all, mask), lp["wproj"], lp["bproj"], dtype)
+    if flash:
+        # kernel layout [B, H, T, hd]
+        y = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True)
+        y = y.transpose(1, 2).reshape(B, T, D)
+    else:
+        k_all, v_all = k, v
+        if kv_prefix is not None:
+            k_all = torch.cat([kv_prefix[0].to(k.dtype), k], dim=1)
+            v_all = torch.cat([kv_prefix[1].to(v.dtype), v], dim=1)
+        y = attend(q, k_all, v_all, mask, attn_drop)
+    y = dense(y, lp["wproj"], lp["bproj"], dtype)
+    x = x + (y if resid_drop is None else resid_drop(y))
     h = layer_norm(x, lp["ln2_s"], lp["ln2_b"], dtype)
-    h = gelu(dense(h, lp["wfc"], lp["bfc"], dtype))
-    return x + dense(h, lp["wfc2"], lp["bfc2"], dtype), (k, v)
+    h = dense(gelu(dense(h, lp["wfc"], lp["bfc"], dtype)), lp["wfc2"], lp["bfc2"], dtype)
+    return x + (h if resid_drop is None else resid_drop(h)), (k, v)
 
 
 def _normal_linear(n_in, n_out, generator, device):
@@ -144,11 +188,14 @@ class Block(nn.Module):
                     wfc=self.fc.weight, bfc=self.fc.bias,
                     wfc2=self.fc_proj.weight, bfc2=self.fc_proj.bias)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, *, flash: bool = False,
+                attn_drop: Drop = None, resid_drop: Drop = None) -> torch.Tensor:
         T = x.shape[1]
-        causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        return block_forward(self.weights(), x, self.attn.n_heads, dtype,
-                             causal)[0]
+        causal = (None if flash else
+                  torch.ones(T, T, dtype=torch.bool, device=x.device).tril())
+        return block_forward(self.weights(), x, self.attn.n_heads, dtype, causal,
+                             flash=flash, attn_drop=attn_drop,
+                             resid_drop=resid_drop)[0]
 
 
 class DiffusionGPT(nn.Module):
@@ -157,10 +204,15 @@ class DiffusionGPT(nn.Module):
     def __init__(self, state_dim: int, action_dim: int, embed_dim: int,
                  n_layers: int, n_heads: int, goal_seq_len: int,
                  obs_seq_len: int, goal_conditioned: bool = True,
+                 embed_pdrob: float = 0.0, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0, cond_mask_prob: float = 0.0,
                  linear_output: bool = True, goal_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32,
+                 attention: str = "auto", dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        if attention not in ("auto", "broadcast", "pallas"):
+            raise ValueError(f"attention must be 'auto', 'broadcast' or 'pallas', "
+                             f"got {attention!r}")
         self.state_dim = state_dim
         self.action_dim = action_dim
         self.embed_dim = embed_dim
@@ -169,8 +221,13 @@ class DiffusionGPT(nn.Module):
         self.goal_seq_len = goal_seq_len
         self.obs_seq_len = obs_seq_len
         self.goal_conditioned = goal_conditioned
+        self.embed_pdrob = embed_pdrob
+        self.attn_pdrop = attn_pdrop
+        self.resid_pdrop = resid_pdrop
+        self.cond_mask_prob = cond_mask_prob
         self.linear_output = linear_output
         self.goal_dim = goal_dim
+        self.attention = attention
         self.dtype = dtype
 
         g, dev, D = generator, device, embed_dim
@@ -208,14 +265,15 @@ class DiffusionGPT(nn.Module):
         sig = (torch.log(sigma.float()) / 4.0)[..., None, None]
         return dense(sig, self.sigma_emb.weight, self.sigma_emb.bias, self.dtype)
 
-    def embed_goals(self, goals: torch.Tensor) -> torch.Tensor:
+    def embed_goals(self, goals: torch.Tensor, drop: Drop = None) -> torch.Tensor:
         """Goal tokens [B, G, D] (f32: the f32 pos_emb promotes them)."""
         emb = self.goal_emb if self.has_goal_emb else self.tok_emb
         G = self.eff_goal_len
-        return dense(goals, emb.weight, emb.bias, self.dtype) + self.pos_emb[:, :G]
+        x = dense(goals, emb.weight, emb.bias, self.dtype) + self.pos_emb[:, :G]
+        return x if drop is None else drop(x)
 
-    def embed_suffix(self, states: torch.Tensor,
-                     actions: torch.Tensor) -> torch.Tensor:
+    def embed_suffix(self, states: torch.Tensor, actions: torch.Tensor,
+                     drop: Drop = None) -> torch.Tensor:
         """Interleaved [s_1, a_1, ..., s_T, a_T] tokens [B, 2T, D] in dtype."""
         B, T, _ = states.shape
         G = self.eff_goal_len
@@ -224,6 +282,8 @@ class DiffusionGPT(nn.Module):
                         self.dtype) + pos
         action_x = dense(actions, self.action_emb.weight, self.action_emb.bias,
                          self.dtype) + pos
+        if drop is not None:
+            state_x, action_x = drop(state_x), drop(action_x)
         seq = torch.stack([state_x, action_x], dim=2)
         return seq.reshape(B, 2 * T, self.embed_dim).to(self.dtype)
 
@@ -238,21 +298,49 @@ class DiffusionGPT(nn.Module):
         return F.linear(h.float(), self.action_pred_out.weight.float(),
                         self.action_pred_out.bias.float())
 
+    def attention_impl(self, n_tokens: int, train: bool) -> str:
+        """The attention form of this call, "broadcast" or "pallas"
+        (`beso_tpu/models/gpt.py:78-84`)."""
+        dropout_active = train and self.attn_pdrop > 0
+        impl = self.attention
+        if impl == "auto":
+            impl = ("pallas" if n_tokens >= _FLASH_THRESHOLD and not dropout_active
+                    else "broadcast")
+        if impl == "pallas" and dropout_active:
+            raise ValueError("attention='pallas' does not support attn_pdrop")
+        return impl
+
     def forward(self, states: torch.Tensor, actions: torch.Tensor,
                 goals: torch.Tensor, sigma: torch.Tensor, *,
-                uncond: bool = False) -> torch.Tensor:
-        """[B,T,state], [B,T,action], [B,G,goal], [B] -> [B,T,action] f32."""
+                uncond: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B,T,state], [B,T,action], [B,G,goal], [B] -> [B,T,action] f32.
+
+        `train=True` turns on dropout and CFG goal masking, drawn from
+        `generator` (None: the device's default generator)."""
         B, T, _ = states.shape
         G = self.eff_goal_len
+
+        def drop(rate: float) -> Drop:
+            if not train or rate == 0.0:
+                return None
+            return lambda x: dropout(x, rate, generator)
+
         parts = [self.embed_sigma(sigma)]
         if self.goal_conditioned:
             if uncond:
                 goals = torch.zeros_like(goals)
-            parts.append(self.embed_goals(goals))
-        parts.append(self.embed_suffix(states, actions))
+            elif train and self.cond_mask_prob > 0.0:
+                mask = torch.rand(goals.shape, generator=generator,
+                                  device=goals.device) < self.cond_mask_prob
+                goals = goals * (1.0 - mask.to(goals.dtype))
+            parts.append(self.embed_goals(goals, drop(self.embed_pdrob)))
+        parts.append(self.embed_suffix(states, actions, drop(self.embed_pdrob)))
         x = torch.cat([p.to(self.dtype) for p in parts], dim=1)
+        flash = self.attention_impl(x.shape[1], train) == "pallas"
         for blk in self.blocks:
-            x = blk(x, self.dtype)
+            x = blk(x, self.dtype, flash=flash, attn_drop=drop(self.attn_pdrop),
+                    resid_drop=drop(self.resid_pdrop))
         x = layer_norm(x, self.ln_f.weight, self.ln_f.bias, self.dtype)
         x = x[:, G + 1:].reshape(B, T, 2, self.embed_dim)[:, :, 1]
         return self.head(x)

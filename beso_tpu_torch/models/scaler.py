@@ -9,9 +9,10 @@ Functional parity target: `Scaler` (`beso/networks/scaler/scaler_class.py:11-167
   passes through unscaled; a 4-dim block-push goal is scaled with the x/y
   statistics of the two block position pairs.
 
-The kitchen config serves with `scale_data: false`
-(`configs/franka_kitchen.yaml:7`), where every map is the identity and only
-the raw action bounds matter. The min-max kind (block push) waits for slice 2.
+The kitchen configs run with `scale_data: false`
+(`configs/franka_kitchen.yaml:7`, `configs/franka_kitchen_chunked.yaml:9`),
+where every map is the identity and only the raw action bounds matter. The
+min-max kind (block push) waits for slice 2.
 """
 
 from __future__ import annotations
@@ -44,6 +45,16 @@ class Scaler:
             sel = [0, 1, 3, 4]
             return (x - self.x_mean[sel]) / (self.x_std[sel] + _EPS)
         return (x - self.x_mean) / (self.x_std + _EPS)
+
+    def inverse_scale_input(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.scale_data:
+            return x
+        return x * (self.x_std + _EPS) + self.x_mean
+
+    def scale_output(self, y: torch.Tensor) -> torch.Tensor:
+        if not self.scale_data:
+            return y
+        return (y - self.y_mean) / (self.y_std + _EPS)
 
     def inverse_scale_output(self, y: torch.Tensor) -> torch.Tensor:
         if not self.scale_data:

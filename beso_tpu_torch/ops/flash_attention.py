@@ -1,0 +1,206 @@
+"""Causal flash attention: CUDA kernels, wrappers, plain versions, autograd.
+
+Replaces the TPU kernels B5, the forward (`_flash_forward`,
+`beso_tpu/ops/flash_attention.py:269-308`, body `_flash_kernel` :34-75), and
+B6, the FlashAttention-2 backward (`_flash_attention_bwd` :182-259: the dQ
+kernel `_bwd_dq_kernel` :78-109 and the dK/dV kernel `_bwd_dkv_kernel`
+:112-153). Layout as in the JAX package: q, k, v [B, H, T, hd]; the forward
+returns o in q's dtype and the f32 logsumexp `lse` [B, H, T, 1] of the
+scaled scores; `delta = rowsum(dO * O)` stays plain PyTorch, as the JAX
+package computes it outside Pallas (:213).
+
+What bounds the kernels on the H100, and the design (details in
+`csrc/flash_attention.cu`): at the chunked training shape [256, 6, 131, 60]
+a launch reads ~24 MB per tensor and does a few GFLOP, so it is bound by
+latency, not by the tensor cores. 64-row tiles in shared memory, products
+on tensor cores (wmma bf16, f32 accumulate), softmax statistics in f32; the
+head dim is zero-padded to a multiple of 16 in shared memory and the ragged
+edge T % 64 is masked in the kernel, with no padded copies.
+
+Each wrapper (`flash_forward`, `flash_backward_dq`, `flash_backward_dkv`)
+runs its plain PyTorch version for CPU tensors and, for CUDA tensors,
+launches its kernel (bf16 only) or raises; its `launches` counter goes up
+by one per kernel launch. `flash_attention` is the differentiable entry
+point: a `torch.autograd.Function` that saves (q, k, v, o, lse) and runs
+the two backward wrappers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from beso_tpu_torch.ops import build
+
+
+def _scale(q: torch.Tensor) -> float:
+    return 1.0 / math.sqrt(q.shape[-1])
+
+
+def _causal_mask(T: int, device) -> torch.Tensor:
+    return torch.ones(T, T, dtype=torch.bool, device=device).tril()
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scaled f32 scores [B, H, T, T], masked with -inf above the diagonal."""
+    s = (q.float() * _scale(q)) @ k.float().transpose(-1, -2)
+    if causal:
+        s = s.masked_fill(~_causal_mask(q.shape[2], q.device), float("-inf"))
+    return s
+
+
+def flash_forward_reference(q, k, v, causal: bool = True):
+    """Plain version of the forward: (o in q's dtype, lse [B, H, T, 1] f32)."""
+    s = _scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    o = torch.exp(s - lse) @ v.float()
+    return o.to(q.dtype), lse
+
+
+def _probs_ds(q, k, v, do, lse, delta, causal):
+    """Recomputed probabilities p = exp(s - lse) and dS = p * (dO V^T - delta)."""
+    p = torch.exp(_scores(q, k, causal) - lse)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta)
+    return p, ds
+
+
+def flash_backward_dq_reference(q, k, v, do, lse, delta, causal: bool = True):
+    """Plain version of the dQ kernel: dq = (dS K) * scale, in q's dtype."""
+    _, ds = _probs_ds(q, k, v, do, lse, delta, causal)
+    return ((ds @ k.float()) * _scale(q)).to(q.dtype)
+
+
+def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
+    """Plain version of the dK/dV kernel: dv = P^T dO, dk = dS^T (q * scale)."""
+    p, ds = _probs_ds(q, k, v, do, lse, delta, causal)
+    dv = p.transpose(-1, -2) @ do.float()
+    dk = ds.transpose(-1, -2) @ (q.float() * _scale(q))
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.library()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.beso_flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.beso_flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.beso_flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    for fn in (lib.beso_flash_fwd, lib.beso_flash_bwd_dq, lib.beso_flash_bwd_dkv):
+        fn.restype = ci
+    lib.beso_flash_max_head_dim.argtypes = []
+    lib.beso_flash_max_head_dim.restype = ci
+    return lib
+
+
+def _on_cpu(name: str, q: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version), False for CUDA; raises otherwise."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA, got {q.device}")
+    return False
+
+
+def _check_qkv(q, k, v, lib):
+    B, H, T, hd = q.shape
+    if hd > lib.beso_flash_max_head_dim():
+        raise ValueError(f"head dim {hd} > {lib.beso_flash_max_head_dim()}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.check_tensor(t, name, (B, H, T, hd), torch.bfloat16, q.device)
+    return B * H, T, hd
+
+
+def _launch(name: str, fn, device, *args) -> None:
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {build.error_string(rc)}")
+
+
+def flash_forward(q, k, v, causal: bool = True):
+    """Kernel B5: (o, lse) of causal (or full) attention over [B, H, T, hd]."""
+    if _on_cpu("flash_forward", q):
+        return flash_forward_reference(q, k, v, causal)
+    lib = _library()
+    BH, T, hd = _check_qkv(q, k, v, lib)
+    o = torch.empty_like(q)
+    lse = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
+    _launch("flash_forward", lib.beso_flash_fwd, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, T, hd, int(causal))
+    flash_forward.launches += 1
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta, lib):
+    BH, T, hd = _check_qkv(q, k, v, lib)
+    build.check_tensor(do, "do", q.shape, torch.bfloat16, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        build.check_tensor(t, name, (*q.shape[:3], 1), torch.float32, q.device)
+    return BH, T, hd
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True):
+    """Kernel B6, dQ: dq [B, H, T, hd] in q's dtype."""
+    if _on_cpu("flash_backward_dq", q):
+        return flash_backward_dq_reference(q, k, v, do, lse, delta, causal)
+    lib = _library()
+    BH, T, hd = _check_bwd(q, k, v, do, lse, delta, lib)
+    dq = torch.empty_like(q)
+    _launch("flash_backward_dq", lib.beso_flash_bwd_dq, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), BH, T, hd, int(causal))
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True):
+    """Kernel B6, dK/dV: (dk, dv) [B, H, T, hd] in q's dtype."""
+    if _on_cpu("flash_backward_dkv", q):
+        return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal)
+    lib = _library()
+    BH, T, hd = _check_bwd(q, k, v, do, lse, delta, lib)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_backward_dkv", lib.beso_flash_bwd_dkv, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), BH, T, hd, int(causal))
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = softmax(q k^T / sqrt(hd)) v through kernels B5 and B6."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        dq = flash_backward_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v [B, H, T, hd] -> softmax(q k^T / sqrt(hd)) v, differentiable
+    in q, k and v (`beso_tpu.ops.flash_attention.flash_attention`)."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal)

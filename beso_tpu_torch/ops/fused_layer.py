@@ -31,24 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from beso_tpu_torch.models.gpt import attend, dense, gelu, layer_norm
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# build output, keyed by a hash of the sources and flags (listed in .gitignore)
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from beso_tpu_torch.ops import build
 
 
 def _ceil16(n: int) -> int:
@@ -163,60 +152,12 @@ def fused_layer_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
     return out, F.linear(xe, epilogue.w.float(), epilogue.b.float())
 
 
-# ---------------------------------------------------------------------------
-# build and bind (nvcc -> shared library with a C interface -> ctypes)
-# ---------------------------------------------------------------------------
-
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                       "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
-
-
-def kernel_library_path() -> Path:
-    """Path of the shared library for the current sources (may not exist)."""
-    srcs = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    return _BUILD_DIR / f"libbeso_kernels_{h.hexdigest()[:16]}.so"
-
-
-def build_kernels() -> Path:
-    """Compile `csrc/*.cu` for sm_90a into the build directory, unless a
-    library for these exact sources is there already. The ptxas report
-    (registers, shared memory, spills) is kept beside it as `.log`."""
-    so = kernel_library_path()
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
-    return so
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernels()))
+    lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.beso_fused_layer_prefix.argtypes = [vp] * 22 + [ci] * 8 + [vp]
     lib.beso_fused_layer_prefix.restype = ci
-    lib.beso_cuda_error_string.argtypes = [ci]
-    lib.beso_cuda_error_string.restype = ctypes.c_char_p
     lib.beso_fused_layer_prefix_limits.argtypes = [ci]
     lib.beso_fused_layer_prefix_limits.restype = ci
     return lib
@@ -227,19 +168,6 @@ def _limits():
     """(rows per block, max keys, max head width, max Dp, max hdp), as the
     compiled kernel reports them."""
     return tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(5))
-
-
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 32:
-        raise ValueError(f"{name} must be 32-byte aligned")
 
 
 def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
@@ -267,10 +195,10 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                          f"P+T2={P + T2} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
                          f"hdp={hdp} (<= {max_hdp})")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    _check(x, "x", (B, T2, D), bf, dev)
-    _check(pk, "pk", (S, B, P, D), bf, dev)
-    _check(pv, "pv", (S, B, P, D), bf, dev)
-    _check(idx, "idx", (1,), torch.int32, dev)
+    build.check_tensor(x, "x", (B, T2, D), bf, dev)
+    build.check_tensor(pk, "pk", (S, B, P, D), bf, dev)
+    build.check_tensor(pv, "pv", (S, B, P, D), bf, dev)
+    build.check_tensor(idx, "idx", (1,), torch.int32, dev)
     shapes = dict(ln1_s=(D,), ln1_b=(D,), wqkv=(3 * H * hdp, Dp),
                   bqkv=(3 * H * hdp,), wproj=(Dp, H * hdp), bproj=(Dp,),
                   ln2_s=(D,), ln2_b=(D,), wfc=(Fp, Dp), bfc=(Fp,),
@@ -278,7 +206,8 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     if Fp % 16:
         raise ValueError(f"MLP width {Fp} not a multiple of 16")
     for name, shape in shapes.items():
-        _check(getattr(p, name), name, shape, bf if name.startswith("w") else f32, dev)
+        build.check_tensor(getattr(p, name), name, shape,
+                           bf if name.startswith("w") else f32, dev)
     out = torch.empty_like(x)
     pred = None
     M = 0
@@ -288,7 +217,7 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
         if M > max_m:
             raise ValueError(f"head width {M} > {max_m}")
         for name, shape in dict(lnf_s=(D,), lnf_b=(D,), w=(M, D), b=(M,)).items():
-            _check(getattr(epilogue, name), f"epilogue.{name}", shape, f32, dev)
+            build.check_tensor(getattr(epilogue, name), f"epilogue.{name}", shape, f32, dev)
         pred = torch.empty(B, T2, M, dtype=f32, device=dev)
         epi_ptrs = [t.data_ptr() for t in epilogue]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -299,7 +228,7 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
         B, T2, D, H, P, S, Fp, M, stream)
     if rc != 0:
         raise RuntimeError("fused_layer_prefix launch failed: "
-                           + lib.beso_cuda_error_string(rc).decode())
+                           + build.error_string(rc))
     fused_layer_prefix.launches += 1
     return out if epilogue is None else (out, pred)
 

@@ -18,10 +18,27 @@ exits non-zero on failure:
    serving shape with CUDA events;
 3. engine: the `fused_cached` engine against the plain `cached` engine on
    the same inputs at every grid sigma;
-4. main path: a 1024-env x 280-step kitchen rollout with the shipped kitchen
-   serving config on the `fused_cached` engine; the kernel's launch counter
-   must move by exactly 280 steps x 3 NFE x 6 layers, every metric must be
-   finite.
+4. main path, serving: a 1024-env x 280-step kitchen rollout with the
+   shipped kitchen serving config on the `fused_cached` engine; the kernel's
+   launch counter must move by exactly 280 steps x 3 NFE x 6 layers, every
+   metric must be finite;
+5. flash kernels: the forward (B5) and the dQ and dK/dV backward kernels
+   (B6) against their plain PyTorch versions in bf16, o, lse, dq, dk and dv
+   each within 2^-5 of max |ref|, at the chunked training shape
+   [256, 6, 131, 60] (causal) and at a ragged small shape [3, 2, 77, 20]
+   (causal and full); times each kernel, and forward + backward, against
+   the plain versions at the chunked shape with CUDA events;
+6. model: the chunked kitchen model (`configs/franka_kitchen_chunked.yaml`,
+   full width, bf16) from one seeded state: loss and every parameter's
+   gradient with attention="pallas" (the flash kernels) against
+   attention="broadcast" (plain PyTorch) on the same batch, sigma, noise
+   and goal mask;
+7. main path, training: `BesoAgent.train_agent` on the chunked config for
+   TRAIN_STEPS steps at batch 256 with a test-set evaluation every
+   EVAL_EVERY steps; the flash launch counters must move by exactly 6 per
+   step (each kernel) plus 6 x 3 NFE per evaluation batch (forward), every
+   loss and test MSE must be finite. Prints train steps/s and peak memory
+   (informational).
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.
@@ -38,6 +55,16 @@ from pathlib import Path
 
 N_ENVS, N_STEPS, NFE, N_LAYERS = 1024, 280, 3, 6
 ERR_FRACTION = 2.0 ** -5   # kernel and engine bound: fraction of max |ref|
+TRAIN_STEPS, EVAL_EVERY, TRAIN_BATCH = 240, 80, 256
+CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
+# model-level bounds, flash kernels vs broadcast in bf16 (phase 6): the two
+# forms round the probabilities to bf16 at different points (after the
+# normalisation in the broadcast form, before it in the online softmax), so
+# they agree to bf16 rounding carried through 6 layers, not exactly. On an
+# H100 the loss agreed to 4e-5 and the worst gradient tensor to 1% of its
+# max |ref|.
+MODEL_LOSS_FRACTION = 2.0 ** -8
+MODEL_GRAD_FRACTION = 2.0 ** -5
 
 
 def fail(msg: str) -> None:
@@ -65,6 +92,48 @@ def kitchen_config():
                   cond_lambda=1.5)               # cond_lambda: 1.5 (:52)
     scale_data = False                           # scale_data: false (:7)
     return model, policy, scale_data
+
+
+def chunked_config():
+    """The chunked kitchen training config, `configs/franka_kitchen_chunked.yaml`,
+    as BesoAgentConfig fields (no YAML parser on the card's host, so the
+    values are written out). Only the step counts are cut."""
+    return dict(obs_dim=30,                       # obs_dim: 30 (:15)
+                action_dim=9,                     # action_dim: 9 (:14)
+                hidden_dim=360,                   # hidden_dim: 360 (:19)
+                n_layers=N_LAYERS,                # num_hidden_layers: 6 (:20)
+                n_heads=6,                        # n_heads: 6 (:21)
+                goal_seq_len=2,                   # future_seq_length: 2 (:10)
+                window_size=64,                   # window_size: 64 (:11)
+                goal_conditioned=True,            # goal_conditioning: true (:12)
+                attn_pdrop=0.0,                   # attn_pdrop: 0.0 (:22)
+                resid_pdrop=0.0,                  # resid_pdrop: 0.0 (:23)
+                linear_output=True,               # linear_output: true (:24)
+                attention="pallas",               # attention: pallas (:25)
+                max_train_steps=TRAIN_STEPS,      # max_train_steps: 40000 (:29), cut
+                eval_every_n_steps=EVAL_EVERY,    # eval_every_n_steps: 4000 (:30), cut
+                train_batch_size=TRAIN_BATCH,     # train_batch_size: 256 (:31)
+                optimizer="adamw",                # optimizer: adamw (:33)
+                lr=1e-4,                          # lr: 1e-4 (:34)
+                betas=(0.9, 0.999),               # betas (:35)
+                weight_decay=0.01,                # weight_decay: 0.01 (:36)
+                lr_step_size=100,                 # lr_step_size: 100 (:37)
+                lr_gamma=0.99,                    # lr_gamma: 0.99 (:38)
+                use_ema=True,                     # use_ema: true (:39)
+                decay=0.999,                      # decay: 0.999 (:40)
+                update_ema_every_n_steps=1,       # (:41)
+                compute_dtype="bfloat16",         # compute_dtype: bfloat16 (:42)
+                sampler_type="ddim",              # sampler_type: ddim (:45)
+                sigma_data=0.5,                   # sigma_data: 0.5 (:46)
+                sigma_min=0.005,                  # sigma_min: 0.005 (:47)
+                sigma_max=1.0,                    # sigma_max: 1.0 (:48)
+                rho=5.0,                          # rho: 5.0 (:49)
+                noise_scheduler="exponential",    # (:50)
+                sigma_sample_density_type="loglogistic",  # (:51)
+                cond_mask_prob=0.1,               # cond_mask_prob: 0.1 (:54)
+                cond_lambda=1.5,                  # cond_lambda: 1.5 (:55)
+                num_sampling_steps=NFE,           # n_timesteps: 3 (:56)
+                pred_last_action_only=False)      # (:57)
 
 
 def random_layer(D, H, M, gen, device):
@@ -228,6 +297,146 @@ def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed):
                            n_steps=n_steps, denoise_factory=factory)
 
 
+def _rel_check(what, got, ref, frac):
+    """max |got - ref| within frac * max |ref| (and finite); returns the error."""
+    err = (got.float() - ref.float()).abs().max().item()
+    lim = frac * ref.float().abs().max().item()
+    ok = math.isfinite(err) and err <= lim
+    print(f"  {what}: max|diff| {err:.6g} (limit {lim:.6g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what} disagrees with its plain version")
+    return err
+
+
+def check_flash(B, H, T, hd, causal, device, gen):
+    """The three flash kernels against their plain versions at one shape, on
+    the same inputs (the backward kernels get the plain forward's lse and
+    delta, so each is held alone). Returns {kernel: max |diff|}."""
+    import torch
+
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn(B, H, T, hd, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(4))
+    name = f"[{B},{H},{T},{hd}] causal={causal}"
+    o, lse = fa.flash_forward(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    dq = fa.flash_backward_dq(q, k, v, do, lse_ref, delta, causal)
+    dq_ref = fa.flash_backward_dq_reference(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta, causal)
+    dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta, causal)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {
+        "flash_forward": max(_rel_check(f"{name} o", o, o_ref, ERR_FRACTION),
+                             _rel_check(f"{name} lse", lse, lse_ref, ERR_FRACTION)),
+        "flash_backward_dq": _rel_check(f"{name} dq", dq, dq_ref, ERR_FRACTION),
+        "flash_backward_dkv": max(_rel_check(f"{name} dk", dk, dk_ref, ERR_FRACTION),
+                                  _rel_check(f"{name} dv", dv, dv_ref, ERR_FRACTION)),
+    }
+
+
+def time_flash(device, gen):
+    """Kernel and plain-version ms at the chunked shape: each kernel, and
+    forward + backward (delta included)."""
+    import torch
+
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn(*CHUNKED_SHAPE, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_forward_reference(q, k, v)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+
+    def fwd_bwd(fwd, bdq, bdkv):
+        o, lse = fwd(q, k, v)
+        d = (do.float() * o.float()).sum(-1, keepdim=True)
+        return bdq(q, k, v, do, lse, d), bdkv(q, k, v, do, lse, d)
+
+    t = {
+        "flash_forward": (lambda: fa.flash_forward(q, k, v),
+                          lambda: fa.flash_forward_reference(q, k, v)),
+        "flash_backward_dq": (
+            lambda: fa.flash_backward_dq(q, k, v, do, lse, delta),
+            lambda: fa.flash_backward_dq_reference(q, k, v, do, lse, delta)),
+        "flash_backward_dkv": (
+            lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta),
+            lambda: fa.flash_backward_dkv_reference(q, k, v, do, lse, delta)),
+        "forward+backward": (
+            lambda: fwd_bwd(fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv),
+            lambda: fwd_bwd(fa.flash_forward_reference, fa.flash_backward_dq_reference,
+                            fa.flash_backward_dkv_reference)),
+    }
+    return {name: (time_ms(kern, 50, device), time_ms(plain, 10, device))
+            for name, (kern, plain) in t.items()}
+
+
+def check_model_grads(device, seed, B=64):
+    """Loss and gradients of the chunked model under attention="broadcast"
+    and "pallas", same state, inputs and goal mask: {impl: (loss, grads)}."""
+    import torch
+
+    from beso_tpu_torch.core.densities import make_sample_density
+    from beso_tpu_torch.models import DiffusionGPT, GCDenoiser
+
+    c = chunked_config()
+    gen = torch.Generator().manual_seed(seed)
+    model = DiffusionGPT(
+        state_dim=c["obs_dim"], action_dim=c["action_dim"], embed_dim=c["hidden_dim"],
+        n_layers=c["n_layers"], n_heads=c["n_heads"], goal_seq_len=c["goal_seq_len"],
+        obs_seq_len=c["window_size"], cond_mask_prob=c["cond_mask_prob"],
+        dtype=torch.bfloat16, generator=gen).to(device)
+    den = GCDenoiser(model, sigma_data=c["sigma_data"])
+    T, G = c["window_size"], c["goal_seq_len"]
+    s = torch.randn(B, T, c["obs_dim"], generator=gen).to(device)
+    a = torch.randn(B, T, c["action_dim"], generator=gen).clamp(-1, 1).to(device)
+    g = torch.randn(B, G, c["obs_dim"], generator=gen).to(device)
+    noise = torch.randn(B, T, c["action_dim"], generator=gen).to(device)
+    sigma = make_sample_density("loglogistic", 0.5, 0.005, 1.0)(gen, (B,)).to(device)
+    out = {}
+    for impl in ("broadcast", "pallas"):
+        model.attention = impl
+        model.zero_grad(set_to_none=True)
+        mask_gen = torch.Generator(device).manual_seed(seed)  # same goal mask
+        loss = den.loss(s, a, g, noise, sigma, train=True, generator=mask_gen)
+        loss.backward()
+        out[impl] = (loss.detach(), {n: p.grad.detach().clone()
+                                     for n, p in model.named_parameters()})
+    return out
+
+
+def run_training(device, seed, writer):
+    """The training main path: BesoAgent.train_agent on the chunked config."""
+    import torch
+
+    from beso_tpu_torch.agents.beso_agent import BesoAgent, BesoAgentConfig
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.workspaces import FrankaKitchenWorkspace
+
+    # trajectories of 100-200 steps: windows of 64 plus future goals exist
+    data = synthetic_kitchen_data(n_traj=96, t_max=200, seed=seed)
+    ws = FrankaKitchenWorkspace(seed=42, data=data, window_size=64, goal_seq_len=2,
+                                scale_data=False,        # scale_data: false (:9)
+                                train_fraction=0.95,     # train_fraction: 0.95 (:64)
+                                eval_n_times=64, eval_n_steps=4, device=device)
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    agent = BesoAgent(BesoAgentConfig(**chunked_config()), ws.scaler,
+                      checkpoint_dir=str(ckpt), metrics_writer=writer, device=device)
+    agent.init(torch.Generator().manual_seed(seed))
+    return ws, agent
+
+
+class Records:
+    """In-memory metrics writer: keeps every record the trainer logs."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log(self, metrics, step=None):
+        self.rows.append({"_time": time.perf_counter(), "_step": step, **metrics})
+
+
 def main() -> None:
     repo = Path(__file__).resolve().parent
     if not (repo / "beso_tpu_torch" / "csrc").is_dir():
@@ -237,6 +446,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    from beso_tpu_torch.ops import build
     from beso_tpu_torch.ops import fused_layer as fl
     from beso_tpu_torch.rollout import success_rate_histogram
 
@@ -254,7 +464,7 @@ def main() -> None:
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    so = fl.build_kernels()
+    so = build.build_kernels()
     print(f"[1] build: {so.name} in {time.perf_counter() - t0:.1f} s")
     log = so.with_suffix(".log")
     if log.exists():
@@ -308,12 +518,96 @@ def main() -> None:
           f"(informational; random weights; {card})")
     print(f"  success_rate_histogram: {json.dumps(hist)}")
 
-    print(json.dumps({"kernels": [{
+    # ---- 5. flash kernels against their plain versions --------------------
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    print("[5] flash kernels vs plain versions (bf16)")
+    flash_err = {}
+    for shape, causal in ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True),
+                          ((3, 2, 77, 20), False)):
+        for k, e in check_flash(*shape, causal, device, gen).items():
+            flash_err[k] = max(flash_err.get(k, 0.0), e)
+    flash_ms = time_flash(device, gen)
+    for name, (ms_k, ms_p) in flash_ms.items():
+        print(f"  time {name} at {list(CHUNKED_SHAPE)}: kernel {ms_k:.4f} ms, "
+              f"plain {ms_p:.4f} ms ({card})")
+
+    # ---- 6. model-level: flash kernels vs broadcast -----------------------
+    print("[6] chunked model, loss and gradients: attention=pallas vs broadcast (bf16)")
+    res = check_model_grads(device, seed=3)
+    (loss_b, grads_b), (loss_p, grads_p) = res["broadcast"], res["pallas"]
+    _rel_check("loss", loss_p.reshape(1), loss_b.reshape(1), MODEL_LOSS_FRACTION)
+    worst = max(((grads_p[n] - grads_b[n]).abs().max().item()
+                 / max(grads_b[n].abs().max().item(), 1e-30), n) for n in grads_b)
+    print(f"  gradients: worst max|diff| / max|ref| {worst[0]:.6g} ({worst[1]}), "
+          f"bound {MODEL_GRAD_FRACTION:.6g}, over {len(grads_b)} tensors")
+    if not (math.isfinite(worst[0]) and worst[0] <= MODEL_GRAD_FRACTION):
+        fail(f"gradient of {worst[1]} with the flash kernels disagrees with broadcast")
+
+    # ---- 7. main path: training -------------------------------------------
+    print(f"[7] chunked kitchen training: {TRAIN_STEPS} steps x batch {TRAIN_BATCH}, "
+          f"evaluation every {EVAL_EVERY}")
+    records = Records()
+    ws, agent = run_training(device, seed=4, writer=records)
+    n_test_batches = len(ws.test_set) // min(TRAIN_BATCH, len(ws.test_set))
+    n_evals = -(-TRAIN_STEPS // EVAL_EVERY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_forward.launches = 0
+    fa.flash_backward_dq.launches = 0
+    fa.flash_backward_dkv.launches = 0
+    t0 = time.perf_counter()
+    agent.train_agent(ws.train_set, ws.test_set, torch.Generator(device).manual_seed(5))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_forward": fa.flash_forward.launches,
+              "flash_backward_dq": fa.flash_backward_dq.launches,
+              "flash_backward_dkv": fa.flash_backward_dkv.launches}
+    expect = {"flash_forward": N_LAYERS * TRAIN_STEPS
+              + N_LAYERS * NFE * n_evals * n_test_batches,
+              "flash_backward_dq": N_LAYERS * TRAIN_STEPS,
+              "flash_backward_dkv": N_LAYERS * TRAIN_STEPS}
+    print(f"  launches: {counts} (expected {expect}; {n_evals} evaluations x "
+          f"{n_test_batches} test batches)")
+    if counts != expect:
+        fail("the training path did not launch the flash kernels as expected")
+    losses = [r["loss"] for r in records.rows if "loss" in r]
+    means = [r["mean_loss"] for r in records.rows if "mean_loss" in r]
+    mses = [r["test_loss"] for r in records.rows if "test_loss" in r]
+    print(f"  losses (last of each interval): {losses}; test mse: {mses}")
+    if (len(mses) != n_evals or not losses
+            or not all(math.isfinite(x) for x in losses + means + mses)):
+        fail("a training loss or test mse is not finite")
+    # train-only rate: from the end of the step-0 evaluation to the loss
+    # read-out after the first EVAL_EVERY steps (both sync the device)
+    t_eval0 = next(r["_time"] for r in records.rows if "test_loss" in r)
+    t_loss1 = next(r["_time"] for r in records.rows if "loss" in r)
+    print(f"  wall {wall:.3f} s for {TRAIN_STEPS} steps and {n_evals} evaluations; "
+          f"train {EVAL_EVERY / (t_loss1 - t_eval0):.2f} steps/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+          f"(informational; random weights; {card})")
+    mg = ws.test_agent(agent, generator=torch.Generator(device).manual_seed(6),
+                       log_metrics=False, cond_lambda=1.5)
+    if not all(math.isfinite(mg[k]) for k in ("avrg_reward", "avrg_result")):
+        fail("the trained agent's rollout metrics are not finite")
+    print(f"  trained agent, {ws.eval_n_times} envs x {ws.eval_n_steps} steps on the "
+          f"cached engine: avrg_reward {mg['avrg_reward']:.4f}")
+
+    src = "beso_tpu_torch/csrc/flash_attention.cu"
+    replaces = {"flash_forward": "beso_tpu/ops/flash_attention.py:269",
+                "flash_backward_dq": "beso_tpu/ops/flash_attention.py:78",
+                "flash_backward_dkv": "beso_tpu/ops/flash_attention.py:112"}
+    kernels = [{
         "name": "fused_layer_prefix", "route": "cuda",
         "source": "beso_tpu_torch/csrc/fused_layer_prefix.cu",
         "replaces": "beso_tpu/ops/fused_layer.py:618",
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms}]
+    kernels += [{"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces[name], "launches": counts[name],
+                 "max_abs_err": flash_err[name], "ms": flash_ms[name][0],
+                 "plain_ms": flash_ms[name][1]} for name in replaces]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,92 @@
+"""Kernels B5 and B6's port: the plain versions behind `flash_attention`
+against the JAX Pallas kernels (interpret mode, f32), the autograd wiring,
+and the wrappers' CPU dispatch.
+
+The CUDA kernels run only on the card: their kernel-vs-plain tests are in
+`test_torch_gpu.py`, marked `gpu` (chip_smoke.py runs the same comparison
+on the H100).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import t
+
+from beso_tpu_torch.ops import flash_attention as fa
+
+jfa = importlib.import_module("beso_tpu.ops.flash_attention")
+
+# f32 on the CPU: both sides compute the same products in f32 and differ
+# only in summation order (online softmax over 128-key blocks in JAX, one
+# logsumexp here)
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(B, H, T, hd, seed, n=3):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, H, T, hd).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 60])
+@pytest.mark.parametrize("T", [16, 131])
+def test_forward_matches_jax(T, hd, causal):
+    q, k, v = _qkv(2, 2, T, hd, seed=T + hd)
+    jo, jlse = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                                  True)
+    o, lse = fa.flash_forward(t(q), t(k), t(v), causal)
+    assert o.shape == (2, 2, T, hd) and lse.shape == (2, 2, T, 1)
+    assert lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [16, 131])
+def test_gradients_match_jax(T, causal):
+    """dQ, dK and dV through the port's autograd Function (the plain
+    versions of the two backward kernels) against jax.grad of the Pallas
+    custom VJP, same cotangent."""
+    q, k, v, g = _qkv(1, 3, T, 60, seed=7 * T, n=4)
+
+    def jloss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, causal=causal, interpret=True)
+                       * jnp.asarray(g))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (t(a).requires_grad_() for a in (q, k, v))
+    (fa.flash_attention(tq, tk, tv, causal=causal) * t(g)).sum().backward()
+    for name, got, want in zip("qkv", (tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"d{name} (T={T}, causal={causal})")
+
+
+def test_backward_pieces_match_autograd_of_plain_attention():
+    """The two backward plain versions equal torch autograd through the
+    plain forward (dK/dV and dQ of softmax(q k^T / sqrt(hd)) v)."""
+    q, k, v, g = (t(a) for a in _qkv(2, 2, 40, 20, seed=3, n=4))
+    qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
+    o, lse = fa.flash_forward_reference(qr, kr, vr, True)
+    (o * g).sum().backward()
+    delta = (g * o.detach()).sum(-1, keepdim=True)
+    dq = fa.flash_backward_dq_reference(q, k, v, g, lse.detach(), delta)
+    dk, dv = fa.flash_backward_dkv_reference(q, k, v, g, lse.detach(), delta)
+    for got, want in ((dq, qr.grad), (dk, kr.grad), (dv, vr.grad)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_wrappers_cpu_dispatch_counts_no_launch():
+    q, k, v = (t(a) for a in _qkv(1, 2, 20, 16, seed=5))
+    counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    before = [f.launches for f in counters]
+    q.requires_grad_()
+    fa.flash_attention(q, k, v).sum().backward()
+    assert [f.launches for f in counters] == before
+    assert torch.isfinite(q.grad).all()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.flash_forward(q.detach().to("meta"), k.to("meta"), v.to("meta"))

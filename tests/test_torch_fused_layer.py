@@ -16,6 +16,7 @@ from beso_tpu.ops import fused_layer as jfl
 from beso_tpu_torch.models.cached import (build_prefix, extract_gpt_params,
                                           grid_index, suffix_forward)
 from beso_tpu_torch.models.gpt import layer_norm
+from beso_tpu_torch.ops import build
 from beso_tpu_torch.ops import fused_layer as fl
 
 
@@ -175,8 +176,8 @@ def test_prepare_pads_to_16(D, H, shapes):
 
 
 def test_library_path_keyed_by_sources():
-    path = fl.kernel_library_path()
-    assert path == fl.kernel_library_path()
+    path = build.kernel_library_path()
+    assert path == build.kernel_library_path()
     assert path.name.startswith("libbeso_kernels_") and path.suffix == ".so"
     assert path.parent.parts[-2:] == ("build", "kernels")
 
