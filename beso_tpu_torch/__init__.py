@@ -5,10 +5,11 @@ counterpart of `beso_tpu.models.cached`, and so on. The port imports torch
 and numpy only; the JAX package is the reference its tests hold it against.
 
 Ported so far: kitchen serving (the DiffusionGPT forward, the prefix-KV
-cached engine, the `fused_cached` engine on the hand-written CUDA layer
-kernel B1 in `ops/fused_layer.py` and `csrc/fused_layer_prefix.cu`, DDIM
-sampling, the windowed policy, the batched kitchen physics and the
-rollout) and the chunked-kitchen training path (densities, EMA, the
+cached engine, the fused engines on the hand-written CUDA layer kernels
+B1-B4 in `ops/fused_layer.py` and `csrc/fused_layer_prefix.cu`: the
+`fused_cached` engine in its three forms and the uncached
+`make_fused_denoise_fn`; DDIM sampling, the windowed policy, the batched
+kitchen physics and the rollout) and the chunked-kitchen training path (densities, EMA, the
 training forward with the flash-attention kernels B5/B6 in
 `ops/flash_attention.py` and `csrc/flash_attention.cu`, the EDM loss, the
 slicer, the trainer, checkpoints, the agent, the kitchen workspace and the

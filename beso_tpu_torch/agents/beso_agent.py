@@ -189,10 +189,12 @@ class BesoAgent:
 
         `inference_engine`: 'auto' (default) uses the prefix-KV cached engine
         (models/cached.py) whenever the policy config is eligible (grid-sigma
-        sampler, no churn, single action sample) and falls back to the full
-        forward otherwise; 'cached' requires eligibility (raises if not);
-        'fused_cached' runs the suffix tokens through the fused layer kernel
-        (models/fused.py); 'full' always uses the plain forward.
+        sampler, no churn, single action sample); 'cached' requires
+        eligibility (raises if not); 'fused_cached' runs the suffix tokens
+        through the fused layer kernels (models/fused.py); 'full' always uses
+        the plain forward. Every engine but 'cached' falls back to the full
+        forward (None) when the config is ineligible, as
+        `beso_tpu/agents/beso_agent.py:198-206` does.
         """
         engine = self.cfg.inference_engine
         if engine == "full":
@@ -204,9 +206,9 @@ class BesoAgent:
                 self.eval_denoiser(params), self.scaler, policy_cfg,
                 engine="fused_cached" if engine == "fused_cached" else "cached")
         except (ValueError, NotImplementedError):
-            if engine != "auto":
+            if engine == "cached":
                 raise
-            return None  # auto: ineligible sampler/config -> full forward
+            return None  # ineligible sampler/config -> full forward
 
     def policy_config(self, **overrides) -> PolicyConfig:
         base = dict(

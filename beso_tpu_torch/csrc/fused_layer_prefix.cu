@@ -1,40 +1,63 @@
-// One pre-LN GPT block over the 2T suffix tokens of each environment,
-// attending to a cached [sigma, goal] prefix K/V: the Hopper port of the
-// TPU kernel `fused_layer_prefix_tl_v2` (beso_tpu/ops/fused_layer.py:564-682,
-// attention body `_tl_attention` :346-413).
+// Pre-LN GPT blocks over the tokens of each environment, with or without a
+// cached prefix K/V: the Hopper port of the four fused-layer TPU kernels of
+// beso_tpu/ops/fused_layer.py. One kernel body serves all four (B2 in its
+// own instantiation, with a layer loop); the entry points differ only in
+// where the keys come from and how many layers run:
 //
-//   LN1 -> fused QKV -> attention over P prefix keys (row `idx` of the
-//   sigma grid) plus the causal suffix keys -> proj + residual -> LN2 ->
-//   4x tanh-GELU MLP + residual [-> ln_f (f32) + linear head (f32)]
+//   B1 beso_fused_layer_prefix         (`fused_layer_prefix_tl_v2` :564-682,
+//      attention `_tl_attention` :346-413): one block over the 2T suffix
+//      tokens against the prefix K/V of sigma-grid row `idx`, optional
+//      ln_f + linear-head epilogue;
+//   B2 beso_fused_layers_prefix_group  (`fused_layers_prefix_tl_v2_group`
+//      :442-561): N consecutive B1 blocks in one launch, the residual kept in
+//      shared memory between them, each layer reading its own prefix row
+//      `idx`, the epilogue after the last;
+//   B3 beso_fused_layer_with_prefix    (`fused_layer_with_prefix` :195-295):
+//      one block against ONE prefix row the caller has already selected;
+//   B4 beso_fused_layer                (`fused_layer` :129-192, :298-334):
+//      one block over the whole token sequence with a plain causal mask and
+//      no prefix (P = 0; no index is read).
 //
-// Layout: x [B, T2, D] bf16, pk/pv [S, B, P, D] bf16, out [B, T2, D] bf16,
-// pred [B, T2, M] f32. Weights are [out, in] bf16, zero-padded by
-// `prepare_layer_params` (ops/fused_layer.py) to multiples of 16: the QKV
-// rows per head to hdp = ceil16(hd), the model width to Dp = ceil16(D) and
-// the MLP width to Fp. Biases and LayerNorm parameters are f32.
+//   LN1 -> fused QKV -> attention over P prefix keys plus the causal own
+//   keys -> proj + residual -> LN2 -> 4x tanh-GELU MLP + residual
+//   [-> next layer] [-> ln_f (f32) + linear head (f32)]
 //
-// Numerics (as the TPU kernel): bf16 operands, f32 accumulation, f32 bias,
+// Layout: x [B, T2, D] bf16, pk/pv [S, B, P, D] bf16 per layer (S = 1 for
+// B3), out [B, T2, D] bf16, pred [B, T2, M] f32. Weights are [out, in] bf16,
+// zero-padded by `prepare_layer_params` (ops/fused_layer.py) to multiples of
+// 16: the QKV rows per head to hdp = ceil16(hd), the model width to
+// Dp = ceil16(D) and the MLP width to Fp. Biases and LayerNorm parameters
+// are f32. The per-layer pointers travel in the kernel's parameter struct
+// (MAX_LAYERS x 14 pointers, under 1 KB of the 4 KB parameter space), read
+// in place through __grid_constant__.
+//
+// Numerics (as the TPU kernels): bf16 operands, f32 accumulation, f32 bias,
 // one rounding to bf16 after the bias; LayerNorm statistics in f32 with
 // var = E[x^2] - mu^2 and eps 1e-5; scores scaled by 1/sqrt(hd) of the true
 // head dim; softmax in f32 with the probabilities rounded to bf16; the
-// epilogue's ln_f output stays f32 and feeds an f32 head.
+// epilogue's ln_f output stays f32 and feeds an f32 head. Between the layers
+// of a group the residual is the same bf16 tile a B1 launch writes to `out`
+// and the next reads back, so a group of N equals N B1 launches bit for bit;
+// a B3 launch equals a B1 launch on the same row bit for bit.
 //
 // What bounds it: at kitchen serving shapes (D=360, 16k suffix rows per
 // call) each row costs ~24*D^2 = 3.1 MFLOP per layer against ~36 MB moved
 // per launch, about 1,400 FLOP/byte, so the layer is compute-bound. The
 // design therefore keeps every intermediate of a 64-row tile in shared
 // memory and runs the four matrix products on tensor cores (wmma bf16
-// 16x16x16, f32 accumulate). A tile is 64/T2 whole environments; QKV is
-// built head by head (the whole [64, 3D] QKV tile would need 138 KB next to
-// the residual and LN buffers); the 4D MLP hidden layer is streamed in
-// 128-column chunks with the fc2 sums kept in registers. Attention has at
-// most P+T2 keys per query, so it runs on CUDA cores, one warp per query
-// row with the lanes over the head dim, against the tile's prefix K/V
-// staged in shared memory. Weights are read from L2 through the B
-// fragments, one k-step ahead; each warp reuses one B fragment for all four
-// row tiles. With one 8-warp block per SM (~210 KB of shared memory at the
-// kitchen shape) the kernel is bound by per-block latency, not by the
-// tensor cores: PERF.md has the measurements.
+// 16x16x16, f32 accumulate). A tile is 64/T2 whole environments (8 at 2T=8,
+// 5 at B4's 11 or 12 tokens); QKV is built head by head (the whole [64, 3D]
+// QKV tile would need 138 KB next to the residual and LN buffers); the 4D
+// MLP hidden layer is streamed in 128-column chunks with the fc2 sums kept
+// in registers. Attention has at most P+T2 keys per query, so it runs on
+// CUDA cores, one warp per query row with the lanes over the head dim,
+// against the tile's prefix K/V staged in shared memory. Weights are read
+// from L2 through the B fragments, one k-step ahead; each warp reuses one B
+// fragment for all four row tiles. With one 8-warp block per SM (~210 KB of
+// shared memory at the kitchen shape) the kernel is bound by per-block
+// latency, not by the tensor cores: PERF.md has the measurements. Grouping
+// layers (B2) saves only the residual's round trip through device memory
+// (~12 MB per layer at 2048 envs), a few microseconds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,16 +77,15 @@ constexpr int MAX_KEYS = 32;       // P + T2
 constexpr int MAX_M = 16;          // head outputs
 constexpr int MAX_OUT_TILES = 3;   // Dp <= WARPS * 3 * 16 = 384
 constexpr int MAX_HDP = 64;        // two head-dim values per lane
+constexpr int MAX_LAYERS = 8;      // layers of one B2 group
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-struct Args {
-  const bf16* x;
-  const bf16* pk;
-  const bf16* pv;
-  const int* idx;
+// One layer's weights and prefix cache; the order of the first twelve is
+// that of `FusedLayerParams` (ops/fused_layer.py).
+struct LayerArgs {
   const float* ln1_s;
   const float* ln1_b;
   const bf16* wqkv;
@@ -76,6 +98,16 @@ struct Args {
   const float* bfc;
   const bf16* wfc2;
   const float* bfc2;
+  const bf16* pk;     // [S, B, P, D]; unused when P == 0
+  const bf16* pv;
+};
+constexpr int LAYER_PTRS = sizeof(LayerArgs) / sizeof(void*);
+
+struct Args {
+  const bf16* x;
+  const int* idx;     // sigma-grid row of pk/pv; nullptr: row 0
+  LayerArgs layer[MAX_LAYERS];
+  int n_layers;
   const float* lnf_s;
   const float* lnf_b;
   const float* whead;
@@ -187,8 +219,13 @@ __device__ void load_rows(bf16* dst, int ld, const bf16* src, int width, int row
   }
 }
 
+// kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
+// the single-layer one (B1, B3, B4) indexes a.layer[0] statically, which
+// keeps its weight pointers out of registers (239 registers and no spill,
+// against 255 and a spill for the looped body on sm_90a).
+template <bool kGroup>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_layer_prefix_kernel(const Args a) {
+fused_layer_prefix_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int Dp = a.Dp, hdp = a.hdp, D = a.D, T2 = a.T2;
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);         // [ROWS, Dp] residual
@@ -206,195 +243,206 @@ fused_layer_prefix_kernel(const Args a) {
   const int n_env = min(a.envs_per_block, a.B - env0);
   const int nrows = n_env * T2;
   const size_t row0 = static_cast<size_t>(env0) * T2;
-  int sidx = *a.idx;
-  sidx = sidx < 0 ? 0 : (sidx >= a.S ? a.S - 1 : sidx);
-
-  // ---- load x (ragged env edge and pad columns as zero), this tile's
-  //      prefix K/V of sigma row `sidx`, clear ys ---------------------------
-  load_rows(xs, Dp, a.x + row0 * D, D, nrows, ROWS, tid);
+  int sidx = 0;
+  if (a.idx != nullptr) {
+    sidx = *a.idx;
+    sidx = sidx < 0 ? 0 : (sidx >= a.S ? a.S - 1 : sidx);
+  }
   const size_t prow = (static_cast<size_t>(sidx) * a.B + env0) * a.P;
-  load_rows(pks, D, a.pk + prow * D, D, n_env * a.P, pkv_rows, tid);
-  load_rows(pvs, D, a.pv + prow * D, D, n_env * a.P, pkv_rows, tid);
-  for (int i = tid; i < ROWS * a.ywidth; i += THREADS) ys[i] = f2bf(0.f);
-  __syncthreads();
-  layernorm_rows(xs, hs, a.ln1_s, a.ln1_b, D, Dp, nrows, warp, lane);
-  __syncthreads();
 
-  // ---- attention, head by head ------------------------------------------
-  const int tpp = hdp / 16;       // column tiles per q/k/v part of one head
-  const int qkv_ld = 3 * hdp;
-  for (int h = 0; h < a.H; ++h) {
-    for (int n = warp; n < 3 * tpp; n += WARPS) {
-      const int part = n / tpp, sub = n - part * tpp;
-      const int wrow = (part * a.H + h) * hdp + sub * 16;
+  // ---- load x (ragged env edge and pad columns as zero); between layers
+  //      the residual stays in xs -------------------------------------------
+  load_rows(xs, Dp, a.x + row0 * D, D, nrows, ROWS, tid);
+  const int n_layers = kGroup ? a.n_layers : 1;
+  for (int l = 0; l < n_layers; ++l) {
+    const LayerArgs& w = a.layer[kGroup ? l : 0];
+    // ---- this layer's prefix K/V of this tile, sigma row `sidx`; clear ys --
+    if (a.P > 0) {
+      load_rows(pks, D, w.pk + prow * D, D, n_env * a.P, pkv_rows, tid);
+      load_rows(pvs, D, w.pv + prow * D, D, n_env * a.P, pkv_rows, tid);
+    }
+    for (int i = tid; i < ROWS * a.ywidth; i += THREADS) ys[i] = f2bf(0.f);
+    __syncthreads();
+    layernorm_rows(xs, hs, w.ln1_s, w.ln1_b, D, Dp, nrows, warp, lane);
+    __syncthreads();
+
+    // ---- attention, head by head ------------------------------------------
+    const int tpp = hdp / 16;       // column tiles per q/k/v part of one head
+    const int qkv_ld = 3 * hdp;
+    for (int h = 0; h < a.H; ++h) {
+      for (int n = warp; n < 3 * tpp; n += WARPS) {
+        const int part = n / tpp, sub = n - part * tpp;
+        const int wrow = (part * a.H + h) * hdp + sub * 16;
+        FragC acc[RT];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
+        mma_rows(acc, hs, Dp, w.wqkv + static_cast<size_t>(wrow) * Dp, Dp, Dp / 16);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = e & 15;
+            qkv[r * qkv_ld + part * hdp + sub * 16 + c] = f2bf(stage[e] + w.bqkv[wrow + c]);
+          }
+          __syncwarp();
+        }
+      }
+      __syncthreads();
+
+      for (int r = warp; r < nrows; r += WARPS) {
+        const int el = r / T2, t = r - el * T2;
+        const bf16* pkr = pks + el * a.P * D + h * a.hd;
+        const bf16* pvr = pvs + el * a.P * D + h * a.hd;
+        const bf16* own = qkv + el * T2 * qkv_ld;   // this env's first suffix row
+        float qv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          int d = lane + 32 * i;
+          qv[i] = d < a.hd ? bf2f(qkv[r * qkv_ld + d]) : 0.f;
+        }
+        const int nk = a.P + t + 1;
+        float sc[MAX_KEYS];
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < MAX_KEYS; ++j) {
+          if (j < nk) {
+            const bf16* kr = j < a.P ? pkr + j * D : own + (j - a.P) * qkv_ld + hdp;
+            float part = 0.f;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              int d = lane + 32 * i;
+              if (d < a.hd) part += qv[i] * bf2f(kr[d]);
+            }
+            sc[j] = warp_sum(part) * a.scale;
+            m = fmaxf(m, sc[j]);
+          }
+        }
+        float den = 0.f;
+#pragma unroll
+        for (int j = 0; j < MAX_KEYS; ++j) {
+          if (j < nk) {
+            sc[j] = expf(sc[j] - m);
+            den += sc[j];
+          }
+        }
+        const float inv = 1.f / den;
+        float yv[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < MAX_KEYS; ++j) {
+          if (j < nk) {
+            const float p = round_bf(sc[j] * inv);
+            const bf16* vr = j < a.P ? pvr + j * D : own + (j - a.P) * qkv_ld + 2 * hdp;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              int d = lane + 32 * i;
+              if (d < a.hd) yv[i] += p * bf2f(vr[d]);
+            }
+          }
+        }
+        bf16* yr = ys + r * a.ywidth + h * hdp;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          int d = lane + 32 * i;
+          if (d < hdp) yr[d] = f2bf(d < a.hd ? yv[i] : 0.f);
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- proj + residual (in place on xs; A operand is ys) ----------------
+    const int ntD = Dp / 16;
+    for (int n = warp; n < ntD; n += WARPS) {
       FragC acc[RT];
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-      mma_rows(acc, hs, Dp, a.wqkv + static_cast<size_t>(wrow) * Dp, Dp, Dp / 16);
+      mma_rows(acc, ys, a.ywidth, w.wproj + static_cast<size_t>(n) * 16 * a.HDp, a.HDp,
+               a.HDp / 16);
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
         wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = e & 15;
-          qkv[r * qkv_ld + part * hdp + sub * 16 + c] = f2bf(stage[e] + a.bqkv[wrow + c]);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-
-    for (int r = warp; r < nrows; r += WARPS) {
-      const int el = r / T2, t = r - el * T2;
-      const bf16* pkr = pks + el * a.P * D + h * a.hd;
-      const bf16* pvr = pvs + el * a.P * D + h * a.hd;
-      const bf16* own = qkv + el * T2 * qkv_ld;   // this env's first suffix row
-      float qv[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        int d = lane + 32 * i;
-        qv[i] = d < a.hd ? bf2f(qkv[r * qkv_ld + d]) : 0.f;
-      }
-      const int nk = a.P + t + 1;
-      float sc[MAX_KEYS];
-      float m = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < MAX_KEYS; ++j) {
-        if (j < nk) {
-          const bf16* kr = j < a.P ? pkr + j * D : own + (j - a.P) * qkv_ld + hdp;
-          float part = 0.f;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            int d = lane + 32 * i;
-            if (d < a.hd) part += qv[i] * bf2f(kr[d]);
-          }
-          sc[j] = warp_sum(part) * a.scale;
-          m = fmaxf(m, sc[j]);
-        }
-      }
-      float den = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAX_KEYS; ++j) {
-        if (j < nk) {
-          sc[j] = expf(sc[j] - m);
-          den += sc[j];
-        }
-      }
-      const float inv = 1.f / den;
-      float yv[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < MAX_KEYS; ++j) {
-        if (j < nk) {
-          const float p = round_bf(sc[j] * inv);
-          const bf16* vr = j < a.P ? pvr + j * D : own + (j - a.P) * qkv_ld + 2 * hdp;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            int d = lane + 32 * i;
-            if (d < a.hd) yv[i] += p * bf2f(vr[d]);
-          }
-        }
-      }
-      bf16* yr = ys + r * a.ywidth + h * hdp;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        int d = lane + 32 * i;
-        if (d < hdp) yr[d] = f2bf(d < a.hd ? yv[i] : 0.f);
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- proj + residual (in place on xs; A operand is ys) ----------------
-  const int ntD = Dp / 16;
-  for (int n = warp; n < ntD; n += WARPS) {
-    FragC acc[RT];
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-    mma_rows(acc, ys, a.ywidth, a.wproj + static_cast<size_t>(n) * 16 * a.HDp, a.HDp,
-             a.HDp / 16);
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) {
-      wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
-        if (r < nrows && c < D)
-          xs[r * Dp + c] = f2bf(bf2f(xs[r * Dp + c]) + round_bf(stage[e] + a.bproj[c]));
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  layernorm_rows(xs, hs, a.ln2_s, a.ln2_b, D, Dp, nrows, warp, lane);
-  __syncthreads();
-
-  // ---- MLP: hidden layer streamed in FC-column chunks, fc2 in registers --
-  FragC out_acc[MAX_OUT_TILES][RT];
-#pragma unroll
-  for (int j = 0; j < MAX_OUT_TILES; ++j)
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(out_acc[j][rt], 0.f);
-  bf16* gbuf = ys;   // [ROWS, FC], ys is free after the projection
-  for (int c0 = 0; c0 < a.F; c0 += FC) {
-    const int nt = min(FC, a.F - c0) / 16;
-    for (int n = warp; n < nt; n += WARPS) {
-      FragC acc[RT];
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-      mma_rows(acc, hs, Dp, a.wfc + static_cast<size_t>(c0 + n * 16) * Dp, Dp, Dp / 16);
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
-          gbuf[r * FC + c] = f2bf(gelu_tanh(round_bf(stage[e] + a.bfc[c0 + c])));
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    for (int k = 0; k < nt; ++k) {
-      FragA fa[RT];
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
-        wmma::load_matrix_sync(fa[rt], gbuf + rt * 16 * FC + k * 16, FC);
-#pragma unroll
-      for (int j = 0; j < MAX_OUT_TILES; ++j) {
-        const int n = warp + j * WARPS;
-        if (n < ntD) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, a.wfc2 + static_cast<size_t>(n) * 16 * a.F + c0 + k * 16,
-                                 a.F);
-#pragma unroll
-          for (int rt = 0; rt < RT; ++rt) wmma::mma_sync(out_acc[j][rt], fa[rt], fb, out_acc[j][rt]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < MAX_OUT_TILES; ++j) {
-    const int n = warp + j * WARPS;
-    if (n < ntD) {
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        wmma::store_matrix_sync(stage, out_acc[j][rt], 16, wmma::mem_row_major);
         __syncwarp();
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
           if (r < nrows && c < D)
-            xs[r * Dp + c] = f2bf(bf2f(xs[r * Dp + c]) + round_bf(stage[e] + a.bfc2[c]));
+            xs[r * Dp + c] = f2bf(bf2f(xs[r * Dp + c]) + round_bf(stage[e] + w.bproj[c]));
         }
         __syncwarp();
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    layernorm_rows(xs, hs, w.ln2_s, w.ln2_b, D, Dp, nrows, warp, lane);
+    __syncthreads();
+
+    // ---- MLP: hidden layer streamed in FC-column chunks, fc2 in registers --
+    FragC out_acc[MAX_OUT_TILES][RT];
+#pragma unroll
+    for (int j = 0; j < MAX_OUT_TILES; ++j)
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(out_acc[j][rt], 0.f);
+    bf16* gbuf = ys;   // [ROWS, FC], ys is free after the projection
+    for (int c0 = 0; c0 < a.F; c0 += FC) {
+      const int nt = min(FC, a.F - c0) / 16;
+      for (int n = warp; n < nt; n += WARPS) {
+        FragC acc[RT];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
+        mma_rows(acc, hs, Dp, w.wfc + static_cast<size_t>(c0 + n * 16) * Dp, Dp, Dp / 16);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
+            gbuf[r * FC + c] = f2bf(gelu_tanh(round_bf(stage[e] + w.bfc[c0 + c])));
+          }
+          __syncwarp();
+        }
+      }
+      __syncthreads();
+      for (int k = 0; k < nt; ++k) {
+        FragA fa[RT];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+          wmma::load_matrix_sync(fa[rt], gbuf + rt * 16 * FC + k * 16, FC);
+#pragma unroll
+        for (int j = 0; j < MAX_OUT_TILES; ++j) {
+          const int n = warp + j * WARPS;
+          if (n < ntD) {
+            FragB fb;
+            wmma::load_matrix_sync(fb, w.wfc2 + static_cast<size_t>(n) * 16 * a.F + c0 + k * 16,
+                                   a.F);
+#pragma unroll
+            for (int rt = 0; rt < RT; ++rt)
+              wmma::mma_sync(out_acc[j][rt], fa[rt], fb, out_acc[j][rt]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < MAX_OUT_TILES; ++j) {
+      const int n = warp + j * WARPS;
+      if (n < ntD) {
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          wmma::store_matrix_sync(stage, out_acc[j][rt], 16, wmma::mem_row_major);
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
+            if (r < nrows && c < D)
+              xs[r * Dp + c] = f2bf(bf2f(xs[r * Dp + c]) + round_bf(stage[e] + w.bfc2[c]));
+          }
+          __syncwarp();
+        }
+      }
+    }
+    __syncthreads();
+  }  // layers
 
   for (int i = tid; i < nrows * D; i += THREADS) {
     int r = i / D, c = i - r * D;
@@ -427,37 +475,39 @@ fused_layer_prefix_kernel(const Args a) {
   }
 }
 
-}  // namespace
+// The twelve weight pointers of one layer (`FusedLayerParams` order) and its
+// prefix cache.
+LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
+  LayerArgs l;
+  l.ln1_s = static_cast<const float*>(w[0]);
+  l.ln1_b = static_cast<const float*>(w[1]);
+  l.wqkv = static_cast<const bf16*>(w[2]);
+  l.bqkv = static_cast<const float*>(w[3]);
+  l.wproj = static_cast<const bf16*>(w[4]);
+  l.bproj = static_cast<const float*>(w[5]);
+  l.ln2_s = static_cast<const float*>(w[6]);
+  l.ln2_b = static_cast<const float*>(w[7]);
+  l.wfc = static_cast<const bf16*>(w[8]);
+  l.bfc = static_cast<const float*>(w[9]);
+  l.wfc2 = static_cast<const bf16*>(w[10]);
+  l.bfc2 = static_cast<const float*>(w[11]);
+  l.pk = static_cast<const bf16*>(pk);
+  l.pv = static_cast<const bf16*>(pv);
+  return l;
+}
 
-extern "C" {
-
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
-// Shapes are checked by the Python wrapper (ops/fused_layer.py).
-int beso_fused_layer_prefix(
-    const void* x, const void* pk, const void* pv, const void* idx,
-    const void* ln1_s, const void* ln1_b, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* bproj, const void* ln2_s, const void* ln2_b,
-    const void* wfc, const void* bfc, const void* wfc2, const void* bfc2,
-    const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead,
-    void* out, void* pred, int B, int T2, int D, int H, int P, int S, int F, int M,
-    void* stream) {
-  Args a;
+// Fills the derived sizes, sizes shared memory and launches on `stream`;
+// returns cudaGetLastError() (0 = launched). `a.layer[:n_layers]` must be
+// set by the caller; `group` takes the B2 instantiation.
+int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
+           const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead,
+           void* out, void* pred, int B, int T2, int D, int H, int P, int S, int F, int M,
+           void* stream) {
+  if (n_layers < 1 || n_layers > (group ? MAX_LAYERS : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.x = static_cast<const bf16*>(x);
-  a.pk = static_cast<const bf16*>(pk);
-  a.pv = static_cast<const bf16*>(pv);
   a.idx = static_cast<const int*>(idx);
-  a.ln1_s = static_cast<const float*>(ln1_s);
-  a.ln1_b = static_cast<const float*>(ln1_b);
-  a.wqkv = static_cast<const bf16*>(wqkv);
-  a.bqkv = static_cast<const float*>(bqkv);
-  a.wproj = static_cast<const bf16*>(wproj);
-  a.bproj = static_cast<const float*>(bproj);
-  a.ln2_s = static_cast<const float*>(ln2_s);
-  a.ln2_b = static_cast<const float*>(ln2_b);
-  a.wfc = static_cast<const bf16*>(wfc);
-  a.bfc = static_cast<const float*>(bfc);
-  a.wfc2 = static_cast<const bf16*>(wfc2);
-  a.bfc2 = static_cast<const float*>(bfc2);
+  a.n_layers = n_layers;
   a.lnf_s = static_cast<const float*>(lnf_s);
   a.lnf_b = static_cast<const float*>(lnf_b);
   a.whead = static_cast<const float*>(whead);
@@ -483,13 +533,70 @@ int beso_fused_layer_prefix(
   const size_t smem = sizeof(bf16) * (2 * ROWS * a.Dp + ROWS * a.ywidth + ROWS * 3 * a.hdp +
                                       2 * a.envs_per_block * P * D) +
                       sizeof(float) * WARPS * 256;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_layer_prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const auto kernel =
+      group ? fused_layer_prefix_kernel<true> : fused_layer_prefix_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + a.envs_per_block - 1) / a.envs_per_block;
-  fused_layer_prefix_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches the kernel on `stream` and returns cudaGetLastError()
+// (0 = launched). Shapes are checked by the Python wrappers
+// (ops/fused_layer.py). `w` points at one layer's twelve weight pointers in
+// `FusedLayerParams` order.
+
+// B1: one block against the prefix row `idx` of pk/pv [S, B, P, D].
+int beso_fused_layer_prefix(const void* x, const void* pk, const void* pv, const void* idx,
+                            const void* const* w, const void* lnf_s, const void* lnf_b,
+                            const void* whead, const void* bhead, void* out, void* pred,
+                            int B, int T2, int D, int H, int P, int S, int F, int M,
+                            void* stream) {
+  Args a;
+  a.layer[0] = layer_args(w, pk, pv);
+  return launch(a, false, x, idx, 1, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D, H,
+                P, S, F, M, stream);
+}
+
+// B2: n_layers blocks in one launch. `layers` holds n_layers x 14 pointers:
+// each layer's twelve weights, then its pk and pv [S, B, P, D].
+int beso_fused_layers_prefix_group(const void* x, const void* idx, const void* const* layers,
+                                   int n_layers, const void* lnf_s, const void* lnf_b,
+                                   const void* whead, const void* bhead, void* out,
+                                   void* pred, int B, int T2, int D, int H, int P, int S,
+                                   int F, int M, void* stream) {
+  Args a;
+  for (int l = 0; l < n_layers && l < MAX_LAYERS; ++l) {
+    const void* const* lw = layers + l * LAYER_PTRS;
+    a.layer[l] = layer_args(lw, lw[12], lw[13]);
+  }
+  return launch(a, true, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred, B, T2,
+                D, H, P, S, F, M, stream);
+}
+
+// B3: one block against one already selected prefix row, pk/pv [B, P, D].
+int beso_fused_layer_with_prefix(const void* x, const void* pk, const void* pv,
+                                 const void* const* w, void* out, int B, int T2, int D, int H,
+                                 int P, int F, void* stream) {
+  Args a;
+  a.layer[0] = layer_args(w, pk, pv);
+  return launch(a, false, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out, nullptr,
+                B, T2, D, H, P, 1, F, 0, stream);
+}
+
+// B4: one block over the whole causal sequence x [B, T, D], no prefix.
+int beso_fused_layer(const void* x, const void* const* w, void* out, int B, int T, int D,
+                     int H, int F, void* stream) {
+  Args a;
+  a.layer[0] = layer_args(w, nullptr, nullptr);
+  return launch(a, false, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out, nullptr,
+                B, T, D, H, 0, 1, F, 0, stream);
 }
 
 const char* beso_cuda_error_string(int code) {
@@ -504,6 +611,7 @@ int beso_fused_layer_prefix_limits(int which) {
     case 2: return MAX_M;
     case 3: return WARPS * MAX_OUT_TILES * 16;
     case 4: return MAX_HDP;
+    case 5: return MAX_LAYERS;
     default: return -1;
   }
 }

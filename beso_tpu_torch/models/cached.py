@@ -15,6 +15,7 @@ the CUDA kernel and is held against this one.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -171,7 +172,10 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
     as `cfg_denoise_fn` stacks its batch ([goals, zeros] for CFG), so the
     cached batch lines up with the wrapped calls. `engine` is "cached" (this
     module, plain PyTorch) or "fused_cached" (models/fused.py, the CUDA
-    layer kernel).
+    layer kernels). For "fused_cached", the environment variable
+    `BESO_LAYER_GROUP=N`, read each time the factory is called (default 1),
+    runs N layers per kernel launch (`layer_group`), as
+    `beso_tpu/models/cached.py:284-293` does.
 
     Gating (raises ValueError otherwise): the sampler must stay on the sigma
     grid (CACHED_SAFE_SAMPLERS), s_churn == 0, single action sample.
@@ -207,7 +211,9 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
         if engine == "fused_cached":
             from beso_tpu_torch.models.fused import make_fused_cached_denoise_fn
 
-            return make_fused_cached_denoise_fn(den, g_model, sigmas)
+            return make_fused_cached_denoise_fn(
+                den, g_model, sigmas,
+                layer_group=int(os.environ.get("BESO_LAYER_GROUP", "1")))
         return make_cached_denoise_fn(den, g_model, sigmas)
 
     return factory

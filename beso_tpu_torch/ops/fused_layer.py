@@ -1,17 +1,28 @@
-"""Fused prefix-KV transformer layer: CUDA kernel, wrapper, plain version.
+"""Fused transformer layers: CUDA kernels, wrappers, plain versions.
 
-Replaces the TPU kernel B1, `fused_layer_prefix_tl_v2`
-(`beso_tpu/ops/fused_layer.py:618-682`, kernel body `:564-615`, attention
-`_tl_attention` `:346-413`): one pre-LN GPT block over the 2T suffix tokens
-of every environment, attending to the cached [sigma, goal] prefix K/V of
-the sigma-grid row `idx`, with an optional ln_f + linear-head epilogue that
-writes f32 predictions.
+Replaces the four fused-layer TPU kernels of `beso_tpu/ops/fused_layer.py`,
+each a pre-LN GPT block with its intermediates kept on chip:
 
-The port keeps the math and drops the TPU layout: no environments in lanes,
+- B1 `fused_layer_prefix` for `fused_layer_prefix_tl_v2` (`:618-682`, body
+  `:564-615`, attention `_tl_attention` `:346-413`): one block over the 2T
+  suffix tokens of every environment, attending to the cached [sigma, goal]
+  prefix K/V of the sigma-grid row `idx`, with an optional ln_f +
+  linear-head epilogue that writes f32 predictions;
+- B2 `fused_layers_prefix_group` for `fused_layers_prefix_tl_v2_group`
+  (`:488-561`, body `:442-485`): N consecutive B1 blocks in one launch, the
+  epilogue after the last;
+- B3 `fused_layer_with_prefix` for `fused_layer_with_prefix` (`:258-295`,
+  body `:195-255`): one block against one prefix row already selected;
+- B4 `fused_layer` for `fused_layer` (`:298-334`, body `:129-192`): one
+  block over the whole causal token sequence, no prefix.
+
+The port keeps the math and drops the TPU layouts: no environments in lanes,
 no head-dim padding to 32, no 128-environment blocks. Activations are
-`x [B, 2T, D]` bf16 and the layer's prefix cache `pk/pv [S, B, P, D]` bf16;
+`x [B, T, D]` bf16 and a layer's prefix cache `pk/pv [S, B, P, D]` bf16;
 `idx` is a device int32[1] the kernel reads itself, so choosing the sigma
-row never syncs the host.
+row never syncs the host. All four run one kernel body
+(`csrc/fused_layer_prefix.cu`), so B2 equals a chain of B1 launches and B3
+a B1 launch on the same row, bit for bit.
 
 What bounds it on the H100, and the design (details in
 `csrc/fused_layer_prefix.cu`): at kitchen shapes a launch does ~51 GFLOP of
@@ -22,16 +33,16 @@ tensor cores (wmma bf16, f32 accumulate), builds QKV head by head, streams
 the 4D MLP hidden layer in 128-column chunks and does the 11-key attention
 on CUDA cores.
 
-`fused_layer_prefix` takes the plain PyTorch version only for CPU tensors;
-for CUDA tensors it launches the kernel or raises. Its `launches` counter
-goes up by one per kernel launch.
+Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises, and for any other device it
+raises. Its `launches` counter goes up by one per kernel launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -111,53 +122,94 @@ def prepare_layer_params(lp: dict, n_heads: int,
         bfc2=f32(F.pad(lp["bfc2"], (0, Dp - D))))
 
 
-def fused_layer_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
-                                 pv: torch.Tensor, idx: torch.Tensor,
-                                 p: FusedLayerParams, *, n_heads: int,
-                                 epilogue: Optional[FusedEpilogue] = None):
-    """Plain PyTorch version of the kernel, same inputs and outputs.
-
-    x [B, T2, D]; pk/pv [S, B, P, D]; idx int32[1]. Returns out [B, T2, D]
-    in x's dtype, or (out, pred [B, T2, M] f32) with an epilogue. Rounds at
-    the kernel's points: after every bias, the attention probabilities, and
-    each residual add.
-    """
-    B, T2, D = x.shape
+def _block_reference(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                     p: FusedLayerParams, n_heads: int) -> torch.Tensor:
+    """One block over x [B, T, D] whose queries see all P keys of pk/pv
+    [B, P, D] (P may be 0) plus their own causal keys. Rounds at the
+    kernels' points: after every bias, the attention probabilities, and
+    each residual add."""
+    B, T, D = x.shape
     H = n_heads
     hd = D // H
-    P = pk.shape[2]
+    P = pk.shape[1]
     dtype = x.dtype
     Dp = p.wqkv.shape[1]
     hdp = p.wqkv.shape[0] // (3 * H)
 
     h = F.pad(layer_norm(x, p.ln1_s, p.ln1_b, dtype), (0, Dp - D))
-    qkv = dense(h, p.wqkv, p.bqkv, dtype).reshape(B, T2, 3, H, hdp)[..., :hd]
+    qkv = dense(h, p.wqkv, p.bqkv, dtype).reshape(B, T, 3, H, hdp)[..., :hd]
     q, k, v = qkv.unbind(2)
-    row = idx.reshape(1).long()
-    pk_r = pk.index_select(0, row)[0].reshape(B, P, H, hd)
-    pv_r = pv.index_select(0, row)[0].reshape(B, P, H, hd)
-    causal = torch.ones(T2, T2, dtype=torch.bool, device=x.device).tril()
-    mask = torch.cat([torch.ones(T2, P, dtype=torch.bool, device=x.device),
+    causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    mask = torch.cat([torch.ones(T, P, dtype=torch.bool, device=x.device),
                       causal], dim=1)
-    y = attend(q, torch.cat([pk_r.to(dtype), k], 1),
-               torch.cat([pv_r.to(dtype), v], 1), mask)
-    y = F.pad(y.reshape(B, T2, H, hd), (0, hdp - hd)).reshape(B, T2, H * hdp)
+    y = attend(q, torch.cat([pk.reshape(B, P, H, hd).to(dtype), k], 1),
+               torch.cat([pv.reshape(B, P, H, hd).to(dtype), v], 1), mask)
+    y = F.pad(y.reshape(B, T, H, hd), (0, hdp - hd)).reshape(B, T, H * hdp)
     x1 = x + dense(y, p.wproj, p.bproj, dtype)[..., :D]
     h2 = F.pad(layer_norm(x1, p.ln2_s, p.ln2_b, dtype), (0, Dp - D))
     h2 = gelu(dense(h2, p.wfc, p.bfc, dtype))
-    out = x1 + dense(h2, p.wfc2, p.bfc2, dtype)[..., :D]
+    return x1 + dense(h2, p.wfc2, p.bfc2, dtype)[..., :D]
+
+
+def fused_layer_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
+                                 pv: torch.Tensor, idx: torch.Tensor,
+                                 p: FusedLayerParams, *, n_heads: int,
+                                 epilogue: Optional[FusedEpilogue] = None):
+    """Plain PyTorch version of B1, same inputs and outputs.
+
+    x [B, T2, D]; pk/pv [S, B, P, D]; idx int32[1]. Returns out [B, T2, D]
+    in x's dtype, or (out, pred [B, T2, M] f32) with an epilogue.
+    """
+    row = idx.reshape(1).long()
+    out = _block_reference(x, pk.index_select(0, row)[0],
+                           pv.index_select(0, row)[0], p, n_heads)
     if epilogue is None:
         return out
     xe = layer_norm(out, epilogue.lnf_s, epilogue.lnf_b, torch.float32)
     return out, F.linear(xe, epilogue.w.float(), epilogue.b.float())
 
 
+def fused_layers_prefix_group_reference(x: torch.Tensor, pk_layers, pv_layers,
+                                        idx: torch.Tensor, layer_params, *,
+                                        n_heads: int,
+                                        epilogue: Optional[FusedEpilogue] = None):
+    """Plain PyTorch version of B2: the chain of B1's plain version over the
+    group's layers, the epilogue on the last."""
+    n = len(layer_params)
+    for li, (pk, pv, p) in enumerate(zip(pk_layers, pv_layers, layer_params)):
+        out = fused_layer_prefix_reference(
+            x, pk, pv, idx, p, n_heads=n_heads,
+            epilogue=epilogue if li == n - 1 else None)
+        x = out if (epilogue is None or li < n - 1) else out[0]
+    return out
+
+
+def fused_layer_with_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
+                                      pv: torch.Tensor, p: FusedLayerParams, *,
+                                      n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of B3: x [B, T2, D] against one prefix row
+    pk/pv [B, P, D]."""
+    return _block_reference(x, pk, pv, p, n_heads)
+
+
+def fused_layer_reference(x: torch.Tensor, p: FusedLayerParams, *,
+                          n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of B4: one causal block over x [B, T, D]."""
+    empty = x.new_zeros(x.shape[0], 0, x.shape[2])
+    return _block_reference(x, empty, empty, p, n_heads)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.beso_fused_layer_prefix.argtypes = [vp] * 22 + [ci] * 8 + [vp]
-    lib.beso_fused_layer_prefix.restype = ci
+    lib.beso_fused_layer_prefix.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+    lib.beso_fused_layers_prefix_group.argtypes = [vp] * 3 + [ci] + [vp] * 6 + [ci] * 8 + [vp]
+    lib.beso_fused_layer_with_prefix.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+    lib.beso_fused_layer.argtypes = [vp] * 3 + [ci] * 5 + [vp]
+    for fn in (lib.beso_fused_layer_prefix, lib.beso_fused_layers_prefix_group,
+               lib.beso_fused_layer_with_prefix, lib.beso_fused_layer):
+        fn.restype = ci
     lib.beso_fused_layer_prefix_limits.argtypes = [ci]
     lib.beso_fused_layer_prefix_limits.restype = ci
     return lib
@@ -165,72 +217,174 @@ def _library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _limits():
-    """(rows per block, max keys, max head width, max Dp, max hdp), as the
-    compiled kernel reports them."""
-    return tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(5))
+    """(rows per block, max keys, max head width, max Dp, max hdp, max
+    layers per group), as the compiled kernel reports them."""
+    return tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(6))
 
 
-def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-                       idx: torch.Tensor, p: FusedLayerParams, *,
-                       n_heads: int, epilogue: Optional[FusedEpilogue] = None):
-    """One fused block (see module docstring). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (bf16 only) or raise."""
+def _on_cuda(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cpu":
-        return fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=n_heads,
-                                            epilogue=epilogue)
+        return False
     if x.device.type != "cuda":
-        raise ValueError(f"fused_layer_prefix runs on CPU or CUDA, got {x.device}")
-    B, T2, D = x.shape
-    S, _, P, _ = pk.shape
+        raise ValueError(f"{name} runs on CPU or CUDA, got {x.device}")
+    return True
+
+
+def _check_launch(x: torch.Tensor, P: int, n_heads: int, layer_params):
+    """Raise unless x [B, T, D] with P prefix keys and these layers fit the
+    kernel; returns (B, T, D, Fp) and the layers' weight pointers."""
+    B, T, D = x.shape
     H = n_heads
     if D % H:
         raise ValueError(f"D={D} not divisible by n_heads={H}")
     hd = D // H
     hdp, Dp = _ceil16(hd), _ceil16(D)
-    Fp = p.wfc.shape[0]
-    lib = _library()
-    rows, max_keys, max_m, max_dp, max_hdp = _limits()
-    if T2 > rows or P + T2 > max_keys or Dp > max_dp or hdp > max_hdp:
-        raise ValueError(f"shape outside the kernel's limits: T2={T2} (<= {rows}), "
-                         f"P+T2={P + T2} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
+    Fp = layer_params[0].wfc.shape[0]
+    rows, max_keys, _, max_dp, max_hdp, _ = _limits()
+    if T > rows or P + T > max_keys or Dp > max_dp or hdp > max_hdp:
+        raise ValueError(f"shape outside the kernel's limits: T={T} (<= {rows}), "
+                         f"P+T={P + T} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
                          f"hdp={hdp} (<= {max_hdp})")
+    if Fp % 16:
+        raise ValueError(f"MLP width {Fp} not a multiple of 16")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    build.check_tensor(x, "x", (B, T2, D), bf, dev)
-    build.check_tensor(pk, "pk", (S, B, P, D), bf, dev)
-    build.check_tensor(pv, "pv", (S, B, P, D), bf, dev)
-    build.check_tensor(idx, "idx", (1,), torch.int32, dev)
+    build.check_tensor(x, "x", (B, T, D), bf, dev)
     shapes = dict(ln1_s=(D,), ln1_b=(D,), wqkv=(3 * H * hdp, Dp),
                   bqkv=(3 * H * hdp,), wproj=(Dp, H * hdp), bproj=(Dp,),
                   ln2_s=(D,), ln2_b=(D,), wfc=(Fp, Dp), bfc=(Fp,),
                   wfc2=(Dp, Fp), bfc2=(Dp,))
-    if Fp % 16:
-        raise ValueError(f"MLP width {Fp} not a multiple of 16")
-    for name, shape in shapes.items():
-        build.check_tensor(getattr(p, name), name, shape,
-                           bf if name.startswith("w") else f32, dev)
-    out = torch.empty_like(x)
-    pred = None
-    M = 0
-    epi_ptrs = [None] * 4
-    if epilogue is not None:
-        M = epilogue.w.shape[0]
-        if M > max_m:
-            raise ValueError(f"head width {M} > {max_m}")
-        for name, shape in dict(lnf_s=(D,), lnf_b=(D,), w=(M, D), b=(M,)).items():
-            build.check_tensor(getattr(epilogue, name), f"epilogue.{name}", shape, f32, dev)
-        pred = torch.empty(B, T2, M, dtype=f32, device=dev)
-        epi_ptrs = [t.data_ptr() for t in epilogue]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.beso_fused_layer_prefix(
-        x.data_ptr(), pk.data_ptr(), pv.data_ptr(), idx.data_ptr(),
-        *[t.data_ptr() for t in p], *epi_ptrs,
-        out.data_ptr(), None if pred is None else pred.data_ptr(),
-        B, T2, D, H, P, S, Fp, M, stream)
+    ptrs = []
+    for p in layer_params:
+        for name, shape in shapes.items():
+            build.check_tensor(getattr(p, name), name, shape,
+                               bf if name.startswith("w") else f32, dev)
+        ptrs.append([t.data_ptr() for t in p])
+    return (B, T, D, Fp), ptrs
+
+
+def _check_epilogue(epilogue: Optional[FusedEpilogue], x: torch.Tensor):
+    """(M, [4 pointers], pred tensor or None) for an optional epilogue."""
+    if epilogue is None:
+        return 0, [None] * 4, None
+    B, T, D = x.shape
+    M = epilogue.w.shape[0]
+    if M > _limits()[2]:
+        raise ValueError(f"head width {M} > {_limits()[2]}")
+    for name, shape in dict(lnf_s=(D,), lnf_b=(D,), w=(M, D), b=(M,)).items():
+        build.check_tensor(getattr(epilogue, name), f"epilogue.{name}", shape,
+                           torch.float32, x.device)
+    pred = torch.empty(B, T, M, dtype=torch.float32, device=x.device)
+    return M, [t.data_ptr() for t in epilogue], pred
+
+
+def _ptr_array(ptrs):
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError("fused_layer_prefix launch failed: "
-                           + build.error_string(rc))
+        raise RuntimeError(f"{name} launch failed: " + build.error_string(rc))
+
+
+def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                       idx: torch.Tensor, p: FusedLayerParams, *,
+                       n_heads: int, epilogue: Optional[FusedEpilogue] = None):
+    """B1 (see module docstring). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 only) or raise."""
+    if not _on_cuda(x, "fused_layer_prefix"):
+        return fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=n_heads,
+                                            epilogue=epilogue)
+    S, B, P, D = pk.shape
+    (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
+    for name, t in (("pk", pk), ("pv", pv)):
+        build.check_tensor(t, name, (S, B, P, D), torch.bfloat16, x.device)
+    build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
+    M, epi, pred = _check_epilogue(epilogue, x)
+    out = torch.empty_like(x)
+    rc = _library().beso_fused_layer_prefix(
+        x.data_ptr(), pk.data_ptr(), pv.data_ptr(), idx.data_ptr(), _ptr_array(w),
+        *epi, out.data_ptr(), None if pred is None else pred.data_ptr(),
+        B, T2, D, n_heads, P, S, Fp, M, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "fused_layer_prefix")
     fused_layer_prefix.launches += 1
     return out if epilogue is None else (out, pred)
 
 
+def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor],
+                              pv_layers: Sequence[torch.Tensor], idx: torch.Tensor,
+                              layer_params: Sequence[FusedLayerParams], *,
+                              n_heads: int,
+                              epilogue: Optional[FusedEpilogue] = None):
+    """B2: the blocks of `layer_params` in one launch, each against its own
+    pk/pv [S, B, P, D] at row `idx`, the epilogue after the last. Returns
+    what the last B1 launch of the chain would. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (bf16 only) or raise."""
+    if not _on_cuda(x, "fused_layers_prefix_group"):
+        return fused_layers_prefix_group_reference(
+            x, pk_layers, pv_layers, idx, layer_params, n_heads=n_heads,
+            epilogue=epilogue)
+    n = len(layer_params)
+    if not 1 <= n <= _limits()[5] or len(pk_layers) != n or len(pv_layers) != n:
+        raise ValueError(f"a group holds 1 to {_limits()[5]} layers, each with its "
+                         f"pk and pv; got {n} layers, {len(pk_layers)} pk, "
+                         f"{len(pv_layers)} pv")
+    S, B, P, D = pk_layers[0].shape
+    (B, T2, D, Fp), ws = _check_launch(x, P, n_heads, layer_params)
+    ptrs = []
+    for li, (w, pk, pv) in enumerate(zip(ws, pk_layers, pv_layers)):
+        for name, t in (("pk", pk), ("pv", pv)):
+            build.check_tensor(t, f"{name}[{li}]", (S, B, P, D), torch.bfloat16, x.device)
+        ptrs += w + [pk.data_ptr(), pv.data_ptr()]
+    build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
+    M, epi, pred = _check_epilogue(epilogue, x)
+    out = torch.empty_like(x)
+    rc = _library().beso_fused_layers_prefix_group(
+        x.data_ptr(), idx.data_ptr(), _ptr_array(ptrs), n, *epi, out.data_ptr(),
+        None if pred is None else pred.data_ptr(), B, T2, D, n_heads, P, S, Fp, M,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "fused_layers_prefix_group")
+    fused_layers_prefix_group.launches += 1
+    return out if epilogue is None else (out, pred)
+
+
+def fused_layer_with_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                            p: FusedLayerParams, *, n_heads: int) -> torch.Tensor:
+    """B3: one block over x [B, T2, D] against the prefix row pk/pv
+    [B, P, D] the caller selected. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 only) or raise."""
+    if not _on_cuda(x, "fused_layer_with_prefix"):
+        return fused_layer_with_prefix_reference(x, pk, pv, p, n_heads=n_heads)
+    B, P, D = pk.shape
+    (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
+    for name, t in (("pk", pk), ("pv", pv)):
+        build.check_tensor(t, name, (B, P, D), torch.bfloat16, x.device)
+    out = torch.empty_like(x)
+    rc = _library().beso_fused_layer_with_prefix(
+        x.data_ptr(), pk.data_ptr(), pv.data_ptr(), _ptr_array(w), out.data_ptr(),
+        B, T2, D, n_heads, P, Fp, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "fused_layer_with_prefix")
+    fused_layer_with_prefix.launches += 1
+    return out
+
+
+def fused_layer(x: torch.Tensor, p: FusedLayerParams, *, n_heads: int) -> torch.Tensor:
+    """B4: one causal block over the whole token sequence x [B, T, D]. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (bf16
+    only) or raise."""
+    if not _on_cuda(x, "fused_layer"):
+        return fused_layer_reference(x, p, n_heads=n_heads)
+    (B, T, D, Fp), (w,) = _check_launch(x, 0, n_heads, [p])
+    out = torch.empty_like(x)
+    rc = _library().beso_fused_layer(
+        x.data_ptr(), _ptr_array(w), out.data_ptr(), B, T, D, n_heads, Fp,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "fused_layer")
+    fused_layer.launches += 1
+    return out
+
+
 fused_layer_prefix.launches = 0
+fused_layers_prefix_group.launches = 0
+fused_layer_with_prefix.launches = 0
+fused_layer.launches = 0

@@ -38,7 +38,28 @@ exits non-zero on failure:
    EVAL_EVERY steps; the flash launch counters must move by exactly 6 per
    step (each kernel) plus 6 x 3 NFE per evaluation batch (forward), every
    loss and test MSE must be finite. Prints train steps/s and peak memory
-   (informational).
+   (informational);
+8. fused-layer kernels B2, B3 and B4 against their plain PyTorch versions
+   in bf16, each within 2^-5 of max |ref|: B4 (`fused_layer`, whole causal
+   sequence) at the kitchen (11 tokens, 2047 envs) and block-push (12
+   tokens, 2001 envs) shapes; B3 (`fused_layer_with_prefix`) at the kitchen
+   (P=3, 2T=8) and block-push (P=2, 2T=10) shapes, and bit-equal to B1 on
+   the same row; B2 (`fused_layers_prefix_group`) with groups of 2 and 4
+   layers, epilogue on and off, and bit-equal to the chain of B1 launches.
+   Times B4 at 2048 x 11, B3 at 2048 x 8 and B2 (group 2) against two B1
+   launches and against the plain versions, with CUDA events;
+9. engines: `make_fused_denoise_fn` (B4) against the plain `GCDenoiser`
+   forward at the three grid sigmas and one off-grid sigma, with and
+   without zeroed (uncond) goals, linear and MLP heads; the `fused_cached`
+   engine with `token_lanes=False` (B3) and with `layer_group` 2 and 4 (B2)
+   against the default `fused_cached` engine (B1) at every grid sigma;
+10. main paths of the other engine forms: 1024-env x ROLLOUT_STEPS-step
+   kitchen rollouts with lambda=1.5 CFG (2048 rows per call), the launch
+   counters exact: (a) `fused_cached` with BESO_LAYER_GROUP=2, 3 B2
+   launches per call and no B1; (b) `fused_cached` with token_lanes=False,
+   6 B3 launches per call; (c) `make_fused_denoise_fn` as the rollout's
+   denoise fn, 6 B4 launches per call. Every metric finite; env-steps/s
+   printed (informational).
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.
@@ -48,12 +69,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 N_ENVS, N_STEPS, NFE, N_LAYERS = 1024, 280, 3, 6
+ROLLOUT_STEPS = 100   # phase 10's rollouts of the other engine forms
 ERR_FRACTION = 2.0 ** -5   # kernel and engine bound: fraction of max |ref|
 TRAIN_STEPS, EVAL_EVERY, TRAIN_BATCH = 240, 80, 256
 CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
@@ -233,6 +256,216 @@ def time_kernel(B, device, gen):
     return ms, plain_ms
 
 
+def _bf16(gen, *shape, device):
+    import torch
+
+    return torch.randn(*shape, generator=gen).to(device, torch.bfloat16)
+
+
+def _same_bits(what, got, ref):
+    """Fail unless got and ref are equal bit for bit."""
+    import torch
+
+    same = torch.equal(got, ref)
+    print(f"  {what}: {'bit-equal' if same else 'NOT bit-equal: FAIL'}")
+    if not same:
+        fail(f"{what}: the kernels disagree")
+
+
+def check_other_layers(device, gen):
+    """Phase 8: B4, B3 and B2 against their plain versions, B3 and B2
+    against B1 launches. Returns {kernel: largest max |diff| vs plain}."""
+    import torch
+
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    err = {"fused_layer": 0.0, "fused_layer_with_prefix": 0.0,
+           "fused_layers_prefix_group": 0.0}
+
+    def check(kernel, what, got, ref):
+        err[kernel] = max(err[kernel], _rel_check(what, got, ref, ERR_FRACTION))
+
+    # B4: 5 envs per 64-row tile at 11 and 12 tokens; 2047 and 2001 envs
+    # leave the last tile ragged
+    for name, D, H, T, B in (("kitchen", 360, 6, 11, 2047), ("block_push", 240, 12, 12, 2001)):
+        p, _ = random_layer(D, H, 2, gen, device)
+        x = _bf16(gen, B, T, D, device=device)
+        got = fl.fused_layer(x, p, n_heads=H)
+        ref = fl.fused_layer_reference(x, p, n_heads=H)
+        torch.cuda.synchronize()
+        check("fused_layer", f"B4 {name} B={B} T={T}", got, ref)
+    # B3 on sigma row 2, and B1 on the same row
+    for name, D, H, P, T2, B in (("kitchen", 360, 6, 3, 8, 1999),
+                                 ("block_push", 240, 12, 2, 10, 2000)):
+        p, _ = random_layer(D, H, 2, gen, device)
+        x = _bf16(gen, B, T2, D, device=device)
+        pk, pv = _bf16(gen, 3, B, P, D, device=device), _bf16(gen, 3, B, P, D, device=device)
+        idx = torch.tensor([2], dtype=torch.int32, device=device)
+        got = fl.fused_layer_with_prefix(x, pk[2], pv[2], p, n_heads=H)
+        ref = fl.fused_layer_with_prefix_reference(x, pk[2], pv[2], p, n_heads=H)
+        b1 = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H)
+        torch.cuda.synchronize()
+        check("fused_layer_with_prefix", f"B3 {name} B={B} P={P} 2T={T2}", got, ref)
+        _same_bits(f"B3 {name} vs B1 on row 2", got, b1)
+    # B2: groups of 2 and 4 layers (4 does not divide 6), epilogue off/on
+    D, H, P, T2, S, M, B = 360, 6, 3, 8, 3, 9, 1999
+    made = [random_layer(D, H, M, gen, device) for _ in range(4)]
+    layers, epi = [m[0] for m in made], made[-1][1]
+    pks = [_bf16(gen, S, B, P, D, device=device) for _ in range(4)]
+    pvs = [_bf16(gen, S, B, P, D, device=device) for _ in range(4)]
+    x = _bf16(gen, B, T2, D, device=device)
+    idx = torch.tensor([1], dtype=torch.int32, device=device)
+    for n in (2, 4):
+        for e in (None, epi):
+            got = fl.fused_layers_prefix_group(x, pks[:n], pvs[:n], idx, layers[:n],
+                                               n_heads=H, epilogue=e)
+            ref = fl.fused_layers_prefix_group_reference(x, pks[:n], pvs[:n], idx,
+                                                         layers[:n], n_heads=H, epilogue=e)
+            y = x
+            for li in range(n):
+                last = li == n - 1
+                chain = fl.fused_layer_prefix(y, pks[li], pvs[li], idx, layers[li],
+                                              n_heads=H, epilogue=e if last else None)
+                y = chain[0] if (last and e is not None) else chain
+            torch.cuda.synchronize()
+            outs = [(got, ref, chain)] if e is None else list(zip(got, ref, chain))
+            for what, (g_, r_, c_) in zip(("out", "pred"), outs):
+                tag = f"B2 group {n} epilogue={e is not None} {what}"
+                check("fused_layers_prefix_group", tag, g_, r_)
+                _same_bits(f"{tag} vs {n} B1 launches", g_, c_)
+    return err
+
+
+def time_other_layers(B, device, gen):
+    """Phase 8 timing at the kitchen serving shape (B rows, D=360): B4 over
+    11 tokens, B3 over 8 (and with its two row copies), B2 with a group of
+    2 against two B1 launches; (kernel ms, plain ms) each."""
+    import torch
+
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    D, H = 360, 6
+    (p1, _), (p2, _) = random_layer(D, H, 9, gen, device), random_layer(D, H, 9, gen, device)
+    x11, x8 = _bf16(gen, B, 11, D, device=device), _bf16(gen, B, 8, D, device=device)
+    pk = [_bf16(gen, 3, B, 3, D, device=device) for _ in range(2)]
+    pv = [_bf16(gen, 3, B, 3, D, device=device) for _ in range(2)]
+    idx = torch.tensor([1], dtype=torch.int32, device=device)
+    row = idx.long()
+
+    def two_b1(layer_fn):
+        y = layer_fn(x8, pk[0], pv[0], idx, p1, n_heads=H)
+        return layer_fn(y, pk[1], pv[1], idx, p2, n_heads=H)
+
+    cases = {
+        "fused_layer": (lambda: fl.fused_layer(x11, p1, n_heads=H),
+                        lambda: fl.fused_layer_reference(x11, p1, n_heads=H)),
+        "fused_layer_with_prefix": (
+            lambda: fl.fused_layer_with_prefix(x8, pk[0][1], pv[0][1], p1, n_heads=H),
+            lambda: fl.fused_layer_with_prefix_reference(x8, pk[0][1], pv[0][1], p1,
+                                                         n_heads=H)),
+        "fused_layer_with_prefix + row copies": (
+            lambda: fl.fused_layer_with_prefix(x8, pk[0].index_select(0, row)[0],
+                                               pv[0].index_select(0, row)[0], p1, n_heads=H),
+            lambda: fl.fused_layer_with_prefix_reference(
+                x8, pk[0].index_select(0, row)[0], pv[0].index_select(0, row)[0], p1,
+                n_heads=H)),
+        "fused_layers_prefix_group": (
+            lambda: fl.fused_layers_prefix_group(x8, pk, pv, idx, [p1, p2], n_heads=H),
+            lambda: fl.fused_layers_prefix_group_reference(x8, pk, pv, idx, [p1, p2],
+                                                           n_heads=H)),
+        "2 x fused_layer_prefix": (lambda: two_b1(fl.fused_layer_prefix),
+                                   lambda: two_b1(fl.fused_layer_prefix_reference)),
+    }
+    return {name: (time_ms(k, 50, device), time_ms(pl, 10, device))
+            for name, (k, pl) in cases.items()}
+
+
+def check_full_engine(den, device, B, gen, label):
+    """Phase 9: `make_fused_denoise_fn` (B4) against the plain GCDenoiser
+    forward, three grid sigmas and one off-grid, with and without zeroed
+    goals. Returns the largest max |diff|."""
+    import torch
+
+    from beso_tpu_torch.core.schedules import get_noise_schedule
+    from beso_tpu_torch.models import make_fused_denoise_fn
+
+    m = den.inner_model
+    T, G = m.obs_seq_len, m.goal_seq_len
+    s = torch.randn(B, T, m.state_dim, generator=gen).to(device)
+    a = torch.randn(B, T, m.action_dim, generator=gen).to(device)
+    g = torch.randn(B, G, m.state_dim, generator=gen).to(device)
+    fn = make_fused_denoise_fn(den)
+    grid = get_noise_schedule(NFE, 0.005, 1.0, 5.0, "exponential")[:-1]
+    worst = 0.0
+    for sg in [float(v) for v in grid] + [0.3]:
+        sig = torch.full((B,), sg, device=device)
+        for uncond in (False, True):
+            got, ref = fn(s, a, g, sig, uncond=uncond), den(s, a, g, sig, uncond=uncond)
+            if got.shape != (B, T, m.action_dim):
+                fail(f"make_fused_denoise_fn returned shape {tuple(got.shape)}")
+            worst = max(worst, _rel_check(
+                f"{label} sigma={sg:.6g} uncond={uncond}: fused (B4) vs plain forward",
+                got, ref, ERR_FRACTION))
+    return worst
+
+
+def check_cached_forms(den, device, B, gen):
+    """Phase 9: the fused_cached engine with token_lanes=False (B3) and with
+    layer_group 2 and 4 (B2) against the default form (B1), every grid sigma."""
+    import torch
+
+    from beso_tpu_torch.core.schedules import get_noise_schedule
+    from beso_tpu_torch.models.fused import make_fused_cached_denoise_fn
+
+    m = den.inner_model
+    T, G = m.obs_seq_len, m.goal_seq_len
+    s = torch.randn(B, T, m.state_dim, generator=gen).to(device)
+    a = torch.randn(B, T, m.action_dim, generator=gen).to(device)
+    g = torch.randn(B, G, m.state_dim, generator=gen).to(device)
+    grid = get_noise_schedule(NFE, 0.005, 1.0, 5.0, "exponential")[:-1]
+    base = make_fused_cached_denoise_fn(den, g, grid)
+    for label, kw in (("token_lanes=False", dict(token_lanes=False)),
+                      ("layer_group=2", dict(layer_group=2)),
+                      ("layer_group=4", dict(layer_group=4))):
+        dn = make_fused_cached_denoise_fn(den, g, grid, **kw)
+        for sg in grid:
+            sig = torch.full((B,), float(sg), device=device)
+            got, ref = dn(s, a, g, sig), base(s, a, g, sig)
+            _rel_check(f"{label} sigma={float(sg):.6g} vs default fused_cached "
+                       f"({'bit-equal' if torch.equal(got, ref) else 'not bit-equal'})",
+                       got, ref, ERR_FRACTION)
+
+
+def run_engine_rollout(den, policy_kw, scale_data, device, engine, expect, card):
+    """Phase 10: one ROLLOUT_STEPS-step rollout of an engine form, after a
+    2-step warm-up, with every fused-layer counter set to 0 just before it;
+    fails unless the counts are exactly `expect` (the rest 0)."""
+    import torch
+
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    counters = (fl.fused_layer_prefix, fl.fused_layers_prefix_group,
+                fl.fused_layer_with_prefix, fl.fused_layer)
+    run_rollout(den, policy_kw, scale_data, N_ENVS, 2, device, seed=1, engine=engine)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    metrics = run_rollout(den, policy_kw, scale_data, N_ENVS, ROLLOUT_STEPS, device, seed=2,
+                          engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: expect.get(c.__name__, 0) for c in counters}
+    print(f"  launches: {counts} (expected {want})")
+    if counts != want:
+        fail(f"the {engine} rollout launched the kernels {counts}, not {want}")
+    check_rollout_metrics(metrics, N_ENVS, ROLLOUT_STEPS)
+    print(f"  wall {wall:.3f} s, {N_ENVS * ROLLOUT_STEPS / wall:.1f} env-steps/s "
+          f"(informational; random weights; {card})")
+    return counts
+
+
 def build_model(model_kw, device, seed):
     import torch
 
@@ -275,14 +508,39 @@ def check_engine(den, device, B, gen):
     return worst
 
 
-def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed):
-    """The main path: kitchen rollout on the fused_cached engine."""
+def token_lanes_false_factory(den, scaler, cfg):
+    """Per-episode factory on `make_fused_cached_denoise_fn(token_lanes=False)`
+    (kernel B3), with the goals stacked as `cfg_denoise_fn` stacks its batch,
+    as `make_rollout_denoise_factory` does for the default form."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import scale_goal_for_model
+    from beso_tpu_torch.core.schedules import get_noise_schedule
+    from beso_tpu_torch.models.fused import make_fused_cached_denoise_fn
+
+    sigmas = get_noise_schedule(cfg.num_sampling_steps, cfg.sigma_min, cfg.sigma_max,
+                                cfg.rho, cfg.noise_scheduler)[:-1]
+
+    def factory(goals_raw):
+        g_s = scale_goal_for_model(scaler, goals_raw)
+        g_model = torch.cat([g_s, torch.zeros_like(g_s)])   # lambda != 0, 1
+        return make_fused_cached_denoise_fn(den, g_model, sigmas, token_lanes=False)
+
+    return factory
+
+
+def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed,
+                engine="fused_cached"):
+    """A kitchen rollout. `engine`: "fused_cached" (the serving main path,
+    B1, or B2 under BESO_LAYER_GROUP), "token_lanes_false" (B3) or
+    "uncached" (`make_fused_denoise_fn`, B4, no factory)."""
     import torch
 
     from beso_tpu_torch.agents.policy import PolicyConfig
     from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
     from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
-    from beso_tpu_torch.models import fit_scaler, make_rollout_denoise_factory
+    from beso_tpu_torch.models import (fit_scaler, make_fused_denoise_fn,
+                                       make_rollout_denoise_factory)
     from beso_tpu_torch.rollout import rollout_kitchen
 
     data = synthetic_kitchen_data(n_traj=32, t_max=60)
@@ -290,11 +548,32 @@ def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed):
                         scale_data=scale_data, device=device)
     goals, expected = multigoal_kitchen_goals(data, 2, n_envs, seed=42)
     cfg = PolicyConfig(**policy_kw)
-    factory = make_rollout_denoise_factory(den, scaler, cfg, engine="fused_cached")
+    denoise_fn = factory = None
+    if engine == "fused_cached":
+        factory = make_rollout_denoise_factory(den, scaler, cfg, engine="fused_cached")
+    elif engine == "token_lanes_false":
+        factory = token_lanes_false_factory(den, scaler, cfg)
+    else:
+        denoise_fn = make_fused_denoise_fn(den)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return rollout_kitchen(None, scaler, cfg, torch.as_tensor(goals, device=device),
+    return rollout_kitchen(denoise_fn, scaler, cfg, torch.as_tensor(goals, device=device),
                            torch.as_tensor(expected, device=device), gen,
                            n_steps=n_steps, denoise_factory=factory)
+
+
+def check_rollout_metrics(metrics, n_envs, n_steps):
+    """Shapes and finiteness of a rollout's metrics."""
+    import torch
+
+    for name in ("rewards", "results"):
+        v = getattr(metrics, name)
+        if v.shape != (n_envs,) or not bool(torch.isfinite(v).all()):
+            fail(f"rollout metric {name} is not finite / has shape {tuple(v.shape)}")
+    if metrics.completed.shape != (n_envs, 7) or metrics.env_steps != n_envs * n_steps:
+        fail("rollout metrics have the wrong shape")
+    order = metrics.completion_order
+    if bool(((order < -1) | (order > n_steps)).any()):
+        fail("completion_order outside [-1, n_steps]")
 
 
 def _rel_check(what, got, ref, frac):
@@ -504,15 +783,7 @@ def main() -> None:
     print(f"  launches: {launches} (expected {expect})")
     if launches != expect:
         fail(f"the main path launched the kernel {launches} times, not {expect}")
-    for name in ("rewards", "results"):
-        v = getattr(metrics, name)
-        if v.shape != (N_ENVS,) or not bool(torch.isfinite(v).all()):
-            fail(f"rollout metric {name} is not finite / has shape {tuple(v.shape)}")
-    if metrics.completed.shape != (N_ENVS, 7) or metrics.env_steps != N_ENVS * N_STEPS:
-        fail("rollout metrics have the wrong shape")
-    order = metrics.completion_order
-    if bool(((order < -1) | (order > N_STEPS)).any()):
-        fail("completion_order outside [-1, n_steps]")
+    check_rollout_metrics(metrics, N_ENVS, N_STEPS)
     hist = success_rate_histogram(metrics.completed.sum(-1).cpu().numpy())
     print(f"  wall {wall:.3f} s, {N_ENVS * N_STEPS / wall:.1f} env-steps/s "
           f"(informational; random weights; {card})")
@@ -593,6 +864,41 @@ def main() -> None:
     print(f"  trained agent, {ws.eval_n_times} envs x {ws.eval_n_steps} steps on the "
           f"cached engine: avrg_reward {mg['avrg_reward']:.4f}")
 
+    # ---- 8. fused-layer kernels B2, B3, B4 against their plain versions ---
+    print("[8] fused-layer kernels B4, B3, B2 vs plain versions (bf16)")
+    layer_err = check_other_layers(device, gen)
+    layer_ms = time_other_layers(B_serve, device, gen)
+    for name, (ms_k, ms_p) in layer_ms.items():
+        print(f"  time {name} at B={B_serve}, D=360: kernel {ms_k:.4f} ms, "
+              f"plain {ms_p:.4f} ms ({card})")
+
+    # ---- 9. the other engine forms against plain forwards -----------------
+    print("[9] make_fused_denoise_fn vs plain forward; fused_cached forms vs default (bf16)")
+    check_full_engine(den, device, 256, gen, "linear head")
+    den_mlp = build_model({**model_kw, "linear_output": False}, device, seed=7)
+    check_full_engine(den_mlp, device, 256, gen, "MLP head")
+    check_cached_forms(den, device, 256, gen)
+
+    # ---- 10. main paths of the other engine forms -------------------------
+    calls = ROLLOUT_STEPS * NFE
+    print(f"[10a] kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} steps, fused_cached, "
+          f"BESO_LAYER_GROUP=2")
+    os.environ["BESO_LAYER_GROUP"] = "2"
+    try:
+        group_counts = run_engine_rollout(
+            den, policy_kw, scale_data, device, "fused_cached",
+            {"fused_layers_prefix_group": calls * -(-N_LAYERS // 2)}, card)
+    finally:
+        del os.environ["BESO_LAYER_GROUP"]
+    print(f"[10b] kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} steps, fused_cached, "
+          f"token_lanes=False")
+    b3_counts = run_engine_rollout(den, policy_kw, scale_data, device, "token_lanes_false",
+                                   {"fused_layer_with_prefix": calls * N_LAYERS}, card)
+    print(f"[10c] kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} steps, "
+          f"make_fused_denoise_fn (no cache)")
+    b4_counts = run_engine_rollout(den, policy_kw, scale_data, device, "uncached",
+                                   {"fused_layer": calls * N_LAYERS}, card)
+
     src = "beso_tpu_torch/csrc/flash_attention.cu"
     replaces = {"flash_forward": "beso_tpu/ops/flash_attention.py:269",
                 "flash_backward_dq": "beso_tpu/ops/flash_attention.py:78",
@@ -603,6 +909,14 @@ def main() -> None:
         "replaces": "beso_tpu/ops/fused_layer.py:618",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms}]
+    layer_src = "beso_tpu_torch/csrc/fused_layer_prefix.cu"
+    for name, line, path_counts in (("fused_layers_prefix_group", 488, group_counts),
+                                    ("fused_layer_with_prefix", 258, b3_counts),
+                                    ("fused_layer", 298, b4_counts)):
+        kernels.append({"name": name, "route": "cuda", "source": layer_src,
+                        "replaces": f"beso_tpu/ops/fused_layer.py:{line}",
+                        "launches": path_counts[name], "max_abs_err": layer_err[name],
+                        "ms": layer_ms[name][0], "plain_ms": layer_ms[name][1]})
     kernels += [{"name": name, "route": "cuda", "source": src,
                  "replaces": replaces[name], "launches": counts[name],
                  "max_abs_err": flash_err[name], "ms": flash_ms[name][0],

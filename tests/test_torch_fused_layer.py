@@ -10,7 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import TOL, make_inputs, make_models, t
+from torch_parity import (TOL, jax_layer, layer_weights, make_inputs,
+                          make_models, port_layer, t)
 
 from beso_tpu.ops import fused_layer as jfl
 from beso_tpu_torch.models.cached import (build_prefix, extract_gpt_params,
@@ -18,27 +19,6 @@ from beso_tpu_torch.models.cached import (build_prefix, extract_gpt_params,
 from beso_tpu_torch.models.gpt import layer_norm
 from beso_tpu_torch.ops import build
 from beso_tpu_torch.ops import fused_layer as fl
-
-
-def _layer(D, seed):
-    """One layer's weights in flax orientation ([in, out]) as numpy."""
-    rng = np.random.RandomState(seed)
-    f = np.float32
-
-    def w(i, o):
-        return (rng.randn(i, o) / np.sqrt(i)).astype(f)
-
-    def v(n, base=0.0):
-        return (base + 0.1 * rng.randn(n)).astype(f)
-
-    return dict(wqkv=w(D, 3 * D), bqkv=v(3 * D), wproj=w(D, D), bproj=v(D),
-                wfc=w(D, 4 * D), bfc=v(4 * D), wfc2=w(4 * D, D), bfc2=v(D),
-                ln1_s=v(D, 1.0), ln1_b=v(D), ln2_s=v(D, 1.0), ln2_b=v(D))
-
-
-def _port_params(lw, H, dtype=torch.float32):
-    lp = {k: t(a.T) if k.startswith("w") else t(a) for k, a in lw.items()}
-    return fl.prepare_layer_params(lp, H, dtype)
 
 
 def _case(D, H, P, T2, S, M, B, seed):
@@ -49,7 +29,7 @@ def _case(D, H, P, T2, S, M, B, seed):
     pv = rng.randn(S, B, P, D).astype(f)
     epi = (rng.rand(D).astype(f) + 0.5, 0.1 * rng.randn(D).astype(f),
            (rng.randn(M, D) / np.sqrt(D)).astype(f), 0.1 * rng.randn(M).astype(f))
-    return x, pk, pv, _layer(D, seed + 1), epi
+    return x, pk, pv, layer_weights(D, seed + 1), epi
 
 
 # (D, H, P, T2, S, M, qbatch, epilogue): kitchen-like and push-like heads
@@ -67,11 +47,7 @@ def test_plain_matches_jax_tpu_kernel(name):
     idx = np.asarray([S - 1], np.int32)
 
     # JAX: token-merged-lanes layout, head dim padded to hdp >= 32
-    jp = jfl.prepare_layer_params(
-        *(jnp.asarray(lw[k]) for k in ("wqkv", "bqkv", "wproj", "bproj", "wfc",
-                                       "bfc", "wfc2", "bfc2", "ln1_s", "ln1_b",
-                                       "ln2_s", "ln2_b")),
-        n_heads=H, dtype=jnp.float32)
+    jp = jax_layer(lw, H)
     hd, hdp = D // H, jfl.padded_head_dim(D // H)
 
     def kv_tl(a):   # [S, B, P, D] -> [S, nB, H*hdp, P*E]
@@ -97,7 +73,7 @@ def test_plain_matches_jax_tpu_kernel(name):
 
     tepi = fl.FusedEpilogue(*(t(a) for a in epi)) if use_epi else None
     out = fl.fused_layer_prefix_reference(
-        t(x), t(pk), t(pv), t(idx), _port_params(lw, H), n_heads=H, epilogue=tepi)
+        t(x), t(pk), t(pv), t(idx), port_layer(lw, H), n_heads=H, epilogue=tepi)
     if use_epi:
         np.testing.assert_allclose(out[0].numpy(), from_tl(jout[0]), **TOL)
         np.testing.assert_allclose(out[1].numpy(), from_tl(jout[1])[..., :M], **TOL)
@@ -142,7 +118,7 @@ def test_plain_chain_matches_suffix_forward(epilogue):
 
 def test_wrapper_cpu_dispatch_counts_no_launch():
     x, pk, pv, lw, _ = _case(48, 2, 3, 8, 3, 9, 5, seed=31)
-    p = _port_params(lw, 2)
+    p = port_layer(lw, 2)
     idx = torch.tensor([2], dtype=torch.int32)
     before = fl.fused_layer_prefix.launches
     out = fl.fused_layer_prefix(t(x), t(pk), t(pv), idx, p, n_heads=2)
@@ -162,8 +138,8 @@ def test_wrapper_cpu_dispatch_counts_no_launch():
 def test_prepare_pads_to_16(D, H, shapes):
     """Kitchen (hd 60 -> 64, D 360 -> 368) and block push (hd 20 -> 32);
     padding is zero, and the bf16 weights are contiguous."""
-    lw = _layer(D, seed=41)
-    p = _port_params(lw, H, torch.bfloat16)
+    lw = layer_weights(D, seed=41)
+    p = port_layer(lw, H, torch.bfloat16)
     for name, shape in shapes.items():
         assert tuple(getattr(p, name).shape) == shape
         assert getattr(p, name).is_contiguous()
@@ -189,7 +165,7 @@ def test_kernel_matches_plain():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
     dev = torch.device("cuda")
     x, pk, pv, lw, epi = _case(360, 6, 3, 8, 3, 9, 37, seed=51)
-    p = fl.FusedLayerParams(*(v.to(dev) for v in _port_params(lw, 6, torch.bfloat16)))
+    p = fl.FusedLayerParams(*(v.to(dev) for v in port_layer(lw, 6, torch.bfloat16)))
     e = fl.FusedEpilogue(*(t(a).to(dev) for a in epi))
     args = [t(v).to(dev, torch.bfloat16) for v in (x, pk, pv)]
     idx = torch.tensor([1], dtype=torch.int32, device=dev)

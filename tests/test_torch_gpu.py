@@ -1,6 +1,9 @@
-"""Kernel-vs-plain tests of the port's CUDA kernels B5 and B6 (flash
-attention forward, dQ, dK/dV) on the card, in bf16 within 2^-5 of max
-|ref| (chip_smoke.py's bound). Marked `gpu`: without a card they skip.
+"""Kernel-vs-plain tests of the port's CUDA kernels on the card, in bf16
+within 2^-5 of max |ref| (chip_smoke.py's bound): B5 and B6 (flash
+attention forward, dQ, dK/dV) and the fused layers B2 (layer group), B3
+(one selected prefix row) and B4 (whole causal sequence), which must also
+equal B1 launches bit for bit where they compute the same thing. Marked
+`gpu`: without a card they skip.
 
 This file imports no JAX, so it also runs on the card's host, which has
 none: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`.
@@ -11,6 +14,7 @@ import pytest
 import torch
 
 from beso_tpu_torch.ops import flash_attention as fa
+from beso_tpu_torch.ops import fused_layer as fl
 
 SHAPES = [((3, 2, 77, 60), True), ((3, 2, 77, 20), False), ((2, 3, 131, 18), True),
           ((1, 2, 2, 60), True), ((2, 2, 128, 64), True)]
@@ -73,3 +77,93 @@ def test_wrappers_raise_off_cpu_and_cuda():
         fa.flash_backward_dq(x, x, x, x, x[..., :1], x[..., :1])
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fa.flash_backward_dkv(x, x, x, x, x[..., :1], x[..., :1])
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
+    return torch.device("cuda")
+
+
+def _fused_layer(D, H, rng, dev):
+    """One layer's random weights in the kernels' layout (bf16 on `dev`)."""
+    def w(o, i):
+        return torch.as_tensor((rng.randn(o, i) / np.sqrt(i)).astype(np.float32))
+
+    def v(n, base=0.0):
+        return torch.as_tensor((base + 0.1 * rng.randn(n)).astype(np.float32))
+
+    lp = dict(wqkv=w(3 * D, D), bqkv=v(3 * D), wproj=w(D, D), bproj=v(D),
+              wfc=w(4 * D, D), bfc=v(4 * D), wfc2=w(D, 4 * D), bfc2=v(D),
+              ln1_s=v(D, 1.0), ln1_b=v(D), ln2_s=v(D, 1.0), ln2_b=v(D))
+    return fl.prepare_layer_params({k: a.to(dev) for k, a in lp.items()}, H)
+
+
+def _bf16(rng, *shape, dev):
+    return torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,T", [(360, 6, 11), (240, 12, 12)])
+def test_fused_layer_b4_matches_plain(D, H, T):
+    """Kitchen and block-push widths; 37 envs leave the last tile ragged."""
+    dev = _cuda()
+    rng = np.random.RandomState(T)
+    p = _fused_layer(D, H, rng, dev)
+    x = _bf16(rng, 37, T, D, dev=dev)
+    before = fl.fused_layer.launches
+    out = fl.fused_layer(x, p, n_heads=H)
+    ref = fl.fused_layer_reference(x, p, n_heads=H)
+    torch.cuda.synchronize()
+    assert fl.fused_layer.launches == before + 1
+    assert _close(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,P,T2", [(360, 6, 3, 8), (240, 12, 2, 10)])
+def test_fused_layer_b3_matches_plain_and_b1(D, H, P, T2):
+    dev = _cuda()
+    rng = np.random.RandomState(P)
+    p = _fused_layer(D, H, rng, dev)
+    x = _bf16(rng, 37, T2, D, dev=dev)
+    pk, pv = _bf16(rng, 3, 37, P, D, dev=dev), _bf16(rng, 3, 37, P, D, dev=dev)
+    idx = torch.tensor([2], dtype=torch.int32, device=dev)
+    out = fl.fused_layer_with_prefix(x, pk[2], pv[2], p, n_heads=H)
+    ref = fl.fused_layer_with_prefix_reference(x, pk[2], pv[2], p, n_heads=H)
+    b1 = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H)
+    torch.cuda.synchronize()
+    assert _close(out, ref)
+    assert torch.equal(out, b1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_group", [2, 4])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_fused_layers_b2_matches_plain_and_b1_chain(n_group, epilogue):
+    dev = _cuda()
+    rng = np.random.RandomState(n_group)
+    D, H, P, T2, S, M, B = 360, 6, 3, 8, 3, 9, 37
+    layers = [_fused_layer(D, H, rng, dev) for _ in range(n_group)]
+    pks = [_bf16(rng, S, B, P, D, dev=dev) for _ in range(n_group)]
+    pvs = [_bf16(rng, S, B, P, D, dev=dev) for _ in range(n_group)]
+    x = _bf16(rng, B, T2, D, dev=dev)
+    idx = torch.tensor([1], dtype=torch.int32, device=dev)
+    epi = None
+    if epilogue:
+        epi = fl.FusedEpilogue(*(torch.as_tensor(a.astype(np.float32)).to(dev) for a in (
+            1.0 + 0.1 * rng.randn(D), 0.1 * rng.randn(D), rng.randn(M, D) / np.sqrt(D),
+            0.1 * rng.randn(M))))
+    got = fl.fused_layers_prefix_group(x, pks, pvs, idx, layers, n_heads=H, epilogue=epi)
+    ref = fl.fused_layers_prefix_group_reference(x, pks, pvs, idx, layers, n_heads=H,
+                                                 epilogue=epi)
+    y = x
+    for li in range(n_group):
+        last = li == n_group - 1
+        chain = fl.fused_layer_prefix(y, pks[li], pvs[li], idx, layers[li], n_heads=H,
+                                      epilogue=epi if last else None)
+        y = chain[0] if (last and epi is not None) else chain
+    torch.cuda.synchronize()
+    got, ref, chain = ((v,) if epi is None else v for v in (got, ref, chain))
+    for g, r, c in zip(got, ref, chain):
+        assert _close(g, r)
+        assert torch.equal(g, c)

@@ -19,6 +19,7 @@ from beso_tpu.models import GCDenoiser as JaxDenoiser
 from beso_tpu_torch.models.convert import params_from_jax
 from beso_tpu_torch.models.denoiser import GCDenoiser
 from beso_tpu_torch.models.gpt import DiffusionGPT
+from beso_tpu_torch.ops.fused_layer import prepare_layer_params
 
 torch.set_num_threads(1)
 
@@ -72,3 +73,35 @@ def make_inputs(kw, B: int, seed: int):
 
 def t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a))
+
+
+def layer_weights(D: int, seed: int) -> dict:
+    """One block's weights in flax orientation ([in, out]) as numpy, under
+    `Block.weights()`'s names."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+
+    def w(i, o):
+        return (rng.randn(i, o) / np.sqrt(i)).astype(f)
+
+    def v(n, base=0.0):
+        return (base + 0.1 * rng.randn(n)).astype(f)
+
+    return dict(wqkv=w(D, 3 * D), bqkv=v(3 * D), wproj=w(D, D), bproj=v(D),
+                wfc=w(D, 4 * D), bfc=v(4 * D), wfc2=w(4 * D, D), bfc2=v(D),
+                ln1_s=v(D, 1.0), ln1_b=v(D), ln2_s=v(D, 1.0), ln2_b=v(D))
+
+
+def port_layer(lw: dict, n_heads: int, dtype=torch.float32):
+    """`layer_weights` in the port's fused-kernel layout."""
+    lp = {k: t(a.T) if k.startswith("w") else t(a) for k, a in lw.items()}
+    return prepare_layer_params(lp, n_heads, dtype)
+
+
+def jax_layer(lw: dict, n_heads: int):
+    """`layer_weights` in the JAX fused-kernel layout, f32."""
+    from beso_tpu.ops.fused_layer import prepare_layer_params as jprepare
+
+    return jprepare(*(jnp.asarray(lw[k]) for k in (
+        "wqkv", "bqkv", "wproj", "bproj", "wfc", "bfc", "wfc2", "bfc2",
+        "ln1_s", "ln1_b", "ln2_s", "ln2_b")), n_heads=n_heads, dtype=jnp.float32)
