@@ -107,7 +107,6 @@ def make_fused_denoise_fn(den):
 
 def make_fused_cached_denoise_fn(den, goals_scaled: torch.Tensor, sigmas, *,
                                  token_lanes: bool = True,
-                                 attn_qbatch: bool = False,
                                  layer_group: int = 1):
     """Per-episode EDM-preconditioned `dn(states, actions, goals_ignored,
     sigma)` on the fused layer kernels. Same gating as the cached engine:
@@ -117,11 +116,10 @@ def make_fused_cached_denoise_fn(den, goals_scaled: torch.Tensor, sigmas, *,
     per launch (groups need not divide the layer count; the epilogue runs
     with the last group). `token_lanes=False` runs B3 per layer, with ln_f
     and the head outside the kernel, and ignores `layer_group`. The names
-    are the JAX engine's, whose two TPU layouts these were. `attn_qbatch`
-    chose between two TPU forms of the same attention; here both values
-    compute the same result on the same kernels.
+    are the JAX engine's, whose two TPU layouts these were. The JAX engine's
+    TPU-only options `attn_qbatch`, `env_block` and `interpret` are not
+    ported: they choose among TPU layouts of the same computation.
     """
-    del attn_qbatch  # one attention form on the card
     if layer_group < 1:
         raise ValueError(f"layer_group must be >= 1, got {layer_group}")
     model = den.inner_model

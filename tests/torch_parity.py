@@ -1,7 +1,8 @@
 """Shared helpers for the `beso_tpu_torch` parity tests (test_torch_*.py).
 
 Builds a small DiffusionGPT in both packages with the same weights: flax
-initialises the tree, every leaf is then redrawn from a seeded numpy
+gives the tree's shapes (`jax.eval_shape` of its init, so nothing is
+computed), every leaf is then drawn from a seeded numpy
 RandomState (so the weights are not near-zero and the comparison has
 teeth), and `params_from_jax` copies the tree into the torch module.
 Inputs are drawn with numpy and handed to both packages.
@@ -34,12 +35,12 @@ def _redraw(params, seed: int):
 
     def leaf(path, a):
         name = jax.tree_util.keystr(path)
-        a = np.asarray(a)
+        shape = tuple(a.shape)
         if "scale" in name:                      # LayerNorm gains
-            return (1.0 + 0.1 * rng.randn(*a.shape)).astype(np.float32)
-        fan_in = a.shape[0] if a.ndim == 2 else a.shape[-1]
+            return (1.0 + 0.1 * rng.randn(*shape)).astype(np.float32)
+        fan_in = shape[0] if len(shape) == 2 else shape[-1]
         std = 0.1 if "bias" in name else 1.0 / np.sqrt(fan_in)
-        return (std * rng.randn(*a.shape)).astype(np.float32)
+        return (std * rng.randn(*shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, params)
 
@@ -50,9 +51,10 @@ def make_models(seed: int = 0, **overrides):
     jden = JaxDenoiser(JaxGPT(**kw), sigma_data=0.5)
     T, G = kw["obs_seq_len"], kw["goal_seq_len"]
     gdim = kw.get("goal_dim") or kw["state_dim"]
-    params = jden.init(jax.random.PRNGKey(seed), jnp.zeros((2, T, kw["state_dim"])),
-                       jnp.zeros((2, T, kw["action_dim"])),
-                       jnp.zeros((2, G, gdim)), jnp.full((2,), 0.5))
+    params = jax.eval_shape(jden.init, jax.random.PRNGKey(seed),
+                            jnp.zeros((2, T, kw["state_dim"])),
+                            jnp.zeros((2, T, kw["action_dim"])),
+                            jnp.zeros((2, G, gdim)), jnp.full((2,), 0.5))
     params = _redraw(params, seed)
     tmodel = DiffusionGPT(**kw)
     params_from_jax(params, tmodel)
