@@ -79,6 +79,32 @@ constexpr int MAX_OUT_TILES = 3;   // Dp <= WARPS * 3 * 16 = 384
 constexpr int MAX_HDP = 64;        // two head-dim values per lane
 constexpr int MAX_LAYERS = 8;      // layers of one B2 group
 
+// Phases of the timed instantiation (clock64() cycles summed per block).
+enum Phase { PH_LOAD, PH_LN1, PH_QKV, PH_ATTN, PH_PROJ, PH_LN2, PH_FC, PH_FC2,
+             PH_WRITE, PH_EPI, N_PHASES };
+
+// Per-block phase clock of the timed instantiation; a no-op otherwise.
+// Thread 0 reads clock64() right after a block barrier and adds the cycles
+// since the previous mark to the phase that just ended.
+template <bool kOn>
+struct PhaseClock {
+  long long t = 0, acc[N_PHASES] = {};
+  __device__ __forceinline__ void start() {
+    if (kOn && threadIdx.x == 0) t = clock64();
+  }
+  __device__ __forceinline__ void mark(int ph) {
+    if (kOn && threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[ph] += now - t;
+      t = now;
+    }
+  }
+  __device__ __forceinline__ void store(long long* out) {
+    if (kOn && threadIdx.x == 0)
+      for (int i = 0; i < N_PHASES; ++i) out[blockIdx.x * N_PHASES + i] = acc[i];
+  }
+};
+
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -114,6 +140,7 @@ struct Args {
   const float* bhead;
   bf16* out;
   float* pred;
+  long long* cycles;  // [blocks, N_PHASES] (timed instantiation only)
   int B, T2, D, H, P, S, F, M;
   int hd, hdp, Dp, HDp, ywidth, envs_per_block;
   float scale;
@@ -223,9 +250,11 @@ __device__ void load_rows(bf16* dst, int ld, const bf16* src, int width, int row
 // the single-layer one (B1, B3, B4) indexes a.layer[0] statically, which
 // keeps its weight pointers out of registers (239 registers and no spill,
 // against 255 and a spill for the looped body on sm_90a).
-template <bool kGroup>
+template <bool kGroup, bool kTimed = false>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_layer_prefix_kernel(const __grid_constant__ Args a) {
+  PhaseClock<kTimed> clk;
+  clk.start();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int Dp = a.Dp, hdp = a.hdp, D = a.D, T2 = a.T2;
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);         // [ROWS, Dp] residual
@@ -263,8 +292,10 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
     }
     for (int i = tid; i < ROWS * a.ywidth; i += THREADS) ys[i] = f2bf(0.f);
     __syncthreads();
+    clk.mark(PH_LOAD);
     layernorm_rows(xs, hs, w.ln1_s, w.ln1_b, D, Dp, nrows, warp, lane);
     __syncthreads();
+    clk.mark(PH_LN1);
 
     // ---- attention, head by head ------------------------------------------
     const int tpp = hdp / 16;       // column tiles per q/k/v part of one head
@@ -290,6 +321,7 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
         }
       }
       __syncthreads();
+      clk.mark(PH_QKV);
 
       for (int r = warp; r < nrows; r += WARPS) {
         const int el = r / T2, t = r - el * T2;
@@ -349,6 +381,7 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
         }
       }
       __syncthreads();
+      clk.mark(PH_ATTN);
     }
 
     // ---- proj + residual (in place on xs; A operand is ys) ----------------
@@ -373,8 +406,10 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
       }
     }
     __syncthreads();
+    clk.mark(PH_PROJ);
     layernorm_rows(xs, hs, w.ln2_s, w.ln2_b, D, Dp, nrows, warp, lane);
     __syncthreads();
+    clk.mark(PH_LN2);
 
     // ---- MLP: hidden layer streamed in FC-column chunks, fc2 in registers --
     FragC out_acc[MAX_OUT_TILES][RT];
@@ -403,6 +438,7 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
         }
       }
       __syncthreads();
+      clk.mark(PH_FC);
       for (int k = 0; k < nt; ++k) {
         FragA fa[RT];
 #pragma unroll
@@ -422,6 +458,7 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
         }
       }
       __syncthreads();
+      clk.mark(PH_FC2);
     }
 #pragma unroll
     for (int j = 0; j < MAX_OUT_TILES; ++j) {
@@ -442,12 +479,15 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
       }
     }
     __syncthreads();
+    clk.mark(PH_FC2);
   }  // layers
 
   for (int i = tid; i < nrows * D; i += THREADS) {
     int r = i / D, c = i - r * D;
     a.out[(row0 + r) * D + c] = xs[r * Dp + c];
   }
+  if (kTimed) __syncthreads();
+  clk.mark(PH_WRITE);
 
   // ---- optional epilogue: ln_f in f32 + f32 linear head ------------------
   if (a.pred != nullptr) {
@@ -473,6 +513,9 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
       }
     }
   }
+  if (kTimed) __syncthreads();
+  clk.mark(PH_EPI);
+  clk.store(a.cycles);
 }
 
 // The twelve weight pointers of one layer (`FusedLayerParams` order) and its
@@ -498,9 +541,10 @@ LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
 
 // Fills the derived sizes, sizes shared memory and launches on `stream`;
 // returns cudaGetLastError() (0 = launched). `a.layer[:n_layers]` must be
-// set by the caller; `group` takes the B2 instantiation.
-int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
-           const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead,
+// set by the caller; `group` takes the B2 instantiation, a non-null
+// `cycles` the timed single-layer one.
+int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx,
+           int n_layers, const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead,
            void* out, void* pred, int B, int T2, int D, int H, int P, int S, int F, int M,
            void* stream) {
   if (n_layers < 1 || n_layers > (group ? MAX_LAYERS : 1))
@@ -514,6 +558,7 @@ int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
   a.bhead = static_cast<const float*>(bhead);
   a.out = static_cast<bf16*>(out);
   a.pred = static_cast<float*>(pred);
+  a.cycles = cycles;
   a.B = B;
   a.T2 = T2;
   a.D = D;
@@ -533,8 +578,9 @@ int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
   const size_t smem = sizeof(bf16) * (2 * ROWS * a.Dp + ROWS * a.ywidth + ROWS * 3 * a.hdp +
                                       2 * a.envs_per_block * P * D) +
                       sizeof(float) * WARPS * 256;
-  const auto kernel =
-      group ? fused_layer_prefix_kernel<true> : fused_layer_prefix_kernel<false>;
+  const auto kernel = group ? fused_layer_prefix_kernel<true>
+                      : cycles ? fused_layer_prefix_kernel<false, true>
+                               : fused_layer_prefix_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -560,8 +606,21 @@ int beso_fused_layer_prefix(const void* x, const void* pk, const void* pv, const
                             void* stream) {
   Args a;
   a.layer[0] = layer_args(w, pk, pv);
-  return launch(a, false, x, idx, 1, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D, H,
-                P, S, F, M, stream);
+  return launch(a, false, nullptr, x, idx, 1, lnf_s, lnf_b, whead, bhead, out, pred, B, T2,
+                D, H, P, S, F, M, stream);
+}
+
+// B1 with the phase clock: as beso_fused_layer_prefix, and each block adds
+// its clock64() cycles per phase (enum Phase) to cycles [blocks, N_PHASES].
+int beso_fused_layer_prefix_timed(const void* x, const void* pk, const void* pv,
+                                  const void* idx, const void* const* w, const void* lnf_s,
+                                  const void* lnf_b, const void* whead, const void* bhead,
+                                  void* out, void* pred, void* cycles, int B, int T2, int D,
+                                  int H, int P, int S, int F, int M, void* stream) {
+  Args a;
+  a.layer[0] = layer_args(w, pk, pv);
+  return launch(a, false, static_cast<long long*>(cycles), x, idx, 1, lnf_s, lnf_b, whead,
+                bhead, out, pred, B, T2, D, H, P, S, F, M, stream);
 }
 
 // B2: n_layers blocks in one launch. `layers` holds n_layers x 14 pointers:
@@ -576,8 +635,8 @@ int beso_fused_layers_prefix_group(const void* x, const void* idx, const void* c
     const void* const* lw = layers + l * LAYER_PTRS;
     a.layer[l] = layer_args(lw, lw[12], lw[13]);
   }
-  return launch(a, true, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred, B, T2,
-                D, H, P, S, F, M, stream);
+  return launch(a, true, nullptr, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred,
+                B, T2, D, H, P, S, F, M, stream);
 }
 
 // B3: one block against one already selected prefix row, pk/pv [B, P, D].
@@ -586,8 +645,8 @@ int beso_fused_layer_with_prefix(const void* x, const void* pk, const void* pv,
                                  int P, int F, void* stream) {
   Args a;
   a.layer[0] = layer_args(w, pk, pv);
-  return launch(a, false, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out, nullptr,
-                B, T2, D, H, P, 1, F, 0, stream);
+  return launch(a, false, nullptr, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out,
+                nullptr, B, T2, D, H, P, 1, F, 0, stream);
 }
 
 // B4: one block over the whole causal sequence x [B, T, D], no prefix.
@@ -595,8 +654,8 @@ int beso_fused_layer(const void* x, const void* const* w, void* out, int B, int 
                      int H, int F, void* stream) {
   Args a;
   a.layer[0] = layer_args(w, nullptr, nullptr);
-  return launch(a, false, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out, nullptr,
-                B, T, D, H, 0, 1, F, 0, stream);
+  return launch(a, false, nullptr, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out,
+                nullptr, B, T, D, H, 0, 1, F, 0, stream);
 }
 
 const char* beso_cuda_error_string(int code) {
@@ -612,6 +671,7 @@ int beso_fused_layer_prefix_limits(int which) {
     case 3: return WARPS * MAX_OUT_TILES * 16;
     case 4: return MAX_HDP;
     case 5: return MAX_LAYERS;
+    case 6: return N_PHASES;
     default: return -1;
   }
 }

@@ -204,10 +204,12 @@ def _library() -> ctypes.CDLL:
     lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.beso_fused_layer_prefix.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+    lib.beso_fused_layer_prefix_timed.argtypes = [vp] * 12 + [ci] * 8 + [vp]
     lib.beso_fused_layers_prefix_group.argtypes = [vp] * 3 + [ci] + [vp] * 6 + [ci] * 8 + [vp]
     lib.beso_fused_layer_with_prefix.argtypes = [vp] * 5 + [ci] * 6 + [vp]
     lib.beso_fused_layer.argtypes = [vp] * 3 + [ci] * 5 + [vp]
-    for fn in (lib.beso_fused_layer_prefix, lib.beso_fused_layers_prefix_group,
+    for fn in (lib.beso_fused_layer_prefix, lib.beso_fused_layer_prefix_timed,
+               lib.beso_fused_layers_prefix_group,
                lib.beso_fused_layer_with_prefix, lib.beso_fused_layer):
         fn.restype = ci
     lib.beso_fused_layer_prefix_limits.argtypes = [ci]
@@ -218,8 +220,9 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _limits():
     """(rows per block, max keys, max head width, max Dp, max hdp, max
-    layers per group), as the compiled kernel reports them."""
-    return tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(6))
+    layers per group, number of timed phases), as the compiled kernel
+    reports them."""
+    return tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(7))
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
@@ -241,7 +244,7 @@ def _check_launch(x: torch.Tensor, P: int, n_heads: int, layer_params):
     hd = D // H
     hdp, Dp = _ceil16(hd), _ceil16(D)
     Fp = layer_params[0].wfc.shape[0]
-    rows, max_keys, _, max_dp, max_hdp, _ = _limits()
+    rows, max_keys, _, max_dp, max_hdp = _limits()[:5]
     if T > rows or P + T > max_keys or Dp > max_dp or hdp > max_hdp:
         raise ValueError(f"shape outside the kernel's limits: T={T} (<= {rows}), "
                          f"P+T={P + T} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
@@ -287,6 +290,27 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: " + build.error_string(rc))
 
 
+def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=None):
+    """Checks and launches B1 (with the phase clock when `cycles` is given);
+    returns what `fused_layer_prefix` does."""
+    S, B, P, D = pk.shape
+    (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
+    for name, t in (("pk", pk), ("pv", pv)):
+        build.check_tensor(t, name, (S, B, P, D), torch.bfloat16, x.device)
+    build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
+    M, epi, pred = _check_epilogue(epilogue, x)
+    out = torch.empty_like(x)
+    args = [x.data_ptr(), pk.data_ptr(), pv.data_ptr(), idx.data_ptr(), _ptr_array(w),
+            *epi, out.data_ptr(), None if pred is None else pred.data_ptr()]
+    tail = [B, T2, D, n_heads, P, S, Fp, M, torch.cuda.current_stream(x.device).cuda_stream]
+    if cycles is None:
+        rc = _library().beso_fused_layer_prefix(*args, *tail)
+    else:
+        rc = _library().beso_fused_layer_prefix_timed(*args, cycles.data_ptr(), *tail)
+    _raise_on(rc, "fused_layer_prefix")
+    return out if epilogue is None else (out, pred)
+
+
 def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                        idx: torch.Tensor, p: FusedLayerParams, *,
                        n_heads: int, epilogue: Optional[FusedEpilogue] = None):
@@ -295,20 +319,30 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     if not _on_cuda(x, "fused_layer_prefix"):
         return fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=n_heads,
                                             epilogue=epilogue)
-    S, B, P, D = pk.shape
-    (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
-    for name, t in (("pk", pk), ("pv", pv)):
-        build.check_tensor(t, name, (S, B, P, D), torch.bfloat16, x.device)
-    build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
-    M, epi, pred = _check_epilogue(epilogue, x)
-    out = torch.empty_like(x)
-    rc = _library().beso_fused_layer_prefix(
-        x.data_ptr(), pk.data_ptr(), pv.data_ptr(), idx.data_ptr(), _ptr_array(w),
-        *epi, out.data_ptr(), None if pred is None else pred.data_ptr(),
-        B, T2, D, n_heads, P, S, Fp, M, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "fused_layer_prefix")
+    res = _launch_b1(x, pk, pv, idx, p, n_heads, epilogue)
     fused_layer_prefix.launches += 1
-    return out if epilogue is None else (out, pred)
+    return res
+
+
+# Phases of B1's timed launch, in the kernel's order (enum Phase).
+PHASES = ("load", "ln1", "qkv", "attention", "proj", "ln2", "fc", "fc2",
+          "write", "epilogue")
+
+
+def fused_layer_prefix_timed(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                             idx: torch.Tensor, p: FusedLayerParams, *,
+                             n_heads: int, epilogue: Optional[FusedEpilogue] = None):
+    """B1 with the kernel's phase clock, for measurement only (nothing on
+    the serving path calls it, and it leaves B1's launch count alone).
+    Returns (what `fused_layer_prefix` returns, cycles int64 [blocks,
+    len(PHASES)]): each block's clock64() cycles per phase of `PHASES`.
+    Needs CUDA tensors: a clock has no plain version."""
+    if not _on_cuda(x, "fused_layer_prefix_timed"):
+        raise ValueError("fused_layer_prefix_timed needs CUDA tensors")
+    rows = _limits()[0]
+    blocks = -(-x.shape[0] // (rows // x.shape[1]))
+    cycles = torch.zeros(blocks, _limits()[6], dtype=torch.int64, device=x.device)
+    return _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles), cycles
 
 
 def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor],

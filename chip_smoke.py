@@ -256,6 +256,32 @@ def time_kernel(B, device, gen):
     return ms, plain_ms
 
 
+def phase_split(B, device, gen):
+    """B1's phase clock at the kitchen serving shape (B rows, 2T=8, D=360,
+    P=3, no epilogue): the timed launch must equal the plain B1 launch bit
+    for bit. Returns {phase: mean cycles per block} over the blocks."""
+    import torch
+
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    p, _ = random_layer(360, 6, 9, gen, device)
+    x = _bf16(gen, B, 8, 360, device=device)
+    pk, pv = _bf16(gen, 3, B, 3, 360, device=device), _bf16(gen, 3, B, 3, 360, device=device)
+    idx = torch.tensor([1], dtype=torch.int32, device=device)
+    out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=6)
+    ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=6)
+    torch.cuda.synchronize()
+    _same_bits(f"timed B1 vs B1 at B={B}", out, ref)
+    mean = cycles.double().mean(0).tolist()
+    total = sum(mean)
+    per_block = cycles.sum(1).double()
+    print(f"  phase clock, {cycles.shape[0]} blocks: cycles per block mean {total:.0f}, "
+          f"min {per_block.min().item():.0f}, max {per_block.max().item():.0f}")
+    for name, c in zip(fl.PHASES, mean):
+        print(f"    {name:>9}: {c:10.0f} cycles  {100 * c / total:5.1f}%")
+    return dict(zip(fl.PHASES, mean))
+
+
 def _bf16(gen, *shape, device):
     import torch
 
@@ -762,6 +788,8 @@ def main() -> None:
     ms, plain_ms = time_kernel(B_serve, device, gen)
     print(f"  time at the kitchen serving shape (B={B_serve}, 2T=8, D=360): "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer ({card})")
+    phases = phase_split(B_serve, device, gen)
+    print(f"  phase split: {json.dumps({k: round(v) for k, v in phases.items()})}")
 
     # ---- 3. engine parity -------------------------------------------------
     print("[3] fused_cached vs cached engine (kitchen model, bf16)")
