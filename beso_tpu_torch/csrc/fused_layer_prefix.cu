@@ -23,13 +23,22 @@
 //   [-> next layer] [-> ln_f (f32) + linear head (f32)]
 //
 // Layout: x [B, T2, D] bf16, pk/pv [S, B, P, D] bf16 per layer (S = 1 for
-// B3), out [B, T2, D] bf16, pred [B, T2, M] f32. Weights are [out, in] bf16,
-// zero-padded by `prepare_layer_params` (ops/fused_layer.py) to multiples of
-// 16: the QKV rows per head to hdp = ceil16(hd), the model width to
-// Dp = ceil16(D) and the MLP width to Fp. Biases and LayerNorm parameters
-// are f32. The per-layer pointers travel in the kernel's parameter struct
-// (MAX_LAYERS x 14 pointers, under 1 KB of the 4 KB parameter space), read
-// in place through __grid_constant__.
+// B3), out [B, T2, D] bf16, pred [B, T2, M] f32. Biases and LayerNorm
+// parameters are f32, in `FusedLayerParams` order and padding
+// (ops/fused_layer.py): hdp = ceil16(hd), Dp = ceil16(D), Fp = ceil16(F).
+// The weights are read from the layer's tiled copy (`tile_layer_weights`):
+// the B operands of the layer's products in the order this kernel consumes
+// them (per head [q|k|v] rows x Dp, proj, then per MLP chunk of FC columns
+// fc and fc2; proj and fc2 rows padded to Dq = ceil128(Dp), F to a multiple
+// of FC), each cut into chunks of whole 16-deep k-steps of at most SLOT_BYTES
+// and laid out as the K-major, unswizzled `wgmma` operand (hopper.cuh). The
+// per-layer pointers travel in the kernel's parameter struct (MAX_LAYERS x
+// 15 pointers, under 1 KB of the 4 KB parameter space).
+//
+// Limits: 64 rows per block, P + T2 <= 32 keys, M <= 16, Dp <= 384,
+// hdp <= 64 and H * hdp <= 384, at most 8 layers per group; a shape whose
+// shared memory does not fit 227 KB (many prefix keys per block) is refused
+// at launch.
 //
 // Numerics (as the TPU kernels): bf16 operands, f32 accumulation, f32 bias,
 // one rounding to bf16 after the bias; LayerNorm statistics in f32 with
@@ -42,50 +51,63 @@
 //
 // What bounds it: at kitchen serving shapes (D=360, 16k suffix rows per
 // call) each row costs ~24*D^2 = 3.1 MFLOP per layer against ~36 MB moved
-// per launch, about 1,400 FLOP/byte, so the layer is compute-bound. The
-// design therefore keeps every intermediate of a 64-row tile in shared
-// memory and runs the four matrix products on tensor cores (wmma bf16
-// 16x16x16, f32 accumulate). A tile is 64/T2 whole environments (8 at 2T=8,
-// 5 at B4's 11 or 12 tokens); QKV is built head by head (the whole [64, 3D]
-// QKV tile would need 138 KB next to the residual and LN buffers); the 4D
-// MLP hidden layer is streamed in 128-column chunks with the fc2 sums kept
-// in registers. Attention has at most P+T2 keys per query, so it runs on
-// CUDA cores, one warp per query row with the lanes over the head dim,
-// against the tile's prefix K/V staged in shared memory. Weights are read
-// from L2 through the B fragments, one k-step ahead; each warp reuses one B
-// fragment for all four row tiles. With one 8-warp block per SM (~210 KB of
-// shared memory at the kitchen shape) the kernel is bound by per-block
-// latency, not by the tensor cores: PERF.md has the measurements. Grouping
-// layers (B2) saves only the residual's round trip through device memory
-// (~12 MB per layer at 2048 envs), a few microseconds.
+// per launch, so the products bound it (52 us at the bf16 peak). A 64-row
+// block holds its residual, LN output and attention output in shared memory
+// and streams the layer's 3.3 MB of weights through them, so the 256 blocks
+// pull ~0.85 GB per launch out of L2: next to the products, L2 bandwidth is
+// the second limit. The design:
+//   - one producer warp copies the weight chunks into a ring of STAGES slots
+//     with `cp.async.bulk` (one instruction per chunk, no tensor map),
+//     guarded by full/empty mbarriers, up to STAGES chunks ahead;
+//   - two consumer warpgroups run every product on `wgmma` (64 x N x 16,
+//     bf16, f32 accumulators in registers) with A (LN output, attention
+//     output, GELU chunk) and B (the ring slot) in shared memory; each takes
+//     half of the output columns, both read every chunk;
+//   - the epilogues (bias, bf16 rounding, GELU, residual add, the q/k/v
+//     scatter) work on the accumulator fragments in registers; A operands
+//     are written in the unswizzled core-matrix layout, where a quad of
+//     lanes storing a fragment fills one 16-byte row and a warp one 128-byte
+//     core matrix, so the stores are free of bank conflicts;
+//   - attention (at most 32 keys per query) stays on CUDA cores: a group of
+//     16 or 32 lanes per query row with one key per lane, one max and one
+//     sum reduction per row, then the lanes over the head dim for P.V with
+//     the probabilities broadcast by shuffles; the next head's prefix K/V
+//     loads are in flight while its QKV products run.
+// The timed instantiation adds clock64() marks at the phase boundaries.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int ROWS = 64;           // token rows per block
-constexpr int RT = ROWS / 16;      // row tiles
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int FC = 128;            // MLP hidden chunk width
-constexpr int MAX_KEYS = 32;       // P + T2
-constexpr int MAX_M = 16;          // head outputs
-constexpr int MAX_OUT_TILES = 3;   // Dp <= WARPS * 3 * 16 = 384
-constexpr int MAX_HDP = 64;        // two head-dim values per lane
-constexpr int MAX_LAYERS = 8;      // layers of one B2 group
+constexpr int ROWS = 64;            // token rows per block (one wgmma M)
+constexpr int CONSUMERS = 256;      // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+constexpr int STAGES = 4;           // weight ring slots
+constexpr int SLOT_BYTES = 12288;   // one ring slot
+constexpr int FC = 160;             // MLP hidden chunk: 80 columns per warpgroup
+constexpr int MAX_KEYS = 32;        // P + T2
+constexpr int MAX_M = 16;           // head outputs
+constexpr int MAX_DP = 384;
+constexpr int NSUB = MAX_DP / 128;  // n64 subtiles per warpgroup for proj and fc2
+constexpr int MAX_HDP = 64;
+constexpr int MAX_HDP_ALL = 384;    // H * hdp, the attention output width
+constexpr int MAX_LAYERS = 8;       // layers of one B2 group
+constexpr int PREFETCH = 6;         // prefix K/V pairs per thread held over a QKV product
+constexpr int MAX_SMEM = 232448;    // a block's shared memory on sm_90
 
 // Phases of the timed instantiation (clock64() cycles summed per block).
 enum Phase { PH_LOAD, PH_LN1, PH_QKV, PH_ATTN, PH_PROJ, PH_LN2, PH_FC, PH_FC2,
              PH_WRITE, PH_EPI, N_PHASES };
 
 // Per-block phase clock of the timed instantiation; a no-op otherwise.
-// Thread 0 reads clock64() right after a block barrier and adds the cycles
-// since the previous mark to the phase that just ended.
+// Thread 0 (a consumer) reads clock64() right after a consumer barrier, or
+// after its warpgroup's product, and adds the cycles since the previous
+// mark to the phase that just ended.
 template <bool kOn>
 struct PhaseClock {
   long long t = 0, acc[N_PHASES] = {};
@@ -105,12 +127,8 @@ struct PhaseClock {
   }
 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// One layer's weights and prefix cache; the order of the first twelve is
-// that of `FusedLayerParams` (ops/fused_layer.py).
+// One layer's weights, tiled weights and prefix cache; the order of the
+// first twelve is that of `FusedLayerParams` (ops/fused_layer.py).
 struct LayerArgs {
   const float* ln1_s;
   const float* ln1_b;
@@ -124,10 +142,12 @@ struct LayerArgs {
   const float* bfc;
   const bf16* wfc2;
   const float* bfc2;
+  const bf16* tiles;  // the B operands in consumption order (header note)
   const bf16* pk;     // [S, B, P, D]; unused when P == 0
   const bf16* pv;
 };
 constexpr int LAYER_PTRS = sizeof(LayerArgs) / sizeof(void*);
+static_assert(sizeof(LayerArgs) <= 128, "B2 stages a layer's pointers in 128 bytes");
 
 struct Args {
   const bf16* x;
@@ -142,7 +162,7 @@ struct Args {
   float* pred;
   long long* cycles;  // [blocks, N_PHASES] (timed instantiation only)
   int B, T2, D, H, P, S, F, M;
-  int hd, hdp, Dp, HDp, ywidth, envs_per_block;
+  int hd, hdp, Dp, Dq, HDp, n_mlp, envs_per_block, key_rows, kg;
   float scale;
 };
 
@@ -150,356 +170,674 @@ __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
+// tanh GELU with the hardware tanh (tanh.approx.f32, relative error about
+// 2^-11, below the bf16 rounding that follows it).
 __device__ __forceinline__ float gelu_tanh(float x) {
-  return 0.5f * x * (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  return 0.5f * x * (1.0f + t);
 }
 
-// Mean and reciprocal std of one bf16 row (whole warp), f32 statistics.
-__device__ __forceinline__ void row_stats(const bf16* xr, int D, int lane,
-                                          float& mu, float& rstd) {
+// The consumers' barrier (the producer warp never joins it).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// Element offset of (row r, column c) in an A tile of the core-matrix
+// layout: 8-column groups of 1 KB (64 rows x 16 bytes), 8-row blocks of 128
+// bytes inside. The residual, LN output, attention output and GELU chunk
+// all use it.
+__device__ __forceinline__ int a_off(int r, int c) {
+  return (c >> 3) * 512 + (r >> 3) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+// Row and column of accumulator value i of this thread (hopper.cuh).
+__device__ __forceinline__ int frag_row(int i) {
+  const int t = threadIdx.x & 127;
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// k-steps per ring chunk of a B operand with N rows.
+__host__ __device__ __forceinline__ int steps_per_chunk(int N) {
+  const int k = SLOT_BYTES / (N * 32);
+  return k > 0 ? k : 1;
+}
+
+// Product p of a layer, in consumption order: rows N and k-steps of its B
+// operand. Per head h < H: [q|k|v] (3 hdp x Dp); then proj (Dq x H hdp);
+// then per MLP chunk fc (FC x Dp) and fc2 (Dq x FC).
+__device__ __forceinline__ void product_shape(const Args& a, int p, int& N, int& ksteps) {
+  if (p < a.H) {
+    N = 3 * a.hdp;
+    ksteps = a.Dp / 16;
+  } else if (p == a.H) {
+    N = a.Dq;
+    ksteps = a.HDp / 16;
+  } else if ((p - a.H - 1) % 2 == 0) {
+    N = FC;
+    ksteps = a.Dp / 16;
+  } else {
+    N = a.Dq;
+    ksteps = FC / 16;
+  }
+}
+
+// The block's shared memory: barriers, the weight ring and the tiles.
+struct Smem {
+  uint64_t* full;   // [STAGES] a chunk has landed in the slot
+  uint64_t* empty;  // [STAGES] the consumers are done with the slot
+  bf16* slots;      // STAGES x SLOT_BYTES
+  bf16* xs;         // residual, A tile [ROWS, Dp]
+  bf16* hs;         // LN output, A tile [ROWS, Dp]
+  bf16* ys;         // attention output [ROWS, HDp] or two GELU chunks [ROWS, FC]
+  bf16* qh;         // [ROWS, hdp + 8]
+  bf16* kh;         // [hdp / 8, key_rows, 8]
+  bf16* vh;         // [key_rows, hdp + 8]
+  float* stats;     // [2, 4, ROWS]
+  LayerArgs* layer; // the current layer's pointers (B2)
+};
+
+__device__ __forceinline__ Smem carve(const Args& a, unsigned char* base) {
+  Smem m;
+  m.full = reinterpret_cast<uint64_t*>(base);
+  m.empty = m.full + STAGES;
+  m.layer = reinterpret_cast<LayerArgs*>(base + 128);
+  m.slots = reinterpret_cast<bf16*>(base + 256);
+  m.xs = m.slots + STAGES * (SLOT_BYTES / 2);
+  m.hs = m.xs + ROWS * a.Dp;
+  m.ys = m.hs + ROWS * a.Dp;
+  m.qh = m.ys + max(ROWS * a.HDp, 2 * ROWS * FC);
+  m.kh = m.qh + ROWS * (a.hdp + 8);
+  m.vh = m.kh + a.key_rows * a.hdp;
+  m.stats = reinterpret_cast<float*>(m.vh + a.key_rows * (a.hdp + 8));
+  return m;
+}
+
+// The consumers' view of the weight ring: slot barriers and the running
+// chunk count, which the producer warp walks in the same order.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  const bf16* slots;
+  int it;
+};
+
+// acc[s] (+)= A[64, 16 ksteps] x B[n0 + s NW : n0 + (s + 1) NW, :]^T for
+// s < ns, B streamed through the ring as one product of N rows. acc holds
+// NS x NW / 2 values; accumulate == false starts from zero. Each consumer
+// warp releases a ring slot (one arrival of CONSUMERS / 32) once its share
+// of the products that read the slot is complete.
+template <int NW, int NS>
+__device__ __forceinline__ void gemm(Ring& ring, float* acc, const bf16* A, int N, int ksteps,
+                                     int n0, int ns, bool accumulate) {
+  const int kpc = steps_per_chunk(N);
+  const uint32_t b_lbo = N * 16;
+  int prev = -1;
+  hopper::fence_regs<NS * NW / 2>(acc);
+  hopper::wgmma_fence();
+  for (int k0 = 0; k0 < ksteps; k0 += kpc) {
+    const int kn = min(kpc, ksteps - k0);
+    const int slot = ring.it % STAGES;
+    hopper::mbar_wait(&ring.full[slot], (ring.it / STAGES) & 1);
+    const bf16* b = ring.slots + slot * (SLOT_BYTES / 2);
+    for (int kk = 0; kk < kn; ++kk) {
+      const int k = k0 + kk;
+      const uint64_t da = hopper::smem_desc(A + k * 1024, 1024, 128);
+      const int scale_d = (accumulate || k > 0) ? 1 : 0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (s < ns)
+          hopper::wgmma<NW>(acc + s * (NW / 2), da,
+                            hopper::smem_desc(b + kk * N * 16 + ((n0 + s * NW) >> 3) * 64, b_lbo,
+                                              128),
+                            scale_d);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (prev >= 0 && (threadIdx.x & 31) == 0) hopper::mbar_arrive(&ring.empty[prev]);
+    prev = slot;
+    ++ring.it;
+  }
+  hopper::wgmma_wait<0>();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&ring.empty[prev]);
+  hopper::fence_regs<NS * NW / 2>(acc);
+}
+
+// proj and fc2: gemm over ns = Dq / 128 subtiles of 64 columns per
+// warpgroup, ns fixed at compile time so that no product is predicated.
+__device__ __forceinline__ void gemm_wide(Ring& ring, float* acc, const bf16* A, int N,
+                                          int ksteps, int n0, int ns, bool accumulate) {
+  switch (ns) {
+    case 1: gemm<64, 1>(ring, acc, A, N, ksteps, n0, 1, accumulate); break;
+    case 2: gemm<64, 2>(ring, acc, A, N, ksteps, n0, 2, accumulate); break;
+    default: gemm<64, NSUB>(ring, acc, A, N, ksteps, n0, NSUB, accumulate); break;
+  }
+}
+
+// x rows [0, nrows) of width D into the A tile xs; pad rows and columns
+// are zero. In the A layout the 64 rows of one 8-column group are 64
+// consecutive 16-byte rows.
+__device__ void load_x(bf16* xs, const bf16* x, int D, int Dp, int nrows, int ctid) {
+  for (int i = ctid; i < ROWS * (Dp / 8); i += CONSUMERS) {
+    const int r = i & (ROWS - 1), c0 = (i >> 6) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < nrows && c0 < D) {
+      if (D % 8 == 0) {
+        v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * D + c0);
+      } else {
+        bf16* e = reinterpret_cast<bf16*>(&v);
+        for (int j = 0; j < 8 && c0 + j < D; ++j) e[j] = x[static_cast<size_t>(r) * D + c0 + j];
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + a_off(r, c0)) = v;
+  }
+}
+
+// The tile's rows [0, nrows) of the A tile xs into out [nrows, D].
+__device__ void write_out(bf16* out, const bf16* xs, int D, int Dp, int nrows, int ctid) {
+  for (int i = ctid; i < ROWS * (Dp / 8); i += CONSUMERS) {
+    const int r = i & (ROWS - 1), c0 = (i >> 6) * 8;
+    if (r >= nrows || c0 >= D) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(xs + a_off(r, c0));
+    if (D % 8 == 0) {
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * D + c0) = v;
+    } else {
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      for (int j = 0; j < 8 && c0 + j < D; ++j) out[static_cast<size_t>(r) * D + c0 + j] = e[j];
+    }
+  }
+}
+
+// LayerNorm of the A tile src into the A tile dst; pad rows (>= nrows) and
+// pad columns (>= D) of dst are zero. Thread t takes row t % 64 and every
+// fourth 8-column group from t / 64, so a warp reads 32 consecutive 16-byte
+// rows; `stats` holds the 2 x 4 x 64 partial sums. Ends with the fence that
+// hands dst to `wgmma` (the caller's barrier completes the hand-over).
+__device__ void layernorm(const bf16* src, bf16* dst, const float* s, const float* b, int D,
+                          int Dp, int nrows, float* stats, int ctid) {
+  const int r = ctid & (ROWS - 1), q = ctid >> 6;
+  float sum = 0.f, sq = 0.f;
+  for (int c0 = q * 8; c0 < Dp; c0 += 32) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src + a_off(r, c0));
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float f = c0 + j < D ? bf2f(e[j]) : 0.f;
+      sum += f;
+      sq += f * f;
+    }
+  }
+  stats[q * ROWS + r] = sum;
+  stats[4 * ROWS + q * ROWS + r] = sq;
+  consumer_sync();
+  float ts = 0.f, tq = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ts += stats[k * ROWS + r];
+    tq += stats[4 * ROWS + k * ROWS + r];
+  }
+  const float mu = ts / D, rstd = rsqrtf(tq / D - mu * mu + 1e-5f);
+  for (int c0 = q * 8; c0 < Dp; c0 += 32) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src + a_off(r, c0));
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    uint4 o;
+    bf16* y = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + j;
+      y[j] = f2bf(r < nrows && c < D ? (bf2f(e[j]) - mu) * rstd * s[c] + b[c] : 0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + a_off(r, c0)) = o;
+  }
+  hopper::fence_proxy_async();
+}
+
+// Where this block's prefix K/V elements go, per head: element (e, j, d)
+// of pk/pv (env e, prefix key j, head dim d) is read at ej D + h hd + d from
+// the block's first prefix row, and written to key row R = e (P + T2) + j
+// of kh (8-column groups of key rows) or of vh (rows of hdp + 8; vh follows
+// kh). The first PREFETCH x CONSUMERS pairs of elements (K pairs first,
+// then V; hd even) are planned once per block: each thread loads its pairs
+// before a head's QKV products and stores them after.
+struct PrefixPlan {
+  int np;               // pairs per K (and per V); 0 when P == 0 or hd is odd
+  int src[PREFETCH];    // element offsets into the block's pk / pv rows
+  int dst[PREFETCH];    // element offsets from kh
+};
+
+__device__ __forceinline__ void prefix_place(const Args& a, int ej, int d, bool is_v, int& src,
+                                             int& dst) {
+  const int e = ej / a.P, R = e * (a.P + a.T2) + (ej - e * a.P);
+  src = ej * a.D + d;
+  dst = is_v ? a.key_rows * a.hdp + R * (a.hdp + 8) + d
+             : ((d >> 3) * a.key_rows + R) * 8 + (d & 7);
+}
+
+__device__ __forceinline__ void prefix_pair(const Args& a, int np, int i, int& src, int& dst) {
+  const bool is_v = i >= np;
+  const int rem = is_v ? i - np : i, half = a.hd >> 1;
+  const int ej = rem / half;
+  prefix_place(a, ej, 2 * (rem - ej * half), is_v, src, dst);
+}
+
+__device__ __forceinline__ PrefixPlan plan_prefix(const Args& a, int n_env, int ctid) {
+  PrefixPlan pp;
+  pp.np = (a.hd & 1) == 0 ? n_env * a.P * (a.hd >> 1) : 0;
+#pragma unroll
+  for (int q = 0; q < PREFETCH; ++q) {
+    pp.src[q] = pp.dst[q] = 0;
+    const int i = ctid + q * CONSUMERS;
+    if (i < 2 * pp.np) prefix_pair(a, pp.np, i, pp.src[q], pp.dst[q]);
+  }
+  return pp;
+}
+
+// What a thread reads from device memory for one head's QKV epilogue: its
+// planned prefix K/V pairs and its bias values (value k: column
+// frag_col(4 (k / 2) + k % 2) of its warpgroup's NW). Loaded a whole head
+// ahead, so that the loads' latency (long while the weight copies fill L2's
+// queues) hides behind a head's attention and products.
+template <int NW>
+struct HeadLoads {
+  uint32_t pre[PREFETCH];
+  float bq[NW / 4];
+
+  __device__ __forceinline__ void load(const Args& a, const LayerArgs& w, int h,
+                                       const bf16* pk0, const bf16* pv0, const PrefixPlan& pp,
+                                       int ctid) {
+    const bf16* pkh = pk0 + h * a.hd;
+    const bf16* pvh = pv0 + h * a.hd;
+#pragma unroll
+    for (int q = 0; q < PREFETCH; ++q) {
+      const int i = ctid + q * CONSUMERS;
+      if (i < 2 * pp.np)
+        pre[q] = *reinterpret_cast<const uint32_t*>((i < pp.np ? pkh : pvh) + pp.src[q]);
+    }
+#pragma unroll
+    for (int k = 0; k < NW / 4; ++k) {
+      const int col = (ctid >> 7) * NW + frag_col(4 * (k >> 1) + (k & 1));
+      const int part = (col >= a.hdp) + (col >= 2 * a.hdp);
+      bq[k] = w.bqkv[(part * a.H + h) * a.hdp + col - part * a.hdp];
+    }
+  }
+};
+
+// Head h's q, k and v of the tile's rows: q into qh [ROWS, hdp + 8], the
+// own keys and values at key row e (P + T2) + P + t of env e, token t, the
+// prefix keys and values (pk0 / pv0: the block's first prefix row) as
+// PrefixPlan says, `ld` holding this head's loads. The two warpgroups take
+// NW = 3 hdp / 2 columns of [q|k|v] each.
+template <int NW>
+__device__ __forceinline__ void qkv_head(const Args& a, Ring& ring, const Smem& sm, int h,
+                                         int nrows, int n_env, const bf16* pk0,
+                                         const bf16* pv0, const PrefixPlan& pp,
+                                         const HeadLoads<NW>& ld, int ctid) {
+  bf16 *qh = sm.qh, *kh = sm.kh, *vh = sm.vh;
+  const int wg = ctid >> 7, np = pp.np;
+  const bf16* pkh = pk0 + h * a.hd;
+  const bf16* pvh = pv0 + h * a.hd;
+  for (int i = ctid + PREFETCH * CONSUMERS; i < 2 * np; i += CONSUMERS) {
+    int src, dst;
+    prefix_pair(a, np, i, src, dst);
+    *reinterpret_cast<uint32_t*>(kh + dst) =
+        *reinterpret_cast<const uint32_t*>((i < np ? pkh : pvh) + src);
+  }
+  if (a.hd & 1) {   // odd head dim: element by element
+    const int ne = n_env * a.P * a.hd;
+    for (int i = ctid; i < 2 * ne; i += CONSUMERS) {
+      const bool is_v = i >= ne;
+      const int rem = is_v ? i - ne : i, ej = rem / a.hd;
+      int src, dst;
+      prefix_place(a, ej, rem - ej * a.hd, is_v, src, dst);
+      kh[dst] = (is_v ? pvh : pkh)[src];
+    }
+  }
+
+  float acc[NW / 2];
+  gemm<NW, 1>(ring, acc, sm.hs, 3 * a.hdp, a.Dp / 16, wg * NW, 1, false);
+  // this thread's two fragment rows and their own key rows
+  int key_row[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = frag_row(2 * u), e = r / a.T2;
+    key_row[u] = e * (a.P + a.T2) + a.P + (r - e * a.T2);
+  }
+#pragma unroll
+  for (int i = 0; i < NW / 2; i += 2) {
+    const int r = frag_row(i);
+    if (r < nrows) {
+      const int col = wg * NW + frag_col(i);
+      const int part = (col >= a.hdp) + (col >= 2 * a.hdp), d = col - part * a.hdp;
+      const float* bias = ld.bq + 2 * (i >> 2);
+      const __nv_bfloat162 v = __floats2bfloat162_rn(acc[i] + bias[0], acc[i + 1] + bias[1]);
+      const int R = key_row[(i >> 1) & 1];
+      bf16* dst = part == 0   ? qh + r * (a.hdp + 8) + d
+                  : part == 1 ? kh + ((d >> 3) * a.key_rows + R) * 8 + (d & 7)
+                              : vh + R * (a.hdp + 8) + d;
+      *reinterpret_cast<__nv_bfloat162*>(dst) = v;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PREFETCH; ++q)
+    if (ctid + q * CONSUMERS < 2 * np) *reinterpret_cast<uint32_t*>(kh + pp.dst[q]) = ld.pre[q];
+}
+
+// p_j v_j summed over the keys jj < nk_max of this lane group's row, for
+// the DPL head-dim values d = DPL j + u of lane j (one vector load a key);
+// p_j comes from lane jj of the group.
+template <int DPL>
+__device__ __forceinline__ void pv_contiguous(float* y, const bf16* vh, int qs, int kbase,
+                                              int nk_max, float pr, int gbase, int j) {
+  for (int jj = 0; jj < nk_max; ++jj) {
+    const float pj = __shfl_sync(0xffffffffu, pr, gbase + jj);
+    const bf16* vr = vh + (kbase + jj) * qs + DPL * j;
+    if constexpr (DPL == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(vr);
+      const float2 v0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 v1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      y[0] = fmaf(pj, v0.x, y[0]);
+      y[1] = fmaf(pj, v0.y, y[1]);
+      y[2] = fmaf(pj, v1.x, y[2]);
+      y[3] = fmaf(pj, v1.y, y[3]);
+    } else if constexpr (DPL == 2) {
+      const float2 v0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr));
+      y[0] = fmaf(pj, v0.x, y[0]);
+      y[1] = fmaf(pj, v0.y, y[1]);
+    } else {
+      y[0] = fmaf(pj, bf2f(vr[0]), y[0]);
+    }
+  }
+}
+
+// Attention of head h for the tile's rows into ys columns [h hdp, (h + 1)
+// hdp). A group of kg lanes per query row: lane j scores key j (a dot
+// product over 16-byte chunks of q and k, four partial sums), one max and
+// one sum reduction per row, probabilities rounded to bf16; then the same
+// lanes over the head dim accumulate p_j v_j with p_j broadcast by a
+// shuffle, each lane on DPL = hdp / kg neighbouring values where that
+// divides (else on every kg-th value).
+__device__ void attention_head(const Args& a, const bf16* qh, const bf16* kh, const bf16* vh,
+                               bf16* ys, int h, int nrows, int ctid) {
+  constexpr int MAX_DPL = MAX_HDP / 16;   // head-dim values per lane (kg >= 16)
+  const int kg = a.kg, lane = ctid & 31, gpw = 32 / kg;
+  const int g = lane / kg, j = lane - g * kg, qs = a.hdp + 8;
+  const int dpl = a.hdp % kg == 0 ? a.hdp / kg : 0;   // 0: strided
+  for (int r0 = (ctid >> 5) * gpw; r0 < nrows; r0 += (CONSUMERS / 32) * gpw) {
+    const int r = r0 + g;
+    const bool live = r < nrows;
+    const int e = live ? r / a.T2 : 0, t = live ? r - e * a.T2 : 0;
+    const int nk = live ? a.P + t + 1 : 0, kbase = e * (a.P + a.T2);
+    float s = -INFINITY;
+    if (j < nk) {
+      const bf16* qr = qh + r * qs;
+      float dot[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < a.hdp; c += 8) {
+        const uint4 qv = *reinterpret_cast<const uint4*>(qr + c);
+        const uint4 kv =
+            *reinterpret_cast<const uint4*>(kh + ((c >> 3) * a.key_rows + kbase + j) * 8);
+        const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qv);
+        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 qf = __bfloat1622float2(q2[u]), kf = __bfloat1622float2(k2[u]);
+          dot[u] = fmaf(qf.x, kf.x, dot[u]);
+          dot[u] = fmaf(qf.y, kf.y, dot[u]);
+        }
+      }
+      s = ((dot[0] + dot[1]) + (dot[2] + dot[3])) * a.scale;
+    }
+    float m = s;
+    for (int o = kg >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float p = j < nk ? __expf(s - m) : 0.f;
+    float den = p;
+    for (int o = kg >> 1; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
+    const float pr = j < nk ? round_bf(p * (1.f / den)) : 0.f;
+
+    const int nk_max = static_cast<int>(__reduce_max_sync(0xffffffffu, nk));
+    float y[MAX_DPL] = {};
+    if (dpl == 4) {
+      pv_contiguous<4>(y, vh, qs, kbase, nk_max, pr, g * kg, j);
+    } else if (dpl == 2) {
+      pv_contiguous<2>(y, vh, qs, kbase, nk_max, pr, g * kg, j);
+    } else if (dpl == 1) {
+      pv_contiguous<1>(y, vh, qs, kbase, nk_max, pr, g * kg, j);
+    } else {
+      for (int jj = 0; jj < nk_max; ++jj) {
+        const float pj = __shfl_sync(0xffffffffu, pr, g * kg + jj);
+        const bf16* vr = vh + (kbase + jj) * qs;
+#pragma unroll
+        for (int u = 0; u < MAX_DPL; ++u) {
+          const int d = j + u * kg;
+          if (d < a.hdp) y[u] = fmaf(pj, bf2f(vr[d]), y[u]);
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < MAX_DPL; ++u) {
+        const int d = dpl ? dpl * j + u : j + u * kg;
+        if ((dpl ? u < dpl : d < a.hdp)) ys[a_off(r, h * a.hdp + d)] = f2bf(y[u]);
+      }
+    }
+  }
+  hopper::fence_proxy_async();
+}
+
+// xs (the residual, A tile) += round_bf(acc + bias) over this warpgroup's
+// columns [n0, n0 + 64 ns) of a proj or fc2 product; rows < nrows and
+// columns < D only.
+__device__ __forceinline__ void residual_add(bf16* xs, const float* acc, const float* bias,
+                                             int n0, int ns, int D, int nrows) {
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) {
+    if (s < ns) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = frag_row(i), c = n0 + 64 * s + frag_col(i);
+        if (r < nrows && c < D) {
+          bf16* p = xs + a_off(r, c);
+          *p = f2bf(bf2f(*p) + round_bf(acc[s * 32 + i] + bias[c]));
+        }
+      }
+    }
+  }
+}
+
+// Mean and reciprocal std of row r of the A tile xs (whole warp), f32.
+__device__ __forceinline__ void row_stats(const bf16* xs, int r, int D, int lane, float& mu,
+                                          float& rstd) {
   float sum = 0.f, sq = 0.f;
   for (int c = lane; c < D; c += 32) {
-    float v = bf2f(xr[c]);
+    const float v = bf2f(xs[a_off(r, c)]);
     sum += v;
     sq += v * v;
   }
-  sum = warp_sum(sum);
-  sq = warp_sum(sq);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
   mu = sum / D;
   rstd = rsqrtf(sq / D - mu * mu + 1e-5f);
 }
 
-// LayerNorm of the tile's rows src -> dst (both [ROWS, Dp]); pad rows and
-// pad columns of dst are written as zero.
-__device__ void layernorm_rows(const bf16* src, bf16* dst, const float* s,
-                               const float* b, int D, int Dp, int nrows,
-                               int warp, int lane) {
-  for (int r = warp; r < ROWS; r += WARPS) {
-    bf16* yr = dst + r * Dp;
-    if (r >= nrows) {
-      for (int c = lane; c < Dp; c += 32) yr[c] = f2bf(0.f);
-      continue;
+// The producer (one thread): every weight chunk of every layer, in
+// consumption order, into the ring.
+template <bool kGroup>
+__device__ __forceinline__ void produce(const Args& a, const Smem& sm) {
+  const int n_layers = kGroup ? a.n_layers : 1;
+  const int n_prod = a.H + 1 + 2 * a.n_mlp;
+  int it = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const char* src = reinterpret_cast<const char*>(a.layer[kGroup ? l : 0].tiles);
+    for (int p = 0; p < n_prod; ++p) {
+      int N, ksteps;
+      product_shape(a, p, N, ksteps);
+      const int kpc = steps_per_chunk(N);
+      for (int k0 = 0; k0 < ksteps; k0 += kpc) {
+        const uint32_t bytes = N * 32 * min(kpc, ksteps - k0);
+        const int slot = it % STAGES;
+        hopper::mbar_wait(&sm.empty[slot], ((it / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&sm.full[slot], bytes);
+        hopper::bulk_copy_g2s(sm.slots + slot * (SLOT_BYTES / 2), src, bytes, &sm.full[slot]);
+        src += bytes;
+        ++it;
+      }
     }
-    const bf16* xr = src + r * Dp;
-    float mu, rstd;
-    row_stats(xr, D, lane, mu, rstd);
-    for (int c = lane; c < Dp; c += 32)
-      yr[c] = c < D ? f2bf((bf2f(xr[c]) - mu) * rstd * s[c] + b[c]) : f2bf(0.f);
   }
 }
 
-// One k-step for all row tiles: acc[rt] += A[rt, k] @ fb.
-__device__ __forceinline__ void mma_step(FragC (&acc)[RT], const bf16* a, int lda,
-                                         const FragB& fb, int k) {
-  FragA fa;
+// QKV and attention, head by head, for NW = 3 hdp / 2; each head's device
+// loads are issued a head ahead.
+template <int NW, bool kTimed>
+__device__ __forceinline__ void heads(const Args& a, const LayerArgs& w, Ring& ring,
+                                      const Smem& sm, PhaseClock<kTimed>& clk,
+                                      const PrefixPlan& pp, int nrows, int n_env,
+                                      const bf16* pk0, const bf16* pv0, int ctid) {
+  HeadLoads<NW> ld;
+  ld.load(a, w, 0, pk0, pv0, pp, ctid);
+  for (int h = 0; h < a.H; ++h) {
+    qkv_head<NW>(a, ring, sm, h, nrows, n_env, pk0, pv0, pp, ld, ctid);
+    if (h + 1 < a.H) ld.load(a, w, h + 1, pk0, pv0, pp, ctid);
+    consumer_sync();
+    clk.mark(PH_QKV);
+    attention_head(a, sm.qh, sm.kh, sm.vh, sm.ys, h, nrows, ctid);
+    consumer_sync();
+    clk.mark(PH_ATTN);
+  }
+}
+
+// One layer over the tile: LN1, QKV and attention head by head, proj +
+// residual, LN2, the MLP + residual; the residual stays in sm.xs.
+template <bool kTimed>
+__device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
+                                      Ring& ring, PhaseClock<kTimed>& clk, const PrefixPlan& pp,
+                                      int nrows, int n_env, size_t prow) {
+  bf16 *xs = sm.xs, *hs = sm.hs, *ys = sm.ys;
+  float* stats = sm.stats;
+  const int ctid = threadIdx.x, wg = ctid >> 7;
+  const int D = a.D, Dp = a.Dp;
+  const int ns = a.Dq / 128;   // n64 subtiles per warpgroup of proj and fc2
+  const bf16* pk0 = w.pk + prow * D;
+  const bf16* pv0 = w.pv + prow * D;
+  layernorm(xs, hs, w.ln1_s, w.ln1_b, D, Dp, nrows, stats, ctid);
+  consumer_sync();
+  clk.mark(PH_LN1);
+
+  // ---- QKV and attention, head by head --------------------------------------
+  switch (a.hdp) {
+    case 16: heads<24>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
+    case 32: heads<48>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
+    case 48: heads<72>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
+    default: heads<96>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
+  }
+
+  // ---- proj + residual (A is ys) ------------------------------------------
+  {
+    float acc[NSUB * 32];
+    gemm_wide(ring, acc, ys, a.Dq, a.HDp / 16, wg * 64 * ns, ns, false);
+    residual_add(xs, acc, w.bproj, wg * 64 * ns, ns, D, nrows);
+  }
+  consumer_sync();
+  clk.mark(PH_PROJ);
+  layernorm(xs, hs, w.ln2_s, w.ln2_b, D, Dp, nrows, stats, ctid);
+  consumer_sync();
+  clk.mark(PH_LN2);
+
+  // ---- MLP: FC-column chunks of the hidden layer, double-buffered in ys;
+  //      the fc2 sums stay in registers ------------------------------------
+  {
+    float acc2[NSUB * 32];
+    for (int m = 0; m < a.n_mlp; ++m) {
+      bf16* gbuf = ys + (m & 1) * ROWS * FC;
+      float acc[FC / 4];
+      gemm<FC / 2, 1>(ring, acc, hs, FC, Dp / 16, wg * (FC / 2), 1, false);
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt) {
-    wmma::load_matrix_sync(fa, a + rt * 16 * lda + k * 16, lda);
-    wmma::mma_sync(acc[rt], fa, fb, acc[rt]);
-  }
-}
-
-// acc[rt] += A[rt*16 : rt*16+16, :K] @ W[n0 : n0+16, :K]^T for all row
-// tiles; `w` points at weight row n0 (row-major [N, ldw], i.e. the col-major
-// K x 16 B operand), `a` at the smem A tile (row-major, lda). The next
-// k-step's B fragment is loaded before the current step's products, so its
-// L2 latency overlaps them.
-__device__ __forceinline__ void mma_rows(FragC (&acc)[RT], const bf16* a, int lda,
-                                         const bf16* w, int ldw, int ksteps) {
-  FragB b0, b1;
-  wmma::load_matrix_sync(b0, w, ldw);
-  int k = 0;
-  for (; k + 1 < ksteps; k += 2) {
-    wmma::load_matrix_sync(b1, w + (k + 1) * 16, ldw);
-    mma_step(acc, a, lda, b0, k);
-    if (k + 2 < ksteps) wmma::load_matrix_sync(b0, w + (k + 2) * 16, ldw);
-    mma_step(acc, a, lda, b1, k + 1);
-  }
-  if (k < ksteps) mma_step(acc, a, lda, b0, k);
-}
-
-// Copy `rows` rows of `width` bf16 from global (row stride `width`) into
-// smem (row stride `ld`), zero-filling columns [width, ld) and rows
-// [rows, total_rows). 16-byte copies when the widths allow.
-__device__ void load_rows(bf16* dst, int ld, const bf16* src, int width, int rows,
-                          int total_rows, int tid) {
-  if (width % 8 == 0 && ld % 8 == 0) {
-    const int vw = width / 8, vld = ld / 8;
-    const int4 zero = make_int4(0, 0, 0, 0);
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (int i = tid; i < total_rows * vld; i += THREADS) {
-      int r = i / vld, c = i - r * vld;
-      d[i] = (r < rows && c < vw) ? s[r * vw + c] : zero;
+      for (int i = 0; i < FC / 4; i += 2) {
+        const int c = wg * (FC / 2) + frag_col(i), f = m * FC + c;
+        const float g0 = f < a.F ? gelu_tanh(round_bf(acc[i] + w.bfc[f])) : 0.f;
+        const float g1 = f + 1 < a.F ? gelu_tanh(round_bf(acc[i + 1] + w.bfc[f + 1])) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(gbuf + a_off(frag_row(i), c)) =
+            __floats2bfloat162_rn(g0, g1);
+      }
+      hopper::fence_proxy_async();
+      consumer_sync();
+      clk.mark(PH_FC);
+      gemm_wide(ring, acc2, gbuf, a.Dq, FC / 16, wg * 64 * ns, ns, m > 0);
+      clk.mark(PH_FC2);
     }
-    return;
+    residual_add(xs, acc2, w.bfc2, wg * 64 * ns, ns, D, nrows);
   }
-  for (int i = tid; i < total_rows * ld; i += THREADS) {
-    int r = i / ld, c = i - r * ld;
-    dst[i] = (r < rows && c < width) ? src[r * width + c] : f2bf(0.f);
-  }
+  consumer_sync();
+  clk.mark(PH_FC2);
 }
 
-// kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
-// the single-layer one (B1, B3, B4) indexes a.layer[0] statically, which
-// keeps its weight pointers out of registers (239 registers and no spill,
-// against 255 and a spill for the looped body on sm_90a).
-template <bool kGroup, bool kTimed = false>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_layer_prefix_kernel(const __grid_constant__ Args a) {
+// The two consumer warpgroups: everything but the weight copies.
+template <bool kGroup, bool kTimed>
+__device__ __forceinline__ void consume(const Args& a, const Smem& sm, unsigned char* base) {
+  bf16 *xs = sm.xs, *kh = sm.kh;
+  const int tid = threadIdx.x;
+  const int n_layers = kGroup ? a.n_layers : 1;
   PhaseClock<kTimed> clk;
   clk.start();
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int Dp = a.Dp, hdp = a.hdp, D = a.D, T2 = a.T2;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);         // [ROWS, Dp] residual
-  bf16* hs = xs + ROWS * Dp;                            // [ROWS, Dp] LN output
-  bf16* ys = hs + ROWS * Dp;                            // [ROWS, ywidth] attn out / MLP chunk
-  bf16* qkv = ys + ROWS * a.ywidth;                     // [ROWS, 3*hdp] one head
-  float* stage_all = reinterpret_cast<float*>(qkv + ROWS * 3 * hdp);
-  const int pkv_rows = a.envs_per_block * a.P;
-  bf16* pks = reinterpret_cast<bf16*>(stage_all + WARPS * 256);  // [envs*P, D]
-  bf16* pvs = pks + pkv_rows * D;                                  // [envs*P, D]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stage = stage_all + warp * 256;
+  const int ctid = tid, warp = ctid >> 5, lane = ctid & 31;
+  const int D = a.D, Dp = a.Dp;
   const int env0 = blockIdx.x * a.envs_per_block;
   const int n_env = min(a.envs_per_block, a.B - env0);
-  const int nrows = n_env * T2;
-  const size_t row0 = static_cast<size_t>(env0) * T2;
+  const int nrows = n_env * a.T2;
+  const size_t row0 = static_cast<size_t>(env0) * a.T2;
   int sidx = 0;
   if (a.idx != nullptr) {
     sidx = *a.idx;
     sidx = sidx < 0 ? 0 : (sidx >= a.S ? a.S - 1 : sidx);
   }
-  const size_t prow = (static_cast<size_t>(sidx) * a.B + env0) * a.P;
+  const size_t prow = (static_cast<size_t>(sidx) * a.B + env0) * a.P;   // first prefix row
+  const PrefixPlan pp = plan_prefix(a, n_env, ctid);
+  Ring ring{sm.full, sm.empty, sm.slots, 0};
 
-  // ---- load x (ragged env edge and pad columns as zero); between layers
-  //      the residual stays in xs -------------------------------------------
-  load_rows(xs, Dp, a.x + row0 * D, D, nrows, ROWS, tid);
-  const int n_layers = kGroup ? a.n_layers : 1;
+  // x (the residual stays in xs between the layers of a group); key rows
+  // that no token or prefix fills stay zero
+  load_x(xs, a.x + row0 * D, D, Dp, nrows, ctid);
+  for (int i = ctid; i < a.key_rows * (2 * a.hdp + 8); i += CONSUMERS) kh[i] = f2bf(0.f);
+  consumer_sync();
+  clk.mark(PH_LOAD);
+
   for (int l = 0; l < n_layers; ++l) {
-    const LayerArgs& w = a.layer[kGroup ? l : 0];
-    // ---- this layer's prefix K/V of this tile, sigma row `sidx`; clear ys --
-    if (a.P > 0) {
-      load_rows(pks, D, w.pk + prow * D, D, n_env * a.P, pkv_rows, tid);
-      load_rows(pvs, D, w.pv + prow * D, D, n_env * a.P, pkv_rows, tid);
+    if (kGroup) {
+      // this layer's pointers staged in shared memory, and the per-block
+      // state made anew each layer (opaque to the compiler): hoisted out of
+      // the layer loop, it would stay live through the MLP and spill
+      if (ctid == 0) *sm.layer = a.layer[l];
+      consumer_sync();
+      unsigned char* lbase = base;
+      const Args* la = &a;
+      int ln_env = n_env;
+      asm volatile("" : "+l"(lbase), "+l"(la), "+r"(ln_env));
+      const Smem lsm = carve(*la, lbase);
+      layer<kTimed>(*la, lsm, *lsm.layer, ring, clk, plan_prefix(*la, ln_env, ctid), nrows,
+                    ln_env, prow);
+    } else {
+      layer<kTimed>(a, sm, a.layer[0], ring, clk, pp, nrows, n_env, prow);
     }
-    for (int i = tid; i < ROWS * a.ywidth; i += THREADS) ys[i] = f2bf(0.f);
-    __syncthreads();
-    clk.mark(PH_LOAD);
-    layernorm_rows(xs, hs, w.ln1_s, w.ln1_b, D, Dp, nrows, warp, lane);
-    __syncthreads();
-    clk.mark(PH_LN1);
-
-    // ---- attention, head by head ------------------------------------------
-    const int tpp = hdp / 16;       // column tiles per q/k/v part of one head
-    const int qkv_ld = 3 * hdp;
-    for (int h = 0; h < a.H; ++h) {
-      for (int n = warp; n < 3 * tpp; n += WARPS) {
-        const int part = n / tpp, sub = n - part * tpp;
-        const int wrow = (part * a.H + h) * hdp + sub * 16;
-        FragC acc[RT];
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-        mma_rows(acc, hs, Dp, w.wqkv + static_cast<size_t>(wrow) * Dp, Dp, Dp / 16);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = e & 15;
-            qkv[r * qkv_ld + part * hdp + sub * 16 + c] = f2bf(stage[e] + w.bqkv[wrow + c]);
-          }
-          __syncwarp();
-        }
-      }
-      __syncthreads();
-      clk.mark(PH_QKV);
-
-      for (int r = warp; r < nrows; r += WARPS) {
-        const int el = r / T2, t = r - el * T2;
-        const bf16* pkr = pks + el * a.P * D + h * a.hd;
-        const bf16* pvr = pvs + el * a.P * D + h * a.hd;
-        const bf16* own = qkv + el * T2 * qkv_ld;   // this env's first suffix row
-        float qv[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          int d = lane + 32 * i;
-          qv[i] = d < a.hd ? bf2f(qkv[r * qkv_ld + d]) : 0.f;
-        }
-        const int nk = a.P + t + 1;
-        float sc[MAX_KEYS];
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < MAX_KEYS; ++j) {
-          if (j < nk) {
-            const bf16* kr = j < a.P ? pkr + j * D : own + (j - a.P) * qkv_ld + hdp;
-            float part = 0.f;
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              int d = lane + 32 * i;
-              if (d < a.hd) part += qv[i] * bf2f(kr[d]);
-            }
-            sc[j] = warp_sum(part) * a.scale;
-            m = fmaxf(m, sc[j]);
-          }
-        }
-        float den = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAX_KEYS; ++j) {
-          if (j < nk) {
-            sc[j] = expf(sc[j] - m);
-            den += sc[j];
-          }
-        }
-        const float inv = 1.f / den;
-        float yv[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < MAX_KEYS; ++j) {
-          if (j < nk) {
-            const float p = round_bf(sc[j] * inv);
-            const bf16* vr = j < a.P ? pvr + j * D : own + (j - a.P) * qkv_ld + 2 * hdp;
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              int d = lane + 32 * i;
-              if (d < a.hd) yv[i] += p * bf2f(vr[d]);
-            }
-          }
-        }
-        bf16* yr = ys + r * a.ywidth + h * hdp;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          int d = lane + 32 * i;
-          if (d < hdp) yr[d] = f2bf(d < a.hd ? yv[i] : 0.f);
-        }
-      }
-      __syncthreads();
-      clk.mark(PH_ATTN);
-    }
-
-    // ---- proj + residual (in place on xs; A operand is ys) ----------------
-    const int ntD = Dp / 16;
-    for (int n = warp; n < ntD; n += WARPS) {
-      FragC acc[RT];
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-      mma_rows(acc, ys, a.ywidth, w.wproj + static_cast<size_t>(n) * 16 * a.HDp, a.HDp,
-               a.HDp / 16);
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
-          if (r < nrows && c < D)
-            xs[r * Dp + c] = f2bf(bf2f(xs[r * Dp + c]) + round_bf(stage[e] + w.bproj[c]));
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    clk.mark(PH_PROJ);
-    layernorm_rows(xs, hs, w.ln2_s, w.ln2_b, D, Dp, nrows, warp, lane);
-    __syncthreads();
-    clk.mark(PH_LN2);
-
-    // ---- MLP: hidden layer streamed in FC-column chunks, fc2 in registers --
-    FragC out_acc[MAX_OUT_TILES][RT];
-#pragma unroll
-    for (int j = 0; j < MAX_OUT_TILES; ++j)
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(out_acc[j][rt], 0.f);
-    bf16* gbuf = ys;   // [ROWS, FC], ys is free after the projection
-    for (int c0 = 0; c0 < a.F; c0 += FC) {
-      const int nt = min(FC, a.F - c0) / 16;
-      for (int n = warp; n < nt; n += WARPS) {
-        FragC acc[RT];
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-        mma_rows(acc, hs, Dp, w.wfc + static_cast<size_t>(c0 + n * 16) * Dp, Dp, Dp / 16);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          wmma::store_matrix_sync(stage, acc[rt], 16, wmma::mem_row_major);
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
-            gbuf[r * FC + c] = f2bf(gelu_tanh(round_bf(stage[e] + w.bfc[c0 + c])));
-          }
-          __syncwarp();
-        }
-      }
-      __syncthreads();
-      clk.mark(PH_FC);
-      for (int k = 0; k < nt; ++k) {
-        FragA fa[RT];
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt)
-          wmma::load_matrix_sync(fa[rt], gbuf + rt * 16 * FC + k * 16, FC);
-#pragma unroll
-        for (int j = 0; j < MAX_OUT_TILES; ++j) {
-          const int n = warp + j * WARPS;
-          if (n < ntD) {
-            FragB fb;
-            wmma::load_matrix_sync(fb, w.wfc2 + static_cast<size_t>(n) * 16 * a.F + c0 + k * 16,
-                                   a.F);
-#pragma unroll
-            for (int rt = 0; rt < RT; ++rt)
-              wmma::mma_sync(out_acc[j][rt], fa[rt], fb, out_acc[j][rt]);
-          }
-        }
-      }
-      __syncthreads();
-      clk.mark(PH_FC2);
-    }
-#pragma unroll
-    for (int j = 0; j < MAX_OUT_TILES; ++j) {
-      const int n = warp + j * WARPS;
-      if (n < ntD) {
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          wmma::store_matrix_sync(stage, out_acc[j][rt], 16, wmma::mem_row_major);
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            int e = lane * 8 + i, r = rt * 16 + (e >> 4), c = n * 16 + (e & 15);
-            if (r < nrows && c < D)
-              xs[r * Dp + c] = f2bf(bf2f(xs[r * Dp + c]) + round_bf(stage[e] + w.bfc2[c]));
-          }
-          __syncwarp();
-        }
-      }
-    }
-    __syncthreads();
-    clk.mark(PH_FC2);
   }  // layers
 
-  for (int i = tid; i < nrows * D; i += THREADS) {
-    int r = i / D, c = i - r * D;
-    a.out[(row0 + r) * D + c] = xs[r * Dp + c];
-  }
-  if (kTimed) __syncthreads();
+  write_out(a.out + row0 * D, xs, D, Dp, nrows, ctid);
+  if (kTimed) consumer_sync();
   clk.mark(PH_WRITE);
 
   // ---- optional epilogue: ln_f in f32 + f32 linear head ------------------
   if (a.pred != nullptr) {
-    for (int r = warp; r < nrows; r += WARPS) {
-      const bf16* xr = xs + r * Dp;
+    for (int r = warp; r < nrows; r += CONSUMERS / 32) {
       float mu, rstd;
-      row_stats(xr, D, lane, mu, rstd);
+      row_stats(xs, r, D, lane, mu, rstd);
       float acc[MAX_M];
 #pragma unroll
       for (int m = 0; m < MAX_M; ++m) acc[m] = 0.f;
       for (int c = lane; c < D; c += 32) {
-        const float xe = (bf2f(xr[c]) - mu) * rstd * a.lnf_s[c] + a.lnf_b[c];
+        const float xe = (bf2f(xs[a_off(r, c)]) - mu) * rstd * a.lnf_s[c] + a.lnf_b[c];
 #pragma unroll
         for (int m = 0; m < MAX_M; ++m)
           if (m < a.M) acc[m] += xe * a.whead[m * D + c];
@@ -507,19 +845,49 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
 #pragma unroll
       for (int m = 0; m < MAX_M; ++m) {
         if (m < a.M) {
-          const float v = warp_sum(acc[m]);
+          float v = acc[m];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
           if (lane == 0) a.pred[(row0 + r) * a.M + m] = v + a.bhead[m];
         }
       }
     }
   }
-  if (kTimed) __syncthreads();
+  if (kTimed) consumer_sync();
   clk.mark(PH_EPI);
   clk.store(a.cycles);
 }
 
-// The twelve weight pointers of one layer (`FusedLayerParams` order) and its
-// prefix cache.
+// kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
+// the single-layer one (B1, B3, B4) indexes a.layer[0] statically. kTimed:
+// B1 with the phase clock. Warpgroups 0 and 1 consume, warpgroup 2 produces
+// (one thread copies); `setmaxnreg` moves the producer's registers to the
+// consumers: the 384-thread launch holds 168 x 384 registers, which
+// become 40 for each producer thread and 232 for each consumer thread.
+template <bool kGroup, bool kTimed = false>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_layer_prefix_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem sm = carve(a, smem);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) produce<kGroup>(a, sm);
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    consume<kGroup, kTimed>(a, sm, smem);
+  }
+}
+
+// The twelve weight pointers of one layer (`FusedLayerParams` order), its
+// tiled weights and its prefix cache.
 LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
   LayerArgs l;
   l.ln1_s = static_cast<const float*>(w[0]);
@@ -534,21 +902,21 @@ LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
   l.bfc = static_cast<const float*>(w[9]);
   l.wfc2 = static_cast<const bf16*>(w[10]);
   l.bfc2 = static_cast<const float*>(w[11]);
+  l.tiles = static_cast<const bf16*>(w[12]);
   l.pk = static_cast<const bf16*>(pk);
   l.pv = static_cast<const bf16*>(pv);
   return l;
 }
 
 // Fills the derived sizes, sizes shared memory and launches on `stream`;
-// returns cudaGetLastError() (0 = launched). `a.layer[:n_layers]` must be
-// set by the caller; `group` takes the B2 instantiation, a non-null
-// `cycles` the timed single-layer one.
+// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
+// shape outside the limits. `a.layer[:n_layers]` must be set by the caller;
+// `group` takes the B2 instantiation, a non-null `cycles` the timed
+// single-layer one.
 int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx,
-           int n_layers, const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead,
-           void* out, void* pred, int B, int T2, int D, int H, int P, int S, int F, int M,
-           void* stream) {
-  if (n_layers < 1 || n_layers > (group ? MAX_LAYERS : 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+           int n_layers, const void* lnf_s, const void* lnf_b, const void* whead,
+           const void* bhead, void* out, void* pred, int B, int T2, int D, int H, int P, int S,
+           int F, int M, void* stream) {
   a.x = static_cast<const bf16*>(x);
   a.idx = static_cast<const int*>(idx);
   a.n_layers = n_layers;
@@ -570,14 +938,25 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
   a.hd = D / H;
   a.hdp = (a.hd + 15) / 16 * 16;
   a.Dp = (D + 15) / 16 * 16;
+  a.Dq = (a.Dp + 127) / 128 * 128;
   a.HDp = H * a.hdp;
-  a.ywidth = a.HDp > FC ? a.HDp : FC;
-  a.envs_per_block = ROWS / T2;
+  a.n_mlp = (F + FC - 1) / FC;
+  a.envs_per_block = T2 > 0 ? ROWS / T2 : 0;
+  a.key_rows = a.envs_per_block * (P + T2);
+  a.kg = P + T2 <= 16 ? 16 : 32;
   a.scale = 1.0f / sqrtf(static_cast<float>(a.hd));
+  if (n_layers < 1 || n_layers > (group ? MAX_LAYERS : 1) || T2 < 1 || T2 > ROWS ||
+      P + T2 > MAX_KEYS || M > MAX_M || a.Dp > MAX_DP || a.hdp > MAX_HDP ||
+      a.HDp > MAX_HDP_ALL || F % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
 
-  const size_t smem = sizeof(bf16) * (2 * ROWS * a.Dp + ROWS * a.ywidth + ROWS * 3 * a.hdp +
-                                      2 * a.envs_per_block * P * D) +
-                      sizeof(float) * WARPS * 256;
+  const size_t smem =
+      256 + STAGES * SLOT_BYTES +
+      sizeof(bf16) * (2 * ROWS * a.Dp + (ROWS * a.HDp > 2 * ROWS * FC ? ROWS * a.HDp
+                                                                        : 2 * ROWS * FC) +
+                      ROWS * (a.hdp + 8) + a.key_rows * (2 * a.hdp + 8)) +
+      sizeof(float) * 8 * ROWS;
+  if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = group ? fused_layer_prefix_kernel<true>
                       : cycles ? fused_layer_prefix_kernel<false, true>
                                : fused_layer_prefix_kernel<false>;
@@ -595,8 +974,8 @@ extern "C" {
 
 // Each entry launches the kernel on `stream` and returns cudaGetLastError()
 // (0 = launched). Shapes are checked by the Python wrappers
-// (ops/fused_layer.py). `w` points at one layer's twelve weight pointers in
-// `FusedLayerParams` order.
+// (ops/fused_layer.py). `w` points at one layer's thirteen pointers: the
+// twelve weights in `FusedLayerParams` order, then its tiled weights.
 
 // B1: one block against the prefix row `idx` of pk/pv [S, B, P, D].
 int beso_fused_layer_prefix(const void* x, const void* pk, const void* pv, const void* idx,
@@ -623,8 +1002,8 @@ int beso_fused_layer_prefix_timed(const void* x, const void* pk, const void* pv,
                 bhead, out, pred, B, T2, D, H, P, S, F, M, stream);
 }
 
-// B2: n_layers blocks in one launch. `layers` holds n_layers x 14 pointers:
-// each layer's twelve weights, then its pk and pv [S, B, P, D].
+// B2: n_layers blocks in one launch. `layers` holds n_layers x 15 pointers:
+// each layer's thirteen (as `w` above), then its pk and pv [S, B, P, D].
 int beso_fused_layers_prefix_group(const void* x, const void* idx, const void* const* layers,
                                    int n_layers, const void* lnf_s, const void* lnf_b,
                                    const void* whead, const void* bhead, void* out,
@@ -633,7 +1012,7 @@ int beso_fused_layers_prefix_group(const void* x, const void* idx, const void* c
   Args a;
   for (int l = 0; l < n_layers && l < MAX_LAYERS; ++l) {
     const void* const* lw = layers + l * LAYER_PTRS;
-    a.layer[l] = layer_args(lw, lw[12], lw[13]);
+    a.layer[l] = layer_args(lw, lw[13], lw[14]);
   }
   return launch(a, true, nullptr, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred,
                 B, T2, D, H, P, S, F, M, stream);
@@ -662,16 +1041,20 @@ const char* beso_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Kernel limits the wrapper checks against.
+// Kernel limits the wrapper checks against, and the tiling constants
+// `tile_layer_weights` must share with the kernel.
 int beso_fused_layer_prefix_limits(int which) {
   switch (which) {
     case 0: return ROWS;
     case 1: return MAX_KEYS;
     case 2: return MAX_M;
-    case 3: return WARPS * MAX_OUT_TILES * 16;
+    case 3: return MAX_DP;
     case 4: return MAX_HDP;
     case 5: return MAX_LAYERS;
     case 6: return N_PHASES;
+    case 7: return MAX_HDP_ALL;
+    case 8: return SLOT_BYTES;
+    case 9: return FC;
     default: return -1;
   }
 }

@@ -47,19 +47,27 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-// Wait until the barrier's phase with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// True once the barrier's phase with this parity has completed.
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
       "{\n"
       ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
       : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase with this parity has completed. A wait
+// that never ends (a fault in the protocol) traps after 2^22 polls, far
+// beyond any real wait, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
+    if (n == (1u << 22)) __trap();
 }
 
 // ---- bulk asynchronous copy -----------------------------------------------
@@ -77,6 +85,18 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
 // async proxy); put before the barrier that hands the tile over.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- register moves between warpgroups -----------------------------------
+// All four warps of a warpgroup execute these together, in branches that
+// never rejoin, so that ptxas can give each branch its own register count.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -62,6 +62,8 @@ class FusedLayerParams(NamedTuple):
     16: each q/k/v head to hdp = ceil16(hd) rows, the model width to
     Dp = ceil16(D), the MLP width to Fp = ceil16(4D). Padding is zero, so
     padded products are exact. Biases and LayerNorm parameters are f32.
+    `tiles` is the kernel's copy of the four weights, derived from them by
+    `tile_layer_weights` (bf16 layers only; None otherwise).
     """
 
     ln1_s: torch.Tensor    # [D]
@@ -76,6 +78,7 @@ class FusedLayerParams(NamedTuple):
     bfc: torch.Tensor      # [Fp]
     wfc2: torch.Tensor     # [Dp, Fp]
     bfc2: torch.Tensor     # [Dp]
+    tiles: Optional[torch.Tensor] = None   # flat bf16, `tile_layer_weights`
 
 
 class FusedEpilogue(NamedTuple):
@@ -90,7 +93,9 @@ class FusedEpilogue(NamedTuple):
 def prepare_layer_params(lp: dict, n_heads: int,
                          dtype: torch.dtype = torch.bfloat16) -> FusedLayerParams:
     """Pad and cast one layer (the dict of `models.cached.extract_gpt_params`,
-    Linear weights [out, in]) into the kernel's layout. Call once per model."""
+    Linear weights [out, in]) into the kernel's layout, with the tiled copy
+    of the weights when dtype is bf16 (the kernels' type). Call once per
+    model."""
     D = lp["wqkv"].shape[1]
     H = n_heads
     hd = D // H
@@ -110,7 +115,7 @@ def prepare_layer_params(lp: dict, n_heads: int,
     def f32(t):
         return t.float().contiguous()
 
-    return FusedLayerParams(
+    p = FusedLayerParams(
         ln1_s=f32(lp["ln1_s"]), ln1_b=f32(lp["ln1_b"]),
         wqkv=w(wqkv.reshape(3 * H * hdp, Dp)), bqkv=f32(bqkv.reshape(-1)),
         wproj=w(pad_to(wproj.reshape(D, H * hdp), Dp, H * hdp)),
@@ -120,6 +125,65 @@ def prepare_layer_params(lp: dict, n_heads: int,
         bfc=f32(F.pad(lp["bfc"], (0, Fp - lp["bfc"].shape[0]))),
         wfc2=w(pad_to(lp["wfc2"], Dp, Fp)),
         bfc2=f32(F.pad(lp["bfc2"], (0, Dp - D))))
+    if dtype == torch.bfloat16:
+        p = p._replace(tiles=tile_layer_weights(p, H))
+    return p
+
+
+# Tiling constants shared with csrc/fused_layer_prefix.cu (SLOT_BYTES, FC),
+# which `_limits()` reads back from the compiled kernel on the card.
+SLOT_BYTES = 12288   # one slot of the kernel's weight ring
+MLP_CHUNK = 160      # FC: hidden columns per MLP chunk
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def layer_products(p: FusedLayerParams, n_heads: int):
+    """The B operands [N, K] of one layer's products in the order the
+    kernel consumes them: per head the [q|k|v] rows (3 hdp x Dp), proj with
+    its rows padded to Dq = ceil128(Dp) (Dq x H hdp), then per MLP chunk of
+    MLP_CHUNK hidden columns fc (MLP_CHUNK x Dp) and fc2 (Dq x MLP_CHUNK),
+    F padded to a multiple of MLP_CHUNK. Padding is zero."""
+    H = n_heads
+    Dp = p.wqkv.shape[1]
+    hdp = p.wqkv.shape[0] // (3 * H)
+    Fp = p.wfc.shape[0]
+    Dq, Fq = _ceil_to(Dp, 128), _ceil_to(Fp, MLP_CHUNK)
+    wqkv = p.wqkv.reshape(3, H, hdp, Dp)
+    prods = [wqkv[:, h].reshape(3 * hdp, Dp) for h in range(H)]
+    prods.append(F.pad(p.wproj, (0, 0, 0, Dq - Dp)))
+    wfc = F.pad(p.wfc, (0, 0, 0, Fq - Fp))
+    wfc2 = F.pad(p.wfc2, (0, Fq - Fp, 0, Dq - Dp))
+    for c in range(0, Fq, MLP_CHUNK):
+        prods += [wfc[c:c + MLP_CHUNK], wfc2[:, c:c + MLP_CHUNK]]
+    return prods
+
+
+def chunk_steps(n_rows: int, ksteps: int):
+    """16-deep k-steps of each ring chunk of a B operand with n_rows rows:
+    as many as fit SLOT_BYTES (at least one), the last chunk the rest."""
+    kpc = max(1, SLOT_BYTES // (n_rows * 32))
+    return [min(kpc, ksteps - k) for k in range(0, ksteps, kpc)]
+
+
+def tile_layer_weights(p: FusedLayerParams, n_heads: int) -> torch.Tensor:
+    """The kernel's tiled copy of one layer's weights: each product of
+    `layer_products`, cut into the chunks of `chunk_steps`, each chunk
+    [N, 16 k] laid out as the K-major unswizzled `wgmma` operand (8 x 8
+    core matrices of 128 contiguous bytes, ordered [k/8][n/8][8 rows][8])
+    and the chunks concatenated, so the kernel fills a ring slot with one
+    bulk copy of contiguous bytes. Flat, in the weights' dtype."""
+    parts = []
+    for wt in layer_products(p, n_heads):
+        N, K = wt.shape
+        k0 = 0
+        for ks in chunk_steps(N, K // 16):
+            blk = wt[:, k0 * 16:(k0 + ks) * 16]
+            parts.append(blk.reshape(N // 8, 8, 2 * ks, 8).permute(2, 0, 1, 3).reshape(-1))
+            k0 += ks
+    return torch.cat(parts).contiguous()
 
 
 def _block_reference(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
@@ -220,9 +284,15 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _limits():
     """(rows per block, max keys, max head width, max Dp, max hdp, max
-    layers per group, number of timed phases), as the compiled kernel
-    reports them."""
-    return tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(7))
+    layers per group, number of timed phases, max H * hdp, ring slot bytes,
+    MLP chunk), as the compiled kernel reports them. Raises if the kernel's
+    tiling constants are not this module's."""
+    lim = tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(10))
+    if lim[6:] != (len(PHASES), lim[7], SLOT_BYTES, MLP_CHUNK):
+        raise RuntimeError(f"kernel constants {lim[6:]} do not match fused_layer.py "
+                           f"({len(PHASES)} phases, SLOT_BYTES {SLOT_BYTES}, "
+                           f"MLP_CHUNK {MLP_CHUNK})")
+    return lim
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
@@ -245,10 +315,12 @@ def _check_launch(x: torch.Tensor, P: int, n_heads: int, layer_params):
     hdp, Dp = _ceil16(hd), _ceil16(D)
     Fp = layer_params[0].wfc.shape[0]
     rows, max_keys, _, max_dp, max_hdp = _limits()[:5]
-    if T > rows or P + T > max_keys or Dp > max_dp or hdp > max_hdp:
+    max_all = _limits()[7]
+    if (T > rows or P + T > max_keys or Dp > max_dp or hdp > max_hdp
+            or H * hdp > max_all):
         raise ValueError(f"shape outside the kernel's limits: T={T} (<= {rows}), "
                          f"P+T={P + T} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
-                         f"hdp={hdp} (<= {max_hdp})")
+                         f"hdp={hdp} (<= {max_hdp}), H*hdp={H * hdp} (<= {max_all})")
     if Fp % 16:
         raise ValueError(f"MLP width {Fp} not a multiple of 16")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
@@ -257,11 +329,17 @@ def _check_launch(x: torch.Tensor, P: int, n_heads: int, layer_params):
                   bqkv=(3 * H * hdp,), wproj=(Dp, H * hdp), bproj=(Dp,),
                   ln2_s=(D,), ln2_b=(D,), wfc=(Fp, Dp), bfc=(Fp,),
                   wfc2=(Dp, Fp), bfc2=(Dp,))
+    Dq, Fq = _ceil_to(Dp, 128), _ceil_to(Fp, MLP_CHUNK)
+    n_tiles = 3 * H * hdp * Dp + Dq * H * hdp + Fq * Dp + Dq * Fq   # `layer_products`
     ptrs = []
     for p in layer_params:
         for name, shape in shapes.items():
             build.check_tensor(getattr(p, name), name, shape,
                                bf if name.startswith("w") else f32, dev)
+        if p.tiles is None:
+            raise ValueError("the layer has no tiled weights: prepare it with "
+                             "prepare_layer_params(..., dtype=torch.bfloat16)")
+        build.check_tensor(p.tiles, "tiles", (n_tiles,), bf, dev)
         ptrs.append([t.data_ptr() for t in p])
     return (B, T, D, Fp), ptrs
 
