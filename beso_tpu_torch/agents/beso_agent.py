@@ -85,10 +85,10 @@ class BesoAgentConfig:
 class BesoAgent:
     def __init__(self, config: BesoAgentConfig, scaler: Scaler,
                  checkpoint_dir: Optional[str] = None, metrics_writer=None,
-                 device=None):
+                 device="cuda"):
         self.cfg = config
         self.scaler = scaler
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device)
         self.checkpoint_dir = checkpoint_dir
         self.metrics_writer = metrics_writer
         lognormal = config.sigma_sample_density_type == "lognormal"

@@ -35,10 +35,10 @@
 // per-layer pointers travel in the kernel's parameter struct (MAX_LAYERS x
 // 15 pointers, under 1 KB of the 4 KB parameter space).
 //
-// Limits: 64 rows per block, P + T2 <= 32 keys, M <= 16, Dp <= 384,
-// hdp <= 64 and H * hdp <= 384, at most 8 layers per group; a shape whose
-// shared memory does not fit 227 KB (many prefix keys per block) is refused
-// at launch.
+// Limits: 64 rows per block, P + T2 <= 32 keys, the envs of each 16-row
+// block at most 48 keys in all, M <= 16, Dp <= 384, hdp <= 64 and
+// H * hdp <= 384, at most 8 layers per group; a shape whose shared memory
+// does not fit 227 KB (many prefix keys per block) is refused at launch.
 //
 // Numerics (as the TPU kernels): bf16 operands, f32 accumulation, f32 bias,
 // one rounding to bf16 after the bias; LayerNorm statistics in f32 with
@@ -68,12 +68,20 @@
 //     are written in the unswizzled core-matrix layout, where a quad of
 //     lanes storing a fragment fills one 16-byte row and a warp one 128-byte
 //     core matrix, so the stores are free of bank conflicts;
-//   - attention (at most 32 keys per query) stays on CUDA cores: a group of
-//     16 or 32 lanes per query row with one key per lane, one max and one
-//     sum reduction per row, then the lanes over the head dim for P.V with
-//     the probabilities broadcast by shuffles; the next head's prefix K/V
-//     loads are in flight while its QKV products run.
-// The timed instantiation adds clock64() marks at the phase boundaries.
+//   - attention runs on tensor cores too (mma.sync m16n8k16): per 16 query
+//     rows the scores against the keys of their envs (at most 48), masked,
+//     softmax on the accumulator registers, P.V with P taken from them;
+//   - device-memory reads other than the weights wait long behind the
+//     copies that fill L2's queues, so they are issued early: the next
+//     head's prefix K/V and q/k/v biases over this head's products and
+//     attention, the fc bias over the proj products (staged in shared
+//     memory); and every register spill is costly, so per-pass addresses
+//     are kept from being hoisted across the head and MLP loops.
+// One 384-thread block per SM (the shared memory), with `setmaxnreg` moving
+// the producer warpgroup's registers to the consumers. The timed
+// instantiation adds clock64() marks at the phase boundaries; PERF.md has
+// the measurements. B2's layer loop still spills (its body, inlined into
+// the loop, keeps more values live than the single-layer one).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +106,8 @@ constexpr int MAX_HDP = 64;
 constexpr int MAX_HDP_ALL = 384;    // H * hdp, the attention output width
 constexpr int MAX_LAYERS = 8;       // layers of one B2 group
 constexpr int PREFETCH = 6;         // prefix K/V pairs per thread held over a QKV product
+constexpr int BFC_PER_THREAD = 6;   // fc bias values per thread staged in shared memory
+constexpr int MMA_KEYS = 48;        // keys of the envs of a 16-row block (attention)
 constexpr int MAX_SMEM = 232448;    // a block's shared memory on sm_90
 
 // Phases of the timed instantiation (clock64() cycles summed per block).
@@ -147,7 +157,6 @@ struct LayerArgs {
   const bf16* pv;
 };
 constexpr int LAYER_PTRS = sizeof(LayerArgs) / sizeof(void*);
-static_assert(sizeof(LayerArgs) <= 128, "B2 stages a layer's pointers in 128 bytes");
 
 struct Args {
   const bf16* x;
@@ -162,7 +171,7 @@ struct Args {
   float* pred;
   long long* cycles;  // [blocks, N_PHASES] (timed instantiation only)
   int B, T2, D, H, P, S, F, M;
-  int hd, hdp, Dp, Dq, HDp, n_mlp, envs_per_block, key_rows, kg;
+  int hd, hdp, Dp, Dq, HDp, n_mlp, envs_per_block, key_rows;
   float scale;
 };
 
@@ -176,6 +185,16 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   float t;
   asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.7978845608028654f * (x + 0.044715f * x * x * x)));
   return 0.5f * x * (1.0f + t);
+}
+
+// A zero the compiler cannot see through. Added to the shared-memory
+// offsets of a head's or an MLP chunk's epilogue and of attention, it keeps
+// their addresses, the same in every pass, from being hoisted out of the
+// loop and held (and spilled) across it.
+__device__ __forceinline__ int opaque_zero() {
+  int z = 0;
+  asm volatile("" : "+r"(z));
+  return z;
 }
 
 // The consumers' barrier (the producer warp never joins it).
@@ -234,24 +253,22 @@ struct Smem {
   bf16* hs;         // LN output, A tile [ROWS, Dp]
   bf16* ys;         // attention output [ROWS, HDp] or two GELU chunks [ROWS, FC]
   bf16* qh;         // [ROWS, hdp + 8]
-  bf16* kh;         // [hdp / 8, key_rows, 8]
+  bf16* kh;         // [key_rows, hdp + 8]
   bf16* vh;         // [key_rows, hdp + 8]
   float* stats;     // [2, 4, ROWS]
-  LayerArgs* layer; // the current layer's pointers (B2)
 };
 
 __device__ __forceinline__ Smem carve(const Args& a, unsigned char* base) {
   Smem m;
   m.full = reinterpret_cast<uint64_t*>(base);
   m.empty = m.full + STAGES;
-  m.layer = reinterpret_cast<LayerArgs*>(base + 128);
-  m.slots = reinterpret_cast<bf16*>(base + 256);
+  m.slots = reinterpret_cast<bf16*>(base + 128);
   m.xs = m.slots + STAGES * (SLOT_BYTES / 2);
   m.hs = m.xs + ROWS * a.Dp;
   m.ys = m.hs + ROWS * a.Dp;
   m.qh = m.ys + max(ROWS * a.HDp, 2 * ROWS * FC);
   m.kh = m.qh + ROWS * (a.hdp + 8);
-  m.vh = m.kh + a.key_rows * a.hdp;
+  m.vh = m.kh + a.key_rows * (a.hdp + 8);
   m.stats = reinterpret_cast<float*>(m.vh + a.key_rows * (a.hdp + 8));
   return m;
 }
@@ -320,35 +337,45 @@ __device__ __forceinline__ void gemm_wide(Ring& ring, float* acc, const bf16* A,
 // x rows [0, nrows) of width D into the A tile xs; pad rows and columns
 // are zero. In the A layout the 64 rows of one 8-column group are 64
 // consecutive 16-byte rows.
-__device__ void load_x(bf16* xs, const bf16* x, int D, int Dp, int nrows, int ctid) {
+__device__ __forceinline__ void load_x(bf16* xs, const bf16* x, int D, int Dp, int nrows,
+                                       int ctid) {
   for (int i = ctid; i < ROWS * (Dp / 8); i += CONSUMERS) {
     const int r = i & (ROWS - 1), c0 = (i >> 6) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < nrows && c0 < D) {
-      if (D % 8 == 0) {
-        v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * D + c0);
-      } else {
-        bf16* e = reinterpret_cast<bf16*>(&v);
-        for (int j = 0; j < 8 && c0 + j < D; ++j) e[j] = x[static_cast<size_t>(r) * D + c0 + j];
-      }
+    const bool in = r < nrows && c0 < D;
+    if (D % 8 == 0 || !in) {
+      *reinterpret_cast<uint4*>(xs + a_off(r, c0)) =
+          in ? *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * D + c0)
+             : make_uint4(0, 0, 0, 0);
+    } else {
+      for (int j = 0; j < 8; ++j)
+        xs[a_off(r, c0 + j)] = c0 + j < D ? x[static_cast<size_t>(r) * D + c0 + j] : f2bf(0.f);
     }
-    *reinterpret_cast<uint4*>(xs + a_off(r, c0)) = v;
   }
 }
 
 // The tile's rows [0, nrows) of the A tile xs into out [nrows, D].
-__device__ void write_out(bf16* out, const bf16* xs, int D, int Dp, int nrows, int ctid) {
+__device__ __forceinline__ void write_out(bf16* out, const bf16* xs, int D, int Dp, int nrows,
+                                          int ctid) {
   for (int i = ctid; i < ROWS * (Dp / 8); i += CONSUMERS) {
     const int r = i & (ROWS - 1), c0 = (i >> 6) * 8;
     if (r >= nrows || c0 >= D) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(xs + a_off(r, c0));
     if (D % 8 == 0) {
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * D + c0) = v;
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * D + c0) =
+          *reinterpret_cast<const uint4*>(xs + a_off(r, c0));
     } else {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      for (int j = 0; j < 8 && c0 + j < D; ++j) out[static_cast<size_t>(r) * D + c0 + j] = e[j];
+      for (int j = 0; j < 8 && c0 + j < D; ++j)
+        out[static_cast<size_t>(r) * D + c0 + j] = xs[a_off(r, c0 + j)];
     }
   }
+}
+
+// Two floats rounded to bf16 and packed, and back.
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
 // LayerNorm of the A tile src into the A tile dst; pad rows (>= nrows) and
@@ -356,18 +383,20 @@ __device__ void write_out(bf16* out, const bf16* xs, int D, int Dp, int nrows, i
 // fourth 8-column group from t / 64, so a warp reads 32 consecutive 16-byte
 // rows; `stats` holds the 2 x 4 x 64 partial sums. Ends with the fence that
 // hands dst to `wgmma` (the caller's barrier completes the hand-over).
-__device__ void layernorm(const bf16* src, bf16* dst, const float* s, const float* b, int D,
-                          int Dp, int nrows, float* stats, int ctid) {
+__device__ __forceinline__ void layernorm(const bf16* src, bf16* dst, const float* s,
+                                          const float* b, int D, int Dp, int nrows, float* stats,
+                                          int ctid) {
   const int r = ctid & (ROWS - 1), q = ctid >> 6;
   float sum = 0.f, sq = 0.f;
   for (int c0 = q * 8; c0 < Dp; c0 += 32) {
     const uint4 v = *reinterpret_cast<const uint4*>(src + a_off(r, c0));
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float f = c0 + j < D ? bf2f(e[j]) : 0.f;
-      sum += f;
-      sq += f * f;
+    for (int j = 0; j < 8; j += 2) {
+      const float2 f = unpack_bf2(w[j / 2]);
+      const float f0 = c0 + j < D ? f.x : 0.f, f1 = c0 + j + 1 < D ? f.y : 0.f;
+      sum += f0 + f1;
+      sq += f0 * f0 + f1 * f1;
     }
   }
   stats[q * ROWS + r] = sum;
@@ -382,15 +411,17 @@ __device__ void layernorm(const bf16* src, bf16* dst, const float* s, const floa
   const float mu = ts / D, rstd = rsqrtf(tq / D - mu * mu + 1e-5f);
   for (int c0 = q * 8; c0 < Dp; c0 += 32) {
     const uint4 v = *reinterpret_cast<const uint4*>(src + a_off(r, c0));
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-    uint4 o;
-    bf16* y = reinterpret_cast<bf16*>(&o);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; j += 2) {
+      const float2 f = unpack_bf2(w[j / 2]);
       const int c = c0 + j;
-      y[j] = f2bf(r < nrows && c < D ? (bf2f(e[j]) - mu) * rstd * s[c] + b[c] : 0.f);
+      o[j / 2] = pack_bf2(r < nrows && c < D ? (f.x - mu) * rstd * s[c] + b[c] : 0.f,
+                          r < nrows && c + 1 < D ? (f.y - mu) * rstd * s[c + 1] + b[c + 1]
+                                                 : 0.f);
     }
-    *reinterpret_cast<uint4*>(dst + a_off(r, c0)) = o;
+    *reinterpret_cast<uint4*>(dst + a_off(r, c0)) = make_uint4(o[0], o[1], o[2], o[3]);
   }
   hopper::fence_proxy_async();
 }
@@ -398,22 +429,14 @@ __device__ void layernorm(const bf16* src, bf16* dst, const float* s, const floa
 // Where this block's prefix K/V elements go, per head: element (e, j, d)
 // of pk/pv (env e, prefix key j, head dim d) is read at ej D + h hd + d from
 // the block's first prefix row, and written to key row R = e (P + T2) + j
-// of kh (8-column groups of key rows) or of vh (rows of hdp + 8; vh follows
-// kh). The first PREFETCH x CONSUMERS pairs of elements (K pairs first,
-// then V; hd even) are planned once per block: each thread loads its pairs
-// before a head's QKV products and stores them after.
-struct PrefixPlan {
-  int np;               // pairs per K (and per V); 0 when P == 0 or hd is odd
-  int src[PREFETCH];    // element offsets into the block's pk / pv rows
-  int dst[PREFETCH];    // element offsets from kh
-};
-
+// of kh or vh (both rows of hdp + 8; vh follows kh). With hd even they
+// move in pairs, np = n_env P hd / 2 for K and as many for V (K first):
+// thread ctid takes pairs ctid + q CONSUMERS.
 __device__ __forceinline__ void prefix_place(const Args& a, int ej, int d, bool is_v, int& src,
                                              int& dst) {
   const int e = ej / a.P, R = e * (a.P + a.T2) + (ej - e * a.P);
   src = ej * a.D + d;
-  dst = is_v ? a.key_rows * a.hdp + R * (a.hdp + 8) + d
-             : ((d >> 3) * a.key_rows + R) * 8 + (d & 7);
+  dst = (is_v ? a.key_rows + R : R) * (a.hdp + 8) + d;
 }
 
 __device__ __forceinline__ void prefix_pair(const Args& a, int np, int i, int& src, int& dst) {
@@ -423,60 +446,67 @@ __device__ __forceinline__ void prefix_pair(const Args& a, int np, int i, int& s
   prefix_place(a, ej, 2 * (rem - ej * half), is_v, src, dst);
 }
 
-__device__ __forceinline__ PrefixPlan plan_prefix(const Args& a, int n_env, int ctid) {
-  PrefixPlan pp;
-  pp.np = (a.hd & 1) == 0 ? n_env * a.P * (a.hd >> 1) : 0;
-#pragma unroll
-  for (int q = 0; q < PREFETCH; ++q) {
-    pp.src[q] = pp.dst[q] = 0;
-    const int i = ctid + q * CONSUMERS;
-    if (i < 2 * pp.np) prefix_pair(a, pp.np, i, pp.src[q], pp.dst[q]);
-  }
-  return pp;
-}
-
-// What a thread reads from device memory for one head's QKV epilogue: its
-// planned prefix K/V pairs and its bias values (value k: column
-// frag_col(4 (k / 2) + k % 2) of its warpgroup's NW). Loaded a whole head
-// ahead, so that the loads' latency (long while the weight copies fill L2's
-// queues) hides behind a head's attention and products.
-template <int NW>
+// What a thread reads from device memory for one head's QKV products,
+// issued a head ahead so that the loads' latency (long while the weight
+// copies fill L2's queues) hides behind the previous head's work:
+// its planned prefix K/V pairs and, for ctid < 3 hdp, one of the head's
+// q/k/v biases. `store` puts them in place once that attention is done:
+// the pairs into kh/vh, the biases into `bias_s` [3 hdp].
 struct HeadLoads {
   uint32_t pre[PREFETCH];
-  float bq[NW / 4];
+  float bias;
 
   __device__ __forceinline__ void load(const Args& a, const LayerArgs& w, int h,
-                                       const bf16* pk0, const bf16* pv0, const PrefixPlan& pp,
-                                       int ctid) {
-    const bf16* pkh = pk0 + h * a.hd;
-    const bf16* pvh = pv0 + h * a.hd;
+                                       const bf16* pk0, const bf16* pv0, int np, int ctid) {
+    const int z = opaque_zero();
+    const bf16* pkh = pk0 + h * a.hd + z;
+    const bf16* pvh = pv0 + h * a.hd + z;
+#pragma unroll
+    for (int q = 0; q < PREFETCH; ++q) {
+      const int i = ctid + q * CONSUMERS + z;
+      if (i < 2 * np) {
+        int src, dst;
+        prefix_pair(a, np, i, src, dst);
+        pre[q] = *reinterpret_cast<const uint32_t*>((i < np ? pkh : pvh) + src);
+      }
+    }
+    if (ctid < 3 * a.hdp) {
+      const int part = ctid / a.hdp;
+      bias = w.bqkv[(part * a.H + h) * a.hdp + ctid - part * a.hdp];
+    }
+  }
+
+  __device__ __forceinline__ void store(const Args& a, const Smem& sm, int np, float* bias_s,
+                                        int ctid) const {
+    bf16* kh = sm.kh + opaque_zero();
 #pragma unroll
     for (int q = 0; q < PREFETCH; ++q) {
       const int i = ctid + q * CONSUMERS;
-      if (i < 2 * pp.np)
-        pre[q] = *reinterpret_cast<const uint32_t*>((i < pp.np ? pkh : pvh) + pp.src[q]);
+      if (i < 2 * np) {
+        int src, dst;
+        prefix_pair(a, np, i, src, dst);
+        *reinterpret_cast<uint32_t*>(kh + dst) = pre[q];
+      }
     }
-#pragma unroll
-    for (int k = 0; k < NW / 4; ++k) {
-      const int col = (ctid >> 7) * NW + frag_col(4 * (k >> 1) + (k & 1));
-      const int part = (col >= a.hdp) + (col >= 2 * a.hdp);
-      bq[k] = w.bqkv[(part * a.H + h) * a.hdp + col - part * a.hdp];
-    }
+    if (ctid < 3 * a.hdp) bias_s[ctid] = bias;
   }
 };
 
-// Head h's q, k and v of the tile's rows: q into qh [ROWS, hdp + 8], the
-// own keys and values at key row e (P + T2) + P + t of env e, token t, the
-// prefix keys and values (pk0 / pv0: the block's first prefix row) as
-// PrefixPlan says, `ld` holding this head's loads. The two warpgroups take
-// NW = 3 hdp / 2 columns of [q|k|v] each.
+// Head h's q, k and v of the tile's rows: q into qh, the own keys and
+// values at key row e (P + T2) + P + t of env e, token t (kh, vh: rows of
+// hdp + 8), with the bias from `bias_s`; the prefix keys and values beyond
+// HeadLoads' share (or all of them, hd odd) go straight from device memory
+// to their key rows e (P + T2) + j. The two warpgroups take NW = 3 hdp / 2
+// columns of [q|k|v] each.
 template <int NW>
 __device__ __forceinline__ void qkv_head(const Args& a, Ring& ring, const Smem& sm, int h,
                                          int nrows, int n_env, const bf16* pk0,
-                                         const bf16* pv0, const PrefixPlan& pp,
-                                         const HeadLoads<NW>& ld, int ctid) {
-  bf16 *qh = sm.qh, *kh = sm.kh, *vh = sm.vh;
-  const int wg = ctid >> 7, np = pp.np;
+                                         const bf16* pv0, int np,
+                                         const float* bias_s, int ctid) {
+  const int z = opaque_zero();
+  bf16 *qh = sm.qh + z, *kh = sm.kh + z, *vh = sm.vh + z;
+  bias_s += z;
+  const int wg = ctid >> 7, qs = a.hdp + 8;
   const bf16* pkh = pk0 + h * a.hd;
   const bf16* pvh = pv0 + h * a.hd;
   for (int i = ctid + PREFETCH * CONSUMERS; i < 2 * np; i += CONSUMERS) {
@@ -511,119 +541,111 @@ __device__ __forceinline__ void qkv_head(const Args& a, Ring& ring, const Smem& 
     if (r < nrows) {
       const int col = wg * NW + frag_col(i);
       const int part = (col >= a.hdp) + (col >= 2 * a.hdp), d = col - part * a.hdp;
-      const float* bias = ld.bq + 2 * (i >> 2);
-      const __nv_bfloat162 v = __floats2bfloat162_rn(acc[i] + bias[0], acc[i + 1] + bias[1]);
       const int R = key_row[(i >> 1) & 1];
-      bf16* dst = part == 0   ? qh + r * (a.hdp + 8) + d
-                  : part == 1 ? kh + ((d >> 3) * a.key_rows + R) * 8 + (d & 7)
-                              : vh + R * (a.hdp + 8) + d;
-      *reinterpret_cast<__nv_bfloat162*>(dst) = v;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < PREFETCH; ++q)
-    if (ctid + q * CONSUMERS < 2 * np) *reinterpret_cast<uint32_t*>(kh + pp.dst[q]) = ld.pre[q];
-}
-
-// p_j v_j summed over the keys jj < nk_max of this lane group's row, for
-// the DPL head-dim values d = DPL j + u of lane j (one vector load a key);
-// p_j comes from lane jj of the group.
-template <int DPL>
-__device__ __forceinline__ void pv_contiguous(float* y, const bf16* vh, int qs, int kbase,
-                                              int nk_max, float pr, int gbase, int j) {
-  for (int jj = 0; jj < nk_max; ++jj) {
-    const float pj = __shfl_sync(0xffffffffu, pr, gbase + jj);
-    const bf16* vr = vh + (kbase + jj) * qs + DPL * j;
-    if constexpr (DPL == 4) {
-      const uint2 v = *reinterpret_cast<const uint2*>(vr);
-      const float2 v0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-      const float2 v1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-      y[0] = fmaf(pj, v0.x, y[0]);
-      y[1] = fmaf(pj, v0.y, y[1]);
-      y[2] = fmaf(pj, v1.x, y[2]);
-      y[3] = fmaf(pj, v1.y, y[3]);
-    } else if constexpr (DPL == 2) {
-      const float2 v0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr));
-      y[0] = fmaf(pj, v0.x, y[0]);
-      y[1] = fmaf(pj, v0.y, y[1]);
-    } else {
-      y[0] = fmaf(pj, bf2f(vr[0]), y[0]);
+      bf16* dst = part == 0 ? qh + r * qs + d : (part == 1 ? kh : vh) + R * qs + d;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf2(acc[i] + bias_s[col], acc[i + 1] + bias_s[col + 1]);
     }
   }
 }
 
-// Attention of head h for the tile's rows into ys columns [h hdp, (h + 1)
-// hdp). A group of kg lanes per query row: lane j scores key j (a dot
-// product over 16-byte chunks of q and k, four partial sums), one max and
-// one sum reduction per row, probabilities rounded to bf16; then the same
-// lanes over the head dim accumulate p_j v_j with p_j broadcast by a
-// shuffle, each lane on DPL = hdp / kg neighbouring values where that
-// divides (else on every kg-th value).
-__device__ void attention_head(const Args& a, const bf16* qh, const bf16* kh, const bf16* vh,
-                               bf16* ys, int h, int nrows, int ctid) {
-  constexpr int MAX_DPL = MAX_HDP / 16;   // head-dim values per lane (kg >= 16)
-  const int kg = a.kg, lane = ctid & 31, gpw = 32 / kg;
-  const int g = lane / kg, j = lane - g * kg, qs = a.hdp + 8;
-  const int dpl = a.hdp % kg == 0 ? a.hdp / kg : 0;   // 0: strided
-  for (int r0 = (ctid >> 5) * gpw; r0 < nrows; r0 += (CONSUMERS / 32) * gpw) {
-    const int r = r0 + g;
-    const bool live = r < nrows;
-    const int e = live ? r / a.T2 : 0, t = live ? r - e * a.T2 : 0;
-    const int nk = live ? a.P + t + 1 : 0, kbase = e * (a.P + a.T2);
-    float s = -INFINITY;
-    if (j < nk) {
-      const bf16* qr = qh + r * qs;
-      float dot[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c = 0; c < a.hdp; c += 8) {
-        const uint4 qv = *reinterpret_cast<const uint4*>(qr + c);
-        const uint4 kv =
-            *reinterpret_cast<const uint4*>(kh + ((c >> 3) * a.key_rows + kbase + j) * 8);
-        const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qv);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv);
+// Attention of head h on tensor cores (mma.sync m16n8k16, bf16, f32
+// accumulation): warp w takes the 16 query rows from 16 (w % 4) and half of
+// the head dim (w / 4). The keys are the key rows of the envs those rows
+// belong to (at most MMA_KEYS; the launch checks): S = q k^T over them,
+// masked to each row's own env and causal position and scaled by
+// 1/sqrt(hd), softmax in f32 with the probabilities rounded to bf16, then
+// O = P V with P taken from S's accumulator registers.
+__device__ __forceinline__ void attention_head(const Args& a, const Smem& sm, int h, int nrows,
+                                               int ctid) {
+  constexpr int NT = MMA_KEYS / 8;   // key tiles of 8
+  const int z = opaque_zero();
+  const bf16 *qh = sm.qh + z, *kh = sm.kh + z, *vh = sm.vh + z;
+  bf16* ys = sm.ys + z;
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, q4 = lane & 3;
+  const int r0 = 16 * (warp & 3);
+  if (r0 >= nrows) return;
+  const int qs = a.hdp + 8, pt = a.P + a.T2;
+  const int kb = (r0 / a.T2) * pt;                                 // the block's first key
+  const int nt = ((min(r0 + 15, nrows - 1) / a.T2 + 1) * pt - kb + 7) >> 3;
+  int lo[2], hi[2];   // this thread's rows g, g + 8: their keys, relative to kb
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 qf = __bfloat1622float2(q2[u]), kf = __bfloat1622float2(k2[u]);
-          dot[u] = fmaf(qf.x, kf.x, dot[u]);
-          dot[u] = fmaf(qf.y, kf.y, dot[u]);
-        }
-      }
-      s = ((dot[0] + dot[1]) + (dot[2] + dot[3])) * a.scale;
-    }
-    float m = s;
-    for (int o = kg >> 1; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float p = j < nk ? __expf(s - m) : 0.f;
-    float den = p;
-    for (int o = kg >> 1; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
-    const float pr = j < nk ? round_bf(p * (1.f / den)) : 0.f;
-
-    const int nk_max = static_cast<int>(__reduce_max_sync(0xffffffffu, nk));
-    float y[MAX_DPL] = {};
-    if (dpl == 4) {
-      pv_contiguous<4>(y, vh, qs, kbase, nk_max, pr, g * kg, j);
-    } else if (dpl == 2) {
-      pv_contiguous<2>(y, vh, qs, kbase, nk_max, pr, g * kg, j);
-    } else if (dpl == 1) {
-      pv_contiguous<1>(y, vh, qs, kbase, nk_max, pr, g * kg, j);
-    } else {
-      for (int jj = 0; jj < nk_max; ++jj) {
-        const float pj = __shfl_sync(0xffffffffu, pr, g * kg + jj);
-        const bf16* vr = vh + (kbase + jj) * qs;
+  for (int u = 0; u < 2; ++u) {
+    const int r = r0 + g + 8 * u, e = r / a.T2;
+    lo[u] = r < nrows ? e * pt - kb : 1;
+    hi[u] = r < nrows ? lo[u] + a.P + (r - e * a.T2) : 0;
+  }
+  float sc[NT][4] = {};
+  for (int k0 = 0; k0 < a.hdp; k0 += 16) {
+    uint32_t qf[4];
+    hopper::ldmatrix_x4<false>(qf, qh + (r0 + (lane & 15)) * qs + k0 + (lane >> 4) * 8);
 #pragma unroll
-        for (int u = 0; u < MAX_DPL; ++u) {
-          const int d = j + u * kg;
-          if (d < a.hdp) y[u] = fmaf(pj, bf2f(vr[d]), y[u]);
-        }
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int u = 0; u < MAX_DPL; ++u) {
-        const int d = dpl ? dpl * j + u : j + u * kg;
-        if ((dpl ? u < dpl : d < a.hdp)) ys[a_off(r, h * a.hdp + d)] = f2bf(y[u]);
+    for (int j = 0; j < NT; j += 2) {
+      if (j < nt) {
+        uint32_t kf[4];   // key tiles j, j + 1
+        const int row = min(kb + (j + (lane >> 4)) * 8 + (lane & 7), a.key_rows - 1);
+        hopper::ldmatrix_x4<false>(kf, kh + row * qs + k0 + ((lane >> 3) & 1) * 8);
+        hopper::mma_16816(sc[j], qf, kf);
+        hopper::mma_16816(sc[j + 1], qf, kf + 2);
       }
     }
   }
-  hopper::fence_proxy_async();
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = i >> 1, kc = 8 * j + 2 * q4 + (i & 1);
+      sc[j][i] = j < nt && kc >= lo[u] && kc <= hi[u] ? sc[j][i] * a.scale : -INFINITY;
+      mx[u] = fmaxf(mx[u], sc[j][i]);
+    }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    for (int o = 1; o < 4; o <<= 1) mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], o));
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = i >> 1;
+      sc[j][i] = sc[j][i] == -INFINITY ? 0.f : __expf(sc[j][i] - mx[u]);
+      sum[u] += sc[j][i];
+    }
+  float inv[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    for (int o = 1; o < 4; o <<= 1) sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], o);
+    inv[u] = sum[u] > 0.f ? 1.f / sum[u] : 0.f;
+  }
+  const int half = (warp >> 2) * (a.hdp >> 1), ndt = a.hdp >> 4;   // 8-wide dim tiles per half
+  float out[4][4] = {};
+#pragma unroll
+  for (int s2 = 0; s2 < NT / 2; ++s2) {
+    if (2 * s2 < nt) {
+      const uint32_t pf[4] = {pack_bf2(sc[2 * s2][0] * inv[0], sc[2 * s2][1] * inv[0]),
+                              pack_bf2(sc[2 * s2][2] * inv[1], sc[2 * s2][3] * inv[1]),
+                              pack_bf2(sc[2 * s2 + 1][0] * inv[0], sc[2 * s2 + 1][1] * inv[0]),
+                              pack_bf2(sc[2 * s2 + 1][2] * inv[1], sc[2 * s2 + 1][3] * inv[1])};
+      const int row = min(kb + 16 * s2 + (lane & 7) + ((lane >> 3) & 1) * 8, a.key_rows - 1);
+#pragma unroll
+      for (int t = 0; t < 4; t += 2) {
+        if (t < ndt) {
+          uint32_t vf[4];   // dim tiles t, t + 1
+          hopper::ldmatrix_x4<true>(vf, vh + row * qs + half + 8 * t + (lane >> 4) * 8);
+          hopper::mma_16816(out[t], pf, vf);
+          hopper::mma_16816(out[t + 1], pf, vf + 2);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + g + 8 * u;
+      if (t < ndt && r < nrows)
+        *reinterpret_cast<uint32_t*>(ys + a_off(r, h * a.hdp + half + 8 * t + 2 * q4)) =
+            pack_bf2(out[t][2 * u], out[t][2 * u + 1]);
+    }
 }
 
 // xs (the residual, A tile) += round_bf(acc + bias) over this warpgroup's
@@ -690,31 +712,41 @@ __device__ __forceinline__ void produce(const Args& a, const Smem& sm) {
   }
 }
 
-// QKV and attention, head by head, for NW = 3 hdp / 2; each head's device
-// loads are issued a head ahead.
+// QKV and attention, head by head, for NW = 3 hdp / 2. The next head's
+// device loads are in flight over this head's products and attention; the
+// LayerNorm statistics buffer holds the head's biases.
 template <int NW, bool kTimed>
 __device__ __forceinline__ void heads(const Args& a, const LayerArgs& w, Ring& ring,
                                       const Smem& sm, PhaseClock<kTimed>& clk,
-                                      const PrefixPlan& pp, int nrows, int n_env,
+                                      int np, int nrows, int n_env,
                                       const bf16* pk0, const bf16* pv0, int ctid) {
-  HeadLoads<NW> ld;
-  ld.load(a, w, 0, pk0, pv0, pp, ctid);
+  float* bias_s = sm.stats;   // free between the two LayerNorms
+  HeadLoads ld;
+  ld.load(a, w, 0, pk0, pv0, np, ctid);
+  ld.store(a, sm, np, bias_s, ctid);
+  consumer_sync();
   for (int h = 0; h < a.H; ++h) {
-    qkv_head<NW>(a, ring, sm, h, nrows, n_env, pk0, pv0, pp, ld, ctid);
-    if (h + 1 < a.H) ld.load(a, w, h + 1, pk0, pv0, pp, ctid);
+    if (h + 1 < a.H) ld.load(a, w, h + 1, pk0, pv0, np, ctid);
+    qkv_head<NW>(a, ring, sm, h, nrows, n_env, pk0, pv0, np, bias_s, ctid);
     consumer_sync();
     clk.mark(PH_QKV);
-    attention_head(a, sm.qh, sm.kh, sm.vh, sm.ys, h, nrows, ctid);
+    attention_head(a, sm, h, nrows, ctid);
+    hopper::fence_proxy_async();
     consumer_sync();
     clk.mark(PH_ATTN);
+    if (h + 1 < a.H) {
+      ld.store(a, sm, np, bias_s, ctid);
+      consumer_sync();
+    }
   }
 }
+
 
 // One layer over the tile: LN1, QKV and attention head by head, proj +
 // residual, LN2, the MLP + residual; the residual stays in sm.xs.
 template <bool kTimed>
 __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
-                                      Ring& ring, PhaseClock<kTimed>& clk, const PrefixPlan& pp,
+                                      Ring& ring, PhaseClock<kTimed>& clk, int np,
                                       int nrows, int n_env, size_t prow) {
   bf16 *xs = sm.xs, *hs = sm.hs, *ys = sm.ys;
   float* stats = sm.stats;
@@ -729,18 +761,31 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
 
   // ---- QKV and attention, head by head --------------------------------------
   switch (a.hdp) {
-    case 16: heads<24>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
-    case 32: heads<48>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
-    case 48: heads<72>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
-    default: heads<96>(a, w, ring, sm, clk, pp, nrows, n_env, pk0, pv0, ctid); break;
+    case 16: heads<24>(a, w, ring, sm, clk, np, nrows, n_env, pk0, pv0, ctid); break;
+    case 32: heads<48>(a, w, ring, sm, clk, np, nrows, n_env, pk0, pv0, ctid); break;
+    case 48: heads<72>(a, w, ring, sm, clk, np, nrows, n_env, pk0, pv0, ctid); break;
+    default: heads<96>(a, w, ring, sm, clk, np, nrows, n_env, pk0, pv0, ctid); break;
   }
 
   // ---- proj + residual (A is ys) ------------------------------------------
+  // The fc bias goes to shared memory (qh is free until the next layer),
+  // loaded before the proj products and stored after them, so that the MLP
+  // chunks' epilogues do not each wait on device memory.
+  float* bfc_s = reinterpret_cast<float*>(sm.qh);
+  const bool staged = a.F <= BFC_PER_THREAD * CONSUMERS && a.F * 4 <= ROWS * (a.hdp + 8) * 2;
+  float bfc_r[BFC_PER_THREAD];
+#pragma unroll
+  for (int q = 0; q < BFC_PER_THREAD; ++q)
+    if (staged && ctid + q * CONSUMERS < a.F) bfc_r[q] = w.bfc[ctid + q * CONSUMERS];
   {
     float acc[NSUB * 32];
     gemm_wide(ring, acc, ys, a.Dq, a.HDp / 16, wg * 64 * ns, ns, false);
     residual_add(xs, acc, w.bproj, wg * 64 * ns, ns, D, nrows);
   }
+#pragma unroll
+  for (int q = 0; q < BFC_PER_THREAD; ++q)
+    if (staged && ctid + q * CONSUMERS < a.F) bfc_s[ctid + q * CONSUMERS] = bfc_r[q];
+  const float* bfc = staged ? bfc_s : w.bfc;
   consumer_sync();
   clk.mark(PH_PROJ);
   layernorm(xs, hs, w.ln2_s, w.ln2_b, D, Dp, nrows, stats, ctid);
@@ -752,14 +797,14 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
   {
     float acc2[NSUB * 32];
     for (int m = 0; m < a.n_mlp; ++m) {
-      bf16* gbuf = ys + (m & 1) * ROWS * FC;
+      bf16* gbuf = ys + (m & 1) * ROWS * FC + opaque_zero();
       float acc[FC / 4];
       gemm<FC / 2, 1>(ring, acc, hs, FC, Dp / 16, wg * (FC / 2), 1, false);
 #pragma unroll
       for (int i = 0; i < FC / 4; i += 2) {
         const int c = wg * (FC / 2) + frag_col(i), f = m * FC + c;
-        const float g0 = f < a.F ? gelu_tanh(round_bf(acc[i] + w.bfc[f])) : 0.f;
-        const float g1 = f + 1 < a.F ? gelu_tanh(round_bf(acc[i + 1] + w.bfc[f + 1])) : 0.f;
+        const float g0 = f < a.F ? gelu_tanh(round_bf(acc[i] + bfc[f])) : 0.f;
+        const float g1 = f + 1 < a.F ? gelu_tanh(round_bf(acc[i + 1] + bfc[f + 1])) : 0.f;
         *reinterpret_cast<__nv_bfloat162*>(gbuf + a_off(frag_row(i), c)) =
             __floats2bfloat162_rn(g0, g1);
       }
@@ -777,7 +822,7 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
 
 // The two consumer warpgroups: everything but the weight copies.
 template <bool kGroup, bool kTimed>
-__device__ __forceinline__ void consume(const Args& a, const Smem& sm, unsigned char* base) {
+__device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
   bf16 *xs = sm.xs, *kh = sm.kh;
   const int tid = threadIdx.x;
   const int n_layers = kGroup ? a.n_layers : 1;
@@ -795,34 +840,19 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm, unsigned 
     sidx = sidx < 0 ? 0 : (sidx >= a.S ? a.S - 1 : sidx);
   }
   const size_t prow = (static_cast<size_t>(sidx) * a.B + env0) * a.P;   // first prefix row
-  const PrefixPlan pp = plan_prefix(a, n_env, ctid);
+  const int np = (a.hd & 1) == 0 ? n_env * a.P * (a.hd >> 1) : 0;   // prefix K/V pairs
   Ring ring{sm.full, sm.empty, sm.slots, 0};
 
   // x (the residual stays in xs between the layers of a group); key rows
   // that no token or prefix fills stay zero
   load_x(xs, a.x + row0 * D, D, Dp, nrows, ctid);
-  for (int i = ctid; i < a.key_rows * (2 * a.hdp + 8); i += CONSUMERS) kh[i] = f2bf(0.f);
+  for (int i = ctid; i < 2 * a.key_rows * (a.hdp + 8); i += CONSUMERS) kh[i] = f2bf(0.f);
   consumer_sync();
   clk.mark(PH_LOAD);
 
   for (int l = 0; l < n_layers; ++l) {
-    if (kGroup) {
-      // this layer's pointers staged in shared memory, and the per-block
-      // state made anew each layer (opaque to the compiler): hoisted out of
-      // the layer loop, it would stay live through the MLP and spill
-      if (ctid == 0) *sm.layer = a.layer[l];
-      consumer_sync();
-      unsigned char* lbase = base;
-      const Args* la = &a;
-      int ln_env = n_env;
-      asm volatile("" : "+l"(lbase), "+l"(la), "+r"(ln_env));
-      const Smem lsm = carve(*la, lbase);
-      layer<kTimed>(*la, lsm, *lsm.layer, ring, clk, plan_prefix(*la, ln_env, ctid), nrows,
-                    ln_env, prow);
-    } else {
-      layer<kTimed>(a, sm, a.layer[0], ring, clk, pp, nrows, n_env, prow);
-    }
-  }  // layers
+    layer<kTimed>(a, sm, a.layer[kGroup ? l : 0], ring, clk, np, nrows, n_env, prow);
+  }
 
   write_out(a.out + row0 * D, xs, D, Dp, nrows, ctid);
   if (kTimed) consumer_sync();
@@ -882,7 +912,7 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
     if (threadIdx.x == CONSUMERS) produce<kGroup>(a, sm);
   } else {
     hopper::setmaxnreg_inc<232>();
-    consume<kGroup, kTimed>(a, sm, smem);
+    consume<kGroup, kTimed>(a, sm);
   }
 }
 
@@ -943,18 +973,22 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
   a.n_mlp = (F + FC - 1) / FC;
   a.envs_per_block = T2 > 0 ? ROWS / T2 : 0;
   a.key_rows = a.envs_per_block * (P + T2);
-  a.kg = P + T2 <= 16 ? 16 : 32;
+  bool keys_fit = true;   // every 16-row block's envs hold <= MMA_KEYS keys
+  for (int r0 = 0; T2 > 0 && r0 < a.envs_per_block * T2; r0 += 16) {
+    const int r1 = min(r0 + 15, a.envs_per_block * T2 - 1);
+    keys_fit = keys_fit && (r1 / T2 - r0 / T2 + 1) * (P + T2) <= MMA_KEYS;
+  }
   a.scale = 1.0f / sqrtf(static_cast<float>(a.hd));
   if (n_layers < 1 || n_layers > (group ? MAX_LAYERS : 1) || T2 < 1 || T2 > ROWS ||
       P + T2 > MAX_KEYS || M > MAX_M || a.Dp > MAX_DP || a.hdp > MAX_HDP ||
-      a.HDp > MAX_HDP_ALL || F % 16 != 0)
+      a.HDp > MAX_HDP_ALL || F % 16 != 0 || !keys_fit)
     return static_cast<int>(cudaErrorInvalidValue);
 
   const size_t smem =
-      256 + STAGES * SLOT_BYTES +
+      128 + STAGES * SLOT_BYTES +
       sizeof(bf16) * (2 * ROWS * a.Dp + (ROWS * a.HDp > 2 * ROWS * FC ? ROWS * a.HDp
                                                                         : 2 * ROWS * FC) +
-                      ROWS * (a.hdp + 8) + a.key_rows * (2 * a.hdp + 8)) +
+                      (ROWS + 2 * a.key_rows) * (a.hdp + 8)) +
       sizeof(float) * 8 * ROWS;
   if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = group ? fused_layer_prefix_kernel<true>
@@ -1055,6 +1089,7 @@ int beso_fused_layer_prefix_limits(int which) {
     case 7: return MAX_HDP_ALL;
     case 8: return SLOT_BYTES;
     case 9: return FC;
+    case 10: return MMA_KEYS;
     default: return -1;
   }
 }

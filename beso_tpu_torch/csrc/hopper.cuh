@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
 // mbarriers, bulk asynchronous copies from global to shared memory, the
-// shared-memory matrix descriptor of `wgmma`, and the `wgmma` products
-// (bf16 operands from shared memory, f32 accumulators in registers) at the
-// tile widths the kernels use.
+// warp-level m16n8k16 product with ldmatrix, the shared-memory matrix
+// descriptor of `wgmma`, and the `wgmma` products (bf16 operands from
+// shared memory, f32 accumulators in registers) at the tile widths the
+// kernels use.
 //
 // Operand layout: every `wgmma` operand here is K-major without swizzle, a
 // grid of 8 x 8 bf16 "core matrices" of 128 contiguous bytes (8 rows of 16
@@ -97,6 +98,36 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- warp-level tensor-core products (mma.sync, ldmatrix) --------------
+// c[0:4] += A[16 x 16] (a: four bf16 pairs) * B[16 x 8] (b: two pairs),
+// the m16n8k16 fragments: with g = lane / 4, q = lane % 4, a holds rows g
+// and g + 8 at columns 2q, 2q + 1 and 2q + 8, 2q + 9; b columns (n) g at
+// rows (k) 2q, 2q + 1 and 2q + 8, 2q + 9; c rows g, g + 8 at columns 2q,
+// 2q + 1.
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8 i to 8 i + 7 give
+// the row addresses of matrix i (16 bytes each), r[i] receives it in the
+// fragment layout (row lane / 4, columns 2 (lane % 4), + 1); trans: the
+// transposed matrix.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(row)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(row)));
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -40,11 +40,11 @@ class SlicedDataset:
     """Batched window sampler over a TrajectoryData, on `device`."""
 
     def __init__(self, data: TrajectoryData, window: int, future_seq_len: int,
-                 min_future_sep: int = 0, device=None):
+                 min_future_sep: int = 0, device="cuda"):
         self.window = window
         self.future_seq_len = future_seq_len
         self.min_future_sep = min_future_sep
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device)
 
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)

@@ -50,7 +50,8 @@ class FusedGPTParams(NamedTuple):
 
 def prepare_fused_gpt(model) -> FusedGPTParams:
     """Extract and lay out the model's weights once per engine
-    (`beso_tpu/models/fused.py:50-90`)."""
+    (`beso_tpu/models/fused.py:50-90`), with the kernels' tiled copy of
+    each layer's weights for a bf16 model (`prepare_layer_params`)."""
     sigma_embedding = getattr(model, "sigma_embedding", "Linear")
     if sigma_embedding != "Linear":
         raise NotImplementedError(

@@ -32,7 +32,7 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _find_nvcc() -> str:
+def find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -64,7 +64,7 @@ def build_kernels() -> Path:
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _find_nvcc()
+    nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources()]
         procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(o), str(s)],

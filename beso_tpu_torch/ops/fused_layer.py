@@ -28,10 +28,12 @@ What bounds it on the H100, and the design (details in
 `csrc/fused_layer_prefix.cu`): at kitchen shapes a launch does ~51 GFLOP of
 matrix products against ~36 MB of traffic (~1,400 FLOP/byte, far above the
 card's ~295 balance point), so it is compute-bound. The kernel keeps a
-64-row tile's intermediates in shared memory, runs QKV, proj, fc and fc2 on
-tensor cores (wmma bf16, f32 accumulate), builds QKV head by head, streams
-the 4D MLP hidden layer in 128-column chunks and does the 11-key attention
-on CUDA cores.
+64-row tile's intermediates in shared memory and streams the layer's
+weights through a ring of shared-memory slots, filled by bulk asynchronous
+copies from the tiled copy `tile_layer_weights` lays out once per model;
+QKV, proj, fc and fc2 run on `wgmma` (bf16, f32 accumulators in registers)
+and the attention on `mma.sync`. `fused_layer_prefix_timed` reports each
+block's clock cycles per phase of B1.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches its kernel or raises, and for any other device it
@@ -285,11 +287,12 @@ def _library() -> ctypes.CDLL:
 def _limits():
     """(rows per block, max keys, max head width, max Dp, max hdp, max
     layers per group, number of timed phases, max H * hdp, ring slot bytes,
-    MLP chunk), as the compiled kernel reports them. Raises if the kernel's
-    tiling constants are not this module's."""
-    lim = tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(10))
-    if lim[6:] != (len(PHASES), lim[7], SLOT_BYTES, MLP_CHUNK):
-        raise RuntimeError(f"kernel constants {lim[6:]} do not match fused_layer.py "
+    MLP chunk, max keys of the envs of a 16-row block), as the compiled
+    kernel reports them. Raises if the kernel's tiling constants are not
+    this module's."""
+    lim = tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(11))
+    if (lim[6], lim[8], lim[9]) != (len(PHASES), SLOT_BYTES, MLP_CHUNK):
+        raise RuntimeError(f"kernel constants {lim} do not match fused_layer.py "
                            f"({len(PHASES)} phases, SLOT_BYTES {SLOT_BYTES}, "
                            f"MLP_CHUNK {MLP_CHUNK})")
     return lim
@@ -315,12 +318,17 @@ def _check_launch(x: torch.Tensor, P: int, n_heads: int, layer_params):
     hdp, Dp = _ceil16(hd), _ceil16(D)
     Fp = layer_params[0].wfc.shape[0]
     rows, max_keys, _, max_dp, max_hdp = _limits()[:5]
-    max_all = _limits()[7]
+    max_all, block_keys = _limits()[7], _limits()[10]
+    # keys of the envs each 16 query rows of a 64-row tile belong to
+    tile = rows // T * T if T <= rows else 0
+    span = max(((min(r + 15, tile - 1) // T - r // T + 1) * (P + T)
+                for r in range(0, tile, 16)), default=0)
     if (T > rows or P + T > max_keys or Dp > max_dp or hdp > max_hdp
-            or H * hdp > max_all):
+            or H * hdp > max_all or span > block_keys):
         raise ValueError(f"shape outside the kernel's limits: T={T} (<= {rows}), "
                          f"P+T={P + T} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
-                         f"hdp={hdp} (<= {max_hdp}), H*hdp={H * hdp} (<= {max_all})")
+                         f"hdp={hdp} (<= {max_hdp}), H*hdp={H * hdp} (<= {max_all}), "
+                         f"keys of a 16-row block {span} (<= {block_keys})")
     if Fp % 16:
         raise ValueError(f"MLP width {Fp} not a multiple of 16")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32

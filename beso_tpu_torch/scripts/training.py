@@ -92,8 +92,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--run-dir", default=None)
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda when available, else cpu)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda; --device cpu runs on the CPU)")
     parser.add_argument("--resume", default=None,
                         help="run dir with a saved train_state to resume from")
     parser.add_argument("overrides", nargs="*")
@@ -106,7 +106,7 @@ def main(argv=None):
     from beso_tpu_torch.utils.metrics import MetricsWriter
 
     cfg = load_config(args.config, args.overrides)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     run_dir = Path(args.run_dir or Path(cfg.get("log_dir", "logs")) / "runs" /
                    time.strftime("%Y-%m-%d/%H-%M-%S"))
     run_dir.mkdir(parents=True, exist_ok=True)

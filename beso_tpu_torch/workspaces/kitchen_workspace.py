@@ -40,14 +40,14 @@ class FrankaKitchenWorkspace:
                  scale_data: bool = False, window_size: int = 4,
                  goal_seq_len: int = 2, train_fraction: float = 0.95,
                  metrics_writer=None, data: Optional[TrajectoryData] = None,
-                 device=None):
+                 device="cuda"):
         self.seed = seed
         self.eval_n_times = eval_n_times
         self.eval_n_steps = eval_n_steps
         self.goal_seq_len = goal_seq_len
         self.train_fraction = train_fraction
         self.metrics_writer = metrics_writer
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device)
 
         if data is not None:
             self.full_data = data

@@ -9,13 +9,17 @@ into `build/`) and no network; it imports no JAX. Phases, each of which
 exits non-zero on failure:
 
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
-1. build: compile the kernel library for sm_90a, print seconds and ptxas;
+1. build: compile the kernel library for sm_90a, print seconds, ptxas and,
+   from cuobjdump -sass, the HGMMA (wgmma) instructions of each
+   instantiation of the fused-layer kernel, none of which may have none;
 2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version in
    bf16 at the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240,
    H=12, hd=20, P=2, 2T=10) shapes, epilogue on and off, every sigma row,
    each with a ragged last tile;
    max |diff| must stay within 2^-5 of max |ref|. Times both at the kitchen
-   serving shape with CUDA events;
+   serving shape with CUDA events, and runs B1's phase clock there
+   (`fused_layer_prefix_timed`, which must equal B1 bit for bit): each
+   phase's mean clock64() cycles per 64-row block and its share;
 3. engine: the `fused_cached` engine against the plain `cached` engine on
    the same inputs at every grid sigma;
 4. main path, serving: a 1024-env x 280-step kitchen rollout with the
@@ -27,7 +31,9 @@ exits non-zero on failure:
    each within 2^-5 of max |ref|, at the chunked training shape
    [256, 6, 131, 60] (causal) and at a ragged small shape [3, 2, 77, 20]
    (causal and full); times each kernel, and forward + backward, against
-   the plain versions at the chunked shape with CUDA events;
+   the plain versions at the chunked shape with CUDA events, and, as their
+   yardstick, F.scaled_dot_product_attention's forward and backward with
+   the attention kernels it ran;
 6. model: the chunked kitchen model (`configs/franka_kitchen_chunked.yaml`,
    full width, bf16) from one seeded state: loss and every parameter's
    gradient with attention="pallas" (the flash kernels) against
@@ -47,7 +53,8 @@ exits non-zero on failure:
    the same row; B2 (`fused_layers_prefix_group`) with groups of 2 and 4
    layers, epilogue on and off, and bit-equal to the chain of B1 launches.
    Times B4 at 2048 x 11, B3 at 2048 x 8 and B2 (group 2) against two B1
-   launches and against the plain versions, with CUDA events;
+   launches and against the plain versions, with CUDA events, and each
+   form's four products as bf16 torch.matmul (information only);
 9. engines: `make_fused_denoise_fn` (B4) against the plain `GCDenoiser`
    forward at the three grid sigmas and one off-grid sigma, with and
    without zeroed (uncond) goals, linear and MLP heads; the `fused_cached`
@@ -61,7 +68,11 @@ exits non-zero on failure:
    denoise fn, 6 B4 launches per call. Every metric finite; env-steps/s
    printed (informational).
 
-The second-to-last line is the kernels' JSON record, the last line
+The second-to-last line is the kernels' JSON record (per kernel its
+launches on its main path, max |diff|, ms, plain ms, the roofline bound
+of its work at the timed shape with what bounds it, the PyTorch library
+call's ms where one computes the same function, and for the fused layers
+the bf16 torch.matmul ms of their products); the last line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -88,6 +99,64 @@ CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
 # max |ref|.
 MODEL_LOSS_FRACTION = 2.0 ** -8
 MODEL_GRAD_FRACTION = 2.0 ** -5
+# roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
+# bf16 tensor-core operations and HBM3 bytes per second
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for this
+    work, the larger of its operations over the bf16 peak and its bytes
+    over the memory rate, and which of the two it is."""
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def layer_work(B, T, D, P, n_layers=1):
+    """Operations and bytes of n_layers fused layers over B envs x T tokens,
+    each token seeing P prefix keys and its causal own keys: 24 D^2 per
+    token per layer for the four products and 4 D per (query, key) pair for
+    the scores and P.V; x read once and out written once, and per layer its
+    weights (12 D^2 bf16, 13 D f32 of biases and LayerNorm) and one sigma
+    row of prefix K and V (2 B P D bf16)."""
+    rows, pairs = B * T, B * sum(P + t + 1 for t in range(T))
+    flops = n_layers * (rows * 24 * D * D + pairs * 4 * D)
+    nbytes = 2 * rows * D * 2 + n_layers * (12 * D * D * 2 + 13 * D * 4 + 2 * B * P * D * 2)
+    return flops, nbytes
+
+
+def flash_work(name, B, H, T, hd):
+    """Operations and bytes of one causal flash kernel at [B, H, T, hd]
+    bf16: 2 hd operations per (query, key) pair per product (forward 2
+    products, dQ 3, dK/dV 4), each input read once and each output written
+    once (lse and delta f32)."""
+    pairs = B * H * T * (T + 1) // 2
+    n, stat = B * H * T * hd * 2, B * H * T * 4
+    return {"flash_forward": (4 * hd * pairs, 3 * n + n + stat),
+            "flash_backward_dq": (6 * hd * pairs, 4 * n + 2 * stat + n),
+            "flash_backward_dkv": (8 * hd * pairs, 4 * n + 2 * stat + 2 * n)}[name]
+
+
+def sass_counts(so, kernel, opcode):
+    """{kernel and template arguments (mangled): number of `opcode`
+    instructions} over the functions of the built library whose name holds
+    `kernel` (cuobjdump -sass, beside nvcc)."""
+    from beso_tpu_torch.ops.build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                         timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            # the mangled name from the kernel's on: its template arguments
+            fn = name[name.index(kernel):][:len(kernel) + 10] if kernel in name else None
+            if fn:
+                counts[fn] = 0
+        elif fn and opcode in line:
+            counts[fn] += 1
+    return counts
 
 
 def fail(msg: str) -> None:
@@ -280,6 +349,52 @@ def phase_split(B, device, gen):
     for name, c in zip(fl.PHASES, mean):
         print(f"    {name:>9}: {c:10.0f} cycles  {100 * c / total:5.1f}%")
     return dict(zip(fl.PHASES, mean))
+
+
+def time_layer_gemms(rows, D, device, gen, n_layers=1):
+    """bf16 torch.matmul time of a layer's four products (QKV, proj, fc,
+    fc2) at `rows` rows, n_layers times: how near the fused kernel comes to
+    cuBLAS's product rate (information only; the port never calls it)."""
+    x, h = _bf16(gen, rows, D, device=device), _bf16(gen, rows, 4 * D, device=device)
+    w = [_bf16(gen, o, i, device=device) for o, i in ((3 * D, D), (D, D), (4 * D, D), (D, 4 * D))]
+
+    def products():
+        for _ in range(n_layers):
+            for a, wt in zip((x, x, x, h), w):
+                a @ wt.t()
+
+    return time_ms(products, 20, device)
+
+
+def time_sdpa(device, gen):
+    """F.scaled_dot_product_attention (causal, bf16) at the chunked shape,
+    the yardstick of B5 and B6 (the port never calls it): (forward ms,
+    forward + backward minus forward ms, the attention kernels that ran)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, do = (_bf16(gen, *CHUNKED_SHAPE, device=device) for _ in range(4))
+    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50,
+                     device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, is_causal=True).backward(do)
+
+    bwd_ms = time_ms(fwd_bwd, 20, device) - fwd_ms
+    names = "not measured"
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        found = sorted({e.key for e in prof.key_averages()
+                        if any(w in e.key.lower() for w in ("attention", "fmha", "flash",
+                                                            "cudnn", "sdpa"))})
+        names = "; ".join(found) if found else names
+    except Exception as e:   # the profiler is informational here
+        names = f"not measured ({type(e).__name__})"
+    return fwd_ms, bwd_ms, names
 
 
 def _bf16(gen, *shape, device):
@@ -774,8 +889,12 @@ def main() -> None:
     log = so.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Used" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    hgmma = sass_counts(so, "fused_layer_prefix_kernel", "HGMMA")
+    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions: {hgmma}")
+    if len(hgmma) != 3 or not all(hgmma.values()):
+        fail("the fused-layer kernel's instantiations do not all run their products on wgmma")
 
     # ---- 2. kernel against its plain version -----------------------------
     print("[2] kernel vs plain version (bf16)")
@@ -830,6 +949,10 @@ def main() -> None:
     for name, (ms_k, ms_p) in flash_ms.items():
         print(f"  time {name} at {list(CHUNKED_SHAPE)}: kernel {ms_k:.4f} ms, "
               f"plain {ms_p:.4f} ms ({card})")
+    sdpa_fwd_ms, sdpa_bwd_ms, sdpa_kernels = time_sdpa(device, gen)
+    print(f"  yardstick F.scaled_dot_product_attention(is_causal=True) at "
+          f"{list(CHUNKED_SHAPE)} bf16: forward {sdpa_fwd_ms:.4f} ms, backward (forward + "
+          f"backward minus forward) {sdpa_bwd_ms:.4f} ms; kernels: {sdpa_kernels} ({card})")
 
     # ---- 6. model-level: flash kernels vs broadcast -----------------------
     print("[6] chunked model, loss and gradients: attention=pallas vs broadcast (bf16)")
@@ -899,6 +1022,13 @@ def main() -> None:
     for name, (ms_k, ms_p) in layer_ms.items():
         print(f"  time {name} at B={B_serve}, D=360: kernel {ms_k:.4f} ms, "
               f"plain {ms_p:.4f} ms ({card})")
+    # the four products of each form as bf16 torch.matmul (information only)
+    gemm_ms = {"fused_layer_prefix": time_layer_gemms(B_serve * 8, 360, device, gen),
+               "fused_layers_prefix_group": time_layer_gemms(B_serve * 8, 360, device, gen, 2),
+               "fused_layer": time_layer_gemms(B_serve * 11, 360, device, gen)}
+    gemm_ms["fused_layer_with_prefix"] = gemm_ms["fused_layer_prefix"]
+    for name, t in gemm_ms.items():
+        print(f"  bf16 torch.matmul of the same products ({name}): {t:.4f} ms ({card})")
 
     # ---- 9. the other engine forms against plain forwards -----------------
     print("[9] make_fused_denoise_fn vs plain forward; fused_cached forms vs default (bf16)")
@@ -927,28 +1057,47 @@ def main() -> None:
     b4_counts = run_engine_rollout(den, policy_kw, scale_data, device, "uncached",
                                    {"fused_layer": calls * N_LAYERS}, card)
 
-    src = "beso_tpu_torch/csrc/flash_attention.cu"
-    replaces = {"flash_forward": "beso_tpu/ops/flash_attention.py:269",
-                "flash_backward_dq": "beso_tpu/ops/flash_attention.py:78",
-                "flash_backward_dkv": "beso_tpu/ops/flash_attention.py:112"}
-    kernels = [{
-        "name": "fused_layer_prefix", "route": "cuda",
-        "source": "beso_tpu_torch/csrc/fused_layer_prefix.cu",
-        "replaces": "beso_tpu/ops/fused_layer.py:618",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]
+    # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
+    # B2 a group of 2; B4 2048 x 11 tokens, P=0; the flash kernels at the
+    # chunked shape. library_ms: one PyTorch call computing the same
+    # function, where there is one (SDPA for B5; for both B6 kernels SDPA's
+    # whole backward, forward + backward minus forward).
+    work = {"fused_layer_prefix": layer_work(B_serve, 8, 360, 3),
+            "fused_layer_with_prefix": layer_work(B_serve, 8, 360, 3),
+            "fused_layers_prefix_group": layer_work(B_serve, 8, 360, 3, n_layers=2),
+            "fused_layer": layer_work(B_serve, 11, 360, 0)}
+    work.update({name: flash_work(name, *CHUNKED_SHAPE) for name in flash_ms
+                 if name != "forward+backward"})
+    library_ms = {"flash_forward": sdpa_fwd_ms, "flash_backward_dq": sdpa_bwd_ms,
+                  "flash_backward_dkv": sdpa_bwd_ms}
     layer_src = "beso_tpu_torch/csrc/fused_layer_prefix.cu"
-    for name, line, path_counts in (("fused_layers_prefix_group", 488, group_counts),
-                                    ("fused_layer_with_prefix", 258, b3_counts),
-                                    ("fused_layer", 298, b4_counts)):
-        kernels.append({"name": name, "route": "cuda", "source": layer_src,
-                        "replaces": f"beso_tpu/ops/fused_layer.py:{line}",
-                        "launches": path_counts[name], "max_abs_err": layer_err[name],
-                        "ms": layer_ms[name][0], "plain_ms": layer_ms[name][1]})
-    kernels += [{"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces[name], "launches": counts[name],
-                 "max_abs_err": flash_err[name], "ms": flash_ms[name][0],
-                 "plain_ms": flash_ms[name][1]} for name in replaces]
+    entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618", launches,
+                err, ms, plain_ms),
+               ("fused_layers_prefix_group", layer_src, "beso_tpu/ops/fused_layer.py:488",
+                group_counts["fused_layers_prefix_group"],
+                layer_err["fused_layers_prefix_group"], *layer_ms["fused_layers_prefix_group"]),
+               ("fused_layer_with_prefix", layer_src, "beso_tpu/ops/fused_layer.py:258",
+                b3_counts["fused_layer_with_prefix"], layer_err["fused_layer_with_prefix"],
+                *layer_ms["fused_layer_with_prefix"]),
+               ("fused_layer", layer_src, "beso_tpu/ops/fused_layer.py:298",
+                b4_counts["fused_layer"], layer_err["fused_layer"], *layer_ms["fused_layer"])]
+    flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
+    for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
+                       ("flash_backward_dkv", 112)):
+        entries.append((name, flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
+                        counts[name], flash_err[name], *flash_ms[name]))
+    kernels = []
+    for name, source, replaces, n, e, k_ms, p_ms in entries:
+        bound_ms, bound_by = bound(*work[name])
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": n, "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms.get(name)}
+        if name in gemm_ms:
+            entry["gemm_ms"] = gemm_ms[name]
+        kernels.append(entry)
+        print(f"  {name}: {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / k_ms:.1f}% of the roofline ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

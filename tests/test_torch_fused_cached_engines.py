@@ -135,7 +135,7 @@ def _agents(engine):
         "observation": jnp.zeros((2, jcfg.window_size, jcfg.obs_dim)),
         "action": jnp.zeros((2, jcfg.window_size, jcfg.action_dim)),
         "goal_observation": jnp.zeros((2, jcfg.goal_seq_len, jcfg.obs_dim))})
-    agent = BesoAgent(BesoAgentConfig(**kw), fit_scaler(obs, act, False))
+    agent = BesoAgent(BesoAgentConfig(**kw), fit_scaler(obs, act, False), device="cpu")
     agent.init(torch.Generator().manual_seed(0))
     return jagent, agent
 

@@ -151,6 +151,39 @@ def test_prepare_pads_to_16(D, H, shapes):
     assert p.wproj.float().reshape(-1, H, hdp)[:, :, hd:].abs().sum() == 0
 
 
+@pytest.mark.parametrize("D,H", [(360, 6), (240, 12)], ids=["kitchen", "block_push"])
+def test_tiles_round_trip_to_padded_weights(D, H):
+    """The kernel's tiled copy (`tile_layer_weights`) holds exactly the
+    padded weights of FusedLayerParams, chunk by chunk in the kernel's order
+    and core-matrix layout, with zeros in all of its own padding; every chunk
+    fits one ring slot; an f32 layer carries no tiles."""
+    p = port_layer(layer_weights(D, seed=43), H, torch.bfloat16)
+    hdp, Dp, Fp = p.wqkv.shape[0] // (3 * H), p.wqkv.shape[1], p.wfc.shape[0]
+    # first core matrix: head 0's q rows 0-7, columns 0-7, row-major
+    assert torch.equal(p.tiles[:64].reshape(8, 8), p.wqkv[:8, :8])
+    off, prods = 0, []
+    for wt in fl.layer_products(p, H):
+        N, K = wt.shape
+        cols = []
+        for ks in fl.chunk_steps(N, K // 16):
+            n = N * 16 * ks
+            assert 2 * n <= fl.SLOT_BYTES or ks == 1
+            cols.append(p.tiles[off:off + n].reshape(2 * ks, N // 8, 8, 8)
+                        .permute(1, 2, 0, 3).reshape(N, 16 * ks))
+            off += n
+        prods.append(torch.cat(cols, 1))
+    assert off == p.tiles.numel()
+    qkv = torch.stack([w.reshape(3, hdp, Dp) for w in prods[:H]], 1).reshape(-1, Dp)
+    assert torch.equal(qkv, p.wqkv)
+    proj, fc = prods[H], torch.cat(prods[H + 1::2], 0)
+    fc2 = torch.cat(prods[H + 2::2], 1)
+    assert torch.equal(proj[:Dp], p.wproj) and not proj[Dp:].any()
+    assert torch.equal(fc[:Fp], p.wfc) and not fc[Fp:].any()
+    assert torch.equal(fc2[:Dp, :Fp], p.wfc2)
+    assert not fc2[Dp:].any() and not fc2[:, Fp:].any()
+    assert port_layer(layer_weights(D, seed=43), H).tiles is None
+
+
 def test_library_path_keyed_by_sources():
     path = build.kernel_library_path()
     assert path == build.kernel_library_path()

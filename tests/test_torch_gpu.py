@@ -1,9 +1,10 @@
 """Kernel-vs-plain tests of the port's CUDA kernels on the card, in bf16
 within 2^-5 of max |ref| (chip_smoke.py's bound): B5 and B6 (flash
-attention forward, dQ, dK/dV) and the fused layers B2 (layer group), B3
-(one selected prefix row) and B4 (whole causal sequence), which must also
-equal B1 launches bit for bit where they compute the same thing. Marked
-`gpu`: without a card they skip.
+attention forward, dQ, dK/dV) and the fused layers B1 (at the ragged edge,
+block push and with the epilogue, and its timed entry), B2 (layer group),
+B3 (one selected prefix row) and B4 (whole causal sequence), which must
+also equal B1 launches bit for bit where they compute the same thing.
+Marked `gpu`: without a card they skip.
 
 This file imports no JAX, so it also runs on the card's host, which has
 none: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`.
@@ -167,3 +168,52 @@ def test_fused_layers_b2_matches_plain_and_b1_chain(n_group, epilogue):
     for g, r, c in zip(got, ref, chain):
         assert _close(g, r)
         assert torch.equal(g, c)
+
+
+B1_SHAPES = [(360, 6, 3, 8, 1999), (240, 12, 2, 10, 2000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,P,T2,B", B1_SHAPES, ids=["kitchen-1999", "block_push-2000"])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_fused_layer_b1_matches_plain(D, H, P, T2, B, epilogue):
+    """Kitchen and block-push widths on every prefix row; 1999 envs of 8
+    tokens and 2000 of 10 leave the last 64-row tile part-filled."""
+    dev = _cuda()
+    rng = np.random.RandomState(B)
+    p = _fused_layer(D, H, rng, dev)
+    x = _bf16(rng, B, T2, D, dev=dev)
+    pk, pv = _bf16(rng, 3, B, P, D, dev=dev), _bf16(rng, 3, B, P, D, dev=dev)
+    epi = None
+    if epilogue:
+        epi = fl.FusedEpilogue(*(torch.as_tensor(a.astype(np.float32)).to(dev) for a in (
+            1.0 + 0.1 * rng.randn(D), 0.1 * rng.randn(D), rng.randn(9, D) / np.sqrt(D),
+            0.1 * rng.randn(9))))
+    for row in range(3):
+        idx = torch.tensor([row], dtype=torch.int32, device=dev)
+        got = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H, epilogue=epi)
+        ref = fl.fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=H, epilogue=epi)
+        torch.cuda.synchronize()
+        for g, r in zip(*(((v,) if epi is None else v) for v in (got, ref))):
+            assert _close(g, r)
+
+
+@pytest.mark.gpu
+def test_fused_layer_b1_timed_equals_b1():
+    """The phase-clock entry computes what B1 does, bit for bit, and gives
+    every block a positive cycle count per phase it runs; it leaves B1's
+    launch count alone."""
+    dev = _cuda()
+    rng = np.random.RandomState(5)
+    p = _fused_layer(360, 6, rng, dev)
+    x = _bf16(rng, 2048, 8, 360, dev=dev)
+    pk, pv = _bf16(rng, 3, 2048, 3, 360, dev=dev), _bf16(rng, 3, 2048, 3, 360, dev=dev)
+    idx = torch.tensor([1], dtype=torch.int32, device=dev)
+    before = fl.fused_layer_prefix.launches
+    out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=6)
+    assert fl.fused_layer_prefix.launches == before
+    ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=6)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert cycles.shape == (256, len(fl.PHASES))
+    assert bool((cycles[:, :fl.PHASES.index("write") + 1] > 0).all())

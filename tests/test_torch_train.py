@@ -310,7 +310,8 @@ def test_slices_and_batches_match_jax(min_future_sep):
     np.testing.assert_array_equal(make_slices(data.lengths, 8),
                                   j_make_slices(data.lengths, 8))
     kw = dict(window=8, future_seq_len=2, min_future_sep=min_future_sep)
-    jds, tds = JSlicedDataset(data, future_conditional=True, **kw), SlicedDataset(data, **kw)
+    jds = JSlicedDataset(data, future_conditional=True, **kw)
+    tds = SlicedDataset(data, **kw, device="cpu")
     assert len(jds) == len(tds)
     idx = np.arange(0, len(tds), 3)
     jb = jds.batch_at(idx, jax.random.PRNGKey(0))
@@ -331,7 +332,7 @@ def test_slices_and_batches_match_jax(min_future_sep):
 
 def test_sample_and_epoch_batches_shapes():
     tds = SlicedDataset(synthetic_kitchen_data(n_traj=4, t_max=40), window=6,
-                        future_seq_len=2)
+                        future_seq_len=2, device="cpu")
     b = tds.sample_batch(torch.Generator().manual_seed(0), 5)
     assert b["observation"].shape == (5, 6, 30) and b["goal_observation"].shape == (5, 2, 30)
     ep = list(tds.epoch_batches(7))
@@ -365,7 +366,7 @@ def _small_agent(tmp_path, device="cpu"):
 
     ws = FrankaKitchenWorkspace(seed=42, data=synthetic_kitchen_data(24, 40, seed=2),
                                 window_size=4, goal_seq_len=2, eval_n_times=3,
-                                eval_n_steps=2)
+                                eval_n_steps=2, device=device)
     cfg = BesoAgentConfig(hidden_dim=32, n_layers=1, n_heads=2, attn_pdrop=0.1,
                           cond_mask_prob=0.1, max_train_steps=4, eval_every_n_steps=2,
                           train_batch_size=8, cond_lambda=1.5)
@@ -419,7 +420,7 @@ def test_workspace_wiring_matches_jax():
 
     data = synthetic_kitchen_data(20, 50, seed=3)
     kw = dict(seed=7, data=data, window_size=5, goal_seq_len=2, scale_data=True)
-    jw, tw = JWorkspace(**kw), FrankaKitchenWorkspace(**kw)
+    jw, tw = JWorkspace(**kw), FrankaKitchenWorkspace(**kw, device="cpu")
     assert (len(jw.train_set), len(jw.test_set)) == (len(tw.train_set), len(tw.test_set))
     for name in ("x_mean", "x_std", "y_mean", "y_std", "y_bounds"):
         np.testing.assert_allclose(getattr(tw.scaler, name).numpy(),
@@ -455,3 +456,24 @@ def test_training_cli_end_to_end(tmp_path):
                    str(tmp_path), "max_train_steps=2", *tiny])
     state = torch.load(tmp_path / "resumed" / "train_state.pt", weights_only=True)
     assert state["step"] == 6 and state["ema_num_updates"] == 6
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """BesoAgent, FrankaKitchenWorkspace, SlicedDataset and the training CLI
+    run on the card unless the CPU is asked for: on a host without one they
+    raise instead of falling back to the CPU."""
+    import inspect
+
+    from beso_tpu_torch.agents.beso_agent import BesoAgent
+    from beso_tpu_torch.scripts import training
+    from beso_tpu_torch.workspaces import FrankaKitchenWorkspace
+
+    for cls in (BesoAgent, FrankaKitchenWorkspace, SlicedDataset):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        SlicedDataset(synthetic_kitchen_data(n_traj=2, t_max=20), window=4, future_seq_len=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        training.main(["--config", "configs/franka_kitchen_chunked.yaml",
+                       "--run-dir", str(tmp_path), "max_train_steps=1"])
