@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
-// mbarriers, bulk asynchronous copies from global to shared memory, the
+// mbarriers, bulk asynchronous copies from global to shared memory,
+// per-thread asynchronous copies with zero fill (cp.async), the
 // warp-level m16n8k16 product with ldmatrix, the shared-memory matrix
 // descriptor of `wgmma`, and the `wgmma` products (bf16 operands from
 // shared memory, f32 accumulators in registers) at the tile widths the
@@ -86,6 +87,26 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
 // async proxy); put before the barrier that hands the tile over.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- per-thread asynchronous copies (cp.async) ----------------------------
+// kBytes (4, 8 or 16) from global `src` to shared `dst`, both kBytes-aligned;
+// only the first src_bytes are read and the rest of dst is zero-filled
+// (src_bytes = 0: nothing is read, dst becomes zeros). Completion is per
+// thread, by commit group: wait, then a barrier, before other threads read.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(kBytes), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- register moves between warpgroups -----------------------------------

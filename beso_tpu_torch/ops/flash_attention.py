@@ -6,16 +6,20 @@ B6, the FlashAttention-2 backward (`_flash_attention_bwd` :182-259: the dQ
 kernel `_bwd_dq_kernel` :78-109 and the dK/dV kernel `_bwd_dkv_kernel`
 :112-153). Layout as in the JAX package: q, k, v [B, H, T, hd]; the forward
 returns o in q's dtype and the f32 logsumexp `lse` [B, H, T, 1] of the
-scaled scores; `delta = rowsum(dO * O)` stays plain PyTorch, as the JAX
-package computes it outside Pallas (:213).
+scaled scores. `delta = rowsum(dO * O)` [B, H, T, 1] f32, which the JAX
+package computes outside Pallas (:212-214), comes out of the dQ kernel
+beside dq, so a backward is exactly two launches.
 
 What bounds the kernels on the H100, and the design (details in
 `csrc/flash_attention.cu`): at the chunked training shape [256, 6, 131, 60]
-a launch reads ~24 MB per tensor and does a few GFLOP, so it is bound by
-latency, not by the tensor cores. 64-row tiles in shared memory, products
-on tensor cores (wmma bf16, f32 accumulate), softmax statistics in f32; the
+a launch reads ~24 MB per tensor and its products take a few microseconds
+at the tensor cores' peak, so it is bound by bytes and latency. The
+forward: 64-row tiles in shared memory, wmma products, softmax statistics
+in f32. The backward: each warp keeps its 16 rows' score, P and dS tiles in
+`mma.sync` fragments, the streamed tiles come in by `cp.async` two stages
+deep, and warps skip the 16-row chunks past T and above the diagonal. The
 head dim is zero-padded to a multiple of 16 in shared memory and the ragged
-edge T % 64 is masked in the kernel, with no padded copies.
+edge is masked in the kernels, with no padded copies.
 
 Each wrapper (`flash_forward`, `flash_backward_dq`, `flash_backward_dkv`)
 runs its plain PyTorch version for CPU tensors and, for CUDA tensors,
@@ -67,10 +71,12 @@ def _probs_ds(q, k, v, do, lse, delta, causal):
     return p, ds
 
 
-def flash_backward_dq_reference(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain version of the dQ kernel: dq = (dS K) * scale, in q's dtype."""
+def flash_backward_dq_reference(q, k, v, o, do, lse, causal: bool = True):
+    """Plain version of the dQ kernel: (dq = (dS K) * scale in q's dtype,
+    delta = rowsum(dO * O) [B, H, T, 1] f32)."""
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
     _, ds = _probs_ds(q, k, v, do, lse, delta, causal)
-    return ((ds @ k.float()) * _scale(q)).to(q.dtype)
+    return ((ds @ k.float()) * _scale(q)).to(q.dtype), delta
 
 
 def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
@@ -90,13 +96,23 @@ def _library() -> ctypes.CDLL:
     lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.beso_flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-    lib.beso_flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.beso_flash_bwd_dq.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.beso_flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     for fn in (lib.beso_flash_fwd, lib.beso_flash_bwd_dq, lib.beso_flash_bwd_dkv):
         fn.restype = ci
     lib.beso_flash_max_head_dim.argtypes = []
     lib.beso_flash_max_head_dim.restype = ci
+    lib.beso_flash_bwd_blocks_per_sm.argtypes = [ci]
+    lib.beso_flash_bwd_blocks_per_sm.restype = ci
     return lib
+
+
+def backward_blocks_per_sm() -> dict:
+    """Resident blocks per SM of the two backward kernels on the current
+    card, as the CUDA runtime's occupancy calculator gives them."""
+    lib = _library()
+    return {name: lib.beso_flash_bwd_blocks_per_sm(i)
+            for i, name in enumerate(("flash_backward_dq", "flash_backward_dkv"))}
 
 
 def _on_cpu(name: str, q: torch.Tensor) -> bool:
@@ -137,26 +153,31 @@ def flash_forward(q, k, v, causal: bool = True):
     return o, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta, lib):
+def _check_bwd(q, k, v, lib, rows, stats):
+    """Check q, k, v, the bf16 [B, H, T, hd] tensors `rows` and the f32
+    [B, H, T, 1] tensors `stats` (name -> tensor)."""
     BH, T, hd = _check_qkv(q, k, v, lib)
-    build.check_tensor(do, "do", q.shape, torch.bfloat16, q.device)
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in rows.items():
+        build.check_tensor(t, name, q.shape, torch.bfloat16, q.device)
+    for name, t in stats.items():
         build.check_tensor(t, name, (*q.shape[:3], 1), torch.float32, q.device)
     return BH, T, hd
 
 
-def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True):
-    """Kernel B6, dQ: dq [B, H, T, hd] in q's dtype."""
+def flash_backward_dq(q, k, v, o, do, lse, causal: bool = True):
+    """Kernel B6, dQ: (dq [B, H, T, hd] in q's dtype, delta = rowsum(dO * O)
+    [B, H, T, 1] f32), the delta for `flash_backward_dkv`."""
     if _on_cpu("flash_backward_dq", q):
-        return flash_backward_dq_reference(q, k, v, do, lse, delta, causal)
+        return flash_backward_dq_reference(q, k, v, o, do, lse, causal)
     lib = _library()
-    BH, T, hd = _check_bwd(q, k, v, do, lse, delta, lib)
+    BH, T, hd = _check_bwd(q, k, v, lib, {"o": o, "do": do}, {"lse": lse})
     dq = torch.empty_like(q)
+    delta = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
     _launch("flash_backward_dq", lib.beso_flash_bwd_dq, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), BH, T, hd, int(causal))
+            v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            delta.data_ptr(), BH, T, hd, int(causal))
     flash_backward_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True):
@@ -164,7 +185,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True):
     if _on_cpu("flash_backward_dkv", q):
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal)
     lib = _library()
-    BH, T, hd = _check_bwd(q, k, v, do, lse, delta, lib)
+    BH, T, hd = _check_bwd(q, k, v, lib, {"do": do}, {"lse": lse, "delta": delta})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_backward_dkv", lib.beso_flash_bwd_dkv, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -192,8 +213,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        delta = (do.float() * o.float()).sum(-1, keepdim=True)
-        dq = flash_backward_dq(q, k, v, do, lse, delta, ctx.causal)
+        dq, delta = flash_backward_dq(q, k, v, o, do, lse, ctx.causal)
         dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.causal)
         return dq, dk, dv, None
 

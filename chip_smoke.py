@@ -9,9 +9,10 @@ into `build/`) and no network; it imports no JAX. Phases, each of which
 exits non-zero on failure:
 
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
-1. build: compile the kernel library for sm_90a, print seconds, ptxas and,
-   from cuobjdump -sass, the HGMMA (wgmma) instructions of each
-   instantiation of the fused-layer kernel, none of which may have none;
+1. build: compile the kernel library for sm_90a, print seconds, ptxas's
+   registers, stack and spill bytes per kernel and, from cuobjdump -sass,
+   the HGMMA (wgmma) instructions of each instantiation of the fused-layer
+   kernel, none of which may have none;
 2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version in
    bf16 at the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240,
    H=12, hd=20, P=2, 2T=10) shapes, epilogue on and off, every sigma row,
@@ -26,14 +27,20 @@ exits non-zero on failure:
    shipped kitchen serving config on the `fused_cached` engine; the kernel's
    launch counter must move by exactly 280 steps x 3 NFE x 6 layers, every
    metric must be finite;
-5. flash kernels: the forward (B5) and the dQ and dK/dV backward kernels
-   (B6) against their plain PyTorch versions in bf16, o, lse, dq, dk and dv
-   each within 2^-5 of max |ref|, at the chunked training shape
-   [256, 6, 131, 60] (causal) and at a ragged small shape [3, 2, 77, 20]
-   (causal and full); times each kernel, and forward + backward, against
-   the plain versions at the chunked shape with CUDA events, and, as their
-   yardstick, F.scaled_dot_product_attention's forward and backward with
-   the attention kernels it ran;
+5. flash kernels: the forward (B5) and the backward (B6: the dQ kernel,
+   which also computes delta = rowsum(dO * O), and the dK/dV kernel)
+   against their plain PyTorch versions in bf16, o, lse, dq, delta, dk and
+   dv each within 2^-5 of max |ref|, at the chunked training shape
+   [256, 6, 131, 60] (causal) and at ragged small shapes ([3, 2, 77, 20]
+   causal and full, T = 16 and 144 at hd 60, hd 18 and hd 15); a second
+   launch of each backward kernel must be bit-equal to the first; prints
+   the backward kernels' resident blocks per SM; the autograd backward must
+   run exactly two device kernels, the dQ and the dK/dV kernel
+   (torch.profiler; "not measured" if it sees no kernel).
+   Times each kernel, the backward total (dQ with delta + dK/dV) and
+   forward + backward against the plain versions at the chunked shape with
+   CUDA events, and, as their yardstick, F.scaled_dot_product_attention's
+   forward and backward with the attention kernels it ran;
 6. model: the chunked kitchen model (`configs/franka_kitchen_chunked.yaml`,
    full width, bf16) from one seeded state: loss and every parameter's
    gradient with attention="pallas" (the flash kernels) against
@@ -128,12 +135,16 @@ def layer_work(B, T, D, P, n_layers=1):
 def flash_work(name, B, H, T, hd):
     """Operations and bytes of one causal flash kernel at [B, H, T, hd]
     bf16: 2 hd operations per (query, key) pair per product (forward 2
-    products, dQ 3, dK/dV 4), each input read once and each output written
-    once (lse and delta f32)."""
-    pairs = B * H * T * (T + 1) // 2
-    n, stat = B * H * T * hd * 2, B * H * T * 4
+    products, dQ 3, dK/dV 4), and for dQ 2 hd per row for delta; each input
+    read once and each output written once (lse and delta f32): the forward
+    reads q, k, v and writes o and lse, dQ reads q, k, v, o, dO and lse and
+    writes dq and delta, dK/dV reads q, k, v, dO, lse and delta and writes
+    dk and dv."""
+    rows = B * H * T
+    pairs = rows * (T + 1) // 2
+    n, stat = rows * hd * 2, rows * 4
     return {"flash_forward": (4 * hd * pairs, 3 * n + n + stat),
-            "flash_backward_dq": (6 * hd * pairs, 4 * n + 2 * stat + n),
+            "flash_backward_dq": (6 * hd * pairs + 2 * hd * rows, 5 * n + stat + n + stat),
             "flash_backward_dkv": (8 * hd * pairs, 4 * n + 2 * stat + 2 * n)}[name]
 
 
@@ -157,6 +168,22 @@ def sass_counts(so, kernel, opcode):
         elif fn and opcode in line:
             counts[fn] += 1
     return counts
+
+
+def ptxas_report(log):
+    """{kernel (mangled, from its name on): its spill and register lines}
+    from `nvcc -Xptxas -v` output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+            fn = next((name[name.index(k):] for k in ("flash_fwd", "flash_bwd", "fused_layer_prefix_kernel")
+                       if k in name), name)
+            out[fn] = ""
+        elif fn and ("spill" in line or "Used" in line):
+            props = line.replace("ptxas info    :", "").strip()
+            out[fn] = f"{out[fn]}; {props}" if out[fn] else props
+    return out
 
 
 def fail(msg: str) -> None:
@@ -730,8 +757,10 @@ def _rel_check(what, got, ref, frac):
 
 def check_flash(B, H, T, hd, causal, device, gen):
     """The three flash kernels against their plain versions at one shape, on
-    the same inputs (the backward kernels get the plain forward's lse and
-    delta, so each is held alone). Returns {kernel: max |diff|}."""
+    the same inputs (the backward kernels get the plain forward's o and lse,
+    and the dK/dV kernel the plain delta, so each is held alone), and a
+    second launch of each backward kernel bit-equal to the first. Returns
+    {kernel: max |diff|}."""
     import torch
 
     from beso_tpu_torch.ops import flash_attention as fa
@@ -741,25 +770,56 @@ def check_flash(B, H, T, hd, causal, device, gen):
     name = f"[{B},{H},{T},{hd}] causal={causal}"
     o, lse = fa.flash_forward(q, k, v, causal)
     o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
-    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
-    dq = fa.flash_backward_dq(q, k, v, do, lse_ref, delta, causal)
-    dq_ref = fa.flash_backward_dq_reference(q, k, v, do, lse_ref, delta, causal)
-    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta, causal)
-    dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta, causal)
+    dq, delta = fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal)
+    dq_ref, delta_ref = fa.flash_backward_dq_reference(q, k, v, o_ref, do, lse_ref, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta_ref, causal)
+    dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta_ref, causal)
+    again = (*fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal),
+             *fa.flash_backward_dkv(q, k, v, do, lse_ref, delta_ref, causal))
     if device.type == "cuda":
         torch.cuda.synchronize()
+    for what, first, second in zip(("dq", "delta", "dk", "dv"), (dq, delta, dk, dv), again):
+        _same_bits(f"{name} {what}, second launch", second, first)
     return {
         "flash_forward": max(_rel_check(f"{name} o", o, o_ref, ERR_FRACTION),
                              _rel_check(f"{name} lse", lse, lse_ref, ERR_FRACTION)),
-        "flash_backward_dq": _rel_check(f"{name} dq", dq, dq_ref, ERR_FRACTION),
+        "flash_backward_dq": max(_rel_check(f"{name} dq", dq, dq_ref, ERR_FRACTION),
+                                 _rel_check(f"{name} delta", delta, delta_ref, ERR_FRACTION)),
         "flash_backward_dkv": max(_rel_check(f"{name} dk", dk, dk_ref, ERR_FRACTION),
                                   _rel_check(f"{name} dv", dv, dv_ref, ERR_FRACTION)),
     }
 
 
+def backward_kernels(device, gen):
+    """The device kernels that one autograd backward through
+    `flash_attention` runs at the chunked shape (torch.profiler; bf16,
+    contiguous cotangent, leaves without a gradient yet), or None where
+    the profiler saw no device kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    leaves = [_bf16(gen, *CHUNKED_SHAPE, device=device).requires_grad_() for _ in range(3)]
+    do = _bf16(gen, *CHUNKED_SHAPE, device=device)
+    fa.flash_attention(*leaves).backward(do)   # warm-up
+    for t in leaves:
+        t.grad = None
+    o = fa.flash_attention(*leaves)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o.backward(do)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return names or None
+
+
 def time_flash(device, gen):
-    """Kernel and plain-version ms at the chunked shape: each kernel, and
-    forward + backward (delta included)."""
+    """Kernel and plain-version ms at the chunked shape: each kernel, the
+    backward total (dQ with delta, then dK/dV on that delta) and forward +
+    backward."""
     import torch
 
     from beso_tpu_torch.ops import flash_attention as fa
@@ -769,20 +829,25 @@ def time_flash(device, gen):
     o, lse = fa.flash_forward_reference(q, k, v)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
 
+    def bwd(bdq, bdkv, o, lse):
+        dq, d = bdq(q, k, v, o, do, lse)
+        return dq, bdkv(q, k, v, do, lse, d)
+
     def fwd_bwd(fwd, bdq, bdkv):
-        o, lse = fwd(q, k, v)
-        d = (do.float() * o.float()).sum(-1, keepdim=True)
-        return bdq(q, k, v, do, lse, d), bdkv(q, k, v, do, lse, d)
+        return bwd(bdq, bdkv, *fwd(q, k, v))
 
     t = {
         "flash_forward": (lambda: fa.flash_forward(q, k, v),
                           lambda: fa.flash_forward_reference(q, k, v)),
         "flash_backward_dq": (
-            lambda: fa.flash_backward_dq(q, k, v, do, lse, delta),
-            lambda: fa.flash_backward_dq_reference(q, k, v, do, lse, delta)),
+            lambda: fa.flash_backward_dq(q, k, v, o, do, lse),
+            lambda: fa.flash_backward_dq_reference(q, k, v, o, do, lse)),
         "flash_backward_dkv": (
             lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta),
             lambda: fa.flash_backward_dkv_reference(q, k, v, do, lse, delta)),
+        "backward": (
+            lambda: bwd(fa.flash_backward_dq, fa.flash_backward_dkv, o, lse),
+            lambda: bwd(fa.flash_backward_dq_reference, fa.flash_backward_dkv_reference, o, lse)),
         "forward+backward": (
             lambda: fwd_bwd(fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv),
             lambda: fwd_bwd(fa.flash_forward_reference, fa.flash_backward_dq_reference,
@@ -888,9 +953,8 @@ def main() -> None:
     print(f"[1] build: {so.name} in {time.perf_counter() - t0:.1f} s")
     log = so.with_suffix(".log")
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for name, props in ptxas_report(log.read_text()).items():
+            print(f"  ptxas {name}: {props}")
     hgmma = sass_counts(so, "fused_layer_prefix_kernel", "HGMMA")
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions: {hgmma}")
     if len(hgmma) != 3 or not all(hgmma.values()):
@@ -942,9 +1006,19 @@ def main() -> None:
     print("[5] flash kernels vs plain versions (bf16)")
     flash_err = {}
     for shape, causal in ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True),
-                          ((3, 2, 77, 20), False)):
+                          ((3, 2, 77, 20), False), ((2, 3, 16, 60), True),
+                          ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
+                          ((2, 2, 50, 15), False)):
         for k, e in check_flash(*shape, causal, device, gen).items():
             flash_err[k] = max(flash_err.get(k, 0.0), e)
+    print(f"  resident blocks per SM (occupancy calculator): {fa.backward_blocks_per_sm()}")
+    bwd_kernels = backward_kernels(device, gen)
+    print(f"  device kernels of one autograd backward: "
+          f"{bwd_kernels if bwd_kernels is not None else 'not measured'}")
+    if bwd_kernels is not None and (len(bwd_kernels) != 2 or not all(
+            any(k in n for n in bwd_kernels) for k in ("flash_bwd_dq_kernel",
+                                                       "flash_bwd_dkv_kernel"))):
+        fail("the autograd backward is not exactly the dQ and the dK/dV kernel launches")
     flash_ms = time_flash(device, gen)
     for name, (ms_k, ms_p) in flash_ms.items():
         print(f"  time {name} at {list(CHUNKED_SHAPE)}: kernel {ms_k:.4f} ms, "
@@ -953,6 +1027,12 @@ def main() -> None:
     print(f"  yardstick F.scaled_dot_product_attention(is_causal=True) at "
           f"{list(CHUNKED_SHAPE)} bf16: forward {sdpa_fwd_ms:.4f} ms, backward (forward + "
           f"backward minus forward) {sdpa_bwd_ms:.4f} ms; kernels: {sdpa_kernels} ({card})")
+    bwd_ms = flash_ms["backward"][0]
+    bwd_bound = sum(bound(*flash_work(n, *CHUNKED_SHAPE))[0]
+                    for n in ("flash_backward_dq", "flash_backward_dkv"))
+    print(f"  backward total (dQ with delta + dK/dV) {bwd_ms:.4f} ms against SDPA's backward "
+          f"{sdpa_bwd_ms:.4f} ms: {bwd_ms / sdpa_bwd_ms:.3f}x; {100 * bwd_bound / bwd_ms:.1f}% "
+          f"of its {bwd_bound:.4f} ms bound ({card})")
 
     # ---- 6. model-level: flash kernels vs broadcast -----------------------
     print("[6] chunked model, loss and gradients: attention=pallas vs broadcast (bf16)")
@@ -1066,8 +1146,8 @@ def main() -> None:
             "fused_layer_with_prefix": layer_work(B_serve, 8, 360, 3),
             "fused_layers_prefix_group": layer_work(B_serve, 8, 360, 3, n_layers=2),
             "fused_layer": layer_work(B_serve, 11, 360, 0)}
-    work.update({name: flash_work(name, *CHUNKED_SHAPE) for name in flash_ms
-                 if name != "forward+backward"})
+    work.update({name: flash_work(name, *CHUNKED_SHAPE)
+                 for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")})
     library_ms = {"flash_forward": sdpa_fwd_ms, "flash_backward_dq": sdpa_bwd_ms,
                   "flash_backward_dkv": sdpa_bwd_ms}
     layer_src = "beso_tpu_torch/csrc/fused_layer_prefix.cu"

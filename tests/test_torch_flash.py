@@ -66,16 +66,42 @@ def test_gradients_match_jax(T, causal):
                                    err_msg=f"d{name} (T={T}, causal={causal})")
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [16, 131])
+def test_backward_kernels_plain_match_jax(T, causal):
+    """The plain versions of the two backward kernels, as the autograd
+    Function chains them (dQ returns delta, dK/dV takes it), against
+    `_flash_attention_bwd` (Pallas, interpret mode) and its delta formula
+    (:212-214) on the same forward output, lse and cotangent."""
+    q, k, v, g = _qkv(2, 3, T, 60, seed=11 * T + causal, n=4)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                                  True)
+    jdq, jdk, jdv = jfa._flash_attention_bwd(causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                                             True, (jq, jk, jv, jo, jlse), jg)
+    jdelta = jnp.sum(jg.astype(jnp.float32) * jo.astype(jnp.float32), axis=-1, keepdims=True)
+    o, lse = t(np.asarray(jo)), t(np.asarray(jlse))
+    dq, delta = fa.flash_backward_dq(t(q), t(k), t(v), o, t(g), lse, causal)
+    dk, dv = fa.flash_backward_dkv(t(q), t(k), t(v), t(g), lse, delta, causal)
+    assert delta.shape == (2, 3, T, 1) and delta.dtype == torch.float32
+    for name, got, want in (("delta", delta, jdelta), ("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"{name} (T={T}, causal={causal})")
+
+
 def test_backward_pieces_match_autograd_of_plain_attention():
     """The two backward plain versions equal torch autograd through the
-    plain forward (dK/dV and dQ of softmax(q k^T / sqrt(hd)) v)."""
+    plain forward (dK/dV and dQ of softmax(q k^T / sqrt(hd)) v), and the dQ
+    version's delta is rowsum(dO * O)."""
     q, k, v, g = (t(a) for a in _qkv(2, 2, 40, 20, seed=3, n=4))
     qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
     o, lse = fa.flash_forward_reference(qr, kr, vr, True)
     (o * g).sum().backward()
-    delta = (g * o.detach()).sum(-1, keepdim=True)
-    dq = fa.flash_backward_dq_reference(q, k, v, g, lse.detach(), delta)
+    dq, delta = fa.flash_backward_dq_reference(q, k, v, o.detach(), g, lse.detach())
     dk, dv = fa.flash_backward_dkv_reference(q, k, v, g, lse.detach(), delta)
+    np.testing.assert_allclose(delta.numpy(), (g * o.detach()).sum(-1, keepdim=True).numpy(),
+                               atol=1e-6, rtol=1e-6)
     for got, want in ((dq, qr.grad), (dk, kr.grad), (dv, vr.grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
 

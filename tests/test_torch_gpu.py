@@ -1,6 +1,7 @@
 """Kernel-vs-plain tests of the port's CUDA kernels on the card, in bf16
 within 2^-5 of max |ref| (chip_smoke.py's bound): B5 and B6 (flash
-attention forward, dQ, dK/dV) and the fused layers B1 (at the ragged edge,
+attention forward, dQ with delta, dK/dV; the backward also bit-equal from
+launch to launch) and the fused layers B1 (at the ragged edge,
 block push and with the epilogue, and its timed entry), B2 (layer group),
 B3 (one selected prefix row) and B4 (whole causal sequence), which must
 also equal B1 launches bit for bit where they compute the same thing.
@@ -18,7 +19,8 @@ from beso_tpu_torch.ops import flash_attention as fa
 from beso_tpu_torch.ops import fused_layer as fl
 
 SHAPES = [((3, 2, 77, 60), True), ((3, 2, 77, 20), False), ((2, 3, 131, 18), True),
-          ((1, 2, 2, 60), True), ((2, 2, 128, 64), True)]
+          ((1, 2, 2, 60), True), ((2, 2, 128, 64), True), ((2, 3, 131, 60), True),
+          ((2, 3, 144, 60), True), ((2, 3, 16, 60), True), ((2, 2, 50, 15), False)]
 
 
 def _close(got, ref):
@@ -28,28 +30,52 @@ def _close(got, ref):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,causal", SHAPES, ids=[f"{s}-{c}" for s, c in SHAPES])
 def test_flash_kernels_match_plain(shape, causal):
-    """Forward (o, lse), dQ and dK/dV against the plain versions; hd 18
-    takes the kernels' unvectorised load path, T 2 and 128 the tile edges
-    (T 2, not 1: with one key dQ and dK are zero in exact arithmetic, and
-    both sides give rounding noise)."""
+    """Forward (o, lse), dQ with delta and dK/dV against the plain
+    versions, each kernel on the plain forward's o and lse and the plain
+    delta; hd 18 takes the backward's 4-byte copies and the forward's
+    unvectorised loads, hd 15 plain loads; T 2, 16, 128, 131 and 144 the
+    tile and 16-row chunk edges (T 2, not 1: with one key dQ and dK are zero
+    in exact arithmetic, and both sides give rounding noise)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
     dev = torch.device("cuda")
     rng = np.random.RandomState(sum(shape))
     q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
                    for _ in range(4))
-    before = fa.flash_forward.launches
+    before = [f.launches for f in (fa.flash_forward, fa.flash_backward_dq,
+                                   fa.flash_backward_dkv)]
     o, lse = fa.flash_forward(q, k, v, causal)
     o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
-    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
-    dq = fa.flash_backward_dq(q, k, v, do, lse_ref, delta, causal)
-    dq_ref = fa.flash_backward_dq_reference(q, k, v, do, lse_ref, delta, causal)
-    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta, causal)
-    dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta, causal)
+    dq, delta = fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal)
+    dq_ref, delta_ref = fa.flash_backward_dq_reference(q, k, v, o_ref, do, lse_ref, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta_ref, causal)
+    dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta_ref, causal)
     torch.cuda.synchronize()
-    assert fa.flash_forward.launches == before + 1
-    for got, ref in ((o, o_ref), (lse, lse_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+    assert [f.launches for f in (fa.flash_forward, fa.flash_backward_dq,
+                                 fa.flash_backward_dkv)] == [b + 1 for b in before]
+    for got, ref in ((o, o_ref), (lse, lse_ref), (dq, dq_ref), (delta, delta_ref), (dk, dk_ref),
+                     (dv, dv_ref)):
         assert _close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal", [((2, 3, 131, 60), True), ((3, 2, 77, 20), False)],
+                         ids=["131-60-causal", "77-20-full"])
+def test_flash_backward_kernels_deterministic(shape, causal):
+    """Two launches of each backward kernel on the same inputs give
+    bit-equal dq, delta, dk and dv (no atomics)."""
+    dev = _cuda()
+    rng = np.random.RandomState(len(shape) + shape[2])
+    q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, causal)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.flash_backward_dq(q, k, v, o, do, lse, causal)
+        runs.append((dq, delta, *fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -75,7 +101,7 @@ def test_flash_autograd_on_card_matches_plain_autograd():
 def test_wrappers_raise_off_cpu_and_cuda():
     x = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        fa.flash_backward_dq(x, x, x, x, x[..., :1], x[..., :1])
+        fa.flash_backward_dq(x, x, x, x, x, x[..., :1])
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fa.flash_backward_dkv(x, x, x, x, x[..., :1], x[..., :1])
 
