@@ -6,59 +6,70 @@
 // dK/dV over query tiles, so no block reduces across blocks, nothing is
 // written twice and the result is deterministic (no atomics).
 //
-// Layout: q, k, v, o, dO, dq, dk, dv [B*H, T, hd] bf16, contiguous (the
-// JAX layout [B, H, T, hd]); lse and delta [B*H, T] f32. lse is the
-// logsumexp of the SCALED scores s = (q . k) / sqrt(hd). delta =
+// Layout: q, k, v, o, dO, dq, dk, dv [B*H, T, hd], contiguous (the JAX
+// layout [B, H, T, hd]), all bf16 or all f32; lse and delta [B*H, T] f32.
+// lse is the logsumexp of the SCALED scores s = (q . k) / sqrt(hd). delta =
 // rowsum(dO * O) (the JAX package computes it outside Pallas, :212-214) is
 // computed by the dQ kernel, which uses it and writes it for the dK/dV
 // kernel, so a backward is exactly two launches.
 //
-// The forward (B5): wmma bf16 16x16x16 products with f32 accumulation;
-// each warp stages its score tiles in shared memory, where two lanes per
-// row apply the mask and the online softmax. The running sum l is clamped
-// at 1e-30 as in the JAX kernel (:73,75), so a fully masked row gives 0.
-//
-// The backward (B6). What bounds it: at the chunked training shape
-// [256, 6, 131, 60] a launch reads ~24 MB per tensor and its products take
-// ~5 us at the tensor cores' peak, so it is bound by bytes and latency, not
-// by the tensor cores; `wgmma` is not the lever (its 64-row tiles would
-// also compute more of the ragged edge). What the design does about it:
-// - Fragments stay in registers. Each warp owns 16 rows (queries in the dQ
-//   kernel, keys in the dK/dV kernel) and walks the streamed tile in chunks
-//   of 16 with `mma.sync` m16n8k16 (bf16, f32 accumulation): S = Q K^T and
-//   dP = dO V^T (or S^T = K Q^T and dP^T = V dO^T) as accumulator
-//   fragments, P = exp(S scale - lse) and dS = P (dP - delta) on them in
-//   f32, then the two n8 accumulator tiles repacked into one k16 A operand
-//   (rounded to bf16 only there, as operand of the next product) for
-//   dQ += dS K, or dV += P^T dO and dK += dS^T Q, the B operand through
-//   `ldmatrix.trans`. No score tile touches shared memory.
+// What bounds the three kernels: at the chunked training shape
+// [256, 6, 131, 60] bf16 a launch reads ~24 MB per tensor (the forward moves
+// ~97 MB, 0.029 ms at 3.35 TB/s) and its products take a few microseconds at
+// the tensor cores' peak, so each is bound by bytes and latency, not by the
+// tensor cores; `wgmma` is not the lever (its 64-row tiles would also compute
+// more of the ragged edge). What the design does about it:
+// - Fragments stay in registers. Each warp owns 16 rows (queries in the
+//   forward and the dQ kernel, keys in the dK/dV kernel) and walks the
+//   streamed tile in chunks of 16 with `mma.sync` m16n8k16 (bf16, f32
+//   accumulation): S = Q K^T (and dP = dO V^T, or S^T = K Q^T and
+//   dP^T = V dO^T) as accumulator fragments, then the two n8 accumulator
+//   tiles repacked into one k16 A operand (rounded to bf16 only there, as
+//   operand of the next product) for O += P V, dQ += dS K, or dV += P^T dO
+//   and dK += dS^T Q, the B operand through `ldmatrix.trans`. No score tile
+//   touches shared memory.
+// - The forward's online softmax runs on those fragments: a thread holds
+//   rows g and g + 8 of its warp's 16; the chunk's row max is reduced over
+//   the four lanes of a row (shuffles 1 and 2), the O accumulator is
+//   rescaled by alpha = exp2(m - m_new) per chunk, P = exp2(s - m) on scores
+//   prescaled by scale * log2(e), and the running sum stays per thread until
+//   the end. The sum is clamped at 1e-30 as in the JAX kernel (:73,75).
 // - Streamed tiles (K/V, or Q/dO with their lse and delta) come in by
 //   `cp.async`, two stages deep: the next tile loads while this one
 //   computes. Rows are hd * 2 bytes (120 at hd = 60), so only 8-byte copies
 //   (hd % 4 == 0) or 4-byte ones (hd even) are aligned; their source size
 //   zero-fills the pad columns [hd, hdp) and the rows >= T. Odd hd takes
-//   plain loads.
+//   plain loads. The tile a block keeps (Q; or q, dO, o) is read into
+//   fragments first and its shared memory then serves as the second stage.
 // - The ragged edge and the diagonal are skipped at 16-row granularity: a
 //   warp whose rows all lie at or beyond T does no products (it still
 //   copies and meets the barriers), and a warp skips the chunks wholly
 //   above the diagonal; only chunks that straddle T or the diagonal are
 //   masked. At T = 131 each kernel computes 11,520 (query, key) pairs per
 //   (b, h) instead of the 24,576 of whole 64 x 64 tiles.
-// - Occupancy: with no f32 staging a block holds its own tile(s) and two
-//   stages (dQ 46,080 bytes, the q/dO/o region reused as stage 1; dK/dV
-//   56,320 bytes), four 128-thread blocks per SM at <= 128 registers.
+// - Occupancy: with no f32 staging a block holds two stages and what it
+//   keeps (forward 36,864 bytes, dQ 46,080, dK/dV 56,320), four 128-thread
+//   blocks per SM at <= 128 registers.
 // Padded rows get lse = 0 and zero q/k, so their p is finite; the dK/dV
 // kernel masks p (not s) for query columns >= T, as the JAX kernel does.
+//
+// f32 inputs (the model's dtype, as in the JAX kernels, which compute in
+// f32): the same kernels, instantiated on the element type. Each f32 tile is
+// held in shared memory as two bf16 tiles, hi = bf16(x) and lo = bf16(x -
+// hi) (x = hi + lo to ~2^-17 relative), converted on load with plain loads,
+// and every product is hi.hi + hi.lo + lo.hi with f32 accumulation; P and dS
+// are split the same way at their repack. That is f32 accuracy (~2^-16
+// relative per product, not TF32's 2^-11) on the tensor cores, at three
+// times the products and twice the shared memory, with up to 255 registers:
+// two blocks per SM (the forward three).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -70,38 +81,49 @@ constexpr int MAX_HDP = 64;         // padded head dim, multiple of 16
 constexpr int NT_D = MAX_HDP / 16;  // head-dim column tiles (k16 steps) at most
 constexpr int NT_D8 = MAX_HDP / 8;  // head-dim n8 tiles at most
 constexpr int LDH = MAX_HDP + 8;    // bf16 row stride of [TILE, hdp] tiles (144 bytes)
-constexpr int LDT = TILE + 8;       // bf16 row stride of a warp's [16, TILE] tiles
-constexpr int LDF = TILE + 4;       // f32 row stride of a warp's [16, TILE] staging
+constexpr int SPLIT = TILE * LDH;   // bf16 elements of a [TILE, LDH] tile: an f32 tile's lo part
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// Per element type: bf16 tiles per logical tile (f32: hi and lo) and the
+// resident blocks per SM the launch bounds ask for.
+template <typename E>
+struct Parts {
+  static constexpr int N = 1;
+  static constexpr int MIN_BLOCKS = 4;
+};
+template <>
+struct Parts<float> {
+  static constexpr int N = 2;
+  static constexpr int MIN_BLOCKS = 2;
+};
 
-struct Args {  // forward
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
+template <typename E>
+struct FwdArgs {
+  const E* q;
+  const E* k;
+  const E* v;
+  E* o;
   float* lse;
   int T, hd, hdp, causal;
+  int vec;           // bytes per bf16 tile copy: 8 (hd % 4 == 0), 4 (hd even), 2 (plain loads)
   float scale;
 };
 
+template <typename E>
 struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;     // forward output (dQ kernel: delta)
-  const bf16* dout;
+  const E* q;
+  const E* k;
+  const E* v;
+  const E* o;        // forward output (dQ kernel: delta)
+  const E* dout;
   const float* lse;
   float* delta;      // written by the dQ kernel, read by the dK/dV kernel
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  E* dq;
+  E* dk;
+  E* dv;
   int T, hd, hdp, causal;
-  int vec;           // bytes per tile copy: 8 (hd % 4 == 0), 4 (hd even), 2 (plain loads)
+  int vec;           // as in FwdArgs
   float scale;
 };
 
@@ -110,6 +132,14 @@ __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x0, x1) as the bf16 pairs hi = bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf2(x0 - hf.x, x1 - hf.y);
 }
 
 // Copy `nrows` rows of `hd` bf16 (contiguous, row stride hd) into a
@@ -150,7 +180,8 @@ __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, int 
   }
 }
 
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nrows, const BwdArgs& a,
+template <class A>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nrows, const A& a,
                                           int tid) {
   if (a.vec == 8)
     copy_tile_async<8>(dst, src, nrows, a.hd, a.hdp, tid);
@@ -160,136 +191,40 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nrows,
     load_tile(dst, src, nrows, a.hd, a.hdp, tid);  // odd hd: no aligned copy size
 }
 
-// out[16, TILE] (f32, ld LDF) = A[16, hdp] . B[TILE, hdp]^T, with A the
-// warp's rows of a [*, LDH] tile and B a whole [TILE, LDH] tile.
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a, const bf16* b,
-                                                  int ksteps) {
-#pragma unroll
-  for (int n = 0; n < TILE / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < ksteps; ++kk) {
-      FragA fa;
-      FragBc fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDH);
-      wmma::load_matrix_sync(fb, b + n * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, LDF, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += A[16, TILE] . B[TILE, hdp] for the head-dim column tiles
-// n < ntd, with A a warp's [16, LDT] tile and B a [TILE, LDH] tile.
-__device__ __forceinline__ void acc_tile_times(FragC (&acc)[NT_D], const bf16* a,
-                                               const bf16* b, int ntd) {
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, LDT);
-#pragma unroll
-    for (int n = 0; n < NT_D; ++n) {
-      if (n < ntd) {
-        FragBr fb;
-        wmma::load_matrix_sync(fb, b + kk * 16 * LDH + n * 16, LDH);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
+// The f32 tile as its hi part at dst and its lo part at dst + SPLIT, by
+// plain loads (the conversion needs the values in registers); rows >= nrows
+// and columns [hd, hdp) are zero.
+template <class A>
+__device__ __forceinline__ void copy_tile(bf16* dst, const float* src, int nrows, const A& a,
+                                          int tid) {
+  const int hd = a.hd, half = a.hdp >> 1;
+  for (int i = tid; i < TILE * half; i += THREADS) {
+    const int r = i / half, c = 2 * (i - r * half);
+    const float* s = src + static_cast<size_t>(r) * hd + c;
+    const float x0 = r < nrows && c < hd ? s[0] : 0.f;
+    const float x1 = r < nrows && c + 1 < hd ? s[1] : 0.f;
+    uint32_t hi, lo;
+    split_bf2(x0, x1, hi, lo);
+    *reinterpret_cast<uint32_t*>(dst + r * LDH + c) = hi;
+    *reinterpret_cast<uint32_t*>(dst + SPLIT + r * LDH + c) = lo;
   }
 }
 
 // ---------------------------------------------------------------------------
-// B5: forward. grid (B*H, ceil(T / TILE)); block = one 64-row query tile.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);        // [TILE, LDH]
-  bf16* ks = qs + TILE * LDH;                      // [TILE, LDH]
-  bf16* vs = ks + TILE * LDH;                      // [TILE, LDH]
-  bf16* ps = vs + TILE * LDH;                      // [WARPS, 16, LDT]
-  float* st = reinterpret_cast<float*>(ps + WARPS * 16 * LDT);  // [WARPS, 16, LDF]
-  float* os = st + WARPS * 16 * LDF;               // [WARPS, 16, LDF] running output
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int T = a.T, hd = a.hd, hdp = a.hdp;
-  const int qt = blockIdx.y, q0 = qt * TILE;
-  const size_t base = static_cast<size_t>(blockIdx.x) * T * hd;
-  load_tile(qs, a.q + base + static_cast<size_t>(q0) * hd, min(TILE, T - q0), hd, hdp, tid);
-
-  bf16* pw = ps + warp * 16 * LDT;
-  float* sw = st + warp * 16 * LDF;
-  float* ow = os + warp * 16 * LDF;
-  const int r = lane >> 1, c0 = (lane & 1) * 32;  // this lane's row and column half
-  const int qrow = q0 + warp * 16 + r;
-  const int c1 = min(c0 + 32, hdp);  // this lane's head-dim columns [c0, c1)
-  for (int c = c0; c < c1; ++c) ow[r * LDF + c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  const int n_all = (T + TILE - 1) / TILE;
-  const int nkt = a.causal ? min(n_all, qt + 1) : n_all;  // causal: up to the diagonal
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_tile(ks, a.k + base + static_cast<size_t>(k0) * hd, min(TILE, T - k0), hd, hdp, tid);
-    load_tile(vs, a.v + base + static_cast<size_t>(k0) * hd, min(TILE, T - k0), hd, hdp, tid);
-    __syncthreads();
-
-    rows_times_tile_t(sw, qs + warp * 16 * LDH, ks, hdp / 16);
-    __syncwarp();
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int key = k0 + c0 + j;
-      const bool ok = key < T && (!a.causal || key <= qrow);
-      sv[j] = ok ? sw[r * LDF + c0 + j] * a.scale : -INFINITY;
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = sv[j] == -INFINITY ? 0.f : expf(sv[j] - m_new);
-      sum += p;
-      pw[r * LDT + c0 + j] = f2bf(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    __syncwarp();
-
-    FragC acc[NT_D];
-#pragma unroll
-    for (int n = 0; n < NT_D; ++n) wmma::fill_fragment(acc[n], 0.f);
-    acc_tile_times(acc, pw, vs, hdp / 16);
-#pragma unroll
-    for (int n = 0; n < NT_D; ++n)
-      if (n < hdp / 16) wmma::store_matrix_sync(sw + n * 16, acc[n], LDF, wmma::mem_row_major);
-    __syncwarp();
-    for (int c = c0; c < c1; ++c) ow[r * LDF + c] = ow[r * LDF + c] * alpha + sw[r * LDF + c];
-    __syncwarp();
-  }
-
-  if (qrow < T) {
-    const float lc = fmaxf(l, 1e-30f);
-    bf16* orow = a.o + base + static_cast<size_t>(qrow) * hd;
-    for (int c = c0; c < min(c0 + 32, hd); ++c) orow[c] = f2bf(ow[r * LDF + c] / lc);
-    if (c0 == 0) a.lse[static_cast<size_t>(blockIdx.x) * T + qrow] = m + logf(lc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B6 helpers on m16n8k16 fragments (hopper.cuh): with g = lane / 4 and
+// Helpers on m16n8k16 fragments (hopper.cuh): with g = lane / 4 and
 // q4 = lane % 4, an accumulator pair c[j][0:4] over 16 rows x 16 columns
 // holds rows g (i < 2) and g + 8 (i >= 2) at columns 8 j + 2 q4 + i % 2.
+// NS is the number of bf16 parts per value (1: bf16, 2: f32 as hi + lo);
+// with NS = 2 an operand's lo tile lies SPLIT elements past its hi tile and
+// every product is hi.hi + lo.hi + hi.lo.
 // ---------------------------------------------------------------------------
 
-// c[0:2][0:4] = A . B^T over the head dim, for 16 rows (A: the warp's A
+// c[0:2][0:4] += A . B^T over the head dim, for 16 rows (A: the warp's A
 // fragments, one per k16 step) against the 16 rows of `b` (a [*, LDH]
 // shared tile at the chunk's first row).
-__device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4], uint32_t (&af)[NT_D][4],
+template <int NS>
+__device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
+                                                   uint32_t (&af)[NS][NT_D][4],
                                                    const bf16* b, int nks, int lane) {
   const bf16* row = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH + ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -297,14 +232,23 @@ __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4], uint32_t (&
     if (kk < nks) {
       uint32_t bf[4];   // columns 0-7 of the chunk, then 8-15
       hopper::ldmatrix_x4<false>(bf, row + kk * 16);
-      hopper::mma_16816(c[0], af[kk], bf);
-      hopper::mma_16816(c[1], af[kk], bf + 2);
+      hopper::mma_16816(c[0], af[0][kk], bf);
+      hopper::mma_16816(c[1], af[0][kk], bf + 2);
+      if constexpr (NS == 2) {
+        uint32_t bl[4];
+        hopper::ldmatrix_x4<false>(bl, row + SPLIT + kk * 16);
+        hopper::mma_16816(c[0], af[1][kk], bf);
+        hopper::mma_16816(c[1], af[1][kk], bf + 2);
+        hopper::mma_16816(c[0], af[0][kk], bl);
+        hopper::mma_16816(c[1], af[0][kk], bl + 2);
+      }
     }
   }
 }
 
-// c[0:2][0:4] = A . B^T as above, with A the warp's 16 rows of the shared
+// c[0:2][0:4] += A . B^T as above, with A the warp's 16 rows of the shared
 // tile `a` (at its first row), one k16 step at a time.
+template <int NS>
 __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const bf16* a,
                                                         const bf16* b, int nks, int lane) {
   const bf16* arow = a + (lane & 15) * LDH + (lane >> 4) * 8;
@@ -317,6 +261,15 @@ __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const 
       hopper::ldmatrix_x4<false>(bf, brow + kk * 16);
       hopper::mma_16816(c[0], af, bf);
       hopper::mma_16816(c[1], af, bf + 2);
+      if constexpr (NS == 2) {
+        uint32_t al[4], bl[4];
+        hopper::ldmatrix_x4<false>(al, arow + SPLIT + kk * 16);
+        hopper::ldmatrix_x4<false>(bl, brow + SPLIT + kk * 16);
+        hopper::mma_16816(c[0], al, bf);
+        hopper::mma_16816(c[1], al, bf + 2);
+        hopper::mma_16816(c[0], af, bl);
+        hopper::mma_16816(c[1], af, bl + 2);
+      }
     }
   }
 }
@@ -324,7 +277,8 @@ __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const 
 // acc[0 : hdp / 8] += P . B, with P the 16 x 16 A fragment `pf` and B the
 // chunk's 16 rows of `b` (a [*, LDH] shared tile at the chunk's first row),
 // through ldmatrix.trans.
-__device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t (&pf)[4],
+template <int NS>
+__device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t (&pf)[NS][4],
                                                 const bf16* b, int nks, int lane) {
   const bf16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
 #pragma unroll
@@ -332,25 +286,78 @@ __device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t
     if (t < 2 * nks) {
       uint32_t bf[4];   // head-dim columns 8 t .. 8 t + 7, then 8 t + 8 ..
       hopper::ldmatrix_x4<true>(bf, row + 8 * t);
-      hopper::mma_16816(acc[t], pf, bf);
-      hopper::mma_16816(acc[t + 1], pf, bf + 2);
+      hopper::mma_16816(acc[t], pf[0], bf);
+      hopper::mma_16816(acc[t + 1], pf[0], bf + 2);
+      if constexpr (NS == 2) {
+        uint32_t bl[4];
+        hopper::ldmatrix_x4<true>(bl, row + SPLIT + 8 * t);
+        hopper::mma_16816(acc[t], pf[1], bf);
+        hopper::mma_16816(acc[t + 1], pf[1], bf + 2);
+        hopper::mma_16816(acc[t], pf[0], bl);
+        hopper::mma_16816(acc[t + 1], pf[0], bl + 2);
+      }
     }
+  }
+}
+
+// The 16 x 16 A fragment of a chunk's two n8 accumulator tiles c (P or
+// dS), rounded to bf16 as an operand; NS = 2: its hi and lo parts.
+template <int NS>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[NS][4], const float (&c)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = c[i >> 1][2 * (i & 1)], x1 = c[i >> 1][2 * (i & 1) + 1];
+    if constexpr (NS == 1)
+      f[0][i] = pack_bf2(x0, x1);
+    else
+      split_bf2(x0, x1, f[0][i], f[1][i]);
   }
 }
 
 // The warp's 16 rows of a [*, LDH] shared tile as A fragments over the
 // head dim.
-__device__ __forceinline__ void load_rows(uint32_t (&af)[NT_D][4], const bf16* rows, int nks,
+template <int NS>
+__device__ __forceinline__ void load_rows(uint32_t (&af)[NS][NT_D][4], const bf16* rows, int nks,
                                           int lane) {
   const bf16* row = rows + (lane & 15) * LDH + (lane >> 4) * 8;
 #pragma unroll
-  for (int kk = 0; kk < NT_D; ++kk)
-    if (kk < nks) hopper::ldmatrix_x4<false>(af[kk], row + kk * 16);
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int kk = 0; kk < NT_D; ++kk)
+      if (kk < nks) hopper::ldmatrix_x4<false>(af[s][kk], row + s * SPLIT + kk * 16);
 }
 
-// Rows r0 + g and r0 + g + 8 (< T) of a [*, hd] bf16 output <- acc * mul.
-__device__ __forceinline__ void store_rows(bf16* out, float (&acc)[NT_D8][4], float mul,
-                                           int r0, const BwdArgs& a, int lane) {
+// Eight values of a shared tile row from a 16-byte aligned column, in f32
+// (NS = 2: hi + lo).
+template <int NS>
+__device__ __forceinline__ void row8(float (&x)[8], const bf16* p) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p + s * SPLIT);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      x[2 * j] = s ? x[2 * j] + f.x : f.x;
+      x[2 * j + 1] = s ? x[2 * j + 1] + f.y : f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void store1(bf16* p, float x) { *p = f2bf(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf2(x0, x1);
+}
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+
+// Rows r0 + g (times mul0) and r0 + g + 8 (times mul1), those < T, of a
+// [*, hd] output <- acc.
+template <typename E, class A>
+__device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8][4], float mul0, float mul1,
+                                           int r0, const A& a, int lane) {
   const int g = lane >> 2, q4 = lane & 3;
 #pragma unroll
   for (int t = 0; t < NT_D8; ++t) {
@@ -358,16 +365,128 @@ __device__ __forceinline__ void store_rows(bf16* out, float (&acc)[NT_D8][4], fl
     for (int u = 0; u < 2; ++u) {
       const int row = r0 + g + 8 * u, col = 8 * t + 2 * q4;
       if (t < 2 * (a.hdp >> 4) && row < a.T && col < a.hd) {
-        bf16* p = out + static_cast<size_t>(row) * a.hd + col;
+        E* p = out + static_cast<size_t>(row) * a.hd + col;
+        const float mul = u ? mul1 : mul0;
         const float x0 = acc[t][2 * u] * mul, x1 = acc[t][2 * u + 1] * mul;
         if ((a.hd & 1) == 0) {
-          *reinterpret_cast<uint32_t*>(p) = pack_bf2(x0, x1);
+          store2(p, x0, x1);
         } else {
-          p[0] = f2bf(x0);
-          if (col + 1 < a.hd) p[1] = f2bf(x1);
+          store1(p, x0);
+          if (col + 1 < a.hd) store1(p + 1, x1);
         }
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B5, forward: grid B*H * ceil(T / TILE), a (b, h)'s tiles adjacent (they
+// share its K/V in L2); block = one query tile, looping over key tiles up
+// to the diagonal with the online softmax. o = (sum_k P V) / l,
+// lse = m + log(l) in natural-log units.
+// ---------------------------------------------------------------------------
+template <typename E>
+__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
+    flash_fwd_kernel(const FwdArgs<E> a) {
+  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;   // bf16 elements per logical tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q; then stage 1 (K, V)
+  auto stage = [&](int i) { return i ? qs : qs + 2 * TS; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int T = a.T, hd = a.hd, nks = a.hdp >> 4;
+  const int n_all = (T + TILE - 1) / TILE, qt = blockIdx.x % n_all;
+  const int q0 = qt * TILE, r0 = q0 + 16 * warp;  // r0: this warp's first query row
+  const bool active = r0 < T;
+  const size_t rbase = static_cast<size_t>(blockIdx.x / n_all) * T, base = rbase * hd;
+  const int nkt = a.causal ? qt + 1 : n_all;
+
+  copy_tile(qs, a.q + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
+  hopper::cp_async_commit();
+  copy_tile(stage(0), a.k + base, T, a, tid);
+  copy_tile(stage(0) + TS, a.v + base, T, a, tid);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[NS][NT_D][4];
+  if (active) load_rows<NS>(qf, qs + 16 * warp * LDH, nks, lane);
+  __syncthreads();   // q is in registers: stage 1 may overwrite it
+
+  const float scale2 = a.scale * LOG2E;
+  float acc[NT_D8][4] = {};
+  // rows g, g + 8: running max of the scores in log2 units, and this
+  // thread's share of the running sum (its four lanes' shares add up to l)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      const int k1 = (kt + 1) * TILE;
+      bf16* st = stage((kt + 1) & 1);
+      copy_tile(st, a.k + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+      copy_tile(st + TS, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();   // tile kt has landed
+    __syncthreads();
+    const bf16* ks = stage(kt & 1);
+    const bf16* vs = ks + TS;
+    if (active) {
+      for (int c = 0; c < TILE / 16; ++c) {
+        const int kc = kt * TILE + 16 * c;   // the chunk's first key
+        if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
+        float s[2][4] = {};
+        rows_times_chunk_t<NS>(s, qf, ks + 16 * c * LDH, nks, lane);
+        // every row keeps key kc (kc < T, and kc <= r0 when causal), so m stays finite
+        const bool edge = kc + 16 > T || (a.causal && kc == r0);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int u = i >> 1, key = kc + 8 * j + 2 * q4 + (i & 1), row = r0 + g + 8 * u;
+            const bool ok = !edge || (key < T && (!a.causal || key <= row));
+            s[j][i] = ok ? s[j][i] * scale2 : -INFINITY;
+            mx[u] = fmaxf(mx[u], s[j][i]);
+          }
+        float alpha[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+          mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+          const float m_new = fmaxf(m[u], mx[u]);
+          alpha[u] = exp2f(m[u] - m_new);   // 0 on the first chunk (m = -inf)
+          m[u] = m_new;
+          l[u] *= alpha[u];
+        }
+#pragma unroll
+        for (int t = 0; t < NT_D8; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[t][i] *= alpha[i >> 1];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[j][i] = exp2f(s[j][i] - m[i >> 1]);   // P; masked scores give 0
+            l[i >> 1] += s[j][i];
+          }
+        uint32_t pf[NS][4];
+        pack_a<NS>(pf, s);
+        acc_chunk_times<NS>(acc, pf, vs + 16 * c * LDH, nks, lane);   // O += P V
+      }
+    }
+    __syncthreads();   // everyone is done with this stage before it is refilled
+  }
+  if (active) {
+    float inv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+      const float lc = fmaxf(l[u], 1e-30f);
+      inv[u] = 1.f / lc;
+      const int row = r0 + g + 8 * u;
+      if (q4 == 0 && row < T) a.lse[rbase + row] = m[u] * LN2 + logf(lc);
+    }
+    store_rows(a.o + base, acc, inv[0], inv[1], r0, a, lane);
   }
 }
 
@@ -377,12 +496,15 @@ __device__ __forceinline__ void store_rows(bf16* out, float (&acc)[NT_D8][4], fl
 // tiles up to the diagonal. delta = rowsum(dO * O),
 // dq = (sum_k dS K) * scale.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS, 4) flash_bwd_dq_kernel(const BwdArgs a) {
+template <typename E>
+__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
+    flash_bwd_dq_kernel(const BwdArgs<E> a) {
+  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);        // [TILE, LDH] q, dO, o; then stage 1
-  bf16* dos = qs + TILE * LDH;
-  bf16* os = dos + TILE * LDH;
-  auto stage = [&](int i) { return i ? qs : os + TILE * LDH; };  // K [TILE, LDH], then V
+  bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q, dO, o; then stage 1
+  bf16* dos = qs + TS;
+  bf16* os = dos + TS;
+  auto stage = [&](int i) { return i ? qs : os + TS; };  // K [TS], then V
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const int T = a.T, hd = a.hd, nks = a.hdp >> 4;
@@ -398,30 +520,25 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dq_kernel(const BwdArgs 
   copy_tile(os, a.o + qoff, T - q0, a, tid);
   hopper::cp_async_commit();
   copy_tile(stage(0), a.k + base, T, a, tid);
-  copy_tile(stage(0) + TILE * LDH, a.v + base, T, a, tid);
+  copy_tile(stage(0) + TS, a.v + base, T, a, tid);
   hopper::cp_async_commit();
   hopper::cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qf[NT_D][4], dof[NT_D][4];
+  uint32_t qf[NS][NT_D][4], dof[NS][NT_D][4];
   float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};   // rows g, g + 8; lse2 = lse * log2(e)
   if (active) {
-    load_rows(qf, qs + 16 * warp * LDH, nks, lane);
-    load_rows(dof, dos + 16 * warp * LDH, nks, lane);
+    load_rows<NS>(qf, qs + 16 * warp * LDH, nks, lane);
+    load_rows<NS>(dof, dos + 16 * warp * LDH, nks, lane);
     // delta in f32: lanes 2 i and 2 i + 1 sum halves of row 16 warp + i
     const int rr = 16 * warp + (lane >> 1), c0 = (lane & 1) * 32;
     float d = 0.f;
     for (int c = c0; c < min(c0 + 32, a.hdp); c += 8) {
-      const uint4 x = *reinterpret_cast<const uint4*>(dos + rr * LDH + c);
-      const uint4 y = *reinterpret_cast<const uint4*>(os + rr * LDH + c);
-      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+      float x[8], y[8];
+      row8<NS>(x, dos + rr * LDH + c);
+      row8<NS>(y, os + rr * LDH + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
-        const float2 fy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[j]));
-        d = fmaf(fx.x, fy.x, d);
-        d = fmaf(fx.y, fy.y, d);
-      }
+      for (int j = 0; j < 8; ++j) d = fmaf(x[j], y[j], d);
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if ((lane & 1) == 0 && q0 + rr < T) a.delta[rbase + q0 + rr] = d;
@@ -442,20 +559,20 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dq_kernel(const BwdArgs 
       const int k1 = (kt + 1) * TILE;
       bf16* st = stage((kt + 1) & 1);
       copy_tile(st, a.k + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
-      copy_tile(st + TILE * LDH, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+      copy_tile(st + TS, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
     }
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();   // tile kt has landed
     __syncthreads();
     const bf16* ks = stage(kt & 1);
-    const bf16* vs = ks + TILE * LDH;
+    const bf16* vs = ks + TS;
     if (active) {
       for (int c = 0; c < TILE / 16; ++c) {
         const int kc = kt * TILE + 16 * c;   // the chunk's first key
         if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
         float s[2][4] = {}, dp[2][4] = {};
-        rows_times_chunk_t(s, qf, ks + 16 * c * LDH, nks, lane);
-        rows_times_chunk_t(dp, dof, vs + 16 * c * LDH, nks, lane);
+        rows_times_chunk_t<NS>(s, qf, ks + 16 * c * LDH, nks, lane);
+        rows_times_chunk_t<NS>(dp, dof, vs + 16 * c * LDH, nks, lane);
         const bool edge = kc + 16 > T || (a.causal && kc == r0);
         float ds[2][4];
 #pragma unroll
@@ -467,14 +584,14 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dq_kernel(const BwdArgs 
             const float p = ok ? exp2f(s[j][i] * scale2 - lse2[u]) : 0.f;
             ds[j][i] = p * (dp[j][i] - delta[u]);
           }
-        uint32_t dsf[4] = {pack_bf2(ds[0][0], ds[0][1]), pack_bf2(ds[0][2], ds[0][3]),
-                                 pack_bf2(ds[1][0], ds[1][1]), pack_bf2(ds[1][2], ds[1][3])};
-        acc_chunk_times(acc, dsf, ks + 16 * c * LDH, nks, lane);
+        uint32_t dsf[NS][4];
+        pack_a<NS>(dsf, ds);
+        acc_chunk_times<NS>(acc, dsf, ks + 16 * c * LDH, nks, lane);
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
   }
-  if (active) store_rows(a.dq + base, acc, a.scale, r0, a, lane);
+  if (active) store_rows(a.dq + base, acc, a.scale, a.scale, r0, a, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,13 +600,16 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dq_kernel(const BwdArgs 
 // dv = sum_q P^T dO; dk = (sum_q dS^T Q) * scale, which equals the JAX
 // kernel's sum against the scaled q (:144,152).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS, 4) flash_bwd_dkv_kernel(const BwdArgs a) {
+template <typename E>
+__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
+    flash_bwd_dkv_kernel(const BwdArgs<E> a) {
+  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);        // [TILE, LDH]
-  bf16* vs = ks + TILE * LDH;                      // [TILE, LDH]
-  // two stages, each q [TILE, LDH], dO [TILE, LDH], lse [TILE], delta [TILE]
-  constexpr int kStage = 2 * TILE * LDH + TILE * 2 * (sizeof(float) / sizeof(bf16));
-  auto stage = [&](int i) { return vs + TILE * LDH + i * kStage; };
+  bf16* ks = reinterpret_cast<bf16*>(smem);        // [TS]
+  bf16* vs = ks + TS;                              // [TS]
+  // two stages, each q [TS], dO [TS], lse [TILE], delta [TILE]
+  constexpr int kStage = 2 * TS + TILE * 2 * (sizeof(float) / sizeof(bf16));
+  auto stage = [&](int i) { return vs + TS + i * kStage; };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const int T = a.T, hd = a.hd, nks = a.hdp >> 4;
@@ -506,9 +626,9 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dkv_kernel(const BwdArgs
     const int q0 = qt * TILE;
     bf16* st = stage((qt - qt0) & 1);
     copy_tile(st, a.q + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
-    copy_tile(st + TILE * LDH, a.dout + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
+    copy_tile(st + TS, a.dout + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
     // lse (threads 0-63) and delta (64-127) of the tile's rows, 0 past T
-    float* stat = reinterpret_cast<float*>(st + 2 * TILE * LDH);
+    float* stat = reinterpret_cast<float*>(st + 2 * TS);
     const int i = tid & (TILE - 1), ok = q0 + i < T;
     const float* src = (tid < TILE ? a.lse : a.delta) + rbase + (ok ? q0 + i : 0);
     hopper::cp_async<4>(stat + tid, src, ok ? 4 : 0);
@@ -524,8 +644,8 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dkv_kernel(const BwdArgs
     hopper::cp_async_wait<1>();   // k, v and tile qt have landed
     __syncthreads();
     const bf16* qs = stage((qt - qt0) & 1);
-    const bf16* dos = qs + TILE * LDH;
-    const float* lse_s = reinterpret_cast<const float*>(dos + TILE * LDH);
+    const bf16* dos = qs + TS;
+    const float* lse_s = reinterpret_cast<const float*>(dos + TS);
     const float* delta_s = lse_s + TILE;
     if (active) {
       // causal: on the diagonal tile, the chunks before this warp's keys are above it
@@ -533,8 +653,8 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dkv_kernel(const BwdArgs
         const int qc = qt * TILE + 16 * c;   // the chunk's first query
         if (qc >= T) break;
         float s[2][4] = {}, dp[2][4] = {};
-        smem_rows_times_chunk_t(s, ks + 16 * warp * LDH, qs + 16 * c * LDH, nks, lane);
-        smem_rows_times_chunk_t(dp, vs + 16 * warp * LDH, dos + 16 * c * LDH, nks, lane);
+        smem_rows_times_chunk_t<NS>(s, ks + 16 * warp * LDH, qs + 16 * c * LDH, nks, lane);
+        smem_rows_times_chunk_t<NS>(dp, vs + 16 * warp * LDH, dos + 16 * c * LDH, nks, lane);
         const bool edge = qc + 16 > T || (a.causal && qc == r0);
         float p[2][4], ds[2][4];
 #pragma unroll
@@ -551,43 +671,46 @@ __global__ void __launch_bounds__(THREADS, 4) flash_bwd_dkv_kernel(const BwdArgs
             ds[j][i] = p[j][i] * (dp[j][i] - (e ? d2.y : d2.x));
           }
         }
-        uint32_t pf[4] = {pack_bf2(p[0][0], p[0][1]), pack_bf2(p[0][2], p[0][3]),
-                                pack_bf2(p[1][0], p[1][1]), pack_bf2(p[1][2], p[1][3])};
-        uint32_t dsf[4] = {pack_bf2(ds[0][0], ds[0][1]), pack_bf2(ds[0][2], ds[0][3]),
-                                 pack_bf2(ds[1][0], ds[1][1]), pack_bf2(ds[1][2], ds[1][3])};
-        acc_chunk_times(dv, pf, dos + 16 * c * LDH, nks, lane);   // dV += P^T dO
-        acc_chunk_times(dk, dsf, qs + 16 * c * LDH, nks, lane);   // dK += dS^T Q
+        uint32_t pf[NS][4], dsf[NS][4];
+        pack_a<NS>(pf, p);
+        pack_a<NS>(dsf, ds);
+        acc_chunk_times<NS>(dv, pf, dos + 16 * c * LDH, nks, lane);   // dV += P^T dO
+        acc_chunk_times<NS>(dk, dsf, qs + 16 * c * LDH, nks, lane);   // dK += dS^T Q
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
   }
   if (active) {
-    store_rows(a.dk + base, dk, a.scale, r0, a, lane);
-    store_rows(a.dv + base, dv, 1.f, r0, a, lane);
+    store_rows(a.dk + base, dk, a.scale, a.scale, r0, a, lane);
+    store_rows(a.dv + base, dv, 1.f, 1.f, r0, a, lane);
   }
 }
 
 constexpr size_t kTileBytes = sizeof(bf16) * TILE * LDH;
-constexpr size_t kWarpBf16Bytes = sizeof(bf16) * WARPS * 16 * LDT;
-constexpr size_t kWarpF32Bytes = sizeof(float) * WARPS * 16 * LDF;
-constexpr size_t kFwdSmem = 3 * kTileBytes + kWarpBf16Bytes + 2 * kWarpF32Bytes;
+// q (then half of stage 1), its second tile of stage 1, and stage 0 of K/V
+template <typename E>
+constexpr size_t fwd_smem() { return 4 * Parts<E>::N * kTileBytes; }
 // q, dO, o (then stage 1 of K/V), and stage 0 of K/V
-constexpr size_t kDqSmem = 3 * kTileBytes + 2 * kTileBytes;
+template <typename E>
+constexpr size_t dq_smem() { return 5 * Parts<E>::N * kTileBytes; }
 // K, V, and two stages of q, dO, lse and delta
-constexpr size_t kDkvSmem = 2 * kTileBytes + 2 * (2 * kTileBytes + 2 * sizeof(float) * TILE);
+template <typename E>
+constexpr size_t dkv_smem() {
+  return 2 * Parts<E>::N * kTileBytes + 2 * (2 * Parts<E>::N * kTileBytes + 2 * sizeof(float) * TILE);
+}
 
-// Sets the kernel's dynamic shared memory, launches it on `grid` and
-// returns cudaGetLastError(). The backward kernels (`bwd`) also ask for the
-// largest shared-memory carveout, for four blocks per SM.
+// Sets the kernel's dynamic shared memory and the largest shared-memory
+// carveout (for the resident blocks the launch bounds ask for), launches it
+// on `blocks` blocks and returns cudaGetLastError().
 template <typename A>
-int launch(void (*kernel)(const A), size_t smem, const A& a, dim3 grid, void* stream, bool bwd) {
+int launch(void (*kernel)(const A), size_t smem, const A& a, int blocks, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err == cudaSuccess && bwd)
+  if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,21 +728,64 @@ int blocks_per_sm(void (*kernel)(const A), size_t smem) {
   return n;
 }
 
-BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, int T, int hd, int causal) {
-  BwdArgs a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
+// The fields every kernel's arguments share.
+template <class A>
+void set_inputs(A& a, const void* q, const void* k, const void* v, int T, int hd, int causal) {
+  using P = decltype(a.q);
+  a.q = static_cast<P>(q);
+  a.k = static_cast<P>(k);
+  a.v = static_cast<P>(v);
   a.T = T;
   a.hd = hd;
   a.hdp = (hd + 15) / 16 * 16;
   a.causal = causal;
   a.vec = hd % 4 == 0 ? 8 : (hd % 2 == 0 ? 4 : 2);
   a.scale = 1.0f / sqrtf(static_cast<float>(hd));
-  return a;
+}
+
+template <typename E>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T, int hd,
+        int causal, void* stream) {
+  FwdArgs<E> a = {};
+  set_inputs(a, q, k, v, T, hd, causal);
+  a.o = static_cast<E*>(o);
+  a.lse = static_cast<float*>(lse);
+  return launch(flash_fwd_kernel<E>, fwd_smem<E>(), a, BH * tiles(T), stream);
+}
+
+template <typename E>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const void* lse, void* dq, void* delta, int BH, int T, int hd, int causal,
+           void* stream) {
+  BwdArgs<E> a = {};
+  set_inputs(a, q, k, v, T, hd, causal);
+  a.o = static_cast<const E*>(o);
+  a.dout = static_cast<const E*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.dq = static_cast<E*>(dq);
+  a.delta = static_cast<float*>(delta);
+  return launch(flash_bwd_dq_kernel<E>, dq_smem<E>(), a, BH * tiles(T), stream);
+}
+
+template <typename E>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int BH, int T, int hd, int causal,
+            void* stream) {
+  BwdArgs<E> a = {};
+  set_inputs(a, q, k, v, T, hd, causal);
+  a.dout = static_cast<const E*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = const_cast<float*>(static_cast<const float*>(delta));
+  a.dk = static_cast<E*>(dk);
+  a.dv = static_cast<E*>(dv);
+  return launch(flash_bwd_dkv_kernel<E>, dkv_smem<E>(), a, BH * tiles(T), stream);
+}
+
+template <typename E>
+int kernel_blocks_per_sm(int which) {
+  if (which == 0) return blocks_per_sm(flash_fwd_kernel<E>, fwd_smem<E>());
+  if (which == 1) return blocks_per_sm(flash_bwd_dq_kernel<E>, dq_smem<E>());
+  return blocks_per_sm(flash_bwd_dkv_kernel<E>, dkv_smem<E>());
 }
 
 }  // namespace
@@ -627,53 +793,38 @@ BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* d
 extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 =
-// launched). Shapes, types, contiguity and 32-byte alignment are checked by
-// the Python wrappers (ops/flash_attention.py).
+// launched); `f32` selects the f32 instantiation (q, k, v, o, dO and the
+// outputs f32), else bf16. Shapes, types, contiguity and 32-byte alignment
+// are checked by the Python wrappers (ops/flash_attention.py).
 
 int beso_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
-                   int T, int hd, int causal, void* stream) {
-  Args a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.o = static_cast<bf16*>(o);
-  a.lse = static_cast<float*>(lse);
-  a.T = T;
-  a.hd = hd;
-  a.hdp = (hd + 15) / 16 * 16;
-  a.causal = causal;
-  a.scale = 1.0f / sqrtf(static_cast<float>(hd));
-  return launch(flash_fwd_kernel, kFwdSmem, a, dim3(BH, tiles(T)), stream, false);
+                   int T, int hd, int causal, int f32, void* stream) {
+  return f32 ? fwd<float>(q, k, v, o, lse, BH, T, hd, causal, stream)
+             : fwd<bf16>(q, k, v, o, lse, BH, T, hd, causal, stream);
 }
 
 // dq and delta ([BH, T] f32) from q, k, v, o, dout and lse.
 int beso_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int BH, int T,
-                      int hd, int causal, void* stream) {
-  BwdArgs a = make_bwd_args(q, k, v, dout, lse, T, hd, causal);
-  a.o = static_cast<const bf16*>(o);
-  a.dq = static_cast<bf16*>(dq);
-  a.delta = static_cast<float*>(delta);
-  return launch(flash_bwd_dq_kernel, kDqSmem, a, dim3(BH * tiles(T)), stream, true);
+                      int hd, int causal, int f32, void* stream) {
+  return f32 ? bwd_dq<float>(q, k, v, o, dout, lse, dq, delta, BH, T, hd, causal, stream)
+             : bwd_dq<bf16>(q, k, v, o, dout, lse, dq, delta, BH, T, hd, causal, stream);
 }
 
 int beso_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int BH, int T,
-                       int hd, int causal, void* stream) {
-  BwdArgs a = make_bwd_args(q, k, v, dout, lse, T, hd, causal);
-  a.delta = const_cast<float*>(static_cast<const float*>(delta));
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  return launch(flash_bwd_dkv_kernel, kDkvSmem, a, dim3(BH * tiles(T)), stream, true);
+                       int hd, int causal, int f32, void* stream) {
+  return f32 ? bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BH, T, hd, causal, stream)
+             : bwd_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, BH, T, hd, causal, stream);
 }
 
 int beso_flash_max_head_dim(void) { return MAX_HDP; }
 
-// Resident blocks per SM of the dQ (which = 0) and the dK/dV kernel (1) as
-// launched, from the CUDA runtime's occupancy calculator; -1 on an error.
-int beso_flash_bwd_blocks_per_sm(int which) {
-  return which ? blocks_per_sm(flash_bwd_dkv_kernel, kDkvSmem)
-               : blocks_per_sm(flash_bwd_dq_kernel, kDqSmem);
+// Resident blocks per SM of the forward (which = 0), the dQ (1) and the
+// dK/dV kernel (2) as launched, bf16 or (f32) f32 instantiation, from the
+// CUDA runtime's occupancy calculator; -1 on an error.
+int beso_flash_blocks_per_sm(int which, int f32) {
+  return f32 ? kernel_blocks_per_sm<float>(which) : kernel_blocks_per_sm<bf16>(which);
 }
 
 }  // extern "C"

@@ -178,7 +178,9 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
     `beso_tpu/models/cached.py:284-293` does.
 
     Gating (raises ValueError otherwise): the sampler must stay on the sigma
-    grid (CACHED_SAFE_SAMPLERS), s_churn == 0, single action sample.
+    grid (CACHED_SAFE_SAMPLERS), s_churn == 0, single action sample. For
+    "fused_cached" a model on the card must compute in bf16 (raises
+    TypeError here, before any episode; `check_fused_dtype`).
     """
     from beso_tpu_torch.agents.policy import scale_goal_for_model
     from beso_tpu_torch.core.schedules import get_noise_schedule
@@ -194,6 +196,11 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
                          "sample per step")
     if engine not in ("cached", "fused_cached"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "fused_cached":
+        from beso_tpu_torch.ops.fused_layer import check_fused_dtype
+
+        model = den.inner_model
+        check_fused_dtype(next(model.parameters()).device, model.dtype)
 
     sigmas = get_noise_schedule(cfg.num_sampling_steps, cfg.sigma_min,
                                 cfg.sigma_max, cfg.rho,

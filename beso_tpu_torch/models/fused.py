@@ -33,7 +33,8 @@ from beso_tpu_torch.models.cached import (RawGPTParams, build_prefix,
 from beso_tpu_torch.models.denoiser import precondition
 from beso_tpu_torch.models.gpt import layer_norm
 from beso_tpu_torch.ops.fused_layer import (FusedEpilogue, FusedLayerParams,
-                                            fused_layer, fused_layer_prefix,
+                                            check_fused_dtype, fused_layer,
+                                            fused_layer_prefix,
                                             fused_layer_with_prefix,
                                             fused_layers_prefix_group,
                                             prepare_layer_params)
@@ -51,11 +52,14 @@ class FusedGPTParams(NamedTuple):
 def prepare_fused_gpt(model) -> FusedGPTParams:
     """Extract and lay out the model's weights once per engine
     (`beso_tpu/models/fused.py:50-90`), with the kernels' tiled copy of
-    each layer's weights for a bf16 model (`prepare_layer_params`)."""
+    each layer's weights for a bf16 model (`prepare_layer_params`). Raises
+    TypeError for a model on the card that does not compute in bf16
+    (`check_fused_dtype`)."""
     sigma_embedding = getattr(model, "sigma_embedding", "Linear")
     if sigma_embedding != "Linear":
         raise NotImplementedError(
             "fused inference supports the shipped 'Linear' sigma embedding")
+    check_fused_dtype(next(model.parameters()).device, model.dtype)
     rp = extract_gpt_params(model)
     return FusedGPTParams(raw=rp, layers=tuple(
         prepare_layer_params(lp, model.n_heads, model.dtype) for lp in rp.layers))

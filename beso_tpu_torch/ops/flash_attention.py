@@ -13,20 +13,23 @@ beside dq, so a backward is exactly two launches.
 What bounds the kernels on the H100, and the design (details in
 `csrc/flash_attention.cu`): at the chunked training shape [256, 6, 131, 60]
 a launch reads ~24 MB per tensor and its products take a few microseconds
-at the tensor cores' peak, so it is bound by bytes and latency. The
-forward: 64-row tiles in shared memory, wmma products, softmax statistics
-in f32. The backward: each warp keeps its 16 rows' score, P and dS tiles in
-`mma.sync` fragments, the streamed tiles come in by `cp.async` two stages
-deep, and warps skip the 16-row chunks past T and above the diagonal. The
-head dim is zero-padded to a multiple of 16 in shared memory and the ragged
-edge is masked in the kernels, with no padded copies.
+at the tensor cores' peak, so it is bound by bytes and latency. Each warp
+keeps its 16 rows' score, P and dS tiles in `mma.sync` fragments (the
+forward runs its online softmax on them), the streamed tiles come in by
+`cp.async` two stages deep, and warps skip the 16-row chunks past T and
+above the diagonal. The head dim is zero-padded to a multiple of 16 in
+shared memory and the ragged edge is masked in the kernels, with no padded
+copies.
 
+The kernels take q, k, v (and o, dO) all bf16 or all f32, as the JAX
+kernels take the model's dtype; the f32 instantiations compute to f32
+accuracy (each operand split into bf16 hi and lo parts, three products).
 Each wrapper (`flash_forward`, `flash_backward_dq`, `flash_backward_dkv`)
 runs its plain PyTorch version for CPU tensors and, for CUDA tensors,
-launches its kernel (bf16 only) or raises; its `launches` counter goes up
-by one per kernel launch. `flash_attention` is the differentiable entry
-point: a `torch.autograd.Function` that saves (q, k, v, o, lse) and runs
-the two backward wrappers.
+launches its kernel or raises; its `launches` counter goes up by one per
+kernel launch. `flash_attention` is the differentiable entry point: a
+`torch.autograd.Function` that saves (q, k, v, o, lse) and runs the two
+backward wrappers.
 """
 
 from __future__ import annotations
@@ -95,24 +98,29 @@ def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
 def _library() -> ctypes.CDLL:
     lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.beso_flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-    lib.beso_flash_bwd_dq.argtypes = [vp] * 8 + [ci] * 4 + [vp]
-    lib.beso_flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.beso_flash_fwd.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    lib.beso_flash_bwd_dq.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+    lib.beso_flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 5 + [vp]
     for fn in (lib.beso_flash_fwd, lib.beso_flash_bwd_dq, lib.beso_flash_bwd_dkv):
         fn.restype = ci
     lib.beso_flash_max_head_dim.argtypes = []
     lib.beso_flash_max_head_dim.restype = ci
-    lib.beso_flash_bwd_blocks_per_sm.argtypes = [ci]
-    lib.beso_flash_bwd_blocks_per_sm.restype = ci
+    lib.beso_flash_blocks_per_sm.argtypes = [ci, ci]
+    lib.beso_flash_blocks_per_sm.restype = ci
     return lib
 
 
-def backward_blocks_per_sm() -> dict:
-    """Resident blocks per SM of the two backward kernels on the current
-    card, as the CUDA runtime's occupancy calculator gives them."""
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def blocks_per_sm(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Resident blocks per SM of the three kernels' `dtype` instantiations
+    on the current card, as the CUDA runtime's occupancy calculator gives
+    them."""
     lib = _library()
-    return {name: lib.beso_flash_bwd_blocks_per_sm(i)
-            for i, name in enumerate(("flash_backward_dq", "flash_backward_dkv"))}
+    f32 = int(dtype == torch.float32)
+    return {name: lib.beso_flash_blocks_per_sm(i, f32) for i, name in enumerate(
+        ("flash_forward", "flash_backward_dq", "flash_backward_dkv"))}
 
 
 def _on_cpu(name: str, q: torch.Tensor) -> bool:
@@ -124,13 +132,34 @@ def _on_cpu(name: str, q: torch.Tensor) -> bool:
     return False
 
 
-def _check_qkv(q, k, v, lib):
+def kernel_dtype(name: str, tensors: dict) -> torch.dtype:
+    """The element type a kernel runs in: the dtype that the [B, H, T, hd]
+    tensors `tensors` (name -> tensor) share, bf16 or f32. Raises TypeError
+    on mixed or other dtypes."""
+    dtypes = {n: t.dtype for n, t in tensors.items()}
+    dtype = next(iter(dtypes.values()))
+    if dtype not in KERNEL_DTYPES or any(d != dtype for d in dtypes.values()):
+        raise TypeError(f"{name} takes {', '.join(dtypes)} all bf16 or all f32, got "
+                        + ", ".join(f"{n} {d}" for n, d in dtypes.items()))
+    return dtype
+
+
+def _check(name, q, k, v, rows, stats):
+    """Check q, k, v and the [B, H, T, hd] tensors `rows` (name -> tensor;
+    all bf16 or all f32) and the f32 [B, H, T, 1] tensors `stats`, the
+    dtypes before the library loads. Returns (library, B * H, T, hd, 1 for
+    f32 else 0)."""
+    rows = {"q": q, "k": k, "v": v, **rows}
+    dtype = kernel_dtype(name, rows)
+    lib = _library()
     B, H, T, hd = q.shape
     if hd > lib.beso_flash_max_head_dim():
         raise ValueError(f"head dim {hd} > {lib.beso_flash_max_head_dim()}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        build.check_tensor(t, name, (B, H, T, hd), torch.bfloat16, q.device)
-    return B * H, T, hd
+    for n, t in rows.items():
+        build.check_tensor(t, n, q.shape, dtype, q.device)
+    for n, t in stats.items():
+        build.check_tensor(t, n, (*q.shape[:3], 1), torch.float32, q.device)
+    return lib, B * H, T, hd, int(dtype == torch.float32)
 
 
 def _launch(name: str, fn, device, *args) -> None:
@@ -140,28 +169,17 @@ def _launch(name: str, fn, device, *args) -> None:
 
 
 def flash_forward(q, k, v, causal: bool = True):
-    """Kernel B5: (o, lse) of causal (or full) attention over [B, H, T, hd]."""
+    """Kernel B5: (o in q's dtype, lse [B, H, T, 1] f32) of causal (or full)
+    attention over [B, H, T, hd]."""
     if _on_cpu("flash_forward", q):
         return flash_forward_reference(q, k, v, causal)
-    lib = _library()
-    BH, T, hd = _check_qkv(q, k, v, lib)
+    lib, BH, T, hd, f32 = _check("flash_forward", q, k, v, {}, {})
     o = torch.empty_like(q)
     lse = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
     _launch("flash_forward", lib.beso_flash_fwd, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, T, hd, int(causal))
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, T, hd, int(causal), f32)
     flash_forward.launches += 1
     return o, lse
-
-
-def _check_bwd(q, k, v, lib, rows, stats):
-    """Check q, k, v, the bf16 [B, H, T, hd] tensors `rows` and the f32
-    [B, H, T, 1] tensors `stats` (name -> tensor)."""
-    BH, T, hd = _check_qkv(q, k, v, lib)
-    for name, t in rows.items():
-        build.check_tensor(t, name, q.shape, torch.bfloat16, q.device)
-    for name, t in stats.items():
-        build.check_tensor(t, name, (*q.shape[:3], 1), torch.float32, q.device)
-    return BH, T, hd
 
 
 def flash_backward_dq(q, k, v, o, do, lse, causal: bool = True):
@@ -169,13 +187,13 @@ def flash_backward_dq(q, k, v, o, do, lse, causal: bool = True):
     [B, H, T, 1] f32), the delta for `flash_backward_dkv`."""
     if _on_cpu("flash_backward_dq", q):
         return flash_backward_dq_reference(q, k, v, o, do, lse, causal)
-    lib = _library()
-    BH, T, hd = _check_bwd(q, k, v, lib, {"o": o, "do": do}, {"lse": lse})
+    lib, BH, T, hd, f32 = _check("flash_backward_dq", q, k, v, {"o": o, "do": do},
+                                 {"lse": lse})
     dq = torch.empty_like(q)
     delta = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
     _launch("flash_backward_dq", lib.beso_flash_bwd_dq, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-            delta.data_ptr(), BH, T, hd, int(causal))
+            delta.data_ptr(), BH, T, hd, int(causal), f32)
     flash_backward_dq.launches += 1
     return dq, delta
 
@@ -184,12 +202,12 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True):
     """Kernel B6, dK/dV: (dk, dv) [B, H, T, hd] in q's dtype."""
     if _on_cpu("flash_backward_dkv", q):
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal)
-    lib = _library()
-    BH, T, hd = _check_bwd(q, k, v, lib, {"do": do}, {"lse": lse, "delta": delta})
+    lib, BH, T, hd, f32 = _check("flash_backward_dkv", q, k, v, {"do": do},
+                                 {"lse": lse, "delta": delta})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_backward_dkv", lib.beso_flash_bwd_dkv, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), BH, T, hd, int(causal))
+            dk.data_ptr(), dv.data_ptr(), BH, T, hd, int(causal), f32)
     flash_backward_dkv.launches += 1
     return dk, dv
 

@@ -132,6 +132,19 @@ def prepare_layer_params(lp: dict, n_heads: int,
     return p
 
 
+def check_fused_dtype(device, dtype: torch.dtype) -> None:
+    """Raise TypeError unless the fused layer kernels can run a model that
+    computes in `dtype` on `device`: on the card they take bf16 only (their
+    f32 form is ROADMAP.md queue C, item C2); on the CPU the plain versions
+    take any dtype. The engines call it when they are built, so the gap
+    shows before a rollout starts."""
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        raise TypeError(
+            f"the fused layer kernels take bf16 on the card, and this model computes "
+            f"in {dtype}: use a bf16 model or the 'cached' or 'full' engine (f32 fused "
+            f"kernels: ROADMAP.md, queue C, item C2)")
+
+
 # Tiling constants shared with csrc/fused_layer_prefix.cu (SLOT_BYTES, FC),
 # which `_limits()` reads back from the compiled kernel on the card.
 SLOT_BYTES = 12288   # one slot of the kernel's weight ring

@@ -10,9 +10,10 @@ exits non-zero on failure:
 
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
 1. build: compile the kernel library for sm_90a, print seconds, ptxas's
-   registers, stack and spill bytes per kernel and, from cuobjdump -sass,
-   the HGMMA (wgmma) instructions of each instantiation of the fused-layer
-   kernel, none of which may have none;
+   registers, stack and spill bytes per kernel (each flash kernel in its
+   bf16 and f32 instantiation; no bf16 flash kernel may spill) and, from
+   cuobjdump -sass, the HGMMA (wgmma) instructions of each instantiation of
+   the fused-layer kernel, none of which may have none;
 2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version in
    bf16 at the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240,
    H=12, hd=20, P=2, 2T=10) shapes, epilogue on and off, every sigma row,
@@ -22,30 +23,34 @@ exits non-zero on failure:
    (`fused_layer_prefix_timed`, which must equal B1 bit for bit): each
    phase's mean clock64() cycles per 64-row block and its share;
 3. engine: the `fused_cached` engine against the plain `cached` engine on
-   the same inputs at every grid sigma;
+   the same inputs at every grid sigma; the rollout factory for
+   `fused_cached` on an f32 kitchen model must raise TypeError when it is
+   built, before any fused-layer launch (the fused kernels take bf16);
 4. main path, serving: a 1024-env x 280-step kitchen rollout with the
    shipped kitchen serving config on the `fused_cached` engine; the kernel's
    launch counter must move by exactly 280 steps x 3 NFE x 6 layers, every
    metric must be finite;
 5. flash kernels: the forward (B5) and the backward (B6: the dQ kernel,
    which also computes delta = rowsum(dO * O), and the dK/dV kernel)
-   against their plain PyTorch versions in bf16, o, lse, dq, delta, dk and
-   dv each within 2^-5 of max |ref|, at the chunked training shape
-   [256, 6, 131, 60] (causal) and at ragged small shapes ([3, 2, 77, 20]
-   causal and full, T = 16 and 144 at hd 60, hd 18 and hd 15); a second
-   launch of each backward kernel must be bit-equal to the first; prints
-   the backward kernels' resident blocks per SM; the autograd backward must
-   run exactly two device kernels, the dQ and the dK/dV kernel
-   (torch.profiler; "not measured" if it sees no kernel).
-   Times each kernel, the backward total (dQ with delta + dK/dV) and
-   forward + backward against the plain versions at the chunked shape with
-   CUDA events, and, as their yardstick, F.scaled_dot_product_attention's
-   forward and backward with the attention kernels it ran;
+   against their plain PyTorch versions, o, lse, dq, delta, dk and dv each
+   within 2^-5 of max |ref| in bf16, then the same in f32 within 2^-12, at
+   the chunked training shape [256, 6, 131, 60] (causal) and at ragged
+   small shapes ([3, 2, 77, 20] causal and full, T = 16 and 144 at hd 60,
+   hd 18 and hd 15); a second launch of each kernel must be bit-equal to
+   the first; prints the three kernels' resident blocks per SM in both
+   instantiations; the autograd backward must run exactly two device
+   kernels, the dQ and the dK/dV kernel (torch.profiler; "not measured" if
+   it sees no kernel). Times each kernel, the backward total (dQ with
+   delta + dK/dV) and forward + backward against the plain versions at the
+   chunked shape with CUDA events, in bf16 and in f32, and, as their
+   yardstick, F.scaled_dot_product_attention's forward and backward in the
+   same dtype with the attention kernels it ran;
 6. model: the chunked kitchen model (`configs/franka_kitchen_chunked.yaml`,
-   full width, bf16) from one seeded state: loss and every parameter's
-   gradient with attention="pallas" (the flash kernels) against
+   full width) from one seeded state: loss and every parameter's gradient
+   with attention="pallas" (the flash kernels) against
    attention="broadcast" (plain PyTorch) on the same batch, sigma, noise
-   and goal mask;
+   and goal mask, in bf16, then in f32 (loss within 2^-12, every gradient
+   within 2^-10 of its max |ref|; exactly 6 launches of each f32 kernel);
 7. main path, training: `BesoAgent.train_agent` on the chunked config for
    TRAIN_STEPS steps at batch 256 with a test-set evaluation every
    EVAL_EVERY steps; the flash launch counters must move by exactly 6 per
@@ -79,7 +84,8 @@ The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
 of its work at the timed shape with what bounds it, the PyTorch library
 call's ms where one computes the same function, and for the fused layers
-the bf16 torch.matmul ms of their products); the last line
+the bf16 torch.matmul ms of their products; the flash kernels' f32
+instantiations as `*_f32`, launched on phase 6's f32 pass); the last line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -88,6 +94,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +103,7 @@ from pathlib import Path
 N_ENVS, N_STEPS, NFE, N_LAYERS = 1024, 280, 3, 6
 ROLLOUT_STEPS = 100   # phase 10's rollouts of the other engine forms
 ERR_FRACTION = 2.0 ** -5   # kernel and engine bound: fraction of max |ref|
+F32_FRACTION = 2.0 ** -12  # the same for the flash kernels' f32 instantiations
 TRAIN_STEPS, EVAL_EVERY, TRAIN_BATCH = 240, 80, 256
 CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
 # model-level bounds, flash kernels vs broadcast in bf16 (phase 6): the two
@@ -106,16 +114,24 @@ CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
 # max |ref|.
 MODEL_LOSS_FRACTION = 2.0 ** -8
 MODEL_GRAD_FRACTION = 2.0 ** -5
+# in f32 both forms compute in f32 and differ in summation order only
+MODEL_LOSS_FRACTION_F32 = 2.0 ** -12
+MODEL_GRAD_FRACTION_F32 = 2.0 ** -10
+FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), False),
+                ((2, 3, 16, 60), True), ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
+                ((2, 2, 50, 15), False))
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
-# bf16 tensor-core operations and HBM3 bytes per second
-PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# bf16 tensor-core operations, f32 operations outside the tensor cores and
+# HBM3 bytes per second
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES = 989e12, 67e12, 3.35e12
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by): the least time the card could take for this
-    work, the larger of its operations over the bf16 peak and its bytes
-    over the memory rate, and which of the two it is."""
-    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    work, the larger of its operations over the peak of their type (bf16
+    unless given) and its bytes over the memory rate, and which of the two
+    it is."""
+    t_ops, t_mem = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -132,17 +148,17 @@ def layer_work(B, T, D, P, n_layers=1):
     return flops, nbytes
 
 
-def flash_work(name, B, H, T, hd):
-    """Operations and bytes of one causal flash kernel at [B, H, T, hd]
-    bf16: 2 hd operations per (query, key) pair per product (forward 2
-    products, dQ 3, dK/dV 4), and for dQ 2 hd per row for delta; each input
-    read once and each output written once (lse and delta f32): the forward
-    reads q, k, v and writes o and lse, dQ reads q, k, v, o, dO and lse and
-    writes dq and delta, dK/dV reads q, k, v, dO, lse and delta and writes
-    dk and dv."""
+def flash_work(name, B, H, T, hd, elem=2):
+    """Operations and bytes of one causal flash kernel at [B, H, T, hd] with
+    `elem`-byte elements (2: bf16, 4: f32): 2 hd operations per (query,
+    key) pair per product (forward 2 products, dQ 3, dK/dV 4), and for dQ
+    2 hd per row for delta; each input read once and each output written
+    once (lse and delta f32): the forward reads q, k, v and writes o and
+    lse, dQ reads q, k, v, o, dO and lse and writes dq and delta, dK/dV
+    reads q, k, v, dO, lse and delta and writes dk and dv."""
     rows = B * H * T
     pairs = rows * (T + 1) // 2
-    n, stat = rows * hd * 2, rows * 4
+    n, stat = rows * hd * elem, rows * 4
     return {"flash_forward": (4 * hd * pairs, 3 * n + n + stat),
             "flash_backward_dq": (6 * hd * pairs + 2 * hd * rows, 5 * n + stat + n + stat),
             "flash_backward_dkv": (8 * hd * pairs, 4 * n + 2 * stat + 2 * n)}[name]
@@ -184,6 +200,11 @@ def ptxas_report(log):
             props = line.replace("ptxas info    :", "").strip()
             out[fn] = f"{out[fn]}; {props}" if out[fn] else props
     return out
+
+
+def spill_bytes(props):
+    """Spill stores plus spill loads, in bytes, of one `ptxas_report` line."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", props))
 
 
 def fail(msg: str) -> None:
@@ -393,14 +414,16 @@ def time_layer_gemms(rows, D, device, gen, n_layers=1):
     return time_ms(products, 20, device)
 
 
-def time_sdpa(device, gen):
-    """F.scaled_dot_product_attention (causal, bf16) at the chunked shape,
-    the yardstick of B5 and B6 (the port never calls it): (forward ms,
-    forward + backward minus forward ms, the attention kernels that ran)."""
+def time_sdpa(device, gen, dtype):
+    """F.scaled_dot_product_attention (causal, in `dtype`) at the chunked
+    shape, the yardstick of B5 and B6 (the port never calls it): (forward
+    ms, forward + backward minus forward ms, the attention kernels that
+    ran)."""
     import torch
     import torch.nn.functional as F
 
-    q, k, v, do = (_bf16(gen, *CHUNKED_SHAPE, device=device) for _ in range(4))
+    q, k, v, do = (torch.randn(*CHUNKED_SHAPE, generator=gen).to(device, dtype)
+                   for _ in range(4))
     fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50,
                      device)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -634,14 +657,42 @@ def run_engine_rollout(den, policy_kw, scale_data, device, engine, expect, card)
     return counts
 
 
-def build_model(model_kw, device, seed):
+def build_model(model_kw, device, seed, dtype=None):
     import torch
 
     from beso_tpu_torch.models import DiffusionGPT, GCDenoiser
 
     gen = torch.Generator().manual_seed(seed)
-    model = DiffusionGPT(**model_kw, dtype=torch.bfloat16, generator=gen).to(device)
+    model = DiffusionGPT(**model_kw, dtype=dtype or torch.bfloat16, generator=gen).to(device)
     return GCDenoiser(model, sigma_data=0.5)
+
+
+def check_f32_refused(model_kw, policy_kw, scale_data, device):
+    """The rollout factory for `fused_cached` on an f32 kitchen model raises
+    TypeError when it is built, and no fused-layer kernel launches."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.models import fit_scaler, make_rollout_denoise_factory
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    den = build_model(model_kw, device, seed=8, dtype=torch.float32)
+    data = synthetic_kitchen_data(n_traj=32, t_max=60)
+    scaler = fit_scaler(data.all_observations(), data.all_actions(), scale_data=scale_data,
+                        device=device)
+    counters = (fl.fused_layer_prefix, fl.fused_layers_prefix_group,
+                fl.fused_layer_with_prefix, fl.fused_layer)
+    before = [c.launches for c in counters]
+    try:
+        make_rollout_denoise_factory(den, scaler, PolicyConfig(**policy_kw),
+                                     engine="fused_cached")
+    except TypeError as e:
+        print(f"  f32 kitchen model, fused_cached factory: TypeError at build ({e})")
+    else:
+        fail("the fused_cached factory was built on an f32 model on the card")
+    if [c.launches for c in counters] != before:
+        fail("a fused-layer kernel launched before the f32 model was refused")
 
 
 def check_engine(den, device, B, gen):
@@ -755,38 +806,40 @@ def _rel_check(what, got, ref, frac):
     return err
 
 
-def check_flash(B, H, T, hd, causal, device, gen):
-    """The three flash kernels against their plain versions at one shape, on
-    the same inputs (the backward kernels get the plain forward's o and lse,
-    and the dK/dV kernel the plain delta, so each is held alone), and a
-    second launch of each backward kernel bit-equal to the first. Returns
-    {kernel: max |diff|}."""
+def check_flash(B, H, T, hd, causal, device, gen, dtype, frac):
+    """The three flash kernels against their plain versions at one shape in
+    `dtype`, within frac of max |ref|, on the same inputs (the backward
+    kernels get the plain forward's o and lse, and the dK/dV kernel the
+    plain delta, so each is held alone), and a second launch of each kernel
+    bit-equal to the first. Returns {kernel: max |diff|}."""
     import torch
 
     from beso_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = (torch.randn(B, H, T, hd, generator=gen).to(device, torch.bfloat16)
+    q, k, v, do = (torch.randn(B, H, T, hd, generator=gen).to(device, dtype)
                    for _ in range(4))
-    name = f"[{B},{H},{T},{hd}] causal={causal}"
+    name = f"{str(dtype).split('.')[-1]} [{B},{H},{T},{hd}] causal={causal}"
     o, lse = fa.flash_forward(q, k, v, causal)
     o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
     dq, delta = fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal)
     dq_ref, delta_ref = fa.flash_backward_dq_reference(q, k, v, o_ref, do, lse_ref, causal)
     dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta_ref, causal)
     dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta_ref, causal)
-    again = (*fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal),
+    again = (*fa.flash_forward(q, k, v, causal),
+             *fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal),
              *fa.flash_backward_dkv(q, k, v, do, lse_ref, delta_ref, causal))
     if device.type == "cuda":
         torch.cuda.synchronize()
-    for what, first, second in zip(("dq", "delta", "dk", "dv"), (dq, delta, dk, dv), again):
+    for what, first, second in zip(("o", "lse", "dq", "delta", "dk", "dv"),
+                                   (o, lse, dq, delta, dk, dv), again):
         _same_bits(f"{name} {what}, second launch", second, first)
     return {
-        "flash_forward": max(_rel_check(f"{name} o", o, o_ref, ERR_FRACTION),
-                             _rel_check(f"{name} lse", lse, lse_ref, ERR_FRACTION)),
-        "flash_backward_dq": max(_rel_check(f"{name} dq", dq, dq_ref, ERR_FRACTION),
-                                 _rel_check(f"{name} delta", delta, delta_ref, ERR_FRACTION)),
-        "flash_backward_dkv": max(_rel_check(f"{name} dk", dk, dk_ref, ERR_FRACTION),
-                                  _rel_check(f"{name} dv", dv, dv_ref, ERR_FRACTION)),
+        "flash_forward": max(_rel_check(f"{name} o", o, o_ref, frac),
+                             _rel_check(f"{name} lse", lse, lse_ref, frac)),
+        "flash_backward_dq": max(_rel_check(f"{name} dq", dq, dq_ref, frac),
+                                 _rel_check(f"{name} delta", delta, delta_ref, frac)),
+        "flash_backward_dkv": max(_rel_check(f"{name} dk", dk, dk_ref, frac),
+                                  _rel_check(f"{name} dv", dv, dv_ref, frac)),
     }
 
 
@@ -816,15 +869,15 @@ def backward_kernels(device, gen):
     return names or None
 
 
-def time_flash(device, gen):
-    """Kernel and plain-version ms at the chunked shape: each kernel, the
-    backward total (dQ with delta, then dK/dV on that delta) and forward +
-    backward."""
+def time_flash(device, gen, dtype):
+    """Kernel and plain-version ms at the chunked shape in `dtype`: each
+    kernel, the backward total (dQ with delta, then dK/dV on that delta) and
+    forward + backward."""
     import torch
 
     from beso_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = (torch.randn(*CHUNKED_SHAPE, generator=gen).to(device, torch.bfloat16)
+    q, k, v, do = (torch.randn(*CHUNKED_SHAPE, generator=gen).to(device, dtype)
                    for _ in range(4))
     o, lse = fa.flash_forward_reference(q, k, v)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -857,9 +910,10 @@ def time_flash(device, gen):
             for name, (kern, plain) in t.items()}
 
 
-def check_model_grads(device, seed, B=64):
-    """Loss and gradients of the chunked model under attention="broadcast"
-    and "pallas", same state, inputs and goal mask: {impl: (loss, grads)}."""
+def check_model_grads(device, seed, dtype, B=64):
+    """Loss and gradients of the chunked model computing in `dtype` under
+    attention="broadcast" and "pallas", same state, inputs and goal mask:
+    {impl: (loss, grads)}."""
     import torch
 
     from beso_tpu_torch.core.densities import make_sample_density
@@ -871,7 +925,7 @@ def check_model_grads(device, seed, B=64):
         state_dim=c["obs_dim"], action_dim=c["action_dim"], embed_dim=c["hidden_dim"],
         n_layers=c["n_layers"], n_heads=c["n_heads"], goal_seq_len=c["goal_seq_len"],
         obs_seq_len=c["window_size"], cond_mask_prob=c["cond_mask_prob"],
-        dtype=torch.bfloat16, generator=gen).to(device)
+        dtype=dtype, generator=gen).to(device)
     den = GCDenoiser(model, sigma_data=c["sigma_data"])
     T, G = c["window_size"], c["goal_seq_len"]
     s = torch.randn(B, T, c["obs_dim"], generator=gen).to(device)
@@ -952,9 +1006,15 @@ def main() -> None:
     so = build.build_kernels()
     print(f"[1] build: {so.name} in {time.perf_counter() - t0:.1f} s")
     log = so.with_suffix(".log")
-    if log.exists():
-        for name, props in ptxas_report(log.read_text()).items():
-            print(f"  ptxas {name}: {props}")
+    report = ptxas_report(log.read_text()) if log.exists() else {}
+    for name, props in report.items():
+        print(f"  ptxas {name}: {props}")
+    flash_bf16 = {n: p for n, p in report.items() if n.startswith("flash_") and "bfloat16" in n}
+    if not any(n.startswith("flash_fwd") for n in flash_bf16):
+        fail("ptxas reported no bf16 flash forward")
+    spilled = [n for n, p in flash_bf16.items() if spill_bytes(p)]
+    if spilled:
+        fail(f"bf16 flash kernels spill: {spilled}")
     hgmma = sass_counts(so, "fused_layer_prefix_kernel", "HGMMA")
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions: {hgmma}")
     if len(hgmma) != 3 or not all(hgmma.values()):
@@ -979,6 +1039,7 @@ def main() -> None:
     model_kw, policy_kw, scale_data = kitchen_config()
     den = build_model(model_kw, device, seed=0)
     check_engine(den, device, 256, gen)
+    check_f32_refused(model_kw, policy_kw, scale_data, device)
 
     # ---- 4. main path -----------------------------------------------------
     print(f"[4] kitchen rollout: {N_ENVS} envs x {N_STEPS} steps, fused_cached")
@@ -1003,15 +1064,16 @@ def main() -> None:
     # ---- 5. flash kernels against their plain versions --------------------
     from beso_tpu_torch.ops import flash_attention as fa
 
-    print("[5] flash kernels vs plain versions (bf16)")
+    print("[5] flash kernels vs plain versions (bf16, then f32)")
     flash_err = {}
-    for shape, causal in ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True),
-                          ((3, 2, 77, 20), False), ((2, 3, 16, 60), True),
-                          ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
-                          ((2, 2, 50, 15), False)):
-        for k, e in check_flash(*shape, causal, device, gen).items():
-            flash_err[k] = max(flash_err.get(k, 0.0), e)
-    print(f"  resident blocks per SM (occupancy calculator): {fa.backward_blocks_per_sm()}")
+    for dtype, frac, suffix in ((torch.bfloat16, ERR_FRACTION, ""),
+                                (torch.float32, F32_FRACTION, "_f32")):
+        for shape, causal in FLASH_SHAPES:
+            for k, e in check_flash(*shape, causal, device, gen, dtype, frac).items():
+                flash_err[k + suffix] = max(flash_err.get(k + suffix, 0.0), e)
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"  resident blocks per SM, {dtype} (occupancy calculator): "
+              f"{fa.blocks_per_sm(dtype)}")
     bwd_kernels = backward_kernels(device, gen)
     print(f"  device kernels of one autograd backward: "
           f"{bwd_kernels if bwd_kernels is not None else 'not measured'}")
@@ -1019,32 +1081,50 @@ def main() -> None:
             any(k in n for n in bwd_kernels) for k in ("flash_bwd_dq_kernel",
                                                        "flash_bwd_dkv_kernel"))):
         fail("the autograd backward is not exactly the dQ and the dK/dV kernel launches")
-    flash_ms = time_flash(device, gen)
-    for name, (ms_k, ms_p) in flash_ms.items():
-        print(f"  time {name} at {list(CHUNKED_SHAPE)}: kernel {ms_k:.4f} ms, "
-              f"plain {ms_p:.4f} ms ({card})")
-    sdpa_fwd_ms, sdpa_bwd_ms, sdpa_kernels = time_sdpa(device, gen)
-    print(f"  yardstick F.scaled_dot_product_attention(is_causal=True) at "
-          f"{list(CHUNKED_SHAPE)} bf16: forward {sdpa_fwd_ms:.4f} ms, backward (forward + "
-          f"backward minus forward) {sdpa_bwd_ms:.4f} ms; kernels: {sdpa_kernels} ({card})")
-    bwd_ms = flash_ms["backward"][0]
-    bwd_bound = sum(bound(*flash_work(n, *CHUNKED_SHAPE))[0]
-                    for n in ("flash_backward_dq", "flash_backward_dkv"))
-    print(f"  backward total (dQ with delta + dK/dV) {bwd_ms:.4f} ms against SDPA's backward "
-          f"{sdpa_bwd_ms:.4f} ms: {bwd_ms / sdpa_bwd_ms:.3f}x; {100 * bwd_bound / bwd_ms:.1f}% "
-          f"of its {bwd_bound:.4f} ms bound ({card})")
+    flash_ms, sdpa_ms = {}, {}
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        tag = str(dtype).split(".")[-1]
+        times = time_flash(device, gen, dtype)
+        for name, (ms_k, ms_p) in times.items():
+            flash_ms[name + suffix] = (ms_k, ms_p)
+            print(f"  time {name} at {list(CHUNKED_SHAPE)} {tag}: kernel {ms_k:.4f} ms, "
+                  f"plain {ms_p:.4f} ms ({card})")
+        fwd_ms, bwd_ms_sdpa, sdpa_kernels = time_sdpa(device, gen, dtype)
+        sdpa_ms[suffix] = (fwd_ms, bwd_ms_sdpa)
+        print(f"  yardstick F.scaled_dot_product_attention(is_causal=True) at "
+              f"{list(CHUNKED_SHAPE)} {tag}: forward {fwd_ms:.4f} ms, backward (forward + "
+              f"backward minus forward) {bwd_ms_sdpa:.4f} ms; kernels: {sdpa_kernels} ({card})")
+        fwd_k, bwd_k = times["flash_forward"][0], times["backward"][0]
+        bwd_bound = sum(bound(*flash_work(n, *CHUNKED_SHAPE, elem=dtype.itemsize),
+                              PEAK_BF16_FLOPS if suffix == "" else PEAK_F32_FLOPS)[0]
+                        for n in ("flash_backward_dq", "flash_backward_dkv"))
+        print(f"  {tag} forward {fwd_k:.4f} ms against SDPA's forward {fwd_ms:.4f} ms: "
+              f"{fwd_k / fwd_ms:.3f}x; backward total (dQ with delta + dK/dV) {bwd_k:.4f} ms "
+              f"against SDPA's backward {bwd_ms_sdpa:.4f} ms: {bwd_k / bwd_ms_sdpa:.3f}x; "
+              f"{100 * bwd_bound / bwd_k:.1f}% of its {bwd_bound:.4f} ms bound ({card})")
 
     # ---- 6. model-level: flash kernels vs broadcast -----------------------
-    print("[6] chunked model, loss and gradients: attention=pallas vs broadcast (bf16)")
-    res = check_model_grads(device, seed=3)
-    (loss_b, grads_b), (loss_p, grads_p) = res["broadcast"], res["pallas"]
-    _rel_check("loss", loss_p.reshape(1), loss_b.reshape(1), MODEL_LOSS_FRACTION)
-    worst = max(((grads_p[n] - grads_b[n]).abs().max().item()
-                 / max(grads_b[n].abs().max().item(), 1e-30), n) for n in grads_b)
-    print(f"  gradients: worst max|diff| / max|ref| {worst[0]:.6g} ({worst[1]}), "
-          f"bound {MODEL_GRAD_FRACTION:.6g}, over {len(grads_b)} tensors")
-    if not (math.isfinite(worst[0]) and worst[0] <= MODEL_GRAD_FRACTION):
-        fail(f"gradient of {worst[1]} with the flash kernels disagrees with broadcast")
+    for dtype, loss_frac, grad_frac in (
+            (torch.bfloat16, MODEL_LOSS_FRACTION, MODEL_GRAD_FRACTION),
+            (torch.float32, MODEL_LOSS_FRACTION_F32, MODEL_GRAD_FRACTION_F32)):
+        print(f"[6] chunked model, loss and gradients: attention=pallas vs broadcast ({dtype})")
+        for f in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv):
+            f.launches = 0
+        res = check_model_grads(device, seed=3, dtype=dtype)
+        torch.cuda.synchronize()
+        flash_counts = {f.__name__: f.launches
+                        for f in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)}
+        (loss_b, grads_b), (loss_p, grads_p) = res["broadcast"], res["pallas"]
+        _rel_check("loss", loss_p.reshape(1), loss_b.reshape(1), loss_frac)
+        worst = max(((grads_p[n] - grads_b[n]).abs().max().item()
+                     / max(grads_b[n].abs().max().item(), 1e-30), n) for n in grads_b)
+        print(f"  gradients: worst max|diff| / max|ref| {worst[0]:.6g} ({worst[1]}), "
+              f"bound {grad_frac:.6g}, over {len(grads_b)} tensors; launches {flash_counts}")
+        if not (math.isfinite(worst[0]) and worst[0] <= grad_frac):
+            fail(f"gradient of {worst[1]} with the flash kernels disagrees with broadcast")
+        if flash_counts != dict.fromkeys(flash_counts, N_LAYERS):
+            fail(f"the pallas form launched the flash kernels {flash_counts}, not {N_LAYERS} each")
+    f32_counts = flash_counts   # the f32 pass's launches
 
     # ---- 7. main path: training -------------------------------------------
     print(f"[7] chunked kitchen training: {TRAIN_STEPS} steps x batch {TRAIN_BATCH}, "
@@ -1139,17 +1219,22 @@ def main() -> None:
 
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0; the flash kernels at the
-    # chunked shape. library_ms: one PyTorch call computing the same
-    # function, where there is one (SDPA for B5; for both B6 kernels SDPA's
-    # whole backward, forward + backward minus forward).
+    # chunked shape, bf16 and f32 (f32 operations against the f32 peak
+    # outside the tensor cores). library_ms: one PyTorch call computing the
+    # same function in the same dtype, where there is one (SDPA for B5; for
+    # both B6 kernels SDPA's whole backward, forward + backward minus
+    # forward).
     work = {"fused_layer_prefix": layer_work(B_serve, 8, 360, 3),
             "fused_layer_with_prefix": layer_work(B_serve, 8, 360, 3),
             "fused_layers_prefix_group": layer_work(B_serve, 8, 360, 3, n_layers=2),
             "fused_layer": layer_work(B_serve, 11, 360, 0)}
-    work.update({name: flash_work(name, *CHUNKED_SHAPE)
-                 for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")})
-    library_ms = {"flash_forward": sdpa_fwd_ms, "flash_backward_dq": sdpa_bwd_ms,
-                  "flash_backward_dkv": sdpa_bwd_ms}
+    library_ms = {}
+    for suffix, elem in (("", 2), ("_f32", 4)):
+        work.update({name + suffix: flash_work(name, *CHUNKED_SHAPE, elem=elem)
+                     for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")})
+        library_ms.update({"flash_forward" + suffix: sdpa_ms[suffix][0],
+                           "flash_backward_dq" + suffix: sdpa_ms[suffix][1],
+                           "flash_backward_dkv" + suffix: sdpa_ms[suffix][1]})
     layer_src = "beso_tpu_torch/csrc/fused_layer_prefix.cu"
     entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618", launches,
                 err, ms, plain_ms),
@@ -1166,9 +1251,14 @@ def main() -> None:
                        ("flash_backward_dkv", 112)):
         entries.append((name, flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
                         counts[name], flash_err[name], *flash_ms[name]))
+    for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
+                       ("flash_backward_dkv", 112)):
+        entries.append((name + "_f32", flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
+                        f32_counts[name], flash_err[name + "_f32"], *flash_ms[name + "_f32"]))
     kernels = []
     for name, source, replaces, n, e, k_ms, p_ms in entries:
-        bound_ms, bound_by = bound(*work[name])
+        bound_ms, bound_by = bound(*work[name], PEAK_F32_FLOPS if name.endswith("_f32")
+                                   else PEAK_BF16_FLOPS)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": n, "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,

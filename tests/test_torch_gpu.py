@@ -1,11 +1,13 @@
-"""Kernel-vs-plain tests of the port's CUDA kernels on the card, in bf16
-within 2^-5 of max |ref| (chip_smoke.py's bound): B5 and B6 (flash
-attention forward, dQ with delta, dK/dV; the backward also bit-equal from
-launch to launch) and the fused layers B1 (at the ragged edge,
-block push and with the epilogue, and its timed entry), B2 (layer group),
-B3 (one selected prefix row) and B4 (whole causal sequence), which must
-also equal B1 launches bit for bit where they compute the same thing.
-Marked `gpu`: without a card they skip.
+"""Kernel-vs-plain tests of the port's CUDA kernels on the card, within
+2^-5 of max |ref| in bf16 (chip_smoke.py's bound) and 2^-12 in f32: B5 and
+B6 (flash attention forward, dQ with delta, dK/dV, in bf16 and f32; each
+kernel also bit-equal from launch to launch) and the fused layers B1 (at
+the ragged edge, block push and with the epilogue, and its timed entry), B2
+(layer group), B3 (one selected prefix row) and B4 (whole causal sequence),
+which must also equal B1 launches bit for bit where they compute the same
+thing; the fused engines refuse an f32 model on the card when they are
+built. Marked `gpu`: without a card they skip. The dtype rules of the flash
+wrappers and the fused engines are also checked on the CPU.
 
 This file imports no JAX, so it also runs on the card's host, which has
 none: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`.
@@ -23,24 +25,30 @@ SHAPES = [((3, 2, 77, 60), True), ((3, 2, 77, 20), False), ((2, 3, 131, 18), Tru
           ((2, 3, 144, 60), True), ((2, 3, 16, 60), True), ((2, 2, 50, 15), False)]
 
 
-def _close(got, ref):
-    return (got.float() - ref.float()).abs().max() <= 2 ** -5 * ref.float().abs().max()
+# max |diff| bound per element type, as a fraction of max |ref|
+FRACTION = {torch.bfloat16: 2 ** -5, torch.float32: 2 ** -12}
+
+
+def _close(got, ref, frac=FRACTION[torch.bfloat16]):
+    return (got.float() - ref.float()).abs().max() <= frac * ref.float().abs().max()
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape,causal", SHAPES, ids=[f"{s}-{c}" for s, c in SHAPES])
-def test_flash_kernels_match_plain(shape, causal):
+def test_flash_kernels_match_plain(shape, causal, dtype):
     """Forward (o, lse), dQ with delta and dK/dV against the plain
     versions, each kernel on the plain forward's o and lse and the plain
-    delta; hd 18 takes the backward's 4-byte copies and the forward's
-    unvectorised loads, hd 15 plain loads; T 2, 16, 128, 131 and 144 the
-    tile and 16-row chunk edges (T 2, not 1: with one key dQ and dK are zero
-    in exact arithmetic, and both sides give rounding noise)."""
+    delta; hd 18 takes the bf16 kernels' 4-byte copies, hd 15 plain loads;
+    T 2, 16, 128, 131 and 144 the tile and 16-row chunk edges (T 2, not 1:
+    with one key dQ and dK are zero in exact arithmetic, and both sides give
+    rounding noise). f32 inputs run the f32 kernels and are held to f32
+    accuracy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
     dev = torch.device("cuda")
     rng = np.random.RandomState(sum(shape))
-    q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
                    for _ in range(4))
     before = [f.launches for f in (fa.flash_forward, fa.flash_backward_dq,
                                    fa.flash_backward_dkv)]
@@ -55,15 +63,17 @@ def test_flash_kernels_match_plain(shape, causal):
                                  fa.flash_backward_dkv)] == [b + 1 for b in before]
     for got, ref in ((o, o_ref), (lse, lse_ref), (dq, dq_ref), (delta, delta_ref), (dk, dk_ref),
                      (dv, dv_ref)):
-        assert _close(got, ref)
+        assert got.dtype == ref.dtype
+        assert _close(got, ref, FRACTION[dtype])
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernels", ["forward", "backward"])
 @pytest.mark.parametrize("shape,causal", [((2, 3, 131, 60), True), ((3, 2, 77, 20), False)],
                          ids=["131-60-causal", "77-20-full"])
-def test_flash_backward_kernels_deterministic(shape, causal):
-    """Two launches of each backward kernel on the same inputs give
-    bit-equal dq, delta, dk and dv (no atomics)."""
+def test_flash_kernels_deterministic(shape, causal, kernels):
+    """Two launches of the forward, or of each backward kernel, on the same
+    inputs give bit-equal o and lse, or dq, delta, dk and dv (no atomics)."""
     dev = _cuda()
     rng = np.random.RandomState(len(shape) + shape[2])
     q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
@@ -71,17 +81,21 @@ def test_flash_backward_kernels_deterministic(shape, causal):
     o, lse = fa.flash_forward(q, k, v, causal)
     runs = []
     for _ in range(2):
-        dq, delta = fa.flash_backward_dq(q, k, v, o, do, lse, causal)
-        runs.append((dq, delta, *fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)))
+        if kernels == "forward":
+            runs.append(fa.flash_forward(q, k, v, causal))
+        else:
+            dq, delta = fa.flash_backward_dq(q, k, v, o, do, lse, causal)
+            runs.append((dq, delta, *fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
-def test_flash_autograd_on_card_matches_plain_autograd():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_autograd_on_card_matches_plain_autograd(dtype):
     """Gradients through the autograd Function (kernels) against autograd
-    through the plain forward, bf16."""
+    through the plain forward, in bf16 and in f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
     dev = torch.device("cuda")
@@ -91,11 +105,85 @@ def test_flash_autograd_on_card_matches_plain_autograd():
     grads = []
     for fn in (lambda a, b, c: fa.flash_attention(a, b, c),
                lambda a, b, c: fa.flash_forward_reference(a, b, c)[0]):
-        leaves = [x.to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+        leaves = [x.to(dtype).requires_grad_() for x in (q, k, v)]
         (fn(*leaves).float() * g).sum().backward()
         grads.append([x.grad for x in leaves])
     for got, ref in zip(*grads):
-        assert _close(got, ref)
+        assert got.dtype == dtype
+        assert _close(got, ref, FRACTION[dtype])
+
+
+@pytest.mark.parametrize("dtypes,ok", [
+    ((torch.bfloat16,) * 5, True), ((torch.float32,) * 5, True),
+    ((torch.float16,) * 5, False), ((torch.float64,) * 3, False),
+    ((torch.float32, torch.bfloat16, torch.float32), False),
+    ((torch.bfloat16,) * 4 + (torch.float32,), False)],
+    ids=["bf16", "f32", "f16", "f64", "mixed-qkv", "mixed-do"])
+def test_flash_kernel_dtype_rules(dtypes, ok):
+    """The kernels take q, k, v, o and dO all bf16 or all f32; anything else
+    raises TypeError (checked before the kernel library loads)."""
+    tensors = {n: torch.zeros(1, 1, 2, 8, dtype=d) for n, d in zip(("q", "k", "v", "o", "do"),
+                                                                   dtypes)}
+    if ok:
+        assert fa.kernel_dtype("flash_backward_dq", tensors) == dtypes[0]
+    else:
+        with pytest.raises(TypeError, match="all bf16 or all f32"):
+            fa.kernel_dtype("flash_backward_dq", tensors)
+
+
+@pytest.mark.parametrize("device,dtype,ok", [
+    ("cuda", torch.float32, False), ("cuda", torch.float16, False),
+    ("cuda", torch.bfloat16, True), ("cpu", torch.float32, True)],
+    ids=["cuda-f32", "cuda-f16", "cuda-bf16", "cpu-f32"])
+def test_fused_engines_dtype_check(device, dtype, ok):
+    """The fused layer kernels take bf16 on the card; the CPU runs their
+    plain versions in any dtype. Needs no card: only the device's type is
+    read."""
+    if ok:
+        fl.check_fused_dtype(torch.device(device), dtype)
+    else:
+        with pytest.raises(TypeError, match="bf16 on the card"):
+            fl.check_fused_dtype(torch.device(device), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["fused_cached", "uncached", "agent"])
+def test_fused_engines_refuse_f32_model_at_build(engine):
+    """An f32 model on the card: the rollout factory for 'fused_cached',
+    `make_fused_denoise_fn` and the agent's factory with inference_engine
+    'fused_cached' (its fall-back does not catch the error) raise TypeError
+    when they are built, before any fused-layer launch."""
+    from beso_tpu_torch.agents.beso_agent import BesoAgent, BesoAgentConfig
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.models import (DiffusionGPT, GCDenoiser, fit_scaler,
+                                       make_fused_denoise_fn, make_rollout_denoise_factory)
+
+    dev = _cuda()
+    model = DiffusionGPT(state_dim=30, action_dim=9, embed_dim=32, n_layers=1, n_heads=2,
+                         goal_seq_len=2, obs_seq_len=4, dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    den = GCDenoiser(model, sigma_data=0.5)
+    counters = (fl.fused_layer_prefix, fl.fused_layers_prefix_group, fl.fused_layer_with_prefix,
+                fl.fused_layer)
+    before = [c.launches for c in counters]
+    with pytest.raises(TypeError, match="bf16 on the card"):
+        if engine == "uncached":
+            make_fused_denoise_fn(den)
+        else:
+            data = synthetic_kitchen_data(n_traj=2, t_max=20, seed=0)
+            scaler = fit_scaler(data.all_observations(), data.all_actions(), scale_data=False,
+                                device=dev)
+            if engine == "agent":
+                agent = BesoAgent(BesoAgentConfig(hidden_dim=32, n_layers=1, n_heads=2,
+                                                  inference_engine="fused_cached"),
+                                  scaler, device=dev)
+                agent.init(torch.Generator().manual_seed(0))
+                agent.make_denoise_factory(agent.policy_config())
+            cfg = PolicyConfig(window_size=4, obs_dim=30, action_dim=9, sampler_type="ddim",
+                               num_sampling_steps=3, cond_lambda=1.5)
+            make_rollout_denoise_factory(den, scaler, cfg, engine="fused_cached")
+    assert [c.launches for c in counters] == before
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
