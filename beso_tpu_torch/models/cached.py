@@ -175,7 +175,9 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
     layer kernels). For "fused_cached", the environment variable
     `BESO_LAYER_GROUP=N`, read each time the factory is called (default 1),
     runs N layers per kernel launch (`layer_group`), as
-    `beso_tpu/models/cached.py:284-293` does.
+    `beso_tpu/models/cached.py:284-293` does. The fused engine's weights are
+    laid out once here (`prepare_fused_gpt`) and shared by every episode, so
+    the model's weights must not change while the factory is in use.
 
     Gating (raises ValueError otherwise): the sampler must stay on the sigma
     grid (CACHED_SAFE_SAMPLERS), s_churn == 0, single action sample. For
@@ -197,10 +199,10 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
     if engine not in ("cached", "fused_cached"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "fused_cached":
-        from beso_tpu_torch.ops.fused_layer import check_fused_dtype
+        from beso_tpu_torch.models.fused import (make_fused_cached_denoise_fn,
+                                                 prepare_fused_gpt)
 
-        model = den.inner_model
-        check_fused_dtype(next(model.parameters()).device, model.dtype)
+        fp = prepare_fused_gpt(den.inner_model)
 
     sigmas = get_noise_schedule(cfg.num_sampling_steps, cfg.sigma_min,
                                 cfg.sigma_max, cfg.rho,
@@ -216,10 +218,8 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
         else:
             g_model = g_s
         if engine == "fused_cached":
-            from beso_tpu_torch.models.fused import make_fused_cached_denoise_fn
-
             return make_fused_cached_denoise_fn(
-                den, g_model, sigmas,
+                den, g_model, sigmas, fp=fp,
                 layer_group=int(os.environ.get("BESO_LAYER_GROUP", "1")))
         return make_cached_denoise_fn(den, g_model, sigmas)
 

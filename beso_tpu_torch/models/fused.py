@@ -112,10 +112,12 @@ def make_fused_denoise_fn(den):
 
 def make_fused_cached_denoise_fn(den, goals_scaled: torch.Tensor, sigmas, *,
                                  token_lanes: bool = True,
-                                 layer_group: int = 1):
+                                 layer_group: int = 1,
+                                 fp: FusedGPTParams | None = None):
     """Per-episode EDM-preconditioned `dn(states, actions, goals_ignored,
     sigma)` on the fused layer kernels. Same gating as the cached engine:
     grid-sigma samplers only; the call batch must equal the cache batch.
+    `fp` is the model's `prepare_fused_gpt`, built here when not given.
 
     `token_lanes=True` runs B1 per layer, or B2 with `layer_group` layers
     per launch (groups need not divide the layer count; the epilogue runs
@@ -128,7 +130,7 @@ def make_fused_cached_denoise_fn(den, goals_scaled: torch.Tensor, sigmas, *,
     if layer_group < 1:
         raise ValueError(f"layer_group must be >= 1, got {layer_group}")
     model = den.inner_model
-    fp = prepare_fused_gpt(model)
+    fp = prepare_fused_gpt(model) if fp is None else fp
     rp = fp.raw
     dtype = model.dtype
     H = model.n_heads

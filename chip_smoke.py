@@ -121,9 +121,12 @@ FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), 
                 ((2, 3, 16, 60), True), ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
                 ((2, 2, 50, 15), False))
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
-# bf16 tensor-core operations, f32 operations outside the tensor cores and
-# HBM3 bytes per second
-PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES = 989e12, 67e12, 3.35e12
+# bf16 tensor-core operations and HBM3 bytes per second. The flash kernels'
+# f32 instantiations run each f32 product on the tensor cores as three bf16
+# products (hi.hi + lo.hi + hi.lo), so their operations count at a third of
+# the bf16 rate.
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+PEAK_F32_BF16X3_FLOPS = PEAK_BF16_FLOPS / 3
 
 
 def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -1096,7 +1099,7 @@ def main() -> None:
               f"backward minus forward) {bwd_ms_sdpa:.4f} ms; kernels: {sdpa_kernels} ({card})")
         fwd_k, bwd_k = times["flash_forward"][0], times["backward"][0]
         bwd_bound = sum(bound(*flash_work(n, *CHUNKED_SHAPE, elem=dtype.itemsize),
-                              PEAK_BF16_FLOPS if suffix == "" else PEAK_F32_FLOPS)[0]
+                              PEAK_BF16_FLOPS if suffix == "" else PEAK_F32_BF16X3_FLOPS)[0]
                         for n in ("flash_backward_dq", "flash_backward_dkv"))
         print(f"  {tag} forward {fwd_k:.4f} ms against SDPA's forward {fwd_ms:.4f} ms: "
               f"{fwd_k / fwd_ms:.3f}x; backward total (dQ with delta + dK/dV) {bwd_k:.4f} ms "
@@ -1104,6 +1107,7 @@ def main() -> None:
               f"{100 * bwd_bound / bwd_k:.1f}% of its {bwd_bound:.4f} ms bound ({card})")
 
     # ---- 6. model-level: flash kernels vs broadcast -----------------------
+    counts_by_dtype = {}
     for dtype, loss_frac, grad_frac in (
             (torch.bfloat16, MODEL_LOSS_FRACTION, MODEL_GRAD_FRACTION),
             (torch.float32, MODEL_LOSS_FRACTION_F32, MODEL_GRAD_FRACTION_F32)):
@@ -1124,7 +1128,7 @@ def main() -> None:
             fail(f"gradient of {worst[1]} with the flash kernels disagrees with broadcast")
         if flash_counts != dict.fromkeys(flash_counts, N_LAYERS):
             fail(f"the pallas form launched the flash kernels {flash_counts}, not {N_LAYERS} each")
-    f32_counts = flash_counts   # the f32 pass's launches
+        counts_by_dtype[dtype] = flash_counts
 
     # ---- 7. main path: training -------------------------------------------
     print(f"[7] chunked kitchen training: {TRAIN_STEPS} steps x batch {TRAIN_BATCH}, "
@@ -1219,8 +1223,8 @@ def main() -> None:
 
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0; the flash kernels at the
-    # chunked shape, bf16 and f32 (f32 operations against the f32 peak
-    # outside the tensor cores). library_ms: one PyTorch call computing the
+    # chunked shape, bf16 and f32 (f32 operations as three bf16 products
+    # each, PEAK_F32_BF16X3_FLOPS). library_ms: one PyTorch call computing the
     # same function in the same dtype, where there is one (SDPA for B5; for
     # both B6 kernels SDPA's whole backward, forward + backward minus
     # forward).
@@ -1254,10 +1258,11 @@ def main() -> None:
     for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
                        ("flash_backward_dkv", 112)):
         entries.append((name + "_f32", flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
-                        f32_counts[name], flash_err[name + "_f32"], *flash_ms[name + "_f32"]))
+                        counts_by_dtype[torch.float32][name], flash_err[name + "_f32"],
+                        *flash_ms[name + "_f32"]))
     kernels = []
     for name, source, replaces, n, e, k_ms, p_ms in entries:
-        bound_ms, bound_by = bound(*work[name], PEAK_F32_FLOPS if name.endswith("_f32")
+        bound_ms, bound_by = bound(*work[name], PEAK_F32_BF16X3_FLOPS if name.endswith("_f32")
                                    else PEAK_BF16_FLOPS)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": n, "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,
