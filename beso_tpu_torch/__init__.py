@@ -6,12 +6,13 @@ and numpy only; the JAX package is the reference its tests hold it against.
 
 Ported so far: kitchen serving (the DiffusionGPT forward, the prefix-KV
 cached engine, the fused engines on the hand-written CUDA layer kernels
-B1-B4 in `ops/fused_layer.py` and `csrc/fused_layer_prefix.cu`: the
-`fused_cached` engine in its three forms and the uncached
-`make_fused_denoise_fn`; DDIM sampling, the windowed policy, the batched
-kitchen physics and the rollout) and the chunked-kitchen training path (densities, EMA, the
-training forward with the flash-attention kernels B5/B6 in
-`ops/flash_attention.py` and `csrc/flash_attention.cu`, the EDM loss, the
-slicer, the trainer, checkpoints, the agent, the kitchen workspace and the
-training CLI).
+B1-B4 in `ops/fused_layer.py`, `csrc/fused_layer_prefix.cu` (bf16) and
+`csrc/fused_layer_f32.cu` (f32): the `fused_cached` engine in its three
+forms and the uncached `make_fused_denoise_fn`; DDIM sampling, the
+windowed policy, the batched kitchen physics and the rollout), the
+chunked-kitchen training path (densities, EMA, the training forward with
+the flash-attention kernels B5/B6 in `ops/flash_attention.py` and
+`csrc/flash_attention.cu`, the EDM loss, the slicer, the trainer,
+checkpoints, the agent, the kitchen workspace and the training CLI) and
+the dataset loaders and writers behind the workspace's `data_path`.
 """

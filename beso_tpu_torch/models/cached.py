@@ -181,7 +181,7 @@ def make_rollout_denoise_factory(den, scaler, cfg, engine: str = "cached"):
 
     Gating (raises ValueError otherwise): the sampler must stay on the sigma
     grid (CACHED_SAFE_SAMPLERS), s_churn == 0, single action sample. For
-    "fused_cached" a model on the card must compute in bf16 (raises
+    "fused_cached" a model on the card must compute in bf16 or f32 (raises
     TypeError here, before any episode; `check_fused_dtype`).
     """
     from beso_tpu_torch.agents.policy import scale_goal_for_model

@@ -52,9 +52,10 @@ class FusedGPTParams(NamedTuple):
 def prepare_fused_gpt(model) -> FusedGPTParams:
     """Extract and lay out the model's weights once per engine
     (`beso_tpu/models/fused.py:50-90`), with the kernels' tiled copy of
-    each layer's weights for a bf16 model (`prepare_layer_params`). Raises
-    TypeError for a model on the card that does not compute in bf16
-    (`check_fused_dtype`)."""
+    each layer's weights (`prepare_layer_params`). The engines run in the
+    model's dtype, as the JAX ones do: bf16 or f32 on the card (the f32
+    kernels compute to f32 accuracy). Raises TypeError for a model on the
+    card that computes in another dtype (`check_fused_dtype`)."""
     sigma_embedding = getattr(model, "sigma_embedding", "Linear")
     if sigma_embedding != "Linear":
         raise NotImplementedError(

@@ -22,8 +22,9 @@ shared memory and the ragged edge is masked in the kernels, with no padded
 copies.
 
 The kernels take q, k, v (and o, dO) all bf16 or all f32, as the JAX
-kernels take the model's dtype; the f32 instantiations compute to f32
-accuracy (each operand split into bf16 hi and lo parts, three products).
+kernels take the model's dtype, and head dims up to 128; the f32
+instantiations compute to f32 accuracy (each operand split into bf16 hi and
+lo parts, three products).
 Each wrapper (`flash_forward`, `flash_backward_dq`, `flash_backward_dkv`)
 runs its plain PyTorch version for CPU tensors and, for CUDA tensors,
 launches its kernel or raises; its `launches` counter goes up by one per
@@ -105,21 +106,22 @@ def _library() -> ctypes.CDLL:
         fn.restype = ci
     lib.beso_flash_max_head_dim.argtypes = []
     lib.beso_flash_max_head_dim.restype = ci
-    lib.beso_flash_blocks_per_sm.argtypes = [ci, ci]
+    lib.beso_flash_blocks_per_sm.argtypes = [ci, ci, ci]
     lib.beso_flash_blocks_per_sm.restype = ci
     return lib
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+MAX_HEAD_DIM = 128   # the kernels' largest head dim (beso_flash_max_head_dim)
 
 
-def blocks_per_sm(dtype: torch.dtype = torch.bfloat16) -> dict:
+def blocks_per_sm(dtype: torch.dtype = torch.bfloat16, head_dim: int = 64) -> dict:
     """Resident blocks per SM of the three kernels' `dtype` instantiations
-    on the current card, as the CUDA runtime's occupancy calculator gives
-    them."""
+    for `head_dim` (tile width 64 up to hd 64, else 128) on the current
+    card, as the CUDA runtime's occupancy calculator gives them."""
     lib = _library()
     f32 = int(dtype == torch.float32)
-    return {name: lib.beso_flash_blocks_per_sm(i, f32) for i, name in enumerate(
+    return {name: lib.beso_flash_blocks_per_sm(i, f32, head_dim) for i, name in enumerate(
         ("flash_forward", "flash_backward_dq", "flash_backward_dkv"))}
 
 
@@ -147,14 +149,17 @@ def kernel_dtype(name: str, tensors: dict) -> torch.dtype:
 def _check(name, q, k, v, rows, stats):
     """Check q, k, v and the [B, H, T, hd] tensors `rows` (name -> tensor;
     all bf16 or all f32) and the f32 [B, H, T, 1] tensors `stats`, the
-    dtypes before the library loads. Returns (library, B * H, T, hd, 1 for
-    f32 else 0)."""
+    dtypes and the head dim (<= MAX_HEAD_DIM) before the library loads.
+    Returns (library, B * H, T, hd, 1 for f32 else 0)."""
     rows = {"q": q, "k": k, "v": v, **rows}
     dtype = kernel_dtype(name, rows)
-    lib = _library()
     B, H, T, hd = q.shape
-    if hd > lib.beso_flash_max_head_dim():
-        raise ValueError(f"head dim {hd} > {lib.beso_flash_max_head_dim()}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name} takes head dims up to {MAX_HEAD_DIM}, got {hd}")
+    lib = _library()
+    if lib.beso_flash_max_head_dim() != MAX_HEAD_DIM:
+        raise RuntimeError(f"the kernels take head dims up to {lib.beso_flash_max_head_dim()}, "
+                           f"flash_attention.py says {MAX_HEAD_DIM}")
     for n, t in rows.items():
         build.check_tensor(t, n, q.shape, dtype, q.device)
     for n, t in stats.items():

@@ -18,11 +18,12 @@ each a pre-LN GPT block with its intermediates kept on chip:
 
 The port keeps the math and drops the TPU layouts: no environments in lanes,
 no head-dim padding to 32, no 128-environment blocks. Activations are
-`x [B, T, D]` bf16 and a layer's prefix cache `pk/pv [S, B, P, D]` bf16;
-`idx` is a device int32[1] the kernel reads itself, so choosing the sigma
-row never syncs the host. All four run one kernel body
-(`csrc/fused_layer_prefix.cu`), so B2 equals a chain of B1 launches and B3
-a B1 launch on the same row, bit for bit.
+`x [B, T, D]` and a layer's prefix cache `pk/pv [S, B, P, D]`, both bf16 or
+both f32 (the model's dtype, as the JAX kernels take it); `idx` is a device
+int32[1] the kernel reads itself, so choosing the sigma row never syncs the
+host. In each dtype all four run one kernel body (bf16
+`csrc/fused_layer_prefix.cu`, f32 `csrc/fused_layer_f32.cu`), so B2 equals
+a chain of B1 launches and B3 a B1 launch on the same row, bit for bit.
 
 What bounds it on the H100, and the design (details in
 `csrc/fused_layer_prefix.cu`): at kitchen shapes a launch does ~51 GFLOP of
@@ -33,11 +34,15 @@ weights through a ring of shared-memory slots, filled by bulk asynchronous
 copies from the tiled copy `tile_layer_weights` lays out once per model;
 QKV, proj, fc and fc2 run on `wgmma` (bf16, f32 accumulators in registers)
 and the attention on `mma.sync`. `fused_layer_prefix_timed` reports each
-block's clock cycles per phase of B1.
+block's clock cycles per phase of B1. The f32 form keeps f32 accuracy on
+the tensor cores: every operand is split into bf16 hi + lo parts (the
+weights once per model, in the tiled copy) and each product is
+hi.hi + lo.hi + hi.lo on `mma.sync`, 32 rows per block.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
-tensors it launches its kernel or raises, and for any other device it
-raises. Its `launches` counter goes up by one per kernel launch.
+tensors it launches its kernel (the bf16 or the f32 one, by x's dtype) or
+raises, and for any other device it raises. Its `launches` counter goes up
+by one per kernel launch, in either dtype.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ from beso_tpu_torch.models.gpt import attend, dense, gelu, layer_norm
 from beso_tpu_torch.ops import build
 
 
+# the dtypes the kernels take: bf16 and f32 (csrc/fused_layer_f32.cu)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _ceil16(n: int) -> int:
     return -(-n // 16) * 16
 
@@ -64,8 +73,8 @@ class FusedLayerParams(NamedTuple):
     16: each q/k/v head to hdp = ceil16(hd) rows, the model width to
     Dp = ceil16(D), the MLP width to Fp = ceil16(4D). Padding is zero, so
     padded products are exact. Biases and LayerNorm parameters are f32.
-    `tiles` is the kernel's copy of the four weights, derived from them by
-    `tile_layer_weights` (bf16 layers only; None otherwise).
+    `tiles` is the kernels' copy of the four weights, derived from them by
+    `tile_layer_weights` for a bf16 or an f32 layer (None otherwise).
     """
 
     ln1_s: torch.Tensor    # [D]
@@ -96,8 +105,8 @@ def prepare_layer_params(lp: dict, n_heads: int,
                          dtype: torch.dtype = torch.bfloat16) -> FusedLayerParams:
     """Pad and cast one layer (the dict of `models.cached.extract_gpt_params`,
     Linear weights [out, in]) into the kernel's layout, with the tiled copy
-    of the weights when dtype is bf16 (the kernels' type). Call once per
-    model."""
+    of the weights when dtype is bf16 or f32 (the kernels' types). Call once
+    per model."""
     D = lp["wqkv"].shape[1]
     H = n_heads
     hd = D // H
@@ -127,28 +136,29 @@ def prepare_layer_params(lp: dict, n_heads: int,
         bfc=f32(F.pad(lp["bfc"], (0, Fp - lp["bfc"].shape[0]))),
         wfc2=w(pad_to(lp["wfc2"], Dp, Fp)),
         bfc2=f32(F.pad(lp["bfc2"], (0, Dp - D))))
-    if dtype == torch.bfloat16:
+    if dtype in KERNEL_DTYPES:
         p = p._replace(tiles=tile_layer_weights(p, H))
     return p
 
 
 def check_fused_dtype(device, dtype: torch.dtype) -> None:
     """Raise TypeError unless the fused layer kernels can run a model that
-    computes in `dtype` on `device`: on the card they take bf16 only (their
-    f32 form is ROADMAP.md queue C, item C2); on the CPU the plain versions
-    take any dtype. The engines call it when they are built, so the gap
-    shows before a rollout starts."""
-    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+    computes in `dtype` on `device`: on the card they take bf16 and f32; on
+    the CPU the plain versions take any dtype. The engines call it when they
+    are built, so an unsupported dtype shows before a rollout starts."""
+    if torch.device(device).type == "cuda" and dtype not in KERNEL_DTYPES:
         raise TypeError(
-            f"the fused layer kernels take bf16 on the card, and this model computes "
-            f"in {dtype}: use a bf16 model or the 'cached' or 'full' engine (f32 fused "
-            f"kernels: ROADMAP.md, queue C, item C2)")
+            f"the fused layer kernels take bf16 or f32 on the card, and this model "
+            f"computes in {dtype}: use a bf16 or f32 model or the 'cached' or 'full' "
+            f"engine")
 
 
-# Tiling constants shared with csrc/fused_layer_prefix.cu (SLOT_BYTES, FC),
-# which `_limits()` reads back from the compiled kernel on the card.
-SLOT_BYTES = 12288   # one slot of the kernel's weight ring
-MLP_CHUNK = 160      # FC: hidden columns per MLP chunk
+# Tiling constants shared with csrc/fused_layer_prefix.cu (SLOT_BYTES, FC)
+# and csrc/fused_layer_f32.cu (F32_SLOT_BYTES, FC), which `_limits()` reads
+# back from the compiled kernels on the card.
+SLOT_BYTES = 12288       # one slot of the bf16 kernel's weight ring
+F32_SLOT_BYTES = 24576   # one slot of the f32 kernel's ring: a hi and a lo chunk
+MLP_CHUNK = 160          # FC: hidden columns per MLP chunk
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -176,27 +186,44 @@ def layer_products(p: FusedLayerParams, n_heads: int):
     return prods
 
 
-def chunk_steps(n_rows: int, ksteps: int):
+def chunk_steps(n_rows: int, ksteps: int, f32: bool = False):
     """16-deep k-steps of each ring chunk of a B operand with n_rows rows:
-    as many as fit SLOT_BYTES (at least one), the last chunk the rest."""
-    kpc = max(1, SLOT_BYTES // (n_rows * 32))
+    as many as fit a ring slot (at least one; f32: a hi and a lo part in
+    F32_SLOT_BYTES, else SLOT_BYTES), the last chunk the rest."""
+    parts, slot = (2, F32_SLOT_BYTES) if f32 else (1, SLOT_BYTES)
+    kpc = max(1, slot // (parts * n_rows * 32))
     return [min(kpc, ksteps - k) for k in range(0, ksteps, kpc)]
 
 
+def _core_matrices(blk: torch.Tensor) -> torch.Tensor:
+    """[N, 16 k] as 8 x 8 core matrices of 128 contiguous bytes, ordered
+    [k/8][n/8][8 rows][8], flat."""
+    N, K = blk.shape
+    return blk.reshape(N // 8, 8, K // 8, 8).permute(2, 0, 1, 3).reshape(-1)
+
+
 def tile_layer_weights(p: FusedLayerParams, n_heads: int) -> torch.Tensor:
-    """The kernel's tiled copy of one layer's weights: each product of
+    """The kernels' tiled copy of one layer's weights: each product of
     `layer_products`, cut into the chunks of `chunk_steps`, each chunk
-    [N, 16 k] laid out as the K-major unswizzled `wgmma` operand (8 x 8
-    core matrices of 128 contiguous bytes, ordered [k/8][n/8][8 rows][8])
-    and the chunks concatenated, so the kernel fills a ring slot with one
-    bulk copy of contiguous bytes. Flat, in the weights' dtype."""
+    [N, 16 k] laid out as the K-major unswizzled operand (8 x 8 core
+    matrices of 128 contiguous bytes, ordered [k/8][n/8][8 rows][8]) and the
+    chunks concatenated, so the kernel fills a ring slot with one bulk copy
+    of contiguous bytes. Flat bf16. For an f32 layer each chunk is its hi
+    part bf16(w) followed by its lo part bf16(w - hi), which the f32 kernel
+    multiplies as hi.hi + lo.hi + hi.lo."""
+    f32 = p.wqkv.dtype == torch.float32
     parts = []
     for wt in layer_products(p, n_heads):
         N, K = wt.shape
         k0 = 0
-        for ks in chunk_steps(N, K // 16):
+        for ks in chunk_steps(N, K // 16, f32):
             blk = wt[:, k0 * 16:(k0 + ks) * 16]
-            parts.append(blk.reshape(N // 8, 8, 2 * ks, 8).permute(2, 0, 1, 3).reshape(-1))
+            if f32:
+                hi = blk.to(torch.bfloat16)
+                parts += [_core_matrices(hi),
+                          _core_matrices((blk - hi.float()).to(torch.bfloat16))]
+            else:
+                parts.append(_core_matrices(blk))
             k0 += ks
     return torch.cat(parts).contiguous()
 
@@ -282,33 +309,57 @@ def fused_layer_reference(x: torch.Tensor, p: FusedLayerParams, *,
 def _library() -> ctypes.CDLL:
     lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.beso_fused_layer_prefix.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+    for prefix in ("beso_fused_", "beso_fused_f32_"):
+        getattr(lib, prefix + "layer_prefix").argtypes = [vp] * 11 + [ci] * 8 + [vp]
+        getattr(lib, prefix + "layers_prefix_group").argtypes = (
+            [vp] * 3 + [ci] + [vp] * 6 + [ci] * 8 + [vp])
+        getattr(lib, prefix + "layer_with_prefix").argtypes = [vp] * 5 + [ci] * 6 + [vp]
+        getattr(lib, prefix + "layer").argtypes = [vp] * 3 + [ci] * 5 + [vp]
+        for name in ("layer_prefix", "layers_prefix_group", "layer_with_prefix", "layer"):
+            getattr(lib, prefix + name).restype = ci
     lib.beso_fused_layer_prefix_timed.argtypes = [vp] * 12 + [ci] * 8 + [vp]
-    lib.beso_fused_layers_prefix_group.argtypes = [vp] * 3 + [ci] + [vp] * 6 + [ci] * 8 + [vp]
-    lib.beso_fused_layer_with_prefix.argtypes = [vp] * 5 + [ci] * 6 + [vp]
-    lib.beso_fused_layer.argtypes = [vp] * 3 + [ci] * 5 + [vp]
-    for fn in (lib.beso_fused_layer_prefix, lib.beso_fused_layer_prefix_timed,
-               lib.beso_fused_layers_prefix_group,
-               lib.beso_fused_layer_with_prefix, lib.beso_fused_layer):
+    lib.beso_fused_layer_prefix_timed.restype = ci
+    for fn in (lib.beso_fused_layer_prefix_limits, lib.beso_fused_f32_limits):
+        fn.argtypes = [ci]
         fn.restype = ci
-    lib.beso_fused_layer_prefix_limits.argtypes = [ci]
-    lib.beso_fused_layer_prefix_limits.restype = ci
     return lib
 
 
+def _entry(name: str, dtype: torch.dtype):
+    """The library's entry point `name` (e.g. "layer_prefix") of the bf16
+    or the f32 kernel."""
+    f32 = "f32_" if dtype == torch.float32 else ""
+    return getattr(_library(), f"beso_fused_{f32}{name}")
+
+
+class _Limits(NamedTuple):
+    rows: int         # token rows per block
+    max_keys: int     # P + T
+    max_m: int        # head outputs of the epilogue
+    max_dp: int
+    max_hdp: int
+    max_layers: int   # layers of one B2 group
+    max_hdp_all: int  # H * hdp
+    block_keys: Optional[int]   # keys of the envs of a 16-row block (bf16 only)
+
+
 @functools.lru_cache(maxsize=None)
-def _limits():
-    """(rows per block, max keys, max head width, max Dp, max hdp, max
-    layers per group, number of timed phases, max H * hdp, ring slot bytes,
-    MLP chunk, max keys of the envs of a 16-row block), as the compiled
-    kernel reports them. Raises if the kernel's tiling constants are not
-    this module's."""
-    lim = tuple(_library().beso_fused_layer_prefix_limits(i) for i in range(11))
+def _limits(dtype: torch.dtype = torch.bfloat16) -> _Limits:
+    """The `dtype` kernel's limits, as the compiled kernel reports them.
+    Raises if its tiling constants are not this module's."""
+    lib = _library()
+    if dtype == torch.float32:
+        lim = [lib.beso_fused_f32_limits(i) for i in range(9)]
+        if (lim[7], lim[8]) != (F32_SLOT_BYTES, MLP_CHUNK):
+            raise RuntimeError(f"f32 kernel constants {lim} do not match fused_layer.py "
+                               f"(F32_SLOT_BYTES {F32_SLOT_BYTES}, MLP_CHUNK {MLP_CHUNK})")
+        return _Limits(*lim[:7], block_keys=None)
+    lim = [lib.beso_fused_layer_prefix_limits(i) for i in range(11)]
     if (lim[6], lim[8], lim[9]) != (len(PHASES), SLOT_BYTES, MLP_CHUNK):
         raise RuntimeError(f"kernel constants {lim} do not match fused_layer.py "
                            f"({len(PHASES)} phases, SLOT_BYTES {SLOT_BYTES}, "
                            f"MLP_CHUNK {MLP_CHUNK})")
-    return lim
+    return _Limits(*lim[:6], max_hdp_all=lim[7], block_keys=lim[10])
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
@@ -320,47 +371,59 @@ def _on_cuda(x: torch.Tensor, name: str) -> bool:
     return True
 
 
+def _kernel_dtype(x: torch.Tensor) -> torch.dtype:
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the fused layer kernels take bf16 or f32 activations, got {x.dtype}")
+    return x.dtype
+
+
 def _check_launch(x: torch.Tensor, P: int, n_heads: int, layer_params):
-    """Raise unless x [B, T, D] with P prefix keys and these layers fit the
-    kernel; returns (B, T, D, Fp) and the layers' weight pointers."""
+    """Raise unless x [B, T, D] (bf16 or f32) with P prefix keys and these
+    layers fit x's kernel; returns (B, T, D, Fp) and the layers' weight
+    pointers."""
     B, T, D = x.shape
     H = n_heads
     if D % H:
         raise ValueError(f"D={D} not divisible by n_heads={H}")
+    dtype = _kernel_dtype(x)
     hd = D // H
     hdp, Dp = _ceil16(hd), _ceil16(D)
     Fp = layer_params[0].wfc.shape[0]
-    rows, max_keys, _, max_dp, max_hdp = _limits()[:5]
-    max_all, block_keys = _limits()[7], _limits()[10]
-    # keys of the envs each 16 query rows of a 64-row tile belong to
-    tile = rows // T * T if T <= rows else 0
+    lim = _limits(dtype)
+    # keys of the envs each 16 query rows of a tile belong to (the bf16
+    # kernel's attention holds at most `block_keys` of them)
+    tile = lim.rows // T * T if T <= lim.rows else 0
     span = max(((min(r + 15, tile - 1) // T - r // T + 1) * (P + T)
                 for r in range(0, tile, 16)), default=0)
-    if (T > rows or P + T > max_keys or Dp > max_dp or hdp > max_hdp
-            or H * hdp > max_all or span > block_keys):
-        raise ValueError(f"shape outside the kernel's limits: T={T} (<= {rows}), "
-                         f"P+T={P + T} (<= {max_keys}), Dp={Dp} (<= {max_dp}), "
-                         f"hdp={hdp} (<= {max_hdp}), H*hdp={H * hdp} (<= {max_all}), "
-                         f"keys of a 16-row block {span} (<= {block_keys})")
+    if (T > lim.rows or P + T > lim.max_keys or Dp > lim.max_dp or hdp > lim.max_hdp
+            or H * hdp > lim.max_hdp_all
+            or (lim.block_keys is not None and span > lim.block_keys)):
+        raise ValueError(f"shape outside the {dtype} kernel's limits: T={T} (<= {lim.rows}), "
+                         f"P+T={P + T} (<= {lim.max_keys}), Dp={Dp} (<= {lim.max_dp}), "
+                         f"hdp={hdp} (<= {lim.max_hdp}), H*hdp={H * hdp} "
+                         f"(<= {lim.max_hdp_all}), keys of a 16-row block {span} "
+                         f"(<= {lim.block_keys})")
     if Fp % 16:
         raise ValueError(f"MLP width {Fp} not a multiple of 16")
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    build.check_tensor(x, "x", (B, T, D), bf, dev)
+    dev, f32 = x.device, torch.float32
+    build.check_tensor(x, "x", (B, T, D), dtype, dev)
     shapes = dict(ln1_s=(D,), ln1_b=(D,), wqkv=(3 * H * hdp, Dp),
                   bqkv=(3 * H * hdp,), wproj=(Dp, H * hdp), bproj=(Dp,),
                   ln2_s=(D,), ln2_b=(D,), wfc=(Fp, Dp), bfc=(Fp,),
                   wfc2=(Dp, Fp), bfc2=(Dp,))
     Dq, Fq = _ceil_to(Dp, 128), _ceil_to(Fp, MLP_CHUNK)
     n_tiles = 3 * H * hdp * Dp + Dq * H * hdp + Fq * Dp + Dq * Fq   # `layer_products`
+    if dtype == f32:
+        n_tiles *= 2   # hi and lo parts
     ptrs = []
     for p in layer_params:
         for name, shape in shapes.items():
             build.check_tensor(getattr(p, name), name, shape,
-                               bf if name.startswith("w") else f32, dev)
+                               dtype if name.startswith("w") else f32, dev)
         if p.tiles is None:
             raise ValueError("the layer has no tiled weights: prepare it with "
-                             "prepare_layer_params(..., dtype=torch.bfloat16)")
-        build.check_tensor(p.tiles, "tiles", (n_tiles,), bf, dev)
+                             f"prepare_layer_params(..., dtype={dtype})")
+        build.check_tensor(p.tiles, "tiles", (n_tiles,), torch.bfloat16, dev)
         ptrs.append([t.data_ptr() for t in p])
     return (B, T, D, Fp), ptrs
 
@@ -371,8 +434,9 @@ def _check_epilogue(epilogue: Optional[FusedEpilogue], x: torch.Tensor):
         return 0, [None] * 4, None
     B, T, D = x.shape
     M = epilogue.w.shape[0]
-    if M > _limits()[2]:
-        raise ValueError(f"head width {M} > {_limits()[2]}")
+    max_m = _limits(x.dtype).max_m
+    if M > max_m:
+        raise ValueError(f"head width {M} > {max_m}")
     for name, shape in dict(lnf_s=(D,), lnf_b=(D,), w=(M, D), b=(M,)).items():
         build.check_tensor(getattr(epilogue, name), f"epilogue.{name}", shape,
                            torch.float32, x.device)
@@ -395,7 +459,7 @@ def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=None):
     S, B, P, D = pk.shape
     (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
     for name, t in (("pk", pk), ("pv", pv)):
-        build.check_tensor(t, name, (S, B, P, D), torch.bfloat16, x.device)
+        build.check_tensor(t, name, (S, B, P, D), x.dtype, x.device)
     build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
     M, epi, pred = _check_epilogue(epilogue, x)
     out = torch.empty_like(x)
@@ -403,7 +467,9 @@ def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=None):
             *epi, out.data_ptr(), None if pred is None else pred.data_ptr()]
     tail = [B, T2, D, n_heads, P, S, Fp, M, torch.cuda.current_stream(x.device).cuda_stream]
     if cycles is None:
-        rc = _library().beso_fused_layer_prefix(*args, *tail)
+        rc = _entry("layer_prefix", x.dtype)(*args, *tail)
+    elif x.dtype != torch.bfloat16:
+        raise TypeError("the phase clock is B1's bf16 kernel's: x must be bf16")
     else:
         rc = _library().beso_fused_layer_prefix_timed(*args, cycles.data_ptr(), *tail)
     _raise_on(rc, "fused_layer_prefix")
@@ -414,7 +480,7 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                        idx: torch.Tensor, p: FusedLayerParams, *,
                        n_heads: int, epilogue: Optional[FusedEpilogue] = None):
     """B1 (see module docstring). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 only) or raise."""
+    tensors launch the kernel of their dtype (bf16 or f32) or raise."""
     if not _on_cuda(x, "fused_layer_prefix"):
         return fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=n_heads,
                                             epilogue=epilogue)
@@ -435,12 +501,13 @@ def fused_layer_prefix_timed(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor
     the serving path calls it, and it leaves B1's launch count alone).
     Returns (what `fused_layer_prefix` returns, cycles int64 [blocks,
     len(PHASES)]): each block's clock64() cycles per phase of `PHASES`.
-    Needs CUDA tensors: a clock has no plain version."""
+    Needs bf16 CUDA tensors: a clock has no plain version, and only the
+    bf16 kernel has one."""
     if not _on_cuda(x, "fused_layer_prefix_timed"):
         raise ValueError("fused_layer_prefix_timed needs CUDA tensors")
-    rows = _limits()[0]
+    rows = _limits().rows
     blocks = -(-x.shape[0] // (rows // x.shape[1]))
-    cycles = torch.zeros(blocks, _limits()[6], dtype=torch.int64, device=x.device)
+    cycles = torch.zeros(blocks, len(PHASES), dtype=torch.int64, device=x.device)
     return _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles), cycles
 
 
@@ -452,14 +519,16 @@ def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor]
     """B2: the blocks of `layer_params` in one launch, each against its own
     pk/pv [S, B, P, D] at row `idx`, the epilogue after the last. Returns
     what the last B1 launch of the chain would. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (bf16 only) or raise."""
+    version; CUDA tensors launch the kernel of their dtype (bf16 or f32) or
+    raise."""
     if not _on_cuda(x, "fused_layers_prefix_group"):
         return fused_layers_prefix_group_reference(
             x, pk_layers, pv_layers, idx, layer_params, n_heads=n_heads,
             epilogue=epilogue)
     n = len(layer_params)
-    if not 1 <= n <= _limits()[5] or len(pk_layers) != n or len(pv_layers) != n:
-        raise ValueError(f"a group holds 1 to {_limits()[5]} layers, each with its "
+    max_layers = _limits(_kernel_dtype(x)).max_layers
+    if not 1 <= n <= max_layers or len(pk_layers) != n or len(pv_layers) != n:
+        raise ValueError(f"a group holds 1 to {max_layers} layers, each with its "
                          f"pk and pv; got {n} layers, {len(pk_layers)} pk, "
                          f"{len(pv_layers)} pv")
     S, B, P, D = pk_layers[0].shape
@@ -467,12 +536,12 @@ def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor]
     ptrs = []
     for li, (w, pk, pv) in enumerate(zip(ws, pk_layers, pv_layers)):
         for name, t in (("pk", pk), ("pv", pv)):
-            build.check_tensor(t, f"{name}[{li}]", (S, B, P, D), torch.bfloat16, x.device)
+            build.check_tensor(t, f"{name}[{li}]", (S, B, P, D), x.dtype, x.device)
         ptrs += w + [pk.data_ptr(), pv.data_ptr()]
     build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
     M, epi, pred = _check_epilogue(epilogue, x)
     out = torch.empty_like(x)
-    rc = _library().beso_fused_layers_prefix_group(
+    rc = _entry("layers_prefix_group", x.dtype)(
         x.data_ptr(), idx.data_ptr(), _ptr_array(ptrs), n, *epi, out.data_ptr(),
         None if pred is None else pred.data_ptr(), B, T2, D, n_heads, P, S, Fp, M,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -485,15 +554,15 @@ def fused_layer_with_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                             p: FusedLayerParams, *, n_heads: int) -> torch.Tensor:
     """B3: one block over x [B, T2, D] against the prefix row pk/pv
     [B, P, D] the caller selected. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 only) or raise."""
+    tensors launch the kernel of their dtype (bf16 or f32) or raise."""
     if not _on_cuda(x, "fused_layer_with_prefix"):
         return fused_layer_with_prefix_reference(x, pk, pv, p, n_heads=n_heads)
     B, P, D = pk.shape
     (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
     for name, t in (("pk", pk), ("pv", pv)):
-        build.check_tensor(t, name, (B, P, D), torch.bfloat16, x.device)
+        build.check_tensor(t, name, (B, P, D), x.dtype, x.device)
     out = torch.empty_like(x)
-    rc = _library().beso_fused_layer_with_prefix(
+    rc = _entry("layer_with_prefix", x.dtype)(
         x.data_ptr(), pk.data_ptr(), pv.data_ptr(), _ptr_array(w), out.data_ptr(),
         B, T2, D, n_heads, P, Fp, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "fused_layer_with_prefix")
@@ -503,13 +572,13 @@ def fused_layer_with_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
 
 def fused_layer(x: torch.Tensor, p: FusedLayerParams, *, n_heads: int) -> torch.Tensor:
     """B4: one causal block over the whole token sequence x [B, T, D]. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (bf16
-    only) or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel of their
+    dtype (bf16 or f32) or raise."""
     if not _on_cuda(x, "fused_layer"):
         return fused_layer_reference(x, p, n_heads=n_heads)
     (B, T, D, Fp), (w,) = _check_launch(x, 0, n_heads, [p])
     out = torch.empty_like(x)
-    rc = _library().beso_fused_layer(
+    rc = _entry("layer", x.dtype)(
         x.data_ptr(), _ptr_array(w), out.data_ptr(), B, T, D, n_heads, Fp,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "fused_layer")

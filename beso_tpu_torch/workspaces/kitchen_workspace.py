@@ -10,9 +10,10 @@ Functional parity target: `FrankaKitchenManager`
   success-rate-at-1..5, per-task solved/expected counts, trajectory
   multimodality census and the task-transition tree (:425-498, 596-708).
 
-Not ported yet (ROADMAP queue A): the relay-kitchen `.npy` loader behind
-`data_path`, the sequential-task evaluation and the comparison studies of
-`workspaces/base.py`.
+`data_path` names a directory in the relay-kitchen dataset's own layout
+(`data/trajectories.py::load_relay_kitchen`; `data/export.py` writes one).
+Not ported yet (ROADMAP queue A): the sequential-task evaluation and the
+comparison studies of `workspaces/base.py`.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from beso_tpu_torch.data.slicer import SlicedDataset
-from beso_tpu_torch.data.trajectories import (TrajectoryData, split_trajectories,
+from beso_tpu_torch.data.trajectories import (TrajectoryData, load_relay_kitchen,
+                                             split_trajectories,
                                              synthetic_kitchen_data)
 from beso_tpu_torch.envs.kitchen.env import ALL_TASKS
 from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
@@ -52,9 +54,7 @@ class FrankaKitchenWorkspace:
         if data is not None:
             self.full_data = data
         elif data_path is not None:
-            raise NotImplementedError(
-                "the relay-kitchen dataset loader is not ported yet (ROADMAP.md, "
-                "queue A, item 10); pass `data` or no data_path")
+            self.full_data = load_relay_kitchen(data_path, onehot_goals=True)
         else:  # datasets not vendored (osf.io/q3dx2): synthetic stand-in
             log.warning("no kitchen data_path given: using synthetic data")
             self.full_data = synthetic_kitchen_data(n_traj=64, t_max=120, seed=seed)

@@ -11,82 +11,96 @@ exits non-zero on failure:
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
 1. build: compile the kernel library for sm_90a, print seconds, ptxas's
    registers, stack and spill bytes per kernel (each flash kernel in its
-   bf16 and f32 instantiation; no bf16 flash kernel may spill) and, from
-   cuobjdump -sass, the HGMMA (wgmma) instructions of each instantiation of
-   the fused-layer kernel, none of which may have none;
-2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version in
-   bf16 at the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240,
-   H=12, hd=20, P=2, 2T=10) shapes, epilogue on and off, every sigma row,
-   each with a ragged last tile;
-   max |diff| must stay within 2^-5 of max |ref|. Times both at the kitchen
-   serving shape with CUDA events, and runs B1's phase clock there
-   (`fused_layer_prefix_timed`, which must equal B1 bit for bit): each
-   phase's mean clock64() cycles per 64-row block and its share;
+   bf16 and f32 instantiation at tile widths 64 and 128; no bf16 width-64
+   flash kernel may spill) and, from cuobjdump -sass, the HGMMA (wgmma)
+   instructions of each instantiation of the bf16 fused-layer kernel and
+   the HMMA (mma.sync) instructions of the f32 one, none of which may have
+   none;
+2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version at
+   the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240, H=12, hd=20,
+   P=2, 2T=10) shapes, epilogue on and off, every sigma row, each with a
+   ragged last tile; max |diff| must stay within 2^-5 of max |ref| in bf16,
+   then 2^-12 in f32. Times both dtypes at the kitchen serving shape with
+   CUDA events (f32 beside the f32 torch.matmul time of its four products,
+   TF32 off), and runs B1's phase clock there (`fused_layer_prefix_timed`,
+   which must equal B1 bit for bit): each phase's mean clock64() cycles per
+   64-row block and its share;
 3. engine: the `fused_cached` engine against the plain `cached` engine on
-   the same inputs at every grid sigma; the rollout factory for
-   `fused_cached` on an f32 kitchen model must raise TypeError when it is
-   built, before any fused-layer launch (the fused kernels take bf16);
+   the same inputs at every grid sigma, for a bf16 kitchen model (2^-5) and
+   an f32 one (2^-10);
 4. main path, serving: a 1024-env x 280-step kitchen rollout with the
-   shipped kitchen serving config on the `fused_cached` engine; the kernel's
-   launch counter must move by exactly 280 steps x 3 NFE x 6 layers, every
-   metric must be finite;
+   shipped kitchen serving config on the `fused_cached` engine in bf16; the
+   kernel's launch counter must move by exactly 280 steps x 3 NFE x 6
+   layers, every metric must be finite;
 5. flash kernels: the forward (B5) and the backward (B6: the dQ kernel,
    which also computes delta = rowsum(dO * O), and the dK/dV kernel)
    against their plain PyTorch versions, o, lse, dq, delta, dk and dv each
    within 2^-5 of max |ref| in bf16, then the same in f32 within 2^-12, at
-   the chunked training shape [256, 6, 131, 60] (causal) and at ragged
-   small shapes ([3, 2, 77, 20] causal and full, T = 16 and 144 at hd 60,
-   hd 18 and hd 15); a second launch of each kernel must be bit-equal to
+   the chunked training shape [256, 6, 131, 60] (causal), at ragged small
+   shapes ([3, 2, 77, 20] causal and full, T = 16 and 144 at hd 60, hd 18
+   and hd 15) and at the width-128 shapes [2, 4, 131, 128] causal and
+   [2, 2, 77, 96] full; a second launch of each kernel must be bit-equal to
    the first; prints the three kernels' resident blocks per SM in both
-   instantiations; the autograd backward must run exactly two device
-   kernels, the dQ and the dK/dV kernel (torch.profiler; "not measured" if
-   it sees no kernel). Times each kernel, the backward total (dQ with
-   delta + dK/dV) and forward + backward against the plain versions at the
-   chunked shape with CUDA events, in bf16 and in f32, and, as their
+   instantiations at both widths; the autograd backward must run exactly
+   two device kernels, the dQ and the dK/dV kernel (torch.profiler; "not
+   measured" if it sees no kernel). Times each kernel, the backward total
+   (dQ with delta + dK/dV) and forward + backward against the plain
+   versions at the chunked shape, and each kernel at [256, 3, 131, 128]
+   (width 128), with CUDA events, in bf16 and in f32, and, as their
    yardstick, F.scaled_dot_product_attention's forward and backward in the
-   same dtype with the attention kernels it ran;
+   same dtype at the same shape with the attention kernels it ran;
 6. model: the chunked kitchen model (`configs/franka_kitchen_chunked.yaml`,
    full width) from one seeded state: loss and every parameter's gradient
    with attention="pallas" (the flash kernels) against
    attention="broadcast" (plain PyTorch) on the same batch, sigma, noise
    and goal mask, in bf16, then in f32 (loss within 2^-12, every gradient
-   within 2^-10 of its max |ref|; exactly 6 launches of each f32 kernel);
+   within 2^-10 of its max |ref|), exactly 6 launches of each kernel; then
+   the same model at 3 heads (hd 120: the width-128 instantiations);
 7. main path, training: `BesoAgent.train_agent` on the chunked config for
    TRAIN_STEPS steps at batch 256 with a test-set evaluation every
    EVAL_EVERY steps; the flash launch counters must move by exactly 6 per
    step (each kernel) plus 6 x 3 NFE per evaluation batch (forward), every
    loss and test MSE must be finite. Prints train steps/s and peak memory
    (informational);
-8. fused-layer kernels B2, B3 and B4 against their plain PyTorch versions
-   in bf16, each within 2^-5 of max |ref|: B4 (`fused_layer`, whole causal
-   sequence) at the kitchen (11 tokens, 2047 envs) and block-push (12
-   tokens, 2001 envs) shapes; B3 (`fused_layer_with_prefix`) at the kitchen
-   (P=3, 2T=8) and block-push (P=2, 2T=10) shapes, and bit-equal to B1 on
-   the same row; B2 (`fused_layers_prefix_group`) with groups of 2 and 4
-   layers, epilogue on and off, and bit-equal to the chain of B1 launches.
-   Times B4 at 2048 x 11, B3 at 2048 x 8 and B2 (group 2) against two B1
-   launches and against the plain versions, with CUDA events, and each
-   form's four products as bf16 torch.matmul (information only);
+8. fused-layer kernels B2, B3 and B4 against their plain PyTorch versions,
+   each within 2^-5 of max |ref| in bf16 and 2^-12 in f32: B4
+   (`fused_layer`, whole causal sequence) at the kitchen (11 tokens, 2047
+   envs) and block-push (12 tokens, 2001 envs) shapes; B3
+   (`fused_layer_with_prefix`) at the kitchen (P=3, 2T=8) and block-push
+   (P=2, 2T=10) shapes, and bit-equal to B1 on the same row; B2
+   (`fused_layers_prefix_group`) with groups of 2 and 4 layers, epilogue on
+   and off, and bit-equal to the chain of B1 launches. Times B4 at 2048 x
+   11, B3 at 2048 x 8 and B2 (group 2) against two B1 launches and against
+   the plain versions, with CUDA events, and each form's four products as
+   torch.matmul in the same dtype (information only);
 9. engines: `make_fused_denoise_fn` (B4) against the plain `GCDenoiser`
    forward at the three grid sigmas and one off-grid sigma, with and
    without zeroed (uncond) goals, linear and MLP heads; the `fused_cached`
    engine with `token_lanes=False` (B3) and with `layer_group` 2 and 4 (B2)
-   against the default `fused_cached` engine (B1) at every grid sigma;
+   against the default `fused_cached` engine (B1) at every grid sigma; in
+   bf16 (2^-5), then in f32 (2^-10);
 10. main paths of the other engine forms: 1024-env x ROLLOUT_STEPS-step
    kitchen rollouts with lambda=1.5 CFG (2048 rows per call), the launch
    counters exact: (a) `fused_cached` with BESO_LAYER_GROUP=2, 3 B2
    launches per call and no B1; (b) `fused_cached` with token_lanes=False,
    6 B3 launches per call; (c) `make_fused_denoise_fn` as the rollout's
-   denoise fn, 6 B4 launches per call. Every metric finite; env-steps/s
-   printed (informational).
+   denoise fn, 6 B4 launches per call; each for the bf16 and the f32
+   kitchen model. Every metric finite; env-steps/s printed (informational);
+11. main path, the shipped kitchen config as shipped (f32): relay-kitchen
+   files written by `export_relay_kitchen` from synthetic trajectories,
+   loaded by `FrankaKitchenWorkspace(data_path=...)`, an f32 `BesoAgent`
+   trained MAIN_TRAIN_STEPS steps at batch 1024, then the workspace's
+   1024-env x 280-step multigoal evaluation on the agent's `fused_cached`
+   engine: exactly 280 x 3 x 6 f32 B1 launches and no other fused-layer
+   launch, every metric finite, env-steps/s printed (informational).
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
 of its work at the timed shape with what bounds it, the PyTorch library
 call's ms where one computes the same function, and for the fused layers
-the bf16 torch.matmul ms of their products; the flash kernels' f32
-instantiations as `*_f32`, launched on phase 6's f32 pass); the last line
-`{"ok": true, "device": {...}}`.
+the torch.matmul ms of their products in the same dtype; f32 forms as
+`*_f32`, the flash kernels' width-128 instantiations as `*_hd128`); the
+last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -101,11 +115,17 @@ import time
 from pathlib import Path
 
 N_ENVS, N_STEPS, NFE, N_LAYERS = 1024, 280, 3, 6
-ROLLOUT_STEPS = 100   # phase 10's rollouts of the other engine forms
+ROLLOUT_STEPS = 40    # phase 10's rollouts of the other engine forms (280 cut to 40)
 ERR_FRACTION = 2.0 ** -5   # kernel and engine bound: fraction of max |ref|
-F32_FRACTION = 2.0 ** -12  # the same for the flash kernels' f32 instantiations
+F32_FRACTION = 2.0 ** -12  # the same for the kernels' f32 forms
+# the f32 fused engines against the plain f32 engines: six f32 layers (each
+# within ~2^-16 relative per product) and the preconditioning around them
+F32_ENGINE_FRACTION = 2.0 ** -10
 TRAIN_STEPS, EVAL_EVERY, TRAIN_BATCH = 240, 80, 256
 CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
+WIDE_SHAPE = (256, 3, 131, 128)     # the flash kernels' width-128 instantiations, timed
+WIDE_HEADS = 3   # the chunked model at 3 heads: hd 120, the width-128 instantiations
+MAIN_TRAIN_STEPS = 20   # phase 11's train steps before its rollout
 # model-level bounds, flash kernels vs broadcast in bf16 (phase 6): the two
 # forms round the probabilities to bf16 at different points (after the
 # normalisation in the broadcast form, before it in the online softmax), so
@@ -119,7 +139,7 @@ MODEL_LOSS_FRACTION_F32 = 2.0 ** -12
 MODEL_GRAD_FRACTION_F32 = 2.0 ** -10
 FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), False),
                 ((2, 3, 16, 60), True), ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
-                ((2, 2, 50, 15), False))
+                ((2, 2, 50, 15), False), ((2, 4, 131, 128), True), ((2, 2, 77, 96), False))
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
 # bf16 tensor-core operations and HBM3 bytes per second. The flash kernels'
 # f32 instantiations run each f32 product on the tensor cores as three bf16
@@ -138,16 +158,18 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def layer_work(B, T, D, P, n_layers=1):
+def layer_work(B, T, D, P, n_layers=1, elem=2):
     """Operations and bytes of n_layers fused layers over B envs x T tokens,
-    each token seeing P prefix keys and its causal own keys: 24 D^2 per
-    token per layer for the four products and 4 D per (query, key) pair for
-    the scores and P.V; x read once and out written once, and per layer its
-    weights (12 D^2 bf16, 13 D f32 of biases and LayerNorm) and one sigma
-    row of prefix K and V (2 B P D bf16)."""
+    each token seeing P prefix keys and its causal own keys, with
+    `elem`-byte activations and weights (2: bf16, 4: f32): 24 D^2 per token
+    per layer for the four products and 4 D per (query, key) pair for the
+    scores and P.V; x read once and out written once, and per layer its
+    weights (12 D^2, 13 D f32 of biases and LayerNorm) and one sigma row of
+    prefix K and V (2 B P D)."""
     rows, pairs = B * T, B * sum(P + t + 1 for t in range(T))
     flops = n_layers * (rows * 24 * D * D + pairs * 4 * D)
-    nbytes = 2 * rows * D * 2 + n_layers * (12 * D * D * 2 + 13 * D * 4 + 2 * B * P * D * 2)
+    nbytes = (2 * rows * D * elem
+              + n_layers * (12 * D * D * elem + 13 * D * 4 + 2 * B * P * D * elem))
     return flops, nbytes
 
 
@@ -196,7 +218,9 @@ def ptxas_report(log):
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[1].strip()
-            fn = next((name[name.index(k):] for k in ("flash_fwd", "flash_bwd", "fused_layer_prefix_kernel")
+            fn = next((name[name.index(k):] for k in ("flash_fwd", "flash_bwd",
+                                                      "fused_layer_prefix_kernel",
+                                                      "fused_layer_f32_kernel")
                        if k in name), name)
             out[fn] = ""
         elif fn and ("spill" in line or "Used" in line):
@@ -210,31 +234,61 @@ def spill_bytes(props):
     return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", props))
 
 
+_T0 = time.perf_counter()
+
+
+def since_start() -> str:
+    """Seconds since the script started, for the phase headers."""
+    return f"{time.perf_counter() - _T0:.1f} s"
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
     sys.exit(1)
 
 
+def kitchen_agent_config():
+    """The shipped kitchen config, `configs/franka_kitchen.yaml`, as
+    BesoAgentConfig fields (no YAML parser on the card's host, so the values
+    are written out). Only the step counts are cut."""
+    return dict(obs_dim=30, action_dim=9,              # (:13, :12)
+                hidden_dim=360, n_layers=N_LAYERS,     # (:17, :18)
+                n_heads=6, goal_seq_len=2,             # (:19, :8)
+                window_size=4, goal_conditioned=True,  # (:9, :10)
+                attn_pdrop=0.3, resid_pdrop=0.0,       # (:20, :21)
+                linear_output=True,                    # (:22)
+                max_train_steps=MAIN_TRAIN_STEPS,      # max_train_steps: 40000 (:26), cut
+                eval_every_n_steps=MAIN_TRAIN_STEPS,   # eval_every_n_steps: 4000 (:27), cut
+                train_batch_size=1024,                 # (:28)
+                optimizer="adamw", lr=1e-4,            # (:30, :31)
+                betas=(0.9, 0.999), weight_decay=0.01,  # (:32, :33)
+                lr_step_size=100, lr_gamma=0.99,       # (:34, :35)
+                use_ema=True, decay=0.999,             # (:36, :37)
+                update_ema_every_n_steps=1,            # (:38)
+                compute_dtype="float32",               # compute_dtype: float32 (:39)
+                sampler_type="ddim", sigma_data=0.5,   # (:42, :43)
+                sigma_min=0.005, sigma_max=1.0,        # (:44, :45)
+                rho=5.0, noise_scheduler="exponential",  # (:46, :47)
+                sigma_sample_density_type="loglogistic",  # (:48)
+                sigma_sample_density_mean=-0.6,        # (:49)
+                sigma_sample_density_std=1.6,          # (:50)
+                cond_mask_prob=0.1, cond_lambda=1.5,   # (:51, :52)
+                num_sampling_steps=NFE,                # n_timesteps: 3 (:53)
+                pred_last_action_only=False,           # (:54)
+                inference_engine="fused_cached")       # the CUDA fused-layer engine
+
+
 def kitchen_config():
-    """The shipped kitchen serving config, `configs/franka_kitchen.yaml`
-    (no YAML parser on the card's host, so the values are written out)."""
-    model = dict(state_dim=30,        # obs_dim: 30 (:13)
-                 action_dim=9,        # action_dim: 9 (:12)
-                 embed_dim=360,       # hidden_dim: 360 (:17)
-                 n_layers=6,          # num_hidden_layers: 6 (:18)
-                 n_heads=6,           # n_heads: 6 (:19)
-                 goal_seq_len=2,      # future_seq_length: 2 (:8)
-                 obs_seq_len=4,       # window_size: 4 (:9)
-                 linear_output=True)  # linear_output: true (:22)
-    policy = dict(window_size=4, obs_dim=30, action_dim=9,
-                  sampler_type="ddim",           # sampler_type (:42)
-                  num_sampling_steps=NFE,        # n_timesteps: 3 (:53)
-                  sigma_min=0.005, sigma_max=1.0,  # (:44-45)
-                  sigma_data=0.5, rho=5.0,       # (:43, :46)
-                  noise_scheduler="exponential",  # (:47)
-                  cond_lambda=1.5)               # cond_lambda: 1.5 (:52)
-    scale_data = False                           # scale_data: false (:7)
-    return model, policy, scale_data
+    """The shipped kitchen serving config as DiffusionGPT fields, PolicyConfig
+    fields and its scale_data, from `kitchen_agent_config`."""
+    c = kitchen_agent_config()
+    model = dict(state_dim=c["obs_dim"], action_dim=c["action_dim"], embed_dim=c["hidden_dim"],
+                 n_layers=c["n_layers"], n_heads=c["n_heads"], goal_seq_len=c["goal_seq_len"],
+                 obs_seq_len=c["window_size"], linear_output=c["linear_output"])
+    policy = {k: c[k] for k in ("window_size", "obs_dim", "action_dim", "sampler_type",
+                                "num_sampling_steps", "sigma_min", "sigma_max", "sigma_data",
+                                "rho", "noise_scheduler", "cond_lambda")}
+    return model, policy, False   # scale_data: false (:7)
 
 
 def chunked_config():
@@ -279,8 +333,9 @@ def chunked_config():
                 pred_last_action_only=False)      # (:57)
 
 
-def random_layer(D, H, M, gen, device):
-    """One layer's weights (prepared, bf16) and an f32 epilogue."""
+def random_layer(D, H, M, gen, device, dtype=None):
+    """One layer's weights (prepared, bf16 unless `dtype`) and an f32
+    epilogue."""
     import torch
 
     from beso_tpu_torch.ops.fused_layer import FusedEpilogue, prepare_layer_params
@@ -295,24 +350,26 @@ def random_layer(D, H, M, gen, device):
               wfc=w(4 * D, D), bfc=v(4 * D), wfc2=w(D, 4 * D), bfc2=v(D),
               ln1_s=v(D, 1.0), ln1_b=v(D), ln2_s=v(D, 1.0), ln2_b=v(D))
     p = prepare_layer_params({k: a.to(device) for k, a in lp.items()}, H,
-                             torch.bfloat16)
+                             dtype or torch.bfloat16)
     epi = FusedEpilogue(v(D, 1.0).to(device), v(D).to(device),
                         w(M, D).to(device), v(M).to(device))
     return p, epi
 
 
-def check_kernel(name, D, H, P, T2, S, M, B, device, gen):
-    """Kernel vs plain version at one shape, epilogue on/off, every row.
-    Returns the largest |diff| seen."""
+def check_kernel(name, D, H, P, T2, S, M, B, device, gen, dtype=None, frac=ERR_FRACTION):
+    """Kernel vs plain version at one shape in `dtype` (bf16 unless given),
+    epilogue on/off, every row, within frac of max |ref|. Returns the
+    largest |diff| seen."""
     import torch
 
     from beso_tpu_torch.ops.fused_layer import (fused_layer_prefix,
                                                 fused_layer_prefix_reference)
 
-    p, epi = random_layer(D, H, M, gen, device)
-    x = torch.randn(B, T2, D, generator=gen).to(device, torch.bfloat16)
-    pk = torch.randn(S, B, P, D, generator=gen).to(device, torch.bfloat16)
-    pv = torch.randn(S, B, P, D, generator=gen).to(device, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    p, epi = random_layer(D, H, M, gen, device, dtype)
+    x = _rand(gen, B, T2, D, device=device, dtype=dtype)
+    pk = _rand(gen, S, B, P, D, device=device, dtype=dtype)
+    pv = _rand(gen, S, B, P, D, device=device, dtype=dtype)
     worst = 0.0
     for use_epi in (False, True):
         for row in range(S):
@@ -326,9 +383,9 @@ def check_kernel(name, D, H, P, T2, S, M, B, device, gen):
             pairs = [(got, ref)] if e is None else [(got[0], ref[0]), (got[1], ref[1])]
             for what, (g_, r_) in zip(("out", "pred"), pairs):
                 err = (g_.float() - r_.float()).abs().max().item()
-                lim = ERR_FRACTION * r_.float().abs().max().item()
+                lim = frac * r_.float().abs().max().item()
                 ok = math.isfinite(err) and err <= lim
-                print(f"  {name} B={B} epilogue={use_epi} row={row} {what}: "
+                print(f"  {name} {str(dtype)[6:]} B={B} epilogue={use_epi} row={row} {what}: "
                       f"max|diff| {err:.6g} (limit {lim:.6g}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     fail(f"kernel disagrees with its plain version ({name})")
@@ -357,18 +414,20 @@ def time_ms(fn, n, device):
     return start.elapsed_time(end) / n
 
 
-def time_kernel(B, device, gen):
+def time_kernel(B, device, gen, dtype=None):
     """Kernel and plain-version times at the kitchen serving shape: B rows
-    of the CFG-stacked batch, one inner layer (no epilogue)."""
+    of the CFG-stacked batch, one inner layer (no epilogue), in `dtype`
+    (bf16 unless given)."""
     import torch
 
     from beso_tpu_torch.ops.fused_layer import (fused_layer_prefix,
                                                 fused_layer_prefix_reference)
 
-    p, _ = random_layer(360, 6, 9, gen, device)
-    x = torch.randn(B, 8, 360, generator=gen).to(device, torch.bfloat16)
-    pk = torch.randn(3, B, 3, 360, generator=gen).to(device, torch.bfloat16)
-    pv = torch.randn(3, B, 3, 360, generator=gen).to(device, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    p, _ = random_layer(360, 6, 9, gen, device, dtype)
+    x = _rand(gen, B, 8, 360, device=device, dtype=dtype)
+    pk = _rand(gen, 3, B, 3, 360, device=device, dtype=dtype)
+    pv = _rand(gen, 3, B, 3, 360, device=device, dtype=dtype)
     idx = torch.tensor([1], dtype=torch.int32, device=device)
     ms = time_ms(lambda: fused_layer_prefix(x, pk, pv, idx, p, n_heads=6), 50, device)
     plain_ms = time_ms(lambda: fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=6),
@@ -385,8 +444,8 @@ def phase_split(B, device, gen):
     from beso_tpu_torch.ops import fused_layer as fl
 
     p, _ = random_layer(360, 6, 9, gen, device)
-    x = _bf16(gen, B, 8, 360, device=device)
-    pk, pv = _bf16(gen, 3, B, 3, 360, device=device), _bf16(gen, 3, B, 3, 360, device=device)
+    x = _rand(gen, B, 8, 360, device=device)
+    pk, pv = _rand(gen, 3, B, 3, 360, device=device), _rand(gen, 3, B, 3, 360, device=device)
     idx = torch.tensor([1], dtype=torch.int32, device=device)
     out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=6)
     ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=6)
@@ -402,12 +461,15 @@ def phase_split(B, device, gen):
     return dict(zip(fl.PHASES, mean))
 
 
-def time_layer_gemms(rows, D, device, gen, n_layers=1):
-    """bf16 torch.matmul time of a layer's four products (QKV, proj, fc,
-    fc2) at `rows` rows, n_layers times: how near the fused kernel comes to
+def time_layer_gemms(rows, D, device, gen, n_layers=1, dtype=None):
+    """torch.matmul time of a layer's four products (QKV, proj, fc, fc2) at
+    `rows` rows, n_layers times, in `dtype` (bf16 unless given; f32 with
+    TF32 off, as main() sets it): how near the fused kernel comes to
     cuBLAS's product rate (information only; the port never calls it)."""
-    x, h = _bf16(gen, rows, D, device=device), _bf16(gen, rows, 4 * D, device=device)
-    w = [_bf16(gen, o, i, device=device) for o, i in ((3 * D, D), (D, D), (4 * D, D), (D, 4 * D))]
+    x = _rand(gen, rows, D, device=device, dtype=dtype)
+    h = _rand(gen, rows, 4 * D, device=device, dtype=dtype)
+    w = [_rand(gen, o, i, device=device, dtype=dtype)
+         for o, i in ((3 * D, D), (D, D), (4 * D, D), (D, 4 * D))]
 
     def products():
         for _ in range(n_layers):
@@ -417,15 +479,14 @@ def time_layer_gemms(rows, D, device, gen, n_layers=1):
     return time_ms(products, 20, device)
 
 
-def time_sdpa(device, gen, dtype):
-    """F.scaled_dot_product_attention (causal, in `dtype`) at the chunked
-    shape, the yardstick of B5 and B6 (the port never calls it): (forward
-    ms, forward + backward minus forward ms, the attention kernels that
-    ran)."""
+def time_sdpa(device, gen, dtype, shape=CHUNKED_SHAPE):
+    """F.scaled_dot_product_attention (causal, in `dtype`) at `shape`, the
+    yardstick of B5 and B6 (the port never calls it): (forward ms, forward +
+    backward minus forward ms, the attention kernels that ran)."""
     import torch
     import torch.nn.functional as F
 
-    q, k, v, do = (torch.randn(*CHUNKED_SHAPE, generator=gen).to(device, dtype)
+    q, k, v, do = (torch.randn(*shape, generator=gen).to(device, dtype)
                    for _ in range(4))
     fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50,
                      device)
@@ -450,10 +511,11 @@ def time_sdpa(device, gen, dtype):
     return fwd_ms, bwd_ms, names
 
 
-def _bf16(gen, *shape, device):
+def _rand(gen, *shape, device, dtype=None):
+    """Seeded normal values in `dtype` (bf16 unless given) on `device`."""
     import torch
 
-    return torch.randn(*shape, generator=gen).to(device, torch.bfloat16)
+    return torch.randn(*shape, generator=gen).to(device, dtype or torch.bfloat16)
 
 
 def _same_bits(what, got, ref):
@@ -466,24 +528,30 @@ def _same_bits(what, got, ref):
         fail(f"{what}: the kernels disagree")
 
 
-def check_other_layers(device, gen):
-    """Phase 8: B4, B3 and B2 against their plain versions, B3 and B2
-    against B1 launches. Returns {kernel: largest max |diff| vs plain}."""
+def check_other_layers(device, gen, dtype=None, frac=ERR_FRACTION):
+    """Phase 8: B4, B3 and B2 against their plain versions in `dtype` (bf16
+    unless given) within frac of max |ref|, B3 and B2 against B1 launches
+    bit for bit. Returns {kernel: largest max |diff| vs plain}."""
     import torch
 
     from beso_tpu_torch.ops import fused_layer as fl
 
+    dtype = dtype or torch.bfloat16
+    tag = str(dtype)[6:]
     err = {"fused_layer": 0.0, "fused_layer_with_prefix": 0.0,
            "fused_layers_prefix_group": 0.0}
 
     def check(kernel, what, got, ref):
-        err[kernel] = max(err[kernel], _rel_check(what, got, ref, ERR_FRACTION))
+        err[kernel] = max(err[kernel], _rel_check(f"{tag} {what}", got, ref, frac))
+
+    def rand(*shape):
+        return _rand(gen, *shape, device=device, dtype=dtype)
 
     # B4: 5 envs per 64-row tile at 11 and 12 tokens; 2047 and 2001 envs
     # leave the last tile ragged
     for name, D, H, T, B in (("kitchen", 360, 6, 11, 2047), ("block_push", 240, 12, 12, 2001)):
-        p, _ = random_layer(D, H, 2, gen, device)
-        x = _bf16(gen, B, T, D, device=device)
+        p, _ = random_layer(D, H, 2, gen, device, dtype)
+        x = rand(B, T, D)
         got = fl.fused_layer(x, p, n_heads=H)
         ref = fl.fused_layer_reference(x, p, n_heads=H)
         torch.cuda.synchronize()
@@ -491,23 +559,23 @@ def check_other_layers(device, gen):
     # B3 on sigma row 2, and B1 on the same row
     for name, D, H, P, T2, B in (("kitchen", 360, 6, 3, 8, 1999),
                                  ("block_push", 240, 12, 2, 10, 2000)):
-        p, _ = random_layer(D, H, 2, gen, device)
-        x = _bf16(gen, B, T2, D, device=device)
-        pk, pv = _bf16(gen, 3, B, P, D, device=device), _bf16(gen, 3, B, P, D, device=device)
+        p, _ = random_layer(D, H, 2, gen, device, dtype)
+        x = rand(B, T2, D)
+        pk, pv = rand(3, B, P, D), rand(3, B, P, D)
         idx = torch.tensor([2], dtype=torch.int32, device=device)
         got = fl.fused_layer_with_prefix(x, pk[2], pv[2], p, n_heads=H)
         ref = fl.fused_layer_with_prefix_reference(x, pk[2], pv[2], p, n_heads=H)
         b1 = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H)
         torch.cuda.synchronize()
         check("fused_layer_with_prefix", f"B3 {name} B={B} P={P} 2T={T2}", got, ref)
-        _same_bits(f"B3 {name} vs B1 on row 2", got, b1)
+        _same_bits(f"{tag} B3 {name} vs B1 on row 2", got, b1)
     # B2: groups of 2 and 4 layers (4 does not divide 6), epilogue off/on
     D, H, P, T2, S, M, B = 360, 6, 3, 8, 3, 9, 1999
-    made = [random_layer(D, H, M, gen, device) for _ in range(4)]
+    made = [random_layer(D, H, M, gen, device, dtype) for _ in range(4)]
     layers, epi = [m[0] for m in made], made[-1][1]
-    pks = [_bf16(gen, S, B, P, D, device=device) for _ in range(4)]
-    pvs = [_bf16(gen, S, B, P, D, device=device) for _ in range(4)]
-    x = _bf16(gen, B, T2, D, device=device)
+    pks = [rand(S, B, P, D) for _ in range(4)]
+    pvs = [rand(S, B, P, D) for _ in range(4)]
+    x = rand(B, T2, D)
     idx = torch.tensor([1], dtype=torch.int32, device=device)
     for n in (2, 4):
         for e in (None, epi):
@@ -524,25 +592,28 @@ def check_other_layers(device, gen):
             torch.cuda.synchronize()
             outs = [(got, ref, chain)] if e is None else list(zip(got, ref, chain))
             for what, (g_, r_, c_) in zip(("out", "pred"), outs):
-                tag = f"B2 group {n} epilogue={e is not None} {what}"
-                check("fused_layers_prefix_group", tag, g_, r_)
-                _same_bits(f"{tag} vs {n} B1 launches", g_, c_)
+                what = f"B2 group {n} epilogue={e is not None} {what}"
+                check("fused_layers_prefix_group", what, g_, r_)
+                _same_bits(f"{tag} {what} vs {n} B1 launches", g_, c_)
     return err
 
 
-def time_other_layers(B, device, gen):
-    """Phase 8 timing at the kitchen serving shape (B rows, D=360): B4 over
-    11 tokens, B3 over 8 (and with its two row copies), B2 with a group of
-    2 against two B1 launches; (kernel ms, plain ms) each."""
+def time_other_layers(B, device, gen, dtype=None):
+    """Phase 8 timing at the kitchen serving shape (B rows, D=360) in
+    `dtype` (bf16 unless given): B4 over 11 tokens, B3 over 8 (and with its
+    two row copies), B2 with a group of 2 against two B1 launches; (kernel
+    ms, plain ms) each."""
     import torch
 
     from beso_tpu_torch.ops import fused_layer as fl
 
     D, H = 360, 6
-    (p1, _), (p2, _) = random_layer(D, H, 9, gen, device), random_layer(D, H, 9, gen, device)
-    x11, x8 = _bf16(gen, B, 11, D, device=device), _bf16(gen, B, 8, D, device=device)
-    pk = [_bf16(gen, 3, B, 3, D, device=device) for _ in range(2)]
-    pv = [_bf16(gen, 3, B, 3, D, device=device) for _ in range(2)]
+    (p1, _), (p2, _) = (random_layer(D, H, 9, gen, device, dtype),
+                        random_layer(D, H, 9, gen, device, dtype))
+    x11 = _rand(gen, B, 11, D, device=device, dtype=dtype)
+    x8 = _rand(gen, B, 8, D, device=device, dtype=dtype)
+    pk = [_rand(gen, 3, B, 3, D, device=device, dtype=dtype) for _ in range(2)]
+    pv = [_rand(gen, 3, B, 3, D, device=device, dtype=dtype) for _ in range(2)]
     idx = torch.tensor([1], dtype=torch.int32, device=device)
     row = idx.long()
 
@@ -574,10 +645,10 @@ def time_other_layers(B, device, gen):
             for name, (k, pl) in cases.items()}
 
 
-def check_full_engine(den, device, B, gen, label):
+def check_full_engine(den, device, B, gen, label, frac=ERR_FRACTION):
     """Phase 9: `make_fused_denoise_fn` (B4) against the plain GCDenoiser
     forward, three grid sigmas and one off-grid, with and without zeroed
-    goals. Returns the largest max |diff|."""
+    goals, within frac of max |ref|. Returns the largest max |diff|."""
     import torch
 
     from beso_tpu_torch.core.schedules import get_noise_schedule
@@ -599,13 +670,14 @@ def check_full_engine(den, device, B, gen, label):
                 fail(f"make_fused_denoise_fn returned shape {tuple(got.shape)}")
             worst = max(worst, _rel_check(
                 f"{label} sigma={sg:.6g} uncond={uncond}: fused (B4) vs plain forward",
-                got, ref, ERR_FRACTION))
+                got, ref, frac))
     return worst
 
 
-def check_cached_forms(den, device, B, gen):
+def check_cached_forms(den, device, B, gen, frac=ERR_FRACTION):
     """Phase 9: the fused_cached engine with token_lanes=False (B3) and with
-    layer_group 2 and 4 (B2) against the default form (B1), every grid sigma."""
+    layer_group 2 and 4 (B2) against the default form (B1), every grid
+    sigma, within frac of max |ref|."""
     import torch
 
     from beso_tpu_torch.core.schedules import get_noise_schedule
@@ -625,9 +697,9 @@ def check_cached_forms(den, device, B, gen):
         for sg in grid:
             sig = torch.full((B,), float(sg), device=device)
             got, ref = dn(s, a, g, sig), base(s, a, g, sig)
-            _rel_check(f"{label} sigma={float(sg):.6g} vs default fused_cached "
-                       f"({'bit-equal' if torch.equal(got, ref) else 'not bit-equal'})",
-                       got, ref, ERR_FRACTION)
+            same = "bit-equal" if torch.equal(got, ref) else "not bit-equal"
+            _rel_check(f"{str(m.dtype)[6:]} {label} sigma={float(sg):.6g} vs default "
+                       f"fused_cached ({same})", got, ref, frac)
 
 
 def run_engine_rollout(den, policy_kw, scale_data, device, engine, expect, card):
@@ -670,36 +742,9 @@ def build_model(model_kw, device, seed, dtype=None):
     return GCDenoiser(model, sigma_data=0.5)
 
 
-def check_f32_refused(model_kw, policy_kw, scale_data, device):
-    """The rollout factory for `fused_cached` on an f32 kitchen model raises
-    TypeError when it is built, and no fused-layer kernel launches."""
-    import torch
-
-    from beso_tpu_torch.agents.policy import PolicyConfig
-    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
-    from beso_tpu_torch.models import fit_scaler, make_rollout_denoise_factory
-    from beso_tpu_torch.ops import fused_layer as fl
-
-    den = build_model(model_kw, device, seed=8, dtype=torch.float32)
-    data = synthetic_kitchen_data(n_traj=32, t_max=60)
-    scaler = fit_scaler(data.all_observations(), data.all_actions(), scale_data=scale_data,
-                        device=device)
-    counters = (fl.fused_layer_prefix, fl.fused_layers_prefix_group,
-                fl.fused_layer_with_prefix, fl.fused_layer)
-    before = [c.launches for c in counters]
-    try:
-        make_rollout_denoise_factory(den, scaler, PolicyConfig(**policy_kw),
-                                     engine="fused_cached")
-    except TypeError as e:
-        print(f"  f32 kitchen model, fused_cached factory: TypeError at build ({e})")
-    else:
-        fail("the fused_cached factory was built on an f32 model on the card")
-    if [c.launches for c in counters] != before:
-        fail("a fused-layer kernel launched before the f32 model was refused")
-
-
-def check_engine(den, device, B, gen):
-    """fused_cached vs cached engine on the same inputs, every grid sigma."""
+def check_engine(den, device, B, gen, frac=ERR_FRACTION):
+    """fused_cached vs cached engine on the same inputs, every grid sigma,
+    within frac of max |cached|, in the model's dtype."""
     import torch
 
     from beso_tpu_torch.core.schedules import get_noise_schedule
@@ -719,9 +764,9 @@ def check_engine(den, device, B, gen):
         sig = torch.full((B,), float(sg), device=device)
         got, ref = fused(s, a, g, sig), plain(s, a, g, sig)
         err = (got - ref).abs().max().item()
-        lim = ERR_FRACTION * ref.abs().max().item()
+        lim = frac * ref.abs().max().item()
         ok = math.isfinite(err) and err <= lim and got.shape == (B, T, m.action_dim)
-        print(f"  sigma={float(sg):.6g}: max|fused - cached| {err:.6g} "
+        print(f"  {str(m.dtype)[6:]} sigma={float(sg):.6g}: max|fused - cached| {err:.6g} "
               f"(limit {lim:.6g}, max|cached| {ref.abs().max().item():.6g}) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -857,8 +902,8 @@ def backward_kernels(device, gen):
 
     from beso_tpu_torch.ops import flash_attention as fa
 
-    leaves = [_bf16(gen, *CHUNKED_SHAPE, device=device).requires_grad_() for _ in range(3)]
-    do = _bf16(gen, *CHUNKED_SHAPE, device=device)
+    leaves = [_rand(gen, *CHUNKED_SHAPE, device=device).requires_grad_() for _ in range(3)]
+    do = _rand(gen, *CHUNKED_SHAPE, device=device)
     fa.flash_attention(*leaves).backward(do)   # warm-up
     for t in leaves:
         t.grad = None
@@ -872,15 +917,15 @@ def backward_kernels(device, gen):
     return names or None
 
 
-def time_flash(device, gen, dtype):
-    """Kernel and plain-version ms at the chunked shape in `dtype`: each
-    kernel, the backward total (dQ with delta, then dK/dV on that delta) and
-    forward + backward."""
+def time_flash(device, gen, dtype, shape=CHUNKED_SHAPE):
+    """Kernel and plain-version ms at `shape` in `dtype`: each kernel, the
+    backward total (dQ with delta, then dK/dV on that delta) and forward +
+    backward."""
     import torch
 
     from beso_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = (torch.randn(*CHUNKED_SHAPE, generator=gen).to(device, dtype)
+    q, k, v, do = (torch.randn(*shape, generator=gen).to(device, dtype)
                    for _ in range(4))
     o, lse = fa.flash_forward_reference(q, k, v)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -913,10 +958,10 @@ def time_flash(device, gen, dtype):
             for name, (kern, plain) in t.items()}
 
 
-def check_model_grads(device, seed, dtype, B=64):
-    """Loss and gradients of the chunked model computing in `dtype` under
-    attention="broadcast" and "pallas", same state, inputs and goal mask:
-    {impl: (loss, grads)}."""
+def check_model_grads(device, seed, dtype, B=64, n_heads=None):
+    """Loss and gradients of the chunked model computing in `dtype` (with
+    `n_heads` heads if given) under attention="broadcast" and "pallas", same
+    state, inputs and goal mask: {impl: (loss, grads)}."""
     import torch
 
     from beso_tpu_torch.core.densities import make_sample_density
@@ -926,7 +971,8 @@ def check_model_grads(device, seed, dtype, B=64):
     gen = torch.Generator().manual_seed(seed)
     model = DiffusionGPT(
         state_dim=c["obs_dim"], action_dim=c["action_dim"], embed_dim=c["hidden_dim"],
-        n_layers=c["n_layers"], n_heads=c["n_heads"], goal_seq_len=c["goal_seq_len"],
+        n_layers=c["n_layers"], n_heads=n_heads or c["n_heads"],
+        goal_seq_len=c["goal_seq_len"],
         obs_seq_len=c["window_size"], cond_mask_prob=c["cond_mask_prob"],
         dtype=dtype, generator=gen).to(device)
     den = GCDenoiser(model, sigma_data=c["sigma_data"])
@@ -969,6 +1015,72 @@ def run_training(device, seed, writer):
     return ws, agent
 
 
+def run_f32_main_path(device, card):
+    """Phase 11, the shipped kitchen config as shipped: relay-kitchen files
+    written by `export_relay_kitchen` (synthetic trajectories), loaded by
+    `FrankaKitchenWorkspace(data_path=...)`; an f32 BesoAgent trained
+    MAIN_TRAIN_STEPS steps; then the workspace's multigoal evaluation, N_ENVS
+    envs x N_STEPS steps on the agent's `fused_cached` engine in f32, with
+    every fused-layer counter set to 0 just before it and read just after.
+    Returns the counts."""
+    import torch
+
+    from beso_tpu_torch.agents.beso_agent import BesoAgent, BesoAgentConfig
+    from beso_tpu_torch.data.export import export_relay_kitchen
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.ops import fused_layer as fl
+    from beso_tpu_torch.workspaces import FrankaKitchenWorkspace
+
+    data_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_relay_kitchen"
+    export_relay_kitchen(synthetic_kitchen_data(n_traj=64, t_max=120, seed=11), data_dir)
+    ws = FrankaKitchenWorkspace(seed=42, data_path=str(data_dir),   # seed: 42 (:6)
+                                eval_n_times=N_ENVS,        # eval_n_times: 100 (:59), raised
+                                eval_n_steps=N_STEPS,       # eval_n_steps: 280 (:60)
+                                scale_data=False,           # scale_data: false (:7)
+                                window_size=4, goal_seq_len=2,
+                                train_fraction=0.95,        # train_fraction: 0.95 (:61)
+                                device=device)
+    print(f"  data_path {data_dir.name}: {ws.full_data.num_trajectories} trajectories, "
+          f"{len(ws.train_set)} train / {len(ws.test_set)} test windows")
+    records = Records()
+    agent = BesoAgent(BesoAgentConfig(**kitchen_agent_config()), ws.scaler,
+                      metrics_writer=records, device=device)
+    agent.init(torch.Generator().manual_seed(12))
+    if agent.denoiser.inner_model.dtype != torch.float32:
+        fail("the shipped kitchen config did not build an f32 model")
+    agent.train_agent(ws.train_set, ws.test_set, torch.Generator(device).manual_seed(13))
+    torch.cuda.synchronize()
+    losses = [r[k] for r in records.rows for k in ("loss", "test_loss") if k in r]
+    print(f"  {MAIN_TRAIN_STEPS} f32 train steps at batch {agent.cfg.train_batch_size}: "
+          f"losses {losses}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail("an f32 training loss is not finite")
+    counters = (fl.fused_layer_prefix, fl.fused_layers_prefix_group,
+                fl.fused_layer_with_prefix, fl.fused_layer)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    mg = ws.test_agent(agent, generator=torch.Generator(device).manual_seed(14),
+                       log_metrics=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: 0 for c in counters}
+    want["fused_layer_prefix"] = N_STEPS * NFE * N_LAYERS
+    print(f"  launches: {counts} (expected {want})")
+    if counts != want:
+        fail(f"the f32 evaluation launched the fused-layer kernels {counts}, not {want}")
+    finite = [k for k in ("avrg_reward", "std_reward", "avrg_result", "std_result")
+              if not math.isfinite(mg[k])]
+    if finite or not all(math.isfinite(mg[f"success_rate_{k}"]) for k in range(1, 6)):
+        fail(f"the f32 evaluation's metrics are not finite ({finite})")
+    print(f"  multigoal evaluation, {N_ENVS} envs x {N_STEPS} steps on fused_cached (f32): "
+          f"avrg_reward {mg['avrg_reward']:.4f}, avrg_result {mg['avrg_result']:.4f}; wall "
+          f"{wall:.3f} s, {N_ENVS * N_STEPS / wall:.1f} env-steps/s (informational; "
+          f"{card})")
+    return counts
+
+
 class Records:
     """In-memory metrics writer: keeps every record the trainer logs."""
 
@@ -1007,45 +1119,65 @@ def main() -> None:
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     so = build.build_kernels()
-    print(f"[1] build: {so.name} in {time.perf_counter() - t0:.1f} s")
+    print(f"[1] ({since_start()}) build: {so.name} in {time.perf_counter() - t0:.1f} s")
     log = so.with_suffix(".log")
     report = ptxas_report(log.read_text()) if log.exists() else {}
     for name, props in report.items():
         print(f"  ptxas {name}: {props}")
-    flash_bf16 = {n: p for n, p in report.items() if n.startswith("flash_") and "bfloat16" in n}
+    # the width-64 bf16 instantiations (template argument 64: "Li64E") may
+    # not spill; the width-128 and f32 ones may
+    flash_bf16 = {n: p for n, p in report.items()
+                  if n.startswith("flash_") and "bfloat16" in n and "Li64E" in n}
     if not any(n.startswith("flash_fwd") for n in flash_bf16):
         fail("ptxas reported no bf16 flash forward")
     spilled = [n for n, p in flash_bf16.items() if spill_bytes(p)]
     if spilled:
         fail(f"bf16 flash kernels spill: {spilled}")
     hgmma = sass_counts(so, "fused_layer_prefix_kernel", "HGMMA")
-    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions: {hgmma}")
+    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the bf16 fused layer: {hgmma}")
     if len(hgmma) != 3 or not all(hgmma.values()):
         fail("the fused-layer kernel's instantiations do not all run their products on wgmma")
+    hmma = sass_counts(so, "fused_layer_f32_kernel", "HMMA")
+    print(f"  cuobjdump -sass, HMMA (mma.sync) instructions of the f32 fused layer: {hmma}")
+    if len(hmma) != 2 or not all(hmma.values()):
+        fail("the f32 fused-layer kernel's instantiations do not run their products on "
+             "the tensor cores")
 
     # ---- 2. kernel against its plain version -----------------------------
-    print("[2] kernel vs plain version (bf16)")
+    print(f"[2] ({since_start()}) kernel vs plain version (bf16, then f32)")
     gen = torch.Generator().manual_seed(0)
     # batches that leave the last 64-row tile part-filled: 1999 envs of 8
-    # tokens (8 envs per tile), 2000 envs of 10 tokens (6 envs per tile)
+    # tokens (8 envs per tile), 2000 envs of 10 tokens (6 envs per tile);
+    # in f32 (32-row tiles, 4 and 3 envs) both leave the last tile part-filled too
     err = max(check_kernel("kitchen", 360, 6, 3, 8, 3, 9, 1999, device, gen),
               check_kernel("block_push", 240, 12, 2, 10, 3, 2, 2000, device, gen))
+    err_f32 = max(check_kernel("kitchen", 360, 6, 3, 8, 3, 9, 1999, device, gen,
+                               torch.float32, F32_FRACTION),
+                  check_kernel("block_push", 240, 12, 2, 10, 3, 2, 2000, device, gen,
+                               torch.float32, F32_FRACTION))
     B_serve = 2 * N_ENVS  # lambda=1.5 CFG stacks [cond, uncond]
     ms, plain_ms = time_kernel(B_serve, device, gen)
     print(f"  time at the kitchen serving shape (B={B_serve}, 2T=8, D=360): "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer ({card})")
+    ms_f32, plain_ms_f32 = time_kernel(B_serve, device, gen, torch.float32)
+    gemm_b1_f32 = time_layer_gemms(B_serve * 8, 360, device, gen, dtype=torch.float32)
+    print(f"  f32 at the same shape: kernel {ms_f32:.4f} ms, plain {plain_ms_f32:.4f} ms, "
+          f"f32 torch.matmul of its four products (TF32 off) {gemm_b1_f32:.4f} ms ({card})")
     phases = phase_split(B_serve, device, gen)
     print(f"  phase split: {json.dumps({k: round(v) for k, v in phases.items()})}")
 
     # ---- 3. engine parity -------------------------------------------------
-    print("[3] fused_cached vs cached engine (kitchen model, bf16)")
+    print(f"[3] ({since_start()}) fused_cached vs cached engine (kitchen model, bf16, "
+          f"then f32)")
     model_kw, policy_kw, scale_data = kitchen_config()
     den = build_model(model_kw, device, seed=0)
     check_engine(den, device, 256, gen)
-    check_f32_refused(model_kw, policy_kw, scale_data, device)
+    den32 = build_model(model_kw, device, seed=8, dtype=torch.float32)
+    check_engine(den32, device, 256, gen, F32_ENGINE_FRACTION)
 
     # ---- 4. main path -----------------------------------------------------
-    print(f"[4] kitchen rollout: {N_ENVS} envs x {N_STEPS} steps, fused_cached")
+    print(f"[4] ({since_start()}) kitchen rollout: {N_ENVS} envs x {N_STEPS} steps, "
+          f"fused_cached")
     run_rollout(den, policy_kw, scale_data, N_ENVS, 2, device, seed=1)  # warm-up
     torch.cuda.synchronize()
     fl.fused_layer_prefix.launches = 0
@@ -1067,16 +1199,19 @@ def main() -> None:
     # ---- 5. flash kernels against their plain versions --------------------
     from beso_tpu_torch.ops import flash_attention as fa
 
-    print("[5] flash kernels vs plain versions (bf16, then f32)")
+    print(f"[5] ({since_start()}) flash kernels vs plain versions (bf16, then f32)")
     flash_err = {}
     for dtype, frac, suffix in ((torch.bfloat16, ERR_FRACTION, ""),
                                 (torch.float32, F32_FRACTION, "_f32")):
         for shape, causal in FLASH_SHAPES:
+            width = "_hd128" if shape[3] > 64 else ""
             for k, e in check_flash(*shape, causal, device, gen, dtype, frac).items():
-                flash_err[k + suffix] = max(flash_err.get(k + suffix, 0.0), e)
+                key = k + width + suffix
+                flash_err[key] = max(flash_err.get(key, 0.0), e)
     for dtype in (torch.bfloat16, torch.float32):
-        print(f"  resident blocks per SM, {dtype} (occupancy calculator): "
-              f"{fa.blocks_per_sm(dtype)}")
+        for hd in (64, 128):
+            print(f"  resident blocks per SM, {dtype}, tile width {hd} (occupancy "
+                  f"calculator): {fa.blocks_per_sm(dtype, hd)}")
     bwd_kernels = backward_kernels(device, gen)
     print(f"  device kernels of one autograd backward: "
           f"{bwd_kernels if bwd_kernels is not None else 'not measured'}")
@@ -1105,16 +1240,29 @@ def main() -> None:
               f"{fwd_k / fwd_ms:.3f}x; backward total (dQ with delta + dK/dV) {bwd_k:.4f} ms "
               f"against SDPA's backward {bwd_ms_sdpa:.4f} ms: {bwd_k / bwd_ms_sdpa:.3f}x; "
               f"{100 * bwd_bound / bwd_k:.1f}% of its {bwd_bound:.4f} ms bound ({card})")
+        # the width-128 instantiations at WIDE_SHAPE, beside SDPA there
+        for name, (ms_k, ms_p) in time_flash(device, gen, dtype, WIDE_SHAPE).items():
+            flash_ms[name + "_hd128" + suffix] = (ms_k, ms_p)
+            print(f"  time {name} at {list(WIDE_SHAPE)} {tag}: kernel {ms_k:.4f} ms, "
+                  f"plain {ms_p:.4f} ms ({card})")
+        fwd_w, bwd_w, kern_w = time_sdpa(device, gen, dtype, WIDE_SHAPE)
+        sdpa_ms["_hd128" + suffix] = (fwd_w, bwd_w)
+        print(f"  yardstick SDPA at {list(WIDE_SHAPE)} {tag}: forward {fwd_w:.4f} ms, backward "
+              f"{bwd_w:.4f} ms; kernels: {kern_w} ({card})")
 
     # ---- 6. model-level: flash kernels vs broadcast -----------------------
     counts_by_dtype = {}
-    for dtype, loss_frac, grad_frac in (
-            (torch.bfloat16, MODEL_LOSS_FRACTION, MODEL_GRAD_FRACTION),
-            (torch.float32, MODEL_LOSS_FRACTION_F32, MODEL_GRAD_FRACTION_F32)):
-        print(f"[6] chunked model, loss and gradients: attention=pallas vs broadcast ({dtype})")
+    for heads, dtype, loss_frac, grad_frac in (
+            (None, torch.bfloat16, MODEL_LOSS_FRACTION, MODEL_GRAD_FRACTION),
+            (None, torch.float32, MODEL_LOSS_FRACTION_F32, MODEL_GRAD_FRACTION_F32),
+            (WIDE_HEADS, torch.bfloat16, MODEL_LOSS_FRACTION, MODEL_GRAD_FRACTION),
+            (WIDE_HEADS, torch.float32, MODEL_LOSS_FRACTION_F32, MODEL_GRAD_FRACTION_F32)):
+        print(f"[6] ({since_start()}) chunked model"
+              f"{f' at {heads} heads (hd 120)' if heads else ''}, loss and gradients: "
+              f"attention=pallas vs broadcast ({dtype})")
         for f in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv):
             f.launches = 0
-        res = check_model_grads(device, seed=3, dtype=dtype)
+        res = check_model_grads(device, seed=3, dtype=dtype, n_heads=heads)
         torch.cuda.synchronize()
         flash_counts = {f.__name__: f.launches
                         for f in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)}
@@ -1128,10 +1276,11 @@ def main() -> None:
             fail(f"gradient of {worst[1]} with the flash kernels disagrees with broadcast")
         if flash_counts != dict.fromkeys(flash_counts, N_LAYERS):
             fail(f"the pallas form launched the flash kernels {flash_counts}, not {N_LAYERS} each")
-        counts_by_dtype[dtype] = flash_counts
+        counts_by_dtype[heads, dtype] = flash_counts
 
     # ---- 7. main path: training -------------------------------------------
-    print(f"[7] chunked kitchen training: {TRAIN_STEPS} steps x batch {TRAIN_BATCH}, "
+    print(f"[7] ({since_start()}) chunked kitchen training: {TRAIN_STEPS} steps x batch "
+          f"{TRAIN_BATCH}, "
           f"evaluation every {EVAL_EVERY}")
     records = Records()
     ws, agent = run_training(device, seed=4, writer=records)
@@ -1180,86 +1329,131 @@ def main() -> None:
           f"cached engine: avrg_reward {mg['avrg_reward']:.4f}")
 
     # ---- 8. fused-layer kernels B2, B3, B4 against their plain versions ---
-    print("[8] fused-layer kernels B4, B3, B2 vs plain versions (bf16)")
+    print(f"[8] ({since_start()}) fused-layer kernels B4, B3, B2 vs plain versions "
+          f"(bf16, then f32)")
     layer_err = check_other_layers(device, gen)
+    layer_err.update({k + "_f32": e for k, e in check_other_layers(
+        device, gen, torch.float32, F32_FRACTION).items()})
     layer_ms = time_other_layers(B_serve, device, gen)
+    layer_ms.update({k + "_f32": t for k, t in time_other_layers(
+        B_serve, device, gen, torch.float32).items()})
     for name, (ms_k, ms_p) in layer_ms.items():
         print(f"  time {name} at B={B_serve}, D=360: kernel {ms_k:.4f} ms, "
               f"plain {ms_p:.4f} ms ({card})")
-    # the four products of each form as bf16 torch.matmul (information only)
-    gemm_ms = {"fused_layer_prefix": time_layer_gemms(B_serve * 8, 360, device, gen),
-               "fused_layers_prefix_group": time_layer_gemms(B_serve * 8, 360, device, gen, 2),
-               "fused_layer": time_layer_gemms(B_serve * 11, 360, device, gen)}
-    gemm_ms["fused_layer_with_prefix"] = gemm_ms["fused_layer_prefix"]
+    # the four products of each form as torch.matmul in the same dtype
+    # (information only; f32 with TF32 off)
+    gemm_ms = {}
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        gemm_ms.update({
+            "fused_layer_prefix" + suffix: time_layer_gemms(B_serve * 8, 360, device, gen,
+                                                            dtype=dtype),
+            "fused_layers_prefix_group" + suffix: time_layer_gemms(B_serve * 8, 360, device,
+                                                                   gen, 2, dtype),
+            "fused_layer" + suffix: time_layer_gemms(B_serve * 11, 360, device, gen,
+                                                     dtype=dtype)})
+        gemm_ms["fused_layer_with_prefix" + suffix] = gemm_ms["fused_layer_prefix" + suffix]
     for name, t in gemm_ms.items():
-        print(f"  bf16 torch.matmul of the same products ({name}): {t:.4f} ms ({card})")
+        print(f"  torch.matmul of the same products ({name}): {t:.4f} ms ({card})")
 
     # ---- 9. the other engine forms against plain forwards -----------------
-    print("[9] make_fused_denoise_fn vs plain forward; fused_cached forms vs default (bf16)")
+    print(f"[9] ({since_start()}) make_fused_denoise_fn vs plain forward; fused_cached "
+          f"forms vs default "
+          "(bf16, then f32)")
     check_full_engine(den, device, 256, gen, "linear head")
     den_mlp = build_model({**model_kw, "linear_output": False}, device, seed=7)
     check_full_engine(den_mlp, device, 256, gen, "MLP head")
     check_cached_forms(den, device, 256, gen)
+    check_full_engine(den32, device, 256, gen, "f32 linear head", F32_ENGINE_FRACTION)
+    den32_mlp = build_model({**model_kw, "linear_output": False}, device, seed=9,
+                            dtype=torch.float32)
+    check_full_engine(den32_mlp, device, 256, gen, "f32 MLP head", F32_ENGINE_FRACTION)
+    check_cached_forms(den32, device, 256, gen, F32_ENGINE_FRACTION)
 
     # ---- 10. main paths of the other engine forms -------------------------
     calls = ROLLOUT_STEPS * NFE
-    print(f"[10a] kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} steps, fused_cached, "
-          f"BESO_LAYER_GROUP=2")
-    os.environ["BESO_LAYER_GROUP"] = "2"
-    try:
-        group_counts = run_engine_rollout(
-            den, policy_kw, scale_data, device, "fused_cached",
-            {"fused_layers_prefix_group": calls * -(-N_LAYERS // 2)}, card)
-    finally:
-        del os.environ["BESO_LAYER_GROUP"]
-    print(f"[10b] kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} steps, fused_cached, "
-          f"token_lanes=False")
-    b3_counts = run_engine_rollout(den, policy_kw, scale_data, device, "token_lanes_false",
-                                   {"fused_layer_with_prefix": calls * N_LAYERS}, card)
-    print(f"[10c] kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} steps, "
-          f"make_fused_denoise_fn (no cache)")
-    b4_counts = run_engine_rollout(den, policy_kw, scale_data, device, "uncached",
-                                   {"fused_layer": calls * N_LAYERS}, card)
+    form_counts = {}
+    for model, suffix in ((den, ""), (den32, "_f32")):
+        tag = str(model.inner_model.dtype)[6:]
+        print(f"[10a] ({since_start()}) kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} "
+              f"steps, fused_cached, "
+              f"BESO_LAYER_GROUP=2 ({tag})")
+        os.environ["BESO_LAYER_GROUP"] = "2"
+        try:
+            counts_a = run_engine_rollout(
+                model, policy_kw, scale_data, device, "fused_cached",
+                {"fused_layers_prefix_group": calls * -(-N_LAYERS // 2)}, card)
+        finally:
+            del os.environ["BESO_LAYER_GROUP"]
+        print(f"[10b] ({since_start()}) kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} "
+              f"steps, fused_cached, "
+              f"token_lanes=False ({tag})")
+        counts_b = run_engine_rollout(model, policy_kw, scale_data, device, "token_lanes_false",
+                                      {"fused_layer_with_prefix": calls * N_LAYERS}, card)
+        print(f"[10c] ({since_start()}) kitchen rollout: {N_ENVS} envs x {ROLLOUT_STEPS} "
+              f"steps, "
+              f"make_fused_denoise_fn (no cache) ({tag})")
+        counts_c = run_engine_rollout(model, policy_kw, scale_data, device, "uncached",
+                                      {"fused_layer": calls * N_LAYERS}, card)
+        form_counts.update({"fused_layers_prefix_group" + suffix:
+                            counts_a["fused_layers_prefix_group"],
+                            "fused_layer_with_prefix" + suffix:
+                            counts_b["fused_layer_with_prefix"],
+                            "fused_layer" + suffix: counts_c["fused_layer"]})
+
+    # ---- 11. main path: the shipped kitchen config as shipped (f32) -------
+    print(f"[11] ({since_start()}) shipped kitchen config (f32) from data_path files: "
+          f"{MAIN_TRAIN_STEPS} train "
+          f"steps, then a {N_ENVS}-env x {N_STEPS}-step multigoal evaluation on fused_cached")
+    f32_counts = run_f32_main_path(device, card)
 
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
-    # B2 a group of 2; B4 2048 x 11 tokens, P=0; the flash kernels at the
-    # chunked shape, bf16 and f32 (f32 operations as three bf16 products
-    # each, PEAK_F32_BF16X3_FLOPS). library_ms: one PyTorch call computing the
-    # same function in the same dtype, where there is one (SDPA for B5; for
-    # both B6 kernels SDPA's whole backward, forward + backward minus
-    # forward).
-    work = {"fused_layer_prefix": layer_work(B_serve, 8, 360, 3),
-            "fused_layer_with_prefix": layer_work(B_serve, 8, 360, 3),
-            "fused_layers_prefix_group": layer_work(B_serve, 8, 360, 3, n_layers=2),
-            "fused_layer": layer_work(B_serve, 11, 360, 0)}
-    library_ms = {}
+    # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash
+    # kernels at the chunked shape and their width-128 instantiations at
+    # WIDE_SHAPE, bf16 and f32 (f32 operations as three bf16 products each,
+    # PEAK_F32_BF16X3_FLOPS; f32 bytes at 4 per element). library_ms: one
+    # PyTorch call computing the same function in the same dtype, where
+    # there is one (SDPA for B5; for both B6 kernels SDPA's whole backward,
+    # forward + backward minus forward). Launches: bf16 B1 on phase 4, f32 B1
+    # on phase 11, B2-B4 on phase 10, the flash kernels on phase 7 (bf16) and
+    # phase 6 (f32, and the 3-head model for the width-128 ones).
+    work, library_ms = {}, {}
     for suffix, elem in (("", 2), ("_f32", 4)):
-        work.update({name + suffix: flash_work(name, *CHUNKED_SHAPE, elem=elem)
-                     for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")})
-        library_ms.update({"flash_forward" + suffix: sdpa_ms[suffix][0],
-                           "flash_backward_dq" + suffix: sdpa_ms[suffix][1],
-                           "flash_backward_dkv" + suffix: sdpa_ms[suffix][1]})
+        work.update({"fused_layer_prefix" + suffix: layer_work(B_serve, 8, 360, 3, elem=elem),
+                     "fused_layer_with_prefix" + suffix: layer_work(B_serve, 8, 360, 3,
+                                                                    elem=elem),
+                     "fused_layers_prefix_group" + suffix: layer_work(B_serve, 8, 360, 3, 2,
+                                                                      elem),
+                     "fused_layer" + suffix: layer_work(B_serve, 11, 360, 0, elem=elem)})
+        for width, shape in (("", CHUNKED_SHAPE), ("_hd128", WIDE_SHAPE)):
+            work.update({name + width + suffix: flash_work(name, *shape, elem=elem)
+                         for name in ("flash_forward", "flash_backward_dq",
+                                      "flash_backward_dkv")})
+            fwd_l, bwd_l = sdpa_ms[width + suffix]
+            library_ms.update({"flash_forward" + width + suffix: fwd_l,
+                               "flash_backward_dq" + width + suffix: bwd_l,
+                               "flash_backward_dkv" + width + suffix: bwd_l})
     layer_src = "beso_tpu_torch/csrc/fused_layer_prefix.cu"
+    f32_src = "beso_tpu_torch/csrc/fused_layer_f32.cu"
     entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618", launches,
                 err, ms, plain_ms),
-               ("fused_layers_prefix_group", layer_src, "beso_tpu/ops/fused_layer.py:488",
-                group_counts["fused_layers_prefix_group"],
-                layer_err["fused_layers_prefix_group"], *layer_ms["fused_layers_prefix_group"]),
-               ("fused_layer_with_prefix", layer_src, "beso_tpu/ops/fused_layer.py:258",
-                b3_counts["fused_layer_with_prefix"], layer_err["fused_layer_with_prefix"],
-                *layer_ms["fused_layer_with_prefix"]),
-               ("fused_layer", layer_src, "beso_tpu/ops/fused_layer.py:298",
-                b4_counts["fused_layer"], layer_err["fused_layer"], *layer_ms["fused_layer"])]
+               ("fused_layer_prefix_f32", f32_src, "beso_tpu/ops/fused_layer.py:618",
+                f32_counts["fused_layer_prefix"], err_f32, ms_f32, plain_ms_f32)]
+    for name, line in (("fused_layers_prefix_group", 488), ("fused_layer_with_prefix", 258),
+                       ("fused_layer", 298)):
+        for suffix, src in (("", layer_src), ("_f32", f32_src)):
+            entries.append((name + suffix, src, f"beso_tpu/ops/fused_layer.py:{line}",
+                            form_counts[name + suffix], layer_err[name + suffix],
+                            *layer_ms[name + suffix]))
+    gemm_ms["fused_layer_prefix_f32"] = gemm_b1_f32
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
-    for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
-                       ("flash_backward_dkv", 112)):
-        entries.append((name, flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
-                        counts[name], flash_err[name], *flash_ms[name]))
-    for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
-                       ("flash_backward_dkv", 112)):
-        entries.append((name + "_f32", flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
-                        counts_by_dtype[torch.float32][name], flash_err[name + "_f32"],
-                        *flash_ms[name + "_f32"]))
+    flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],
+                       "_hd128": counts_by_dtype[WIDE_HEADS, torch.bfloat16],
+                       "_hd128_f32": counts_by_dtype[WIDE_HEADS, torch.float32]}
+    for key, n_of in flash_counts_of.items():
+        for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
+                           ("flash_backward_dkv", 112)):
+            entries.append((name + key, flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
+                            n_of[name], flash_err[name + key], *flash_ms[name + key]))
     kernels = []
     for name, source, replaces, n, e, k_ms, p_ms in entries:
         bound_ms, bound_by = bound(*work[name], PEAK_F32_BF16X3_FLOPS if name.endswith("_f32")

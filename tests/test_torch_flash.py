@@ -90,6 +90,38 @@ def test_backward_kernels_plain_match_jax(T, causal):
                                    err_msg=f"{name} (T={T}, causal={causal})")
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [96, 128])
+def test_wide_heads_plain_match_jax(hd, causal):
+    """Head dims above 64 (the kernels' width-128 instantiations): the plain
+    forward (o, lse) against `_flash_forward`, and the plain dQ (with delta)
+    and dK/dV against `_flash_attention_bwd` (Pallas, interpret mode) on the
+    same forward output, lse and cotangent."""
+    q, k, v, g = _qkv(1, 2, 77, hd, seed=hd + causal, n=4)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                                  True)
+    jdq, jdk, jdv = jfa._flash_attention_bwd(causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                                             True, (jq, jk, jv, jo, jlse), jg)
+    o, lse = fa.flash_forward(t(q), t(k), t(v), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+    o, lse = t(np.asarray(jo)), t(np.asarray(jlse))
+    dq, delta = fa.flash_backward_dq(t(q), t(k), t(v), o, t(g), lse, causal)
+    dk, dv = fa.flash_backward_dkv(t(q), t(k), t(v), t(g), lse, delta, causal)
+    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"{name} (hd={hd}, causal={causal})")
+
+
+def test_head_dim_above_128_raises_before_the_library_loads():
+    """The kernels take head dims up to 128; the check runs before the
+    kernel library is built or loaded, so it needs no card."""
+    q = torch.zeros(1, 1, 4, 129)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa._check("flash_forward", q, q, q, {}, {})
+
+
 def test_backward_pieces_match_autograd_of_plain_attention():
     """The two backward plain versions equal torch autograd through the
     plain forward (dK/dV and dQ of softmax(q k^T / sqrt(hd)) v), and the dQ

@@ -156,7 +156,8 @@ def test_tiles_round_trip_to_padded_weights(D, H):
     """The kernel's tiled copy (`tile_layer_weights`) holds exactly the
     padded weights of FusedLayerParams, chunk by chunk in the kernel's order
     and core-matrix layout, with zeros in all of its own padding; every chunk
-    fits one ring slot; an f32 layer carries no tiles."""
+    fits one ring slot; a layer in a dtype no kernel takes (f64) carries no
+    tiles."""
     p = port_layer(layer_weights(D, seed=43), H, torch.bfloat16)
     hdp, Dp, Fp = p.wqkv.shape[0] // (3 * H), p.wqkv.shape[1], p.wfc.shape[0]
     # first core matrix: head 0's q rows 0-7, columns 0-7, row-major
@@ -181,7 +182,33 @@ def test_tiles_round_trip_to_padded_weights(D, H):
     assert torch.equal(fc[:Fp], p.wfc) and not fc[Fp:].any()
     assert torch.equal(fc2[:Dp, :Fp], p.wfc2)
     assert not fc2[Dp:].any() and not fc2[:, Fp:].any()
-    assert port_layer(layer_weights(D, seed=43), H).tiles is None
+    assert port_layer(layer_weights(D, seed=43), H, torch.float64).tiles is None
+
+
+@pytest.mark.parametrize("D,H", [(360, 6), (240, 12)], ids=["kitchen", "block_push"])
+def test_f32_tiles_reconstruct_padded_weights(D, H):
+    """An f32 layer's tiled copy: each ring chunk is a bf16 hi part then a
+    lo part in the core-matrix layout, the chunks fit the f32 kernel's ring
+    slot, and hi + lo gives back the padded f32 weights within 2^-16 of
+    their largest magnitude, product by product in the kernel's order."""
+    p = port_layer(layer_weights(D, seed=47), H, torch.float32)
+    assert p.wqkv.dtype == torch.float32 and p.tiles.dtype == torch.bfloat16
+    off = 0
+    for wt in fl.layer_products(p, H):
+        N, K = wt.shape
+        cols = []
+        for ks in fl.chunk_steps(N, K // 16, f32=True):
+            n = N * 16 * ks
+            assert 2 * 2 * n <= fl.F32_SLOT_BYTES
+            hi, lo = (p.tiles[off + i * n:off + (i + 1) * n].float()
+                      .reshape(2 * ks, N // 8, 8, 8).permute(1, 2, 0, 3).reshape(N, 16 * ks)
+                      for i in (0, 1))
+            assert torch.equal(hi, hi.bfloat16().float())
+            cols.append(hi + lo)
+            off += 2 * n
+        got = torch.cat(cols, 1)
+        assert (got - wt).abs().max() <= 2 ** -16 * wt.abs().max()
+    assert off == p.tiles.numel()
 
 
 def test_library_path_keyed_by_sources():
