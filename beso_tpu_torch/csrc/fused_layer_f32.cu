@@ -93,6 +93,43 @@ constexpr int MT_QKV = 3 * MAX_HDP / 8 / COL_GROUPS;
 constexpr int MT_FC = FC / 8 / COL_GROUPS;
 constexpr int MT_WIDE = MAX_DP / 8 / COL_GROUPS;
 
+// Phases of the timed instantiation (clock64() cycles summed per block), and
+// PH_RING: the cycles thread 0 waited for a ring slot to fill, held apart
+// from the phase that waited.
+enum Phase { PH_LOAD, PH_LN1, PH_QKV, PH_ATTN, PH_PROJ, PH_LN2, PH_FC, PH_FC2,
+             PH_WRITE, PH_EPI, PH_RING, N_PHASES };
+
+// Per-block phase clock of the timed instantiation; a no-op otherwise.
+// Thread 0 (a consumer) reads clock64() at the phase boundaries and adds the
+// cycles since the previous mark, less its ring waits, to the phase that
+// just ended.
+template <bool kOn>
+struct PhaseClock {
+  long long t = 0, wait = 0, acc[N_PHASES] = {};
+  __device__ __forceinline__ void start() {
+    if (kOn && threadIdx.x == 0) t = clock64();
+  }
+  __device__ __forceinline__ long long now() const {
+    return kOn && threadIdx.x == 0 ? clock64() : 0;
+  }
+  __device__ __forceinline__ void waited(long long since) {
+    if (kOn && threadIdx.x == 0) wait += clock64() - since;
+  }
+  __device__ __forceinline__ void mark(int ph) {
+    if (kOn && threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[ph] += now - t - wait;
+      acc[PH_RING] += wait;
+      wait = 0;
+      t = now;
+    }
+  }
+  __device__ __forceinline__ void store(long long* out) const {
+    if (kOn && threadIdx.x == 0)
+      for (int i = 0; i < N_PHASES; ++i) out[blockIdx.x * N_PHASES + i] = acc[i];
+  }
+};
+
 // One layer's weights, tiled weights and prefix cache; the order of the
 // first twelve is that of `FusedLayerParams` (ops/fused_layer.py).
 struct LayerArgs {
@@ -125,6 +162,7 @@ struct Args {
   const float* bhead;
   float* out;
   float* pred;
+  long long* cycles;  // [blocks, N_PHASES] (timed instantiation only)
   int B, T2, D, H, P, S, F, M;
   int hd, hdp, Dp, Dq, HDp, n_mlp, envs_per_block, key_rows;
   float scale;
@@ -222,9 +260,9 @@ struct Ring {
 // of N rows; A a hi/lo tile pair with rows of lda elements. accumulate ==
 // false starts from zero. Each warp releases a ring slot (one arrival of
 // CONSUMERS / 32) once its products that read the slot are done.
-template <int MT>
-__device__ __forceinline__ void gemm(Ring& ring, float (&acc)[MT][4], const bf16* A, int lda,
-                                     int N, int ksteps, bool accumulate) {
+template <int MT, bool kTimed>
+__device__ __forceinline__ void gemm(Ring& ring, PhaseClock<kTimed>& clk, float (&acc)[MT][4],
+                                     const bf16* A, int lda, int N, int ksteps, bool accumulate) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = 16 * (warp & 1), cg = warp >> 1, nt = N >> 3;
   if (!accumulate) {
@@ -241,7 +279,9 @@ __device__ __forceinline__ void gemm(Ring& ring, float (&acc)[MT][4], const bf16
   for (int k0 = 0; k0 < ksteps; k0 += kpc) {
     const int kn = min(kpc, ksteps - k0);
     const int slot = ring.it % STAGES;
+    const long long w0 = clk.now();
     hopper::mbar_wait(&ring.full[slot], (ring.it / STAGES) & 1);
+    clk.waited(w0);
     const bf16* b = ring.slots + slot * (SLOT_BYTES / 2) + (bj >> 1) * (N * 16 * kn) +
                     (lane & 7) * 8;
     for (int kk = 0; kk < kn; ++kk) {
@@ -337,8 +377,9 @@ __device__ __forceinline__ int key_row(const Args& a, int r) {
 // Head h: the block's prefix K/V into their key rows e (P + T2) + j, then
 // q, k and v of the tile's rows from the QKV product (bias added) into qh
 // and the own key rows.
+template <bool kTimed>
 __device__ __forceinline__ void qkv_head(const Args& a, const LayerArgs& w, Ring& ring,
-                                         const Smem& sm, int h, int nrows, int n_env,
+                                         PhaseClock<kTimed>& clk, const Smem& sm, int h, int nrows, int n_env,
                                          const float* pk0, const float* pv0, int ctid) {
   const int ld = a.hdp + 1;
   const int ne = n_env * a.P * a.hd;
@@ -349,7 +390,7 @@ __device__ __forceinline__ void qkv_head(const Args& a, const LayerArgs& w, Ring
     (is_v ? sm.vh : sm.kh)[R * ld + d] = (is_v ? pv0 : pk0)[ej * a.D + h * a.hd + d];
   }
   float acc[MT_QKV][4];
-  gemm<MT_QKV>(ring, acc, sm.hs, a.Dp + 8, 3 * a.hdp, a.Dp / 16, false);
+  gemm<MT_QKV>(ring, clk, acc, sm.hs, a.Dp + 8, 3 * a.hdp, a.Dp / 16, false);
   const int nt = (3 * a.hdp) >> 3, cg = threadIdx.x >> 6;
 #pragma unroll
   for (int t = 0; t < MT_QKV; ++t) {
@@ -485,32 +526,39 @@ __device__ __forceinline__ void produce(const Args& a, const Smem& sm) {
 
 // One layer over the tile: LN1, QKV and attention head by head, proj +
 // residual, LN2, the MLP + residual; the residual stays in sm.xs.
+template <bool kTimed>
 __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
-                                      Ring& ring, int nrows, int n_env, size_t prow) {
+                                      Ring& ring, PhaseClock<kTimed>& clk, int nrows, int n_env,
+                                      size_t prow) {
   const int ctid = threadIdx.x;
   const int D = a.D, Dp = a.Dp;
   const float* pk0 = a.P > 0 ? w.pk + prow * D : nullptr;
   const float* pv0 = a.P > 0 ? w.pv + prow * D : nullptr;
   layernorm(sm.xs, sm.hs, w.ln1_s, w.ln1_b, D, Dp, nrows, ctid);
   consumer_sync();
+  clk.mark(PH_LN1);
 
   // ---- QKV and attention, head by head --------------------------------------
   for (int h = 0; h < a.H; ++h) {
-    qkv_head(a, w, ring, sm, h, nrows, n_env, pk0, pv0, ctid);
+    qkv_head(a, w, ring, clk, sm, h, nrows, n_env, pk0, pv0, ctid);
     consumer_sync();
+    clk.mark(PH_QKV);
     attention_head(a, sm, h, nrows, ctid);
     consumer_sync();
+    clk.mark(PH_ATTN);
   }
 
   // ---- proj + residual (A is ys) ------------------------------------------
   {
     float acc[MT_WIDE][4];
-    gemm<MT_WIDE>(ring, acc, sm.ys, a.HDp + 8, a.Dq, a.HDp / 16, false);
+    gemm<MT_WIDE>(ring, clk, acc, sm.ys, a.HDp + 8, a.Dq, a.HDp / 16, false);
     residual_add(sm.xs, acc, w.bproj, a.Dq, D, Dp, nrows);
   }
   consumer_sync();
+  clk.mark(PH_PROJ);
   layernorm(sm.xs, sm.hs, w.ln2_s, w.ln2_b, D, Dp, nrows, ctid);
   consumer_sync();
+  clk.mark(PH_LN2);
 
   // ---- MLP: FC-column chunks of the hidden layer, double-buffered in ys;
   //      the fc2 sums stay in registers ------------------------------------
@@ -519,7 +567,7 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
   for (int m = 0; m < a.n_mlp; ++m) {
     bf16* gbuf = sm.ys + (m & 1) * 2 * gsplit;
     float acc[MT_FC][4];
-    gemm<MT_FC>(ring, acc, sm.hs, Dp + 8, FC, Dp / 16, false);
+    gemm<MT_FC>(ring, clk, acc, sm.hs, Dp + 8, FC, Dp / 16, false);
 #pragma unroll
     for (int t = 0; t < MT_FC; ++t) {
 #pragma unroll
@@ -530,15 +578,20 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
       }
     }
     consumer_sync();
-    gemm<MT_WIDE>(ring, acc2, gbuf, lg, a.Dq, FC / 16, m > 0);
+    clk.mark(PH_FC);
+    gemm<MT_WIDE>(ring, clk, acc2, gbuf, lg, a.Dq, FC / 16, m > 0);
+    clk.mark(PH_FC2);
   }
   residual_add(sm.xs, acc2, w.bfc2, a.Dq, D, Dp, nrows);
   consumer_sync();
+  clk.mark(PH_FC2);
 }
 
 // The consumer warps: everything but the weight copies.
-template <bool kGroup>
+template <bool kGroup, bool kTimed>
 __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
+  PhaseClock<kTimed> clk;
+  clk.start();
   const int ctid = threadIdx.x, warp = ctid >> 5, lane = ctid & 31;
   const int n_layers = kGroup ? a.n_layers : 1;
   const int D = a.D, Dp = a.Dp;
@@ -562,15 +615,18 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
   }
   for (int i = ctid; i < 2 * a.key_rows * (a.hdp + 1); i += CONSUMERS) sm.kh[i] = 0.f;
   consumer_sync();
+  clk.mark(PH_LOAD);
 
   for (int l = 0; l < n_layers; ++l)
-    layer(a, sm, a.layer[kGroup ? l : 0], ring, nrows, n_env, prow);
+    layer<kTimed>(a, sm, a.layer[kGroup ? l : 0], ring, clk, nrows, n_env, prow);
 
   float* out = a.out + row0 * D;
   for (int i = ctid; i < nrows * D; i += CONSUMERS) {
     const int r = i / D;
     out[i] = sm.xs[r * Dp + i - r * D];
   }
+  if (kTimed) consumer_sync();
+  clk.mark(PH_WRITE);
 
   // ---- optional epilogue: ln_f + linear head, f32 ------------------------
   if (a.pred != nullptr) {
@@ -598,12 +654,15 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
       }
     }
   }
+  if (kTimed) consumer_sync();
+  clk.mark(PH_EPI);
+  clk.store(a.cycles);
 }
 
 // kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
 // the single-layer one (B1, B3, B4) indexes a.layer[0] statically. Warps 0-7
 // consume, warp 8 produces (one thread copies).
-template <bool kGroup>
+template <bool kGroup, bool kTimed = false>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_layer_f32_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -619,7 +678,7 @@ fused_layer_f32_kernel(const __grid_constant__ Args a) {
   if (threadIdx.x >= CONSUMERS) {
     if (threadIdx.x == CONSUMERS) produce<kGroup>(a, sm);
   } else {
-    consume<kGroup>(a, sm);
+    consume<kGroup, kTimed>(a, sm);
   }
 }
 
@@ -648,7 +707,7 @@ LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
 // Fills the derived sizes, sizes shared memory and launches on `stream`;
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
 // shape outside the limits. `a.layer[:n_layers]` must be set by the caller.
-int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
+int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx, int n_layers,
            const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead, void* out,
            void* pred, int B, int T2, int D, int H, int P, int S, int F, int M, void* stream) {
   a.x = static_cast<const float*>(x);
@@ -660,6 +719,7 @@ int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
   a.bhead = static_cast<const float*>(bhead);
   a.out = static_cast<float*>(out);
   a.pred = static_cast<float*>(pred);
+  a.cycles = cycles;
   a.B = B;
   a.T2 = T2;
   a.D = D;
@@ -686,7 +746,9 @@ int launch(Args& a, bool group, const void* x, const void* idx, int n_layers,
                       sizeof(bf16) * (2 * ROWS * (a.Dp + 8) + ys_elems(a.HDp)) +
                       sizeof(float) * (ROWS + 2 * a.key_rows) * (a.hdp + 1);
   if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = group ? fused_layer_f32_kernel<true> : fused_layer_f32_kernel<false>;
+  const auto kernel = group    ? fused_layer_f32_kernel<true>
+                      : cycles ? fused_layer_f32_kernel<false, true>
+                               : fused_layer_f32_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -712,8 +774,22 @@ int beso_fused_f32_layer_prefix(const void* x, const void* pk, const void* pv, c
                                 void* stream) {
   Args a;
   a.layer[0] = layer_args(w, pk, pv);
-  return launch(a, false, x, idx, 1, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D, H, P, S,
-                F, M, stream);
+  return launch(a, false, nullptr, x, idx, 1, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D,
+                H, P, S, F, M, stream);
+}
+
+// B1 with the phase clock: as beso_fused_f32_layer_prefix, and each block
+// adds its clock64() cycles per phase (enum Phase) to cycles [blocks,
+// N_PHASES].
+int beso_fused_f32_layer_prefix_timed(const void* x, const void* pk, const void* pv,
+                                      const void* idx, const void* const* w, const void* lnf_s,
+                                      const void* lnf_b, const void* whead, const void* bhead,
+                                      void* out, void* pred, void* cycles, int B, int T2, int D,
+                                      int H, int P, int S, int F, int M, void* stream) {
+  Args a;
+  a.layer[0] = layer_args(w, pk, pv);
+  return launch(a, false, static_cast<long long*>(cycles), x, idx, 1, lnf_s, lnf_b, whead,
+                bhead, out, pred, B, T2, D, H, P, S, F, M, stream);
 }
 
 // B2: n_layers blocks in one launch. `layers` holds n_layers x 15 pointers:
@@ -728,7 +804,7 @@ int beso_fused_f32_layers_prefix_group(const void* x, const void* idx, const voi
     const void* const* lw = layers + l * LAYER_PTRS;
     a.layer[l] = layer_args(lw, lw[13], lw[14]);
   }
-  return launch(a, true, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D, H, P,
+  return launch(a, true, nullptr, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D, H, P,
                 S, F, M, stream);
 }
 
@@ -738,7 +814,8 @@ int beso_fused_f32_layer_with_prefix(const void* x, const void* pk, const void* 
                                      int H, int P, int F, void* stream) {
   Args a;
   a.layer[0] = layer_args(w, pk, pv);
-  return launch(a, false, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out, nullptr, B, T2,
+  return launch(a, false, nullptr, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out,
+                nullptr, B, T2,
                 D, H, P, 1, F, 0, stream);
 }
 
@@ -747,7 +824,8 @@ int beso_fused_f32_layer(const void* x, const void* const* w, void* out, int B, 
                          int H, int F, void* stream) {
   Args a;
   a.layer[0] = layer_args(w, nullptr, nullptr);
-  return launch(a, false, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out, nullptr, B, T,
+  return launch(a, false, nullptr, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out,
+                nullptr, B, T,
                 D, H, 0, 1, F, 0, stream);
 }
 
@@ -764,6 +842,7 @@ int beso_fused_f32_limits(int which) {
     case 6: return MAX_HDP_ALL;
     case 7: return SLOT_BYTES;
     case 8: return FC;
+    case 9: return N_PHASES;
     default: return -1;
   }
 }

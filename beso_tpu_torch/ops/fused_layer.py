@@ -317,8 +317,9 @@ def _library() -> ctypes.CDLL:
         getattr(lib, prefix + "layer").argtypes = [vp] * 3 + [ci] * 5 + [vp]
         for name in ("layer_prefix", "layers_prefix_group", "layer_with_prefix", "layer"):
             getattr(lib, prefix + name).restype = ci
-    lib.beso_fused_layer_prefix_timed.argtypes = [vp] * 12 + [ci] * 8 + [vp]
-    lib.beso_fused_layer_prefix_timed.restype = ci
+    for fn in (lib.beso_fused_layer_prefix_timed, lib.beso_fused_f32_layer_prefix_timed):
+        fn.argtypes = [vp] * 12 + [ci] * 8 + [vp]
+        fn.restype = ci
     for fn in (lib.beso_fused_layer_prefix_limits, lib.beso_fused_f32_limits):
         fn.argtypes = [ci]
         fn.restype = ci
@@ -349,10 +350,11 @@ def _limits(dtype: torch.dtype = torch.bfloat16) -> _Limits:
     Raises if its tiling constants are not this module's."""
     lib = _library()
     if dtype == torch.float32:
-        lim = [lib.beso_fused_f32_limits(i) for i in range(9)]
-        if (lim[7], lim[8]) != (F32_SLOT_BYTES, MLP_CHUNK):
+        lim = [lib.beso_fused_f32_limits(i) for i in range(10)]
+        if (lim[7], lim[8], lim[9]) != (F32_SLOT_BYTES, MLP_CHUNK, len(F32_PHASES)):
             raise RuntimeError(f"f32 kernel constants {lim} do not match fused_layer.py "
-                               f"(F32_SLOT_BYTES {F32_SLOT_BYTES}, MLP_CHUNK {MLP_CHUNK})")
+                               f"(F32_SLOT_BYTES {F32_SLOT_BYTES}, MLP_CHUNK {MLP_CHUNK}, "
+                               f"{len(F32_PHASES)} phases)")
         return _Limits(*lim[:7], block_keys=None)
     lim = [lib.beso_fused_layer_prefix_limits(i) for i in range(11)]
     if (lim[6], lim[8], lim[9]) != (len(PHASES), SLOT_BYTES, MLP_CHUNK):
@@ -468,10 +470,8 @@ def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=None):
     tail = [B, T2, D, n_heads, P, S, Fp, M, torch.cuda.current_stream(x.device).cuda_stream]
     if cycles is None:
         rc = _entry("layer_prefix", x.dtype)(*args, *tail)
-    elif x.dtype != torch.bfloat16:
-        raise TypeError("the phase clock is B1's bf16 kernel's: x must be bf16")
     else:
-        rc = _library().beso_fused_layer_prefix_timed(*args, cycles.data_ptr(), *tail)
+        rc = _entry("layer_prefix_timed", x.dtype)(*args, cycles.data_ptr(), *tail)
     _raise_on(rc, "fused_layer_prefix")
     return out if epilogue is None else (out, pred)
 
@@ -489,9 +489,17 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     return res
 
 
-# Phases of B1's timed launch, in the kernel's order (enum Phase).
+# Phases of B1's timed launch, in the kernel's order (enum Phase); the f32
+# kernel adds the cycles its consumers waited for a ring slot to fill, held
+# apart from the phase that waited.
 PHASES = ("load", "ln1", "qkv", "attention", "proj", "ln2", "fc", "fc2",
           "write", "epilogue")
+F32_PHASES = PHASES + ("ring_wait",)
+
+
+def timed_phases(dtype: torch.dtype):
+    """The phases `fused_layer_prefix_timed` reports for x of `dtype`."""
+    return F32_PHASES if dtype == torch.float32 else PHASES
 
 
 def fused_layer_prefix_timed(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
@@ -500,14 +508,15 @@ def fused_layer_prefix_timed(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor
     """B1 with the kernel's phase clock, for measurement only (nothing on
     the serving path calls it, and it leaves B1's launch count alone).
     Returns (what `fused_layer_prefix` returns, cycles int64 [blocks,
-    len(PHASES)]): each block's clock64() cycles per phase of `PHASES`.
-    Needs bf16 CUDA tensors: a clock has no plain version, and only the
-    bf16 kernel has one."""
+    len(phases)]): each block's clock64() cycles per phase of
+    `timed_phases(x.dtype)`. Needs CUDA tensors (bf16 or f32): a clock has
+    no plain version."""
     if not _on_cuda(x, "fused_layer_prefix_timed"):
         raise ValueError("fused_layer_prefix_timed needs CUDA tensors")
-    rows = _limits().rows
+    rows = _limits(_kernel_dtype(x)).rows
     blocks = -(-x.shape[0] // (rows // x.shape[1]))
-    cycles = torch.zeros(blocks, len(PHASES), dtype=torch.int64, device=x.device)
+    cycles = torch.zeros(blocks, len(timed_phases(x.dtype)), dtype=torch.int64,
+                         device=x.device)
     return _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles), cycles
 
 

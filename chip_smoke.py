@@ -435,30 +435,34 @@ def time_kernel(B, device, gen, dtype=None):
     return ms, plain_ms
 
 
-def phase_split(B, device, gen):
+def phase_split(B, device, gen, dtype=None):
     """B1's phase clock at the kitchen serving shape (B rows, 2T=8, D=360,
-    P=3, no epilogue): the timed launch must equal the plain B1 launch bit
-    for bit. Returns {phase: mean cycles per block} over the blocks."""
+    P=3, no epilogue) in `dtype` (bf16 unless given): the timed launch must
+    equal the plain B1 launch bit for bit. Returns {phase: mean cycles per
+    block} over the blocks."""
     import torch
 
     from beso_tpu_torch.ops import fused_layer as fl
 
-    p, _ = random_layer(360, 6, 9, gen, device)
-    x = _rand(gen, B, 8, 360, device=device)
-    pk, pv = _rand(gen, 3, B, 3, 360, device=device), _rand(gen, 3, B, 3, 360, device=device)
+    dtype = dtype or torch.bfloat16
+    p, _ = random_layer(360, 6, 9, gen, device, dtype)
+    x = _rand(gen, B, 8, 360, device=device, dtype=dtype)
+    pk, pv = (_rand(gen, 3, B, 3, 360, device=device, dtype=dtype) for _ in range(2))
     idx = torch.tensor([1], dtype=torch.int32, device=device)
     out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=6)
     ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=6)
     torch.cuda.synchronize()
-    _same_bits(f"timed B1 vs B1 at B={B}", out, ref)
+    tag = str(dtype)[6:]
+    _same_bits(f"{tag} timed B1 vs B1 at B={B}", out, ref)
+    names = fl.timed_phases(dtype)
     mean = cycles.double().mean(0).tolist()
     total = sum(mean)
     per_block = cycles.sum(1).double()
-    print(f"  phase clock, {cycles.shape[0]} blocks: cycles per block mean {total:.0f}, "
+    print(f"  {tag} phase clock, {cycles.shape[0]} blocks: cycles per block mean {total:.0f}, "
           f"min {per_block.min().item():.0f}, max {per_block.max().item():.0f}")
-    for name, c in zip(fl.PHASES, mean):
+    for name, c in zip(names, mean):
         print(f"    {name:>9}: {c:10.0f} cycles  {100 * c / total:5.1f}%")
-    return dict(zip(fl.PHASES, mean))
+    return dict(zip(names, mean))
 
 
 def time_layer_gemms(rows, D, device, gen, n_layers=1, dtype=None):
@@ -1165,6 +1169,8 @@ def main() -> None:
           f"f32 torch.matmul of its four products (TF32 off) {gemm_b1_f32:.4f} ms ({card})")
     phases = phase_split(B_serve, device, gen)
     print(f"  phase split: {json.dumps({k: round(v) for k, v in phases.items()})}")
+    phases_f32 = phase_split(B_serve, device, gen, torch.float32)
+    print(f"  f32 phase split: {json.dumps({k: round(v) for k, v in phases_f32.items()})}")
 
     # ---- 3. engine parity -------------------------------------------------
     print(f"[3] ({since_start()}) fused_cached vs cached engine (kitchen model, bf16, "
