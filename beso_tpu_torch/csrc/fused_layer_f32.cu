@@ -14,10 +14,12 @@
 // out [B, T2, D] f32, pred [B, T2, M] f32; the weights' biases and LayerNorm
 // parameters f32 in `FusedLayerParams` order and padding (ops/fused_layer.py).
 // The products read the layer's tiled copy (`tile_layer_weights` of an f32
-// layer): the B operands in consumption order, each ring chunk a bf16 hi part
-// (bf16(w)) followed by its lo part (bf16(w - hi)), both in the K-major
-// core-matrix layout of the bf16 body, a chunk holding as many 16-deep
-// k-steps as fit F32_SLOT_BYTES (at least one).
+// layer): the B operands in consumption order (per head its [q|k|v] rows,
+// then that head's proj columns; then per MLP chunk fc and fc2), each cut
+// into chunks of as many 16-deep k-steps as fit SLOT_BYTES (at least one),
+// each chunk a bf16 hi part (bf16(w)) followed by its lo part (bf16(w - hi)),
+// both in the K-major core-matrix layout of the bf16 body; one chunk fills
+// a ring slot.
 //
 // Numerics (as the TPU kernels in f32, and the port's plain versions): f32
 // operands and accumulation, the bias added in f32, no rounding to bf16
@@ -27,39 +29,62 @@
 // launch equals a B1 launch on the same row. The tensor cores take no f32
 // operands and TF32 keeps 10 mantissa bits, too few for 2^-12 of max |ref|:
 // every product operand is split into bf16 hi + lo (x = hi + lo to ~2^-17
-// relative) and each product is hi.hi + lo.hi + hi.lo on `mma.sync`
-// m16n8k16 with f32 accumulation, ~2^-16 relative. The attention (a few
-// thousand multiply-adds per row) runs on the CUDA cores in plain f32, and
-// GELU uses the accurate tanhf (the bf16 body's tanh.approx.f32 errs by
-// ~2^-11). Sums whose order could differ between instantiations are written
-// with explicit fmaf / __f*_rn, so that no contraction choice of the
-// compiler tells B2 from the B1 chain.
+// relative) and each product is hi.hi + lo.hi + hi.lo on `wgmma` with f32
+// accumulation, ~2^-16 relative. The residual is the accumulator of the proj
+// and fc2 products: x + bias first, then the products summed onto it. The
+// attention (a few thousand multiply-adds per row) runs on the CUDA cores in
+// plain f32, and GELU uses the accurate tanhf (the bf16 body's
+// tanh.approx.f32 errs by ~2^-11). Sums whose order could differ between
+// instantiations are written with explicit fmaf / __f*_rn, so that no
+// contraction choice of the compiler tells B2 from the B1 chain.
 //
 // What bounds it: at the kitchen serving shape (B = 2048, 2T = 8, D = 360) a
 // launch does 51 GFLOP of products, each run three times on the bf16 tensor
-// cores, against 71 MB of traffic: operations bound it at ~0.155 ms. The
-// design is the simple one that fits shared memory, not yet a fast one:
-//   - 32 rows per block (the bf16 body's 64 rows need 286 KB once the
-//     residual is f32 and the A tiles are hi/lo pairs), 8 consumer warps as 2
-//     row groups of 16 x 4 column groups taking every fourth n8 column tile,
-//     and one producer warp;
-//   - one producer thread copies the weight chunks into a ring of 2 slots of
-//     24 KB with `cp.async.bulk` (full/empty mbarriers), as the bf16 body;
-//   - per 16-deep k-step a warp reads its A hi and lo fragments with two
-//     `ldmatrix.x4` and each of its B tiles' hi and lo with one (lanes 16-31
-//     address the lo chunk), then three `mma.sync`;
-//   - epilogues on the accumulator fragments in registers; every A operand
-//     (LN output, attention output, GELU chunk) is written as hi/lo bf16
-//     tiles with rows of K + 8 elements (conflict-free ldmatrix).
-// Shared memory at the kitchen shape, 225,888 of 232,448 bytes: barriers
-// 128, ring 2 x 24,576, residual xs 32 x 368 f32 (47,104), LN output hs hi/lo
-// 2 x 32 x 376 bf16 (48,128), attention output or two GELU chunks ys
-// max(2 x 32 x 392, 4 x 32 x 168) bf16 (50,176), q 32 x 65 f32 (8,320), key
-// and value rows 2 x 44 x 65 f32 (22,880). At 32 rows the 512 blocks of a
-// launch read the 6.6 MB of hi/lo weights 512 times from L2 (~3.4 GB), and
-// the ring is two slots deep: both are the levers of a faster form.
+// cores, against 71 MB of traffic: operations bound it at ~0.155 ms. What
+// holds it back on the card is the block's serial work around the products
+// (PERF.md has the phase clock): per ring chunk a wait, the copy's issue and
+// a release; the attention on the CUDA cores at 8 warps per SM; the epilogues
+// between the products. The design:
+//   - 64 token rows per block (one `wgmma` M), two warpgroups each taking
+//     half of every product's columns and nothing else: 256 threads, so
+//     ptxas may give each up to 255 registers (registers are split among
+//     the SM's four warp schedulers, so a ninth warp, a producer, caps every
+//     thread at 168, and the residual spills);
+//   - blocks in clusters of 2 that fetch each weight chunk once: thread 0 of
+//     the cluster's block 0 copies every chunk with one multicast
+//     `cp.async.bulk` into the slot of both blocks, once the slot's "empty"
+//     barrier in block 0 has the arrivals of the warps of both blocks (block
+//     1's through `mapa`); thread 0 of block 1 only announces each chunk's
+//     bytes on its own "full" barrier. 128 rows share each L2 fetch, so a
+//     kitchen launch reads ~0.85 GB from L2, not 3.4 GB. Thread 0 issues a
+//     chunk as soon as its slot is free (checked at every chunk, up to
+//     STAGES - 1 ahead) and waits for a slot only for the chunk it is about
+//     to use. The remote arrival takes the default (CTA-scope) semantics of
+//     CUTLASS's cluster barrier: `.release.cluster` made every chunk pay for
+//     a cluster-scope fence, and B1 slower on the card;
+//   - a ring of STAGES slots of one chunk each (hi and lo parts), released as
+//     soon as its products are done: on the card the ring's depth (4 or 6
+//     slots of half a chunk) changed nothing, and the count of chunks (each
+//     a wait, a release and a copy) a lot;
+//   - the residual in registers, as the proj and fc2 accumulators (64 rows x
+//     Dq / 2 columns per warpgroup, up to 96 f32 per thread); LayerNorm's
+//     row sums meet in a small shared exchange. proj runs head by head right
+//     after the head's attention (K = hdp per head), so shared memory holds
+//     one head's output (in the room of its q, once the scores are done),
+//     and only the final residual goes to shared memory (the LN tile's
+//     room) for the write-out and the ln_f + head epilogue.
+// Shared memory at the kitchen shape, 231,488 of 232,448 bytes: barriers and
+// the LN exchange 1,152, ring 3 x 24,576, LN output hi/lo 2 x 64 x 368 bf16
+// (94,208), then max(q 64 x 65 f32 or the head's output hi/lo 2 x 64 x 64
+// bf16, + key and value rows 2 x 88 x 65 f32; the GELU chunk hi/lo 2 x 64 x
+// 160 bf16) = 62,400: the aliases pay for the ring's 24 KB slots. A block
+// with no rows (the second of the last cluster, when the grid has an odd
+// number of tiles) computes on zeros and writes nothing, so that its peer's
+// ring protocol completes; a cluster barrier before the exit keeps either
+// block alive while the other may still write its shared memory or arrive
+// on its barriers.
 //
-// Limits: 32 rows per block, P + T2 <= 32 keys, M <= 16, Dp <= 384,
+// Limits: 64 rows per block, P + T2 <= 32 keys, M <= 16, Dp <= 384,
 // hdp <= 64, H * hdp <= 384, at most 8 layers per group; a shape whose shared
 // memory does not fit 227 KB (many prefix keys per block) is refused at launch.
 
@@ -73,36 +98,35 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int ROWS = 32;            // token rows per block
-constexpr int CONSUMERS = 256;      // 8 warps: 2 row groups x 4 column groups
-constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
-constexpr int STAGES = 2;           // weight ring slots
+constexpr int ROWS = 64;            // token rows per block (one wgmma M)
+constexpr int THREADS = 256;        // two warpgroups
+constexpr int CLUSTER = 2;          // blocks that share each weight chunk
+constexpr int STAGES = 3;           // weight ring slots
 constexpr int SLOT_BYTES = 24576;   // one ring slot: a chunk's hi and lo parts
-constexpr int FC = 160;             // MLP hidden chunk
+constexpr int FC = 160;             // MLP hidden chunk: 80 columns per warpgroup
 constexpr int MAX_KEYS = 32;        // P + T2
 constexpr int MAX_M = 16;           // head outputs
 constexpr int MAX_DP = 384;
+constexpr int NSUB = MAX_DP / 128;  // n64 subtiles per warpgroup of proj and fc2
+constexpr int RES = NSUB * 32;      // residual values per consumer thread
 constexpr int MAX_HDP = 64;
-constexpr int MAX_HDP_ALL = 384;    // H * hdp, the attention output width
+constexpr int MAX_HDP_ALL = 384;    // H * hdp
 constexpr int MAX_LAYERS = 8;       // layers of one B2 group
 constexpr int MAX_SMEM = 232448;    // a block's shared memory on sm_90
-constexpr int COL_GROUPS = 4;
-// n8 column tiles per warp: QKV (3 hdp <= 192 columns), fc (FC), proj and
-// fc2 (Dq <= 384)
-constexpr int MT_QKV = 3 * MAX_HDP / 8 / COL_GROUPS;
-constexpr int MT_FC = FC / 8 / COL_GROUPS;
-constexpr int MT_WIDE = MAX_DP / 8 / COL_GROUPS;
+constexpr int TPR = THREADS / ROWS;  // attention threads per row
+constexpr int BAR_BYTES = 128;      // full and empty barriers
+constexpr int STATS_BYTES = sizeof(float) * 2 * 2 * ROWS;   // [warpgroup][sum, sq][row]
 
 // Phases of the timed instantiation (clock64() cycles summed per block), and
-// PH_RING: the cycles thread 0 waited for a ring slot to fill, held apart
-// from the phase that waited.
+// PH_RING: the cycles thread 0 spent on the ring (waiting for a slot to fill
+// or to free, issuing the copies), held apart from the phase that waited.
 enum Phase { PH_LOAD, PH_LN1, PH_QKV, PH_ATTN, PH_PROJ, PH_LN2, PH_FC, PH_FC2,
              PH_WRITE, PH_EPI, PH_RING, N_PHASES };
 
 // Per-block phase clock of the timed instantiation; a no-op otherwise.
-// Thread 0 (a consumer) reads clock64() at the phase boundaries and adds the
-// cycles since the previous mark, less its ring waits, to the phase that
-// just ended.
+// Thread 0 reads clock64() at the phase boundaries (after a block barrier,
+// or after its warpgroup's product) and adds the cycles since the previous
+// mark, less its ring waits, to the phase that just ended.
 template <bool kOn>
 struct PhaseClock {
   long long t = 0, wait = 0, acc[N_PHASES] = {};
@@ -164,7 +188,7 @@ struct Args {
   float* pred;
   long long* cycles;  // [blocks, N_PHASES] (timed instantiation only)
   int B, T2, D, H, P, S, F, M;
-  int hd, hdp, Dp, Dq, HDp, n_mlp, envs_per_block, key_rows;
+  int hd, hdp, Dp, Dq, n_mlp, envs_per_block, key_rows;
   float scale;
 };
 
@@ -176,6 +200,24 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(u)));
 }
 
+// Element offset of (row r, column c) in an A tile of the core-matrix
+// layout: 8-column groups of 1 KB (64 rows x 16 bytes), 8-row blocks of 128
+// bytes inside (as the bf16 body). A hi/lo pair of tiles with K columns is
+// the hi tile followed by the lo tile, ROWS * K elements on.
+__device__ __forceinline__ int a_off(int r, int c) {
+  return (c >> 3) * 512 + (r >> 3) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+// Two values as bf16 hi parts at p and lo parts (x - hi) at p + split (one
+// 32-bit store each; p 4-byte aligned).
+__device__ __forceinline__ void store_split2(bf16* p, int split, float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(p) = h;
+  *reinterpret_cast<__nv_bfloat162*>(p + split) =
+      __floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
+}
+
 // x as hi = bf16(x) at p and lo = bf16(x - hi) at p + split.
 __device__ __forceinline__ void store_split(bf16* p, int split, float x) {
   const bf16 h = __float2bfloat16(x);
@@ -183,9 +225,14 @@ __device__ __forceinline__ void store_split(bf16* p, int split, float x) {
   p[split] = __float2bfloat16(__fsub_rn(x, __bfloat162float(h)));
 }
 
-// The consumers' barrier (the producer warp never joins it).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+// Row and column of accumulator value i of this thread of its warpgroup
+// (hopper.cuh's m64nNk16 layout).
+__device__ __forceinline__ int frag_row(int i) {
+  const int t = threadIdx.x & 127;
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
 // k-steps per ring chunk of a B operand with N rows (hi and lo parts).
@@ -194,41 +241,31 @@ __host__ __device__ __forceinline__ int steps_per_chunk(int N) {
   return k > 0 ? k : 1;
 }
 
-// Product p of a layer, in consumption order: rows N and k-steps of its B
-// operand. Per head h < H: [q|k|v] (3 hdp x Dp); then proj (Dq x H hdp);
-// then per MLP chunk fc (FC x Dp) and fc2 (Dq x FC).
-__device__ __forceinline__ void product_shape(const Args& a, int p, int& N, int& ksteps) {
-  if (p < a.H) {
-    N = 3 * a.hdp;
-    ksteps = a.Dp / 16;
-  } else if (p == a.H) {
-    N = a.Dq;
-    ksteps = a.HDp / 16;
-  } else if ((p - a.H - 1) % 2 == 0) {
-    N = FC;
-    ksteps = a.Dp / 16;
-  } else {
-    N = a.Dq;
-    ksteps = FC / 16;
-  }
-}
-
-// The block's shared memory. A tiles (hs, ys and the GELU chunks) are a hi
-// tile [ROWS, K + 8] followed by its lo tile.
+// The block's shared memory (the same carve in both blocks of a cluster:
+// the multicast copies land at the same offsets).
 struct Smem {
   uint64_t* full;   // [STAGES] a chunk has landed in the slot
-  uint64_t* empty;  // [STAGES] the consumer warps are done with the slot
+  uint64_t* empty;  // [STAGES] both blocks' warps are done with the slot (block 0's)
+  float* stats;     // [2 warpgroups][sum, sq][ROWS] LayerNorm row sums
   bf16* slots;      // STAGES x SLOT_BYTES
-  float* xs;        // residual [ROWS, Dp]
-  bf16* hs;         // LN output, hi/lo [ROWS, Dp + 8]
-  bf16* ys;         // attention output hi/lo [ROWS, HDp + 8], or two GELU chunks
+  bf16* hs;         // LN output, hi/lo A tiles [ROWS, Dp]; f32 [ROWS, Dp] at the end
+  bf16* ys;         // one head's output, hi/lo A tiles [ROWS, hdp], in the
+                    // room of its q; or the GELU chunk, hi/lo A tiles [ROWS, FC]
   float* qh;        // [ROWS, hdp + 1]
   float* kh;        // [key_rows, hdp + 1]
   float* vh;        // [key_rows, hdp + 1]
 };
 
-__host__ __device__ __forceinline__ int ys_elems(int HDp) {
-  const int attn = 2 * ROWS * (HDp + 8), gelu = 2 * 2 * ROWS * (FC + 8);
+// Bytes of q (or the head output it turns into), 16-byte aligned.
+__host__ __device__ __forceinline__ size_t q_bytes(int hdp) {
+  return (sizeof(float) * ROWS * (hdp + 1) + 15) / 16 * 16;
+}
+
+// The room after the LN tiles: q or the head output, then the key and value
+// rows; or the GELU chunk.
+__host__ __device__ __forceinline__ size_t region_bytes(int hdp, int key_rows) {
+  const size_t attn = q_bytes(hdp) + sizeof(float) * 2 * key_rows * (hdp + 1);
+  const size_t gelu = 2 * sizeof(bf16) * ROWS * FC;
   return attn > gelu ? attn : gelu;
 }
 
@@ -236,120 +273,440 @@ __device__ __forceinline__ Smem carve(const Args& a, unsigned char* base) {
   Smem m;
   m.full = reinterpret_cast<uint64_t*>(base);
   m.empty = m.full + STAGES;
-  m.slots = reinterpret_cast<bf16*>(base + 128);
-  m.xs = reinterpret_cast<float*>(m.slots + STAGES * (SLOT_BYTES / 2));
-  m.hs = reinterpret_cast<bf16*>(m.xs + ROWS * a.Dp);
-  m.ys = m.hs + 2 * ROWS * (a.Dp + 8);
-  m.qh = reinterpret_cast<float*>(m.ys + ys_elems(a.HDp));
-  m.kh = m.qh + ROWS * (a.hdp + 1);
+  m.stats = reinterpret_cast<float*>(base + BAR_BYTES);
+  m.slots = reinterpret_cast<bf16*>(base + BAR_BYTES + STATS_BYTES);
+  m.hs = m.slots + STAGES * (SLOT_BYTES / 2);
+  m.ys = m.hs + 2 * ROWS * a.Dp;
+  m.qh = reinterpret_cast<float*>(m.ys);
+  m.kh = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(m.ys) + q_bytes(a.hdp));
   m.vh = m.kh + a.key_rows * (a.hdp + 1);
   return m;
 }
 
-// The consumers' view of the weight ring: slot barriers and the running
-// chunk count, which the producer thread walks in the same order.
-struct Ring {
-  uint64_t* full;
-  uint64_t* empty;
-  const bf16* slots;
-  int it;
+// Product p of a layer, in consumption order: rows N and k-steps of its B
+// operand. Per head h < H: [q|k|v] (3 hdp x Dp), then the head's proj
+// columns (Dq x hdp); then per MLP chunk fc (FC x Dp) and fc2 (Dq x FC).
+__device__ __forceinline__ void product_shape(const Args& a, int p, int& N, int& ksteps) {
+  if (p < 2 * a.H) {
+    N = (p & 1) ? a.Dq : 3 * a.hdp;
+    ksteps = (p & 1) ? a.hdp / 16 : a.Dp / 16;
+  } else {
+    N = ((p - 2 * a.H) & 1) ? a.Dq : FC;
+    ksteps = ((p - 2 * a.H) & 1) ? FC / 16 : a.Dp / 16;
+  }
+}
+
+// The copies into the ring (thread 0 of each block): every chunk of every
+// layer in consumption order, chunk `it` into slot it % STAGES of both
+// blocks. The cluster's block 0 copies (one multicast per chunk, once the
+// slot is free in both blocks); each block announces the chunk's bytes on
+// its own "full" barrier.
+struct Producer {
+  const char* src;
+  int it, l, p, k0, N, ksteps;
+
+  __device__ __forceinline__ void start(const Args& a) {
+    src = reinterpret_cast<const char*>(a.layer[0].tiles);
+    it = l = p = k0 = 0;
+    product_shape(a, 0, N, ksteps);
+  }
+
+  // Handle chunks while it < limit and the layers last. Block 0 copies each
+  // once its slot is free: waiting for the slot when `wait`, else stopping
+  // at the first slot still in use.
+  template <bool kGroup>
+  __device__ __forceinline__ void issue(const Args& a, const Smem& sm, uint32_t rank, int limit,
+                                        bool wait) {
+    const int n_layers = kGroup ? a.n_layers : 1, n_prod = 2 * a.H + 2 * a.n_mlp;
+    for (; it < limit && l < n_layers; ++it) {
+      const int slot = it % STAGES;
+      if (rank == 0) {
+        const uint32_t parity = ((it / STAGES) & 1) ^ 1;
+        if (wait)
+          hopper::mbar_wait(&sm.empty[slot], parity);
+        else if (!hopper::mbar_test_wait(&sm.empty[slot], parity))
+          break;
+      }
+      const int kpc = steps_per_chunk(N);
+      const uint32_t bytes = 2 * N * 32 * min(kpc, ksteps - k0);
+      hopper::mbar_arrive_expect_tx(&sm.full[slot], bytes);
+      if (rank == 0)
+        hopper::bulk_copy_g2s_multicast(sm.slots + slot * (SLOT_BYTES / 2), src, bytes,
+                                        &sm.full[slot], (1u << CLUSTER) - 1);
+      src += bytes;
+      k0 += kpc;
+      if (k0 < ksteps) continue;
+      k0 = 0;
+      if (++p == n_prod) {
+        p = 0;
+        if (++l < n_layers) src = reinterpret_cast<const char*>(a.layer[kGroup ? l : 0].tiles);
+      }
+      product_shape(a, p, N, ksteps);
+    }
+  }
 };
 
-// acc[t] (+)= A[r0 : r0 + 16, 0 : 16 ksteps] x B[n8 tile cg + 4 t]^T for the
-// warp's tiles t < MT below N / 8, B streamed through the ring as one product
-// of N rows; A a hi/lo tile pair with rows of lda elements. accumulate ==
-// false starts from zero. Each warp releases a ring slot (one arrival of
-// CONSUMERS / 32) once its products that read the slot are done.
-template <int MT, bool kTimed>
-__device__ __forceinline__ void gemm(Ring& ring, PhaseClock<kTimed>& clk, float (&acc)[MT][4],
-                                     const bf16* A, int lda, int N, int ksteps, bool accumulate) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * (warp & 1), cg = warp >> 1, nt = N >> 3;
-  if (!accumulate) {
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+// A block's view of the weight ring: slot barriers, the running chunk
+// count, the block's rank in the cluster and, in thread 0, the copies.
+template <bool kGroup>
+struct Ring {
+  const Args& a;
+  const Smem& sm;
+  uint32_t rank;
+  int it;
+  Producer prod;
+
+  // Chunk `it` is announced (and, by block 0, being copied), and block 0
+  // copies as many after it as free slots allow.
+  __device__ __forceinline__ void refill() {
+    if (threadIdx.x == 0) {
+      prod.issue<kGroup>(a, sm, rank, it + 1, true);
+      if (rank == 0) prod.issue<kGroup>(a, sm, rank, it + STAGES, false);
+    }
   }
+};
+
+// This warp is done with a ring slot: one arrival on the slot's "empty"
+// barrier in the cluster's block 0, which copies the chunks.
+template <bool kGroup>
+__device__ __forceinline__ void release(const Ring<kGroup>& ring, int slot) {
+  if ((threadIdx.x & 31) == 0) {
+    if (ring.rank == 0)
+      hopper::mbar_arrive(&ring.sm.empty[slot]);
+    else
+      hopper::mbar_arrive_cluster(&ring.sm.empty[slot], 0);
+  }
+}
+
+// acc[0 : NW / 2] (+)= A[64, 16 ksteps] x B[n0 : n0 + NW, :]^T with A the
+// hi/lo tile pair (K columns) and B streamed through the ring as one product
+// of N rows, per chunk of kn k-steps its hi part then its lo part: per
+// k-step A-hi.B-hi, A-lo.B-hi, A-hi.B-lo. accumulate == false starts from
+// zero. Each warp releases a slot as soon as the products that read it are
+// complete.
+template <int NW, bool kGroup, bool kTimed>
+__device__ __forceinline__ void gemm(Ring<kGroup>& ring, PhaseClock<kTimed>& clk, float* acc,
+                                     const bf16* A, int K, int N, int ksteps, int n0,
+                                     bool accumulate) {
   const int kpc = steps_per_chunk(N);
-  const int split = ROWS * lda;   // A's lo tile
-  const bf16* arow = A + (r0 + (lane & 15)) * lda + (lane >> 4) * 8;
-  // B: lanes 8 j .. 8 j + 7 address matrix j: j & 1 the k half, j >> 1 hi or lo
-  const int bj = lane >> 3;
+  const uint32_t b_lbo = N * 16;
+  const bf16* Alo = A + ROWS * K;
+  hopper::fence_regs<NW / 2>(acc);
+  hopper::wgmma_fence();
   for (int k0 = 0; k0 < ksteps; k0 += kpc) {
     const int kn = min(kpc, ksteps - k0);
     const int slot = ring.it % STAGES;
     const long long w0 = clk.now();
-    hopper::mbar_wait(&ring.full[slot], (ring.it / STAGES) & 1);
+    ring.refill();
+    hopper::mbar_wait(&ring.sm.full[slot], (ring.it / STAGES) & 1);
     clk.waited(w0);
-    const bf16* b = ring.slots + slot * (SLOT_BYTES / 2) + (bj >> 1) * (N * 16 * kn) +
-                    (lane & 7) * 8;
+    const bf16* b = ring.sm.slots + slot * (SLOT_BYTES / 2) + (n0 >> 3) * 64;
+    const bf16* blo = b + kn * N * 16;
     for (int kk = 0; kk < kn; ++kk) {
       const int k = k0 + kk;
-      uint32_t ahi[4], alo[4];
-      hopper::ldmatrix_x4<false>(ahi, arow + k * 16);
-      hopper::ldmatrix_x4<false>(alo, arow + split + k * 16);
-      const bf16* bk = b + (2 * kk + (bj & 1)) * (nt * 64);
+      const uint64_t da = hopper::smem_desc(A + k * 1024, 1024, 128);
+      const uint64_t db = hopper::smem_desc(b + kk * N * 16, b_lbo, 128);
+      hopper::wgmma<NW>(acc, da, db, (accumulate || k > 0) ? 1 : 0);
+      hopper::wgmma<NW>(acc, hopper::smem_desc(Alo + k * 1024, 1024, 128), db, 1);
+      hopper::wgmma<NW>(acc, da, hopper::smem_desc(blo + kk * N * 16, b_lbo, 128), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    release(ring, slot);
+    ++ring.it;
+  }
+  hopper::fence_regs<NW / 2>(acc);
+}
+
+// proj and fc2 onto the residual: ns = Dq / 128 subtiles of 64 columns per
+// warpgroup as one product of 64 ns columns, ns fixed at compile time.
+template <bool kGroup, bool kTimed>
+__device__ __forceinline__ void gemm_wide(Ring<kGroup>& ring, PhaseClock<kTimed>& clk, float* res,
+                                          const bf16* A, int K, int N, int ksteps, int n0,
+                                          int ns) {
+  switch (ns) {
+    case 1: gemm<64>(ring, clk, res, A, K, N, ksteps, n0, true); break;
+    case 2: gemm<128>(ring, clk, res, A, K, N, ksteps, n0, true); break;
+    default: gemm<64 * NSUB>(ring, clk, res, A, K, N, ksteps, n0, true); break;
+  }
+}
+
+// res (+)= bias over this thread's residual columns (< D; the residual's
+// columns from D on stay zero).
+__device__ __forceinline__ void add_bias(float* res, const float* bias, int n0, int ns, int D) {
 #pragma unroll
-      for (int t = 0; t < MT; ++t) {
-        const int tile = cg + COL_GROUPS * t;
-        if (tile < nt) {
-          uint32_t bf[4];   // hi k 0-7, hi k 8-15, lo k 0-7, lo k 8-15
-          hopper::ldmatrix_x4<false>(bf, bk + tile * 64);
-          hopper::mma_16816(acc[t], ahi, bf);
-          hopper::mma_16816(acc[t], alo, bf);
-          hopper::mma_16816(acc[t], ahi, bf + 2);
+  for (int s = 0; s < NSUB; ++s) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = n0 + 64 * s + frag_col(i);
+      if (s < ns && c < D) res[s * 32 + i] = __fadd_rn(res[s * 32 + i], bias[c]);
+    }
+  }
+}
+
+// LayerNorm of the residual (this thread's values in `res`, columns [n0,
+// n0 + 64 ns) of its warpgroup) into the hi/lo tile pair hs [ROWS, Dp]; rows
+// >= nrows and columns >= D zero. A quad of lanes holds a row's columns of
+// the warpgroup; the two warpgroups' sums meet in `stats`. Ends with the
+// fence that hands hs to `wgmma` (the caller's barrier completes the
+// hand-over).
+__device__ __forceinline__ void layernorm(const float* res, bf16* hs, const float* s,
+                                          const float* b, int D, int Dp, int nrows, int n0,
+                                          int ns, float* stats, int ctid) {
+  const int wg = ctid >> 7;
+  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int u = (i >> 1) & 1, c = n0 + 64 * sb + frag_col(i);
+      if (sb < ns && c < D) {
+        const float v = res[sb * 32 + i];
+        sum[u] = __fadd_rn(sum[u], v);
+        sq[u] = fmaf(v, v, sq[u]);
+      }
+    }
+  }
+  float mu[2], rstd[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum[u] = __fadd_rn(sum[u], __shfl_xor_sync(0xffffffffu, sum[u], o));
+      sq[u] = __fadd_rn(sq[u], __shfl_xor_sync(0xffffffffu, sq[u], o));
+    }
+    if ((ctid & 3) == 0) {
+      stats[(2 * wg) * ROWS + frag_row(2 * u)] = sum[u];
+      stats[(2 * wg + 1) * ROWS + frag_row(2 * u)] = sq[u];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = frag_row(2 * u);
+    const float ts = __fadd_rn(stats[r], stats[2 * ROWS + r]);
+    const float tq = __fadd_rn(stats[ROWS + r], stats[3 * ROWS + r]);
+    mu[u] = __fdiv_rn(ts, static_cast<float>(D));
+    rstd[u] = rsqrtf(__fadd_rn(__fsub_rn(__fdiv_rn(tq, static_cast<float>(D)),
+                                         __fmul_rn(mu[u], mu[u])),
+                               1e-5f));
+  }
+  const int split = ROWS * Dp;
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int u = (i >> 1) & 1, r = frag_row(i), c = n0 + 64 * sb + frag_col(i);
+      if (sb < ns && c < Dp) {
+        const bool in = r < nrows;
+        const float v0 = in && c < D ? fmaf(__fmul_rn(__fsub_rn(res[sb * 32 + i], mu[u]),
+                                                      rstd[u]), s[c], b[c])
+                                     : 0.f;
+        const float v1 = in && c + 1 < D
+                             ? fmaf(__fmul_rn(__fsub_rn(res[sb * 32 + i + 1], mu[u]), rstd[u]),
+                                    s[c + 1], b[c + 1])
+                             : 0.f;
+        store_split2(hs + a_off(r, c), split, v0, v1);
+      }
+    }
+  }
+  hopper::fence_proxy_async();
+}
+
+// Key row of token row r: its env's P prefix keys come first.
+__device__ __forceinline__ int key_row(const Args& a, int r) {
+  const int e = r / a.T2;
+  return e * (a.P + a.T2) + a.P + (r - e * a.T2);
+}
+
+// Head h: the block's prefix K/V into their key rows e (P + T2) + j, then
+// the QKV product (NW = 3 hdp / 2 columns per warpgroup) and q, k and v of
+// the tile's rows (bias added) into qh and the own key rows.
+template <int NW, bool kGroup, bool kTimed>
+__device__ __forceinline__ void qkv_head(const Args& a, const LayerArgs& w, Ring<kGroup>& ring,
+                                         PhaseClock<kTimed>& clk, const Smem& sm, int h,
+                                         int nrows, int n_env, const float* pk0,
+                                         const float* pv0, int ctid) {
+  const int ld = a.hdp + 1;
+  const int ne = n_env * a.P * a.hd;
+  for (int i = ctid; i < 2 * ne; i += THREADS) {
+    const bool is_v = i >= ne;
+    const int rem = is_v ? i - ne : i, ej = rem / a.hd, d = rem - ej * a.hd;
+    const int e = ej / a.P, R = e * (a.P + a.T2) + (ej - e * a.P);
+    (is_v ? sm.vh : sm.kh)[R * ld + d] = (is_v ? pv0 : pk0)[ej * a.D + h * a.hd + d];
+  }
+  const int n0 = (ctid >> 7) * NW;
+  float acc[NW / 2];
+  gemm<NW>(ring, clk, acc, sm.hs, a.Dp, 3 * a.hdp, a.Dp / 16, n0, false);
+  __syncthreads();   // q takes the room of the previous head's output, read by its proj
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    const int r = frag_row(i), col = n0 + frag_col(i);
+    if (r < nrows) {
+      const int part = (col >= a.hdp) + (col >= 2 * a.hdp), d = col - part * a.hdp;
+      const float v = __fadd_rn(acc[i], w.bqkv[(part * a.H + h) * a.hdp + d]);
+      if (part == 0)
+        sm.qh[r * ld + d] = v;
+      else
+        (part == 1 ? sm.kh : sm.vh)[key_row(a, r) * ld + d] = v;
+    }
+  }
+}
+
+// Attention of head h on the CUDA cores in f32: TPR threads per row, thread
+// `sub` of row r takes keys sub, sub + TPR, ... of the row's env (its P
+// prefix keys and its causal own keys) and head-dim columns sub, sub + TPR,
+// ...; the row's max, sum and probabilities pass between its lanes by
+// shuffles. Writes the normalised output, hi/lo, into the A tile pair ys
+// [ROWS, hdp] (rows >= nrows zero), in q's room once every row's scores are
+// done.
+__device__ __forceinline__ void attention_head(const Args& a, const Smem& sm, int nrows,
+                                               int ctid) {
+  constexpr int KPT = MAX_KEYS / TPR, DPT = MAX_HDP / TPR;   // keys and columns per thread
+  const int ld = a.hdp + 1, lane = ctid & 31, r = ctid / TPR, sub = ctid % TPR;
+  const bool valid = r < nrows;
+  int kb = 0, nk = 0;
+  if (valid) {
+    const int e = r / a.T2;
+    kb = e * (a.P + a.T2);
+    nk = a.P + (r - e * a.T2) + 1;
+  }
+  const float* q = sm.qh + r * ld;
+  float s[KPT], mx = -INFINITY;
+#pragma unroll
+  for (int jj = 0; jj < KPT; ++jj) {
+    const int j = sub + TPR * jj;
+    s[jj] = -INFINITY;
+    if (j < nk) {
+      const float* k = sm.kh + (kb + j) * ld;
+      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;   // four chains: latency, not issue, bounds it
+      int d = 0;
+      for (; d + 4 <= a.hd; d += 4) {
+        d0 = fmaf(q[d], k[d], d0);
+        d1 = fmaf(q[d + 1], k[d + 1], d1);
+        d2 = fmaf(q[d + 2], k[d + 2], d2);
+        d3 = fmaf(q[d + 3], k[d + 3], d3);
+      }
+      for (; d < a.hd; ++d) d0 = fmaf(q[d], k[d], d0);
+      s[jj] = __fmul_rn(__fadd_rn(__fadd_rn(d0, d1), __fadd_rn(d2, d3)), a.scale);
+      mx = fmaxf(mx, s[jj]);
+    }
+  }
+  __syncthreads();   // q is read
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float sum = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < KPT; ++jj) {
+    s[jj] = s[jj] == -INFINITY ? 0.f : expf(__fsub_rn(s[jj], mx));
+    sum = __fadd_rn(sum, s[jj]);
+  }
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+  const float inv = sum > 0.f ? __fdiv_rn(1.f, sum) : 0.f;
+  float y[DPT];
+#pragma unroll
+  for (int dd = 0; dd < DPT; ++dd) y[dd] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < KPT; ++jj) {
+#pragma unroll
+    for (int src = 0; src < TPR; ++src) {
+      const float p = __shfl_sync(0xffffffffu, s[jj], (lane & ~(TPR - 1)) | src);
+      const int j = TPR * jj + src;
+      if (j < nk) {
+        const float* v = sm.vh + (kb + j) * ld;
+#pragma unroll
+        for (int dd = 0; dd < DPT; ++dd) {
+          const int d = sub + TPR * dd;
+          if (d < a.hdp) y[dd] = fmaf(p, v[d], y[dd]);
         }
       }
     }
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&ring.empty[slot]);
-    ++ring.it;
   }
-}
-
-// Row and column of accumulator value i of tile t of this warp (hopper.cuh's
-// m16n8k16 layout).
-__device__ __forceinline__ int acc_row(int i) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return 16 * (warp & 1) + (lane >> 2) + 8 * (i >> 1);
-}
-__device__ __forceinline__ int acc_col(int t, int i) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return 8 * ((warp >> 1) + COL_GROUPS * t) + 2 * (lane & 3) + (i & 1);
-}
-
-// LayerNorm of the residual xs into the hi/lo tile pair hs: one warp per
-// row, rows >= nrows and columns >= D zero.
-__device__ __forceinline__ void layernorm(const float* xs, bf16* hs, const float* s,
-                                          const float* b, int D, int Dp, int nrows, int ctid) {
-  const int warp = ctid >> 5, lane = ctid & 31, lda = Dp + 8, split = ROWS * lda;
-  for (int r = warp; r < ROWS; r += CONSUMERS / 32) {
-    const float* row = xs + r * Dp;
-    float sum = 0.f, sq = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = row[c];
-      sum = __fadd_rn(sum, v);
-      sq = fmaf(v, v, sq);
-    }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-      sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
-    }
-    const float mu = __fdiv_rn(sum, static_cast<float>(D));
-    const float var = __fsub_rn(__fdiv_rn(sq, static_cast<float>(D)), __fmul_rn(mu, mu));
-    const float rstd = rsqrtf(__fadd_rn(var, 1e-5f));
-    for (int c = lane; c < Dp; c += 32) {
-      const float v = r < nrows && c < D
-                          ? fmaf(__fmul_rn(__fsub_rn(row[c], mu), rstd), s[c], b[c])
-                          : 0.f;
-      store_split(hs + r * lda + c, split, v);
-    }
+  for (int dd = 0; dd < DPT; ++dd) {
+    const int d = sub + TPR * dd;
+    if (d < a.hdp)
+      store_split(sm.ys + a_off(r, d), ROWS * a.hdp, valid ? __fmul_rn(y[dd], inv) : 0.f);
   }
 }
 
-// Mean and reciprocal std of row r of xs (whole warp), as `layernorm`.
+// QKV, attention and proj, head by head, for NW = 3 hdp / 2: proj's k-steps
+// of head h follow its attention, summed onto the residual.
+template <int NW, bool kGroup, bool kTimed>
+__device__ __forceinline__ void heads(const Args& a, const LayerArgs& w, Ring<kGroup>& ring,
+                                      const Smem& sm, PhaseClock<kTimed>& clk, float* res,
+                                      int nrows, int n_env, const float* pk0, const float* pv0,
+                                      int ns, int ctid) {
+  const int n0w = (ctid >> 7) * 64 * ns;
+  for (int h = 0; h < a.H; ++h) {
+    qkv_head<NW>(a, w, ring, clk, sm, h, nrows, n_env, pk0, pv0, ctid);
+    __syncthreads();
+    clk.mark(PH_QKV);
+    attention_head(a, sm, nrows, ctid);
+    hopper::fence_proxy_async();
+    __syncthreads();
+    clk.mark(PH_ATTN);
+    gemm_wide(ring, clk, res, sm.ys, a.hdp, a.Dq, a.hdp / 16, n0w, ns);
+    clk.mark(PH_PROJ);
+  }
+}
+
+// One layer over the tile: LN1, per head QKV, attention and proj onto the
+// residual, LN2, the MLP onto the residual. The residual stays in `res`.
+template <bool kGroup, bool kTimed>
+__device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
+                                      Ring<kGroup>& ring, PhaseClock<kTimed>& clk, float* res,
+                                      int nrows, int n_env, size_t prow) {
+  const int ctid = threadIdx.x, wg = ctid >> 7;
+  const int D = a.D, Dp = a.Dp;
+  const int ns = a.Dq / 128, n0w = wg * 64 * ns;
+  const float* pk0 = a.P > 0 ? w.pk + prow * D : nullptr;
+  const float* pv0 = a.P > 0 ? w.pv + prow * D : nullptr;
+  layernorm(res, sm.hs, w.ln1_s, w.ln1_b, D, Dp, nrows, n0w, ns, sm.stats, ctid);
+  add_bias(res, w.bproj, n0w, ns, D);
+  __syncthreads();
+  clk.mark(PH_LN1);
+
+  // ---- QKV, attention and proj, head by head ----------------------------
+  switch (a.hdp) {
+    case 16: heads<24>(a, w, ring, sm, clk, res, nrows, n_env, pk0, pv0, ns, ctid); break;
+    case 32: heads<48>(a, w, ring, sm, clk, res, nrows, n_env, pk0, pv0, ns, ctid); break;
+    case 48: heads<72>(a, w, ring, sm, clk, res, nrows, n_env, pk0, pv0, ns, ctid); break;
+    default: heads<96>(a, w, ring, sm, clk, res, nrows, n_env, pk0, pv0, ns, ctid); break;
+  }
+
+  layernorm(res, sm.hs, w.ln2_s, w.ln2_b, D, Dp, nrows, n0w, ns, sm.stats, ctid);
+  add_bias(res, w.bfc2, n0w, ns, D);
+  __syncthreads();
+  clk.mark(PH_LN2);
+
+  // ---- MLP: FC-column chunks of the hidden layer through ys; fc2 sums
+  //      onto the residual -----------------------------------------------------
+  const int gsplit = ROWS * FC;
+  for (int m = 0; m < a.n_mlp; ++m) {
+    bf16* gbuf = sm.ys;
+    const int n0 = wg * (FC / 2);
+    float acc[FC / 4];
+    gemm<FC / 2>(ring, clk, acc, sm.hs, Dp, FC, Dp / 16, n0, false);
+    __syncthreads();   // the previous chunk's fc2 (or the last head's proj) is done with ys
+#pragma unroll
+    for (int i = 0; i < FC / 4; i += 2) {
+      const int r = frag_row(i), c = n0 + frag_col(i), f = m * FC + c;
+      const bool in = r < nrows;
+      const float g0 = in && f < a.F ? gelu_tanh(__fadd_rn(acc[i], w.bfc[f])) : 0.f;
+      const float g1 = in && f + 1 < a.F ? gelu_tanh(__fadd_rn(acc[i + 1], w.bfc[f + 1])) : 0.f;
+      store_split2(gbuf + a_off(r, c), gsplit, g0, g1);
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();
+    clk.mark(PH_FC);
+    gemm_wide(ring, clk, res, gbuf, FC, a.Dq, FC / 16, n0w, ns);
+    clk.mark(PH_FC2);
+  }
+}
+
+// Mean and reciprocal std of one row of the f32 residual (whole warp).
 __device__ __forceinline__ void row_stats(const float* row, int D, int lane, float& mu,
                                           float& rstd) {
   float sum = 0.f, sq = 0.f;
@@ -368,235 +725,18 @@ __device__ __forceinline__ void row_stats(const float* row, int D, int lane, flo
                           1e-5f));
 }
 
-// Key row of token t of env e: its P prefix keys come first.
-__device__ __forceinline__ int key_row(const Args& a, int r) {
-  const int e = r / a.T2;
-  return e * (a.P + a.T2) + a.P + (r - e * a.T2);
-}
-
-// Head h: the block's prefix K/V into their key rows e (P + T2) + j, then
-// q, k and v of the tile's rows from the QKV product (bias added) into qh
-// and the own key rows.
-template <bool kTimed>
-__device__ __forceinline__ void qkv_head(const Args& a, const LayerArgs& w, Ring& ring,
-                                         PhaseClock<kTimed>& clk, const Smem& sm, int h, int nrows, int n_env,
-                                         const float* pk0, const float* pv0, int ctid) {
-  const int ld = a.hdp + 1;
-  const int ne = n_env * a.P * a.hd;
-  for (int i = ctid; i < 2 * ne; i += CONSUMERS) {
-    const bool is_v = i >= ne;
-    const int rem = is_v ? i - ne : i, ej = rem / a.hd, d = rem - ej * a.hd;
-    const int e = ej / a.P, R = e * (a.P + a.T2) + (ej - e * a.P);
-    (is_v ? sm.vh : sm.kh)[R * ld + d] = (is_v ? pv0 : pk0)[ej * a.D + h * a.hd + d];
-  }
-  float acc[MT_QKV][4];
-  gemm<MT_QKV>(ring, clk, acc, sm.hs, a.Dp + 8, 3 * a.hdp, a.Dp / 16, false);
-  const int nt = (3 * a.hdp) >> 3, cg = threadIdx.x >> 6;
-#pragma unroll
-  for (int t = 0; t < MT_QKV; ++t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = acc_row(i), col = acc_col(t, i);
-      if (cg + COL_GROUPS * t < nt && r < nrows) {
-        const int part = (col >= a.hdp) + (col >= 2 * a.hdp), d = col - part * a.hdp;
-        const float v = __fadd_rn(acc[t][i], w.bqkv[(part * a.H + h) * a.hdp + d]);
-        if (part == 0)
-          sm.qh[r * ld + d] = v;
-        else
-          (part == 1 ? sm.kh : sm.vh)[key_row(a, r) * ld + d] = v;
-      }
-    }
-  }
-}
-
-// Attention of head h on the CUDA cores in f32: 8 threads per row, thread
-// `sub` of row r takes keys sub, sub + 8, ... of the row's env (its P prefix
-// keys and its causal own keys) and head-dim columns sub, sub + 8, ...;
-// the row's max, sum and probabilities pass between its 8 lanes by shuffles.
-// Writes the normalised output, hi/lo, into ys columns h hdp + d (rows >=
-// nrows zero).
-__device__ __forceinline__ void attention_head(const Args& a, const Smem& sm, int h, int nrows,
-                                               int ctid) {
-  constexpr int KPT = MAX_KEYS / 8, DPT = MAX_HDP / 8;   // keys and columns per thread
-  const int ld = a.hdp + 1, lane = ctid & 31, r = ctid >> 3, sub = ctid & 7;
-  const bool valid = r < nrows;
-  int kb = 0, nk = 0;
-  if (valid) {
-    const int e = r / a.T2;
-    kb = e * (a.P + a.T2);
-    nk = a.P + (r - e * a.T2) + 1;
-  }
-  const float* q = sm.qh + r * ld;
-  float s[KPT], mx = -INFINITY;
-#pragma unroll
-  for (int jj = 0; jj < KPT; ++jj) {
-    const int j = sub + 8 * jj;
-    s[jj] = -INFINITY;
-    if (j < nk) {
-      const float* k = sm.kh + (kb + j) * ld;
-      float dot = 0.f;
-      for (int d = 0; d < a.hd; ++d) dot = fmaf(q[d], k[d], dot);
-      s[jj] = __fmul_rn(dot, a.scale);
-      mx = fmaxf(mx, s[jj]);
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  float sum = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < KPT; ++jj) {
-    s[jj] = s[jj] == -INFINITY ? 0.f : expf(__fsub_rn(s[jj], mx));
-    sum = __fadd_rn(sum, s[jj]);
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-  const float inv = sum > 0.f ? __fdiv_rn(1.f, sum) : 0.f;
-  float y[DPT];
-#pragma unroll
-  for (int dd = 0; dd < DPT; ++dd) y[dd] = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < KPT; ++jj) {
-#pragma unroll
-    for (int src = 0; src < 8; ++src) {
-      const float p = __shfl_sync(0xffffffffu, s[jj], (lane & ~7) | src);
-      const int j = 8 * jj + src;
-      if (j < nk) {
-        const float* v = sm.vh + (kb + j) * ld;
-#pragma unroll
-        for (int dd = 0; dd < DPT; ++dd) {
-          const int d = sub + 8 * dd;
-          if (d < a.hdp) y[dd] = fmaf(p, v[d], y[dd]);
-        }
-      }
-    }
-  }
-  const int lda = a.HDp + 8;
-#pragma unroll
-  for (int dd = 0; dd < DPT; ++dd) {
-    const int d = sub + 8 * dd;
-    if (d < a.hdp)
-      store_split(sm.ys + r * lda + h * a.hdp + d, ROWS * lda,
-                  valid ? __fmul_rn(y[dd], inv) : 0.f);
-  }
-}
-
-// xs (the residual) += acc + bias over this warp's tiles of a proj or fc2
-// product with N columns; rows < nrows and columns < D only.
-__device__ __forceinline__ void residual_add(float* xs, const float (&acc)[MT_WIDE][4],
-                                             const float* bias, int N, int D, int Dp,
-                                             int nrows) {
-#pragma unroll
-  for (int t = 0; t < MT_WIDE; ++t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = acc_row(i), c = acc_col(t, i);
-      if (c < N && r < nrows && c < D) {
-        float* p = xs + r * Dp + c;
-        *p = __fadd_rn(*p, __fadd_rn(acc[t][i], bias[c]));
-      }
-    }
-  }
-}
-
-// The producer (one thread): every weight chunk of every layer, in
-// consumption order, into the ring.
-template <bool kGroup>
-__device__ __forceinline__ void produce(const Args& a, const Smem& sm) {
-  const int n_layers = kGroup ? a.n_layers : 1;
-  const int n_prod = a.H + 1 + 2 * a.n_mlp;
-  int it = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    const char* src = reinterpret_cast<const char*>(a.layer[kGroup ? l : 0].tiles);
-    for (int p = 0; p < n_prod; ++p) {
-      int N, ksteps;
-      product_shape(a, p, N, ksteps);
-      const int kpc = steps_per_chunk(N);
-      for (int k0 = 0; k0 < ksteps; k0 += kpc) {
-        const uint32_t bytes = 2 * N * 32 * min(kpc, ksteps - k0);
-        const int slot = it % STAGES;
-        hopper::mbar_wait(&sm.empty[slot], ((it / STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&sm.full[slot], bytes);
-        hopper::bulk_copy_g2s(sm.slots + slot * (SLOT_BYTES / 2), src, bytes, &sm.full[slot]);
-        src += bytes;
-        ++it;
-      }
-    }
-  }
-}
-
-// One layer over the tile: LN1, QKV and attention head by head, proj +
-// residual, LN2, the MLP + residual; the residual stays in sm.xs.
-template <bool kTimed>
-__device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
-                                      Ring& ring, PhaseClock<kTimed>& clk, int nrows, int n_env,
-                                      size_t prow) {
-  const int ctid = threadIdx.x;
-  const int D = a.D, Dp = a.Dp;
-  const float* pk0 = a.P > 0 ? w.pk + prow * D : nullptr;
-  const float* pv0 = a.P > 0 ? w.pv + prow * D : nullptr;
-  layernorm(sm.xs, sm.hs, w.ln1_s, w.ln1_b, D, Dp, nrows, ctid);
-  consumer_sync();
-  clk.mark(PH_LN1);
-
-  // ---- QKV and attention, head by head --------------------------------------
-  for (int h = 0; h < a.H; ++h) {
-    qkv_head(a, w, ring, clk, sm, h, nrows, n_env, pk0, pv0, ctid);
-    consumer_sync();
-    clk.mark(PH_QKV);
-    attention_head(a, sm, h, nrows, ctid);
-    consumer_sync();
-    clk.mark(PH_ATTN);
-  }
-
-  // ---- proj + residual (A is ys) ------------------------------------------
-  {
-    float acc[MT_WIDE][4];
-    gemm<MT_WIDE>(ring, clk, acc, sm.ys, a.HDp + 8, a.Dq, a.HDp / 16, false);
-    residual_add(sm.xs, acc, w.bproj, a.Dq, D, Dp, nrows);
-  }
-  consumer_sync();
-  clk.mark(PH_PROJ);
-  layernorm(sm.xs, sm.hs, w.ln2_s, w.ln2_b, D, Dp, nrows, ctid);
-  consumer_sync();
-  clk.mark(PH_LN2);
-
-  // ---- MLP: FC-column chunks of the hidden layer, double-buffered in ys;
-  //      the fc2 sums stay in registers ------------------------------------
-  float acc2[MT_WIDE][4];
-  const int lg = FC + 8, gsplit = ROWS * lg;
-  for (int m = 0; m < a.n_mlp; ++m) {
-    bf16* gbuf = sm.ys + (m & 1) * 2 * gsplit;
-    float acc[MT_FC][4];
-    gemm<MT_FC>(ring, clk, acc, sm.hs, Dp + 8, FC, Dp / 16, false);
-#pragma unroll
-    for (int t = 0; t < MT_FC; ++t) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = acc_row(i), c = acc_col(t, i), f = m * FC + c;
-        const float g = f < a.F ? gelu_tanh(__fadd_rn(acc[t][i], w.bfc[f])) : 0.f;
-        store_split(gbuf + r * lg + c, gsplit, g);
-      }
-    }
-    consumer_sync();
-    clk.mark(PH_FC);
-    gemm<MT_WIDE>(ring, clk, acc2, gbuf, lg, a.Dq, FC / 16, m > 0);
-    clk.mark(PH_FC2);
-  }
-  residual_add(sm.xs, acc2, w.bfc2, a.Dq, D, Dp, nrows);
-  consumer_sync();
-  clk.mark(PH_FC2);
-}
-
-// The consumer warps: everything but the weight copies.
+// The block: two warpgroups over every product and epilogue; thread 0 also
+// issues the weight copies.
 template <bool kGroup, bool kTimed>
-__device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
+__device__ __forceinline__ void consume(const Args& a, const Smem& sm, uint32_t rank) {
   PhaseClock<kTimed> clk;
   clk.start();
-  const int ctid = threadIdx.x, warp = ctid >> 5, lane = ctid & 31;
+  const int ctid = threadIdx.x, warp = ctid >> 5, lane = ctid & 31, wg = ctid >> 7;
   const int n_layers = kGroup ? a.n_layers : 1;
   const int D = a.D, Dp = a.Dp;
+  const int ns = a.Dq / 128, n0w = wg * 64 * ns;
   const int env0 = blockIdx.x * a.envs_per_block;
-  const int n_env = min(a.envs_per_block, a.B - env0);
+  const int n_env = max(0, min(a.envs_per_block, a.B - env0));   // 0: a block with no rows
   const int nrows = n_env * a.T2;
   const size_t row0 = static_cast<size_t>(env0) * a.T2;
   int sidx = 0;
@@ -605,33 +745,53 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
     sidx = sidx < 0 ? 0 : (sidx >= a.S ? a.S - 1 : sidx);
   }
   const size_t prow = (static_cast<size_t>(sidx) * a.B + env0) * a.P;   // first prefix row
-  Ring ring{sm.full, sm.empty, sm.slots, 0};
+  Ring<kGroup> ring{a, sm, rank, 0, {}};
+  if (ctid == 0) ring.prod.start(a);
 
-  // x into the residual; key rows (and their pad columns) start at zero
+  // x into the residual registers; key rows (and their pad columns) start
+  // at zero
+  float res[RES];
   const float* x = a.x + row0 * D;
-  for (int i = ctid; i < ROWS * Dp; i += CONSUMERS) {
-    const int r = i / Dp, c = i - r * Dp;
-    sm.xs[i] = r < nrows && c < D ? x[static_cast<size_t>(r) * D + c] : 0.f;
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = frag_row(i), c = n0w + 64 * s + frag_col(i);
+      res[s * 32 + i] = s < ns && r < nrows && c < D ? x[static_cast<size_t>(r) * D + c] : 0.f;
+    }
   }
-  for (int i = ctid; i < 2 * a.key_rows * (a.hdp + 1); i += CONSUMERS) sm.kh[i] = 0.f;
-  consumer_sync();
+  for (int i = ctid; i < 2 * a.key_rows * (a.hdp + 1); i += THREADS) sm.kh[i] = 0.f;
+  __syncthreads();
   clk.mark(PH_LOAD);
 
   for (int l = 0; l < n_layers; ++l)
-    layer<kTimed>(a, sm, a.layer[kGroup ? l : 0], ring, clk, nrows, n_env, prow);
+    layer(a, sm, a.layer[kGroup ? l : 0], ring, clk, res, nrows, n_env, prow);
 
-  float* out = a.out + row0 * D;
-  for (int i = ctid; i < nrows * D; i += CONSUMERS) {
-    const int r = i / D;
-    out[i] = sm.xs[r * Dp + i - r * D];
+  // the residual to shared memory (the LN tile's room), then to `out`
+  float* xs = reinterpret_cast<float*>(sm.hs);
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = frag_row(i), c = n0w + 64 * s + frag_col(i);
+      if (s < ns && c < Dp)
+        *reinterpret_cast<float2*>(xs + r * Dp + c) =
+            make_float2(res[s * 32 + i], res[s * 32 + i + 1]);
+    }
   }
-  if (kTimed) consumer_sync();
+  __syncthreads();
+  float* out = a.out + row0 * D;
+  for (int i = ctid; i < nrows * D; i += THREADS) {
+    const int r = i / D;
+    out[i] = xs[r * Dp + i - r * D];
+  }
+  if (kTimed) __syncthreads();
   clk.mark(PH_WRITE);
 
   // ---- optional epilogue: ln_f + linear head, f32 ------------------------
   if (a.pred != nullptr) {
-    for (int r = warp; r < nrows; r += CONSUMERS / 32) {
-      const float* row = sm.xs + r * Dp;
+    for (int r = warp; r < nrows; r += THREADS / 32) {
+      const float* row = xs + r * Dp;
       float mu, rstd;
       row_stats(row, D, lane, mu, rstd);
       float acc[MAX_M];
@@ -654,32 +814,30 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
       }
     }
   }
-  if (kTimed) consumer_sync();
+  if (kTimed) __syncthreads();
   clk.mark(PH_EPI);
   clk.store(a.cycles);
 }
 
 // kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
-// the single-layer one (B1, B3, B4) indexes a.layer[0] statically. Warps 0-7
-// consume, warp 8 produces (one thread copies).
+// the single-layer one (B1, B3, B4) indexes a.layer[0] statically. kTimed:
+// B1 with the phase clock.
 template <bool kGroup, bool kTimed = false>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 fused_layer_f32_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem sm = carve(a, smem);
+  const uint32_t rank = hopper::cluster_ctarank();
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&sm.full[s], 1);
-      hopper::mbar_init(&sm.empty[s], CONSUMERS / 32);
+      hopper::mbar_init(&sm.empty[s], CLUSTER * THREADS / 32);
     }
     hopper::fence_mbar_init();
   }
-  __syncthreads();
-  if (threadIdx.x >= CONSUMERS) {
-    if (threadIdx.x == CONSUMERS) produce<kGroup>(a, sm);
-  } else {
-    consume<kGroup, kTimed>(a, sm);
-  }
+  hopper::cluster_sync();   // both blocks' barriers are ready
+  consume<kGroup, kTimed>(a, sm, rank);
+  hopper::cluster_sync();
 }
 
 // The twelve weight pointers of one layer (`FusedLayerParams` order), its
@@ -706,10 +864,13 @@ LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
 
 // Fills the derived sizes, sizes shared memory and launches on `stream`;
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// shape outside the limits. `a.layer[:n_layers]` must be set by the caller.
-int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx, int n_layers,
-           const void* lnf_s, const void* lnf_b, const void* whead, const void* bhead, void* out,
-           void* pred, int B, int T2, int D, int H, int P, int S, int F, int M, void* stream) {
+// shape outside the limits. `a.layer[:n_layers]` must be set by the caller;
+// `group` takes the B2 instantiation, a non-null `cycles` the timed
+// single-layer one. The grid is rounded up to whole clusters.
+int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx,
+           int n_layers, const void* lnf_s, const void* lnf_b, const void* whead,
+           const void* bhead, void* out, void* pred, int B, int T2, int D, int H, int P, int S,
+           int F, int M, void* stream) {
   a.x = static_cast<const float*>(x);
   a.idx = static_cast<const int*>(idx);
   a.n_layers = n_layers;
@@ -732,19 +893,17 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
   a.hdp = (a.hd + 15) / 16 * 16;
   a.Dp = (D + 15) / 16 * 16;
   a.Dq = (a.Dp + 127) / 128 * 128;
-  a.HDp = H * a.hdp;
   a.n_mlp = (F + FC - 1) / FC;
   a.envs_per_block = T2 > 0 ? ROWS / T2 : 0;
   a.key_rows = a.envs_per_block * (P + T2);
   a.scale = 1.0f / sqrtf(static_cast<float>(a.hd > 0 ? a.hd : 1));
   if (n_layers < 1 || n_layers > (group ? MAX_LAYERS : 1) || T2 < 1 || T2 > ROWS ||
       H < 1 || D % H != 0 || P + T2 > MAX_KEYS || M > MAX_M || a.Dp > MAX_DP ||
-      a.hdp > MAX_HDP || a.HDp > MAX_HDP_ALL || F % 16 != 0)
+      a.hdp > MAX_HDP || H * a.hdp > MAX_HDP_ALL || F % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
 
-  const size_t smem = 128 + STAGES * SLOT_BYTES + sizeof(float) * ROWS * a.Dp +
-                      sizeof(bf16) * (2 * ROWS * (a.Dp + 8) + ys_elems(a.HDp)) +
-                      sizeof(float) * (ROWS + 2 * a.key_rows) * (a.hdp + 1);
+  const size_t smem = BAR_BYTES + STATS_BYTES + STAGES * SLOT_BYTES +
+                      2 * sizeof(bf16) * ROWS * a.Dp + region_bytes(a.hdp, a.key_rows);
   if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = group    ? fused_layer_f32_kernel<true>
                       : cycles ? fused_layer_f32_kernel<false, true>
@@ -752,7 +911,8 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + a.envs_per_block - 1) / a.envs_per_block;
+  const int tiles = (B + a.envs_per_block - 1) / a.envs_per_block;
+  const int blocks = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
   kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -780,7 +940,7 @@ int beso_fused_f32_layer_prefix(const void* x, const void* pk, const void* pv, c
 
 // B1 with the phase clock: as beso_fused_f32_layer_prefix, and each block
 // adds its clock64() cycles per phase (enum Phase) to cycles [blocks,
-// N_PHASES].
+// N_PHASES], blocks the launch's grid (whole clusters).
 int beso_fused_f32_layer_prefix_timed(const void* x, const void* pk, const void* pv,
                                       const void* idx, const void* const* w, const void* lnf_s,
                                       const void* lnf_b, const void* whead, const void* bhead,
@@ -804,8 +964,8 @@ int beso_fused_f32_layers_prefix_group(const void* x, const void* idx, const voi
     const void* const* lw = layers + l * LAYER_PTRS;
     a.layer[l] = layer_args(lw, lw[13], lw[14]);
   }
-  return launch(a, true, nullptr, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred, B, T2, D, H, P,
-                S, F, M, stream);
+  return launch(a, true, nullptr, x, idx, n_layers, lnf_s, lnf_b, whead, bhead, out, pred, B,
+                T2, D, H, P, S, F, M, stream);
 }
 
 // B3: one block against one already selected prefix row, pk/pv [B, P, D].
@@ -815,8 +975,7 @@ int beso_fused_f32_layer_with_prefix(const void* x, const void* pk, const void* 
   Args a;
   a.layer[0] = layer_args(w, pk, pv);
   return launch(a, false, nullptr, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out,
-                nullptr, B, T2,
-                D, H, P, 1, F, 0, stream);
+                nullptr, B, T2, D, H, P, 1, F, 0, stream);
 }
 
 // B4: one block over the whole causal sequence x [B, T, D], no prefix.
@@ -825,8 +984,7 @@ int beso_fused_f32_layer(const void* x, const void* const* w, void* out, int B, 
   Args a;
   a.layer[0] = layer_args(w, nullptr, nullptr);
   return launch(a, false, nullptr, x, nullptr, 1, nullptr, nullptr, nullptr, nullptr, out,
-                nullptr, B, T,
-                D, H, 0, 1, F, 0, stream);
+                nullptr, B, T, D, H, 0, 1, F, 0, stream);
 }
 
 // Kernel limits the wrapper checks against, and the tiling constants
@@ -843,6 +1001,7 @@ int beso_fused_f32_limits(int which) {
     case 7: return SLOT_BYTES;
     case 8: return FC;
     case 9: return N_PHASES;
+    case 10: return CLUSTER;
     default: return -1;
   }
 }

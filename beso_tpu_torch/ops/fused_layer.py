@@ -37,7 +37,8 @@ and the attention on `mma.sync`. `fused_layer_prefix_timed` reports each
 block's clock cycles per phase of B1. The f32 form keeps f32 accuracy on
 the tensor cores: every operand is split into bf16 hi + lo parts (the
 weights once per model, in the tiled copy) and each product is
-hi.hi + lo.hi + hi.lo on `mma.sync`, 32 rows per block.
+hi.hi + lo.hi + hi.lo on `wgmma`, 64 rows per block, in clusters of two
+blocks that share each weight chunk, the residual in registers.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches its kernel (the bf16 or the f32 one, by x's dtype) or
@@ -157,7 +158,7 @@ def check_fused_dtype(device, dtype: torch.dtype) -> None:
 # and csrc/fused_layer_f32.cu (F32_SLOT_BYTES, FC), which `_limits()` reads
 # back from the compiled kernels on the card.
 SLOT_BYTES = 12288       # one slot of the bf16 kernel's weight ring
-F32_SLOT_BYTES = 24576   # one slot of the f32 kernel's ring: a hi and a lo chunk
+F32_SLOT_BYTES = 24576   # one slot of the f32 kernel's ring: a chunk's hi and lo parts
 MLP_CHUNK = 160          # FC: hidden columns per MLP chunk
 
 
@@ -167,18 +168,24 @@ def _ceil_to(n: int, m: int) -> int:
 
 def layer_products(p: FusedLayerParams, n_heads: int):
     """The B operands [N, K] of one layer's products in the order the
-    kernel consumes them: per head the [q|k|v] rows (3 hdp x Dp), proj with
-    its rows padded to Dq = ceil128(Dp) (Dq x H hdp), then per MLP chunk of
-    MLP_CHUNK hidden columns fc (MLP_CHUNK x Dp) and fc2 (Dq x MLP_CHUNK),
-    F padded to a multiple of MLP_CHUNK. Padding is zero."""
+    kernel of the layer's dtype consumes them: per head the [q|k|v] rows
+    (3 hdp x Dp), proj with its rows padded to Dq = ceil128(Dp) (Dq x H hdp;
+    in f32 cut by head, each head's Dq x hdp right after its [q|k|v]), then
+    per MLP chunk of MLP_CHUNK hidden columns fc (MLP_CHUNK x Dp) and fc2
+    (Dq x MLP_CHUNK), F padded to a multiple of MLP_CHUNK. Padding is
+    zero."""
     H = n_heads
     Dp = p.wqkv.shape[1]
     hdp = p.wqkv.shape[0] // (3 * H)
     Fp = p.wfc.shape[0]
     Dq, Fq = _ceil_to(Dp, 128), _ceil_to(Fp, MLP_CHUNK)
     wqkv = p.wqkv.reshape(3, H, hdp, Dp)
-    prods = [wqkv[:, h].reshape(3 * hdp, Dp) for h in range(H)]
-    prods.append(F.pad(p.wproj, (0, 0, 0, Dq - Dp)))
+    wproj = F.pad(p.wproj, (0, 0, 0, Dq - Dp))
+    if p.wqkv.dtype == torch.float32:
+        prods = [w for h in range(H)
+                 for w in (wqkv[:, h].reshape(3 * hdp, Dp), wproj[:, h * hdp:(h + 1) * hdp])]
+    else:
+        prods = [wqkv[:, h].reshape(3 * hdp, Dp) for h in range(H)] + [wproj]
     wfc = F.pad(p.wfc, (0, 0, 0, Fq - Fp))
     wfc2 = F.pad(p.wfc2, (0, Fq - Fp, 0, Dq - Dp))
     for c in range(0, Fq, MLP_CHUNK):
@@ -342,6 +349,7 @@ class _Limits(NamedTuple):
     max_layers: int   # layers of one B2 group
     max_hdp_all: int  # H * hdp
     block_keys: Optional[int]   # keys of the envs of a 16-row block (bf16 only)
+    cluster: int = 1  # blocks per cluster: the grid is whole clusters
 
 
 @functools.lru_cache(maxsize=None)
@@ -350,12 +358,12 @@ def _limits(dtype: torch.dtype = torch.bfloat16) -> _Limits:
     Raises if its tiling constants are not this module's."""
     lib = _library()
     if dtype == torch.float32:
-        lim = [lib.beso_fused_f32_limits(i) for i in range(10)]
+        lim = [lib.beso_fused_f32_limits(i) for i in range(11)]
         if (lim[7], lim[8], lim[9]) != (F32_SLOT_BYTES, MLP_CHUNK, len(F32_PHASES)):
             raise RuntimeError(f"f32 kernel constants {lim} do not match fused_layer.py "
                                f"(F32_SLOT_BYTES {F32_SLOT_BYTES}, MLP_CHUNK {MLP_CHUNK}, "
                                f"{len(F32_PHASES)} phases)")
-        return _Limits(*lim[:7], block_keys=None)
+        return _Limits(*lim[:7], block_keys=None, cluster=lim[10])
     lim = [lib.beso_fused_layer_prefix_limits(i) for i in range(11)]
     if (lim[6], lim[8], lim[9]) != (len(PHASES), SLOT_BYTES, MLP_CHUNK):
         raise RuntimeError(f"kernel constants {lim} do not match fused_layer.py "
@@ -490,8 +498,9 @@ def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
 
 
 # Phases of B1's timed launch, in the kernel's order (enum Phase); the f32
-# kernel adds the cycles its consumers waited for a ring slot to fill, held
-# apart from the phase that waited.
+# kernel adds the cycles thread 0 spent on the weight ring (waiting for a
+# slot to fill or free, issuing the copies), held apart from the phase that
+# waited.
 PHASES = ("load", "ln1", "qkv", "attention", "proj", "ln2", "fc", "fc2",
           "write", "epilogue")
 F32_PHASES = PHASES + ("ring_wait",)
@@ -513,8 +522,9 @@ def fused_layer_prefix_timed(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor
     no plain version."""
     if not _on_cuda(x, "fused_layer_prefix_timed"):
         raise ValueError("fused_layer_prefix_timed needs CUDA tensors")
-    rows = _limits(_kernel_dtype(x)).rows
-    blocks = -(-x.shape[0] // (rows // x.shape[1]))
+    lim = _limits(_kernel_dtype(x))
+    tiles = -(-x.shape[0] // (lim.rows // x.shape[1]))
+    blocks = -(-tiles // lim.cluster) * lim.cluster
     cycles = torch.zeros(blocks, len(timed_phases(x.dtype)), dtype=torch.int64,
                          device=x.device)
     return _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles), cycles

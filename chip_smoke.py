@@ -13,18 +13,22 @@ exits non-zero on failure:
    registers, stack and spill bytes per kernel (each flash kernel in its
    bf16 and f32 instantiation at tile widths 64 and 128; no bf16 width-64
    flash kernel may spill) and, from cuobjdump -sass, the HGMMA (wgmma)
-   instructions of each instantiation of the bf16 fused-layer kernel and
-   the HMMA (mma.sync) instructions of the f32 one, none of which may have
-   none;
+   instructions of each instantiation of the bf16 and of the f32
+   fused-layer kernel, none of which may have none, with each f32
+   instantiation's registers and spill bytes;
 2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version at
    the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240, H=12, hd=20,
    P=2, 2T=10) shapes, epilogue on and off, every sigma row, each with a
    ragged last tile; max |diff| must stay within 2^-5 of max |ref| in bf16,
-   then 2^-12 in f32. Times both dtypes at the kitchen serving shape with
-   CUDA events (f32 beside the f32 torch.matmul time of its four products,
-   TF32 off), and runs B1's phase clock there (`fused_layer_prefix_timed`,
-   which must equal B1 bit for bit): each phase's mean clock64() cycles per
-   64-row block and its share;
+   then 2^-12 in f32, in f32 also at batches whose odd tile count leaves
+   the last 2-block cluster's second block empty (1985 kitchen, 1995
+   block-push envs); prints the f32 kernel's rows per block and cluster
+   size. Times both dtypes at the kitchen serving shape with CUDA events
+   (f32 beside the f32 torch.matmul time of its four products, TF32 off),
+   and runs B1's phase clock there in both dtypes
+   (`fused_layer_prefix_timed`, which must equal B1 bit for bit): each
+   phase's mean clock64() cycles per 64-row block and its share (f32 with
+   the cycles spent on the weight ring, held apart);
 3. engine: the `fused_cached` engine against the plain `cached` engine on
    the same inputs at every grid sigma, for a bf16 kitchen model (2^-5) and
    an f32 one (2^-10);
@@ -69,10 +73,12 @@ exits non-zero on failure:
    (`fused_layer_with_prefix`) at the kitchen (P=3, 2T=8) and block-push
    (P=2, 2T=10) shapes, and bit-equal to B1 on the same row; B2
    (`fused_layers_prefix_group`) with groups of 2 and 4 layers, epilogue on
-   and off, and bit-equal to the chain of B1 launches. Times B4 at 2048 x
-   11, B3 at 2048 x 8 and B2 (group 2) against two B1 launches and against
-   the plain versions, with CUDA events, and each form's four products as
-   torch.matmul in the same dtype (information only);
+   and off, and bit-equal to the chain of B1 launches; in f32 also B4 at
+   2041 envs, B3 and B2 at 1985 (the last cluster's second block empty).
+   Times B4 at 2048 x 11, B3 at 2048 x 8 and B2 (group 2) against two B1
+   launches and against the plain versions, with CUDA events, and each
+   form's four products as torch.matmul in the same dtype (information
+   only);
 9. engines: `make_fused_denoise_fn` (B4) against the plain `GCDenoiser`
    forward at the three grid sigmas and one off-grid sigma, with and
    without zeroed (uncond) goals, linear and MLP heads; the `fused_cached`
@@ -535,7 +541,8 @@ def _same_bits(what, got, ref):
 def check_other_layers(device, gen, dtype=None, frac=ERR_FRACTION):
     """Phase 8: B4, B3 and B2 against their plain versions in `dtype` (bf16
     unless given) within frac of max |ref|, B3 and B2 against B1 launches
-    bit for bit. Returns {kernel: largest max |diff| vs plain}."""
+    bit for bit; in f32 also at batches that leave the last cluster's
+    second block empty. Returns {kernel: largest max |diff| vs plain}."""
     import torch
 
     from beso_tpu_torch.ops import fused_layer as fl
@@ -551,18 +558,23 @@ def check_other_layers(device, gen, dtype=None, frac=ERR_FRACTION):
     def rand(*shape):
         return _rand(gen, *shape, device=device, dtype=dtype)
 
+    f32 = dtype == torch.float32
     # B4: 5 envs per 64-row tile at 11 and 12 tokens; 2047 and 2001 envs
-    # leave the last tile ragged
-    for name, D, H, T, B in (("kitchen", 360, 6, 11, 2047), ("block_push", 240, 12, 12, 2001)):
+    # leave the last tile ragged; 2041 envs make 409 tiles (f32: an odd
+    # count, so the last cluster's second block is empty)
+    for name, D, H, T, B in (("kitchen", 360, 6, 11, 2047), ("block_push", 240, 12, 12, 2001),
+                             *((("kitchen", 360, 6, 11, 2041),) if f32 else ())):
         p, _ = random_layer(D, H, 2, gen, device, dtype)
         x = rand(B, T, D)
         got = fl.fused_layer(x, p, n_heads=H)
         ref = fl.fused_layer_reference(x, p, n_heads=H)
         torch.cuda.synchronize()
         check("fused_layer", f"B4 {name} B={B} T={T}", got, ref)
-    # B3 on sigma row 2, and B1 on the same row
+    # B3 on sigma row 2, and B1 on the same row (f32 also at 1985 envs: 249
+    # tiles)
     for name, D, H, P, T2, B in (("kitchen", 360, 6, 3, 8, 1999),
-                                 ("block_push", 240, 12, 2, 10, 2000)):
+                                 ("block_push", 240, 12, 2, 10, 2000),
+                                 *((("kitchen", 360, 6, 3, 8, 1985),) if f32 else ())):
         p, _ = random_layer(D, H, 2, gen, device, dtype)
         x = rand(B, T2, D)
         pk, pv = rand(3, B, P, D), rand(3, B, P, D)
@@ -573,32 +585,33 @@ def check_other_layers(device, gen, dtype=None, frac=ERR_FRACTION):
         torch.cuda.synchronize()
         check("fused_layer_with_prefix", f"B3 {name} B={B} P={P} 2T={T2}", got, ref)
         _same_bits(f"{tag} B3 {name} vs B1 on row 2", got, b1)
-    # B2: groups of 2 and 4 layers (4 does not divide 6), epilogue off/on
-    D, H, P, T2, S, M, B = 360, 6, 3, 8, 3, 9, 1999
+    # B2: groups of 2 and 4 layers (4 does not divide 6), epilogue off/on;
+    # f32 also a group of 2 at 1985 envs
+    D, H, P, T2, S, M = 360, 6, 3, 8, 3, 9
     made = [random_layer(D, H, M, gen, device, dtype) for _ in range(4)]
     layers, epi = [m[0] for m in made], made[-1][1]
-    pks = [rand(S, B, P, D) for _ in range(4)]
-    pvs = [rand(S, B, P, D) for _ in range(4)]
-    x = rand(B, T2, D)
     idx = torch.tensor([1], dtype=torch.int32, device=device)
-    for n in (2, 4):
-        for e in (None, epi):
-            got = fl.fused_layers_prefix_group(x, pks[:n], pvs[:n], idx, layers[:n],
-                                               n_heads=H, epilogue=e)
-            ref = fl.fused_layers_prefix_group_reference(x, pks[:n], pvs[:n], idx,
-                                                         layers[:n], n_heads=H, epilogue=e)
-            y = x
-            for li in range(n):
-                last = li == n - 1
-                chain = fl.fused_layer_prefix(y, pks[li], pvs[li], idx, layers[li],
-                                              n_heads=H, epilogue=e if last else None)
-                y = chain[0] if (last and e is not None) else chain
-            torch.cuda.synchronize()
-            outs = [(got, ref, chain)] if e is None else list(zip(got, ref, chain))
-            for what, (g_, r_, c_) in zip(("out", "pred"), outs):
-                what = f"B2 group {n} epilogue={e is not None} {what}"
-                check("fused_layers_prefix_group", what, g_, r_)
-                _same_bits(f"{tag} {what} vs {n} B1 launches", g_, c_)
+    for n, e, B in ((2, None, 1999), (2, epi, 1999), (4, None, 1999), (4, epi, 1999),
+                    *(((2, epi, 1985),) if f32 else ())):
+        pks = [rand(S, B, P, D) for _ in range(n)]
+        pvs = [rand(S, B, P, D) for _ in range(n)]
+        x = rand(B, T2, D)
+        got = fl.fused_layers_prefix_group(x, pks, pvs, idx, layers[:n], n_heads=H,
+                                           epilogue=e)
+        ref = fl.fused_layers_prefix_group_reference(x, pks, pvs, idx, layers[:n], n_heads=H,
+                                                     epilogue=e)
+        y = x
+        for li in range(n):
+            last = li == n - 1
+            chain = fl.fused_layer_prefix(y, pks[li], pvs[li], idx, layers[li],
+                                          n_heads=H, epilogue=e if last else None)
+            y = chain[0] if (last and e is not None) else chain
+        torch.cuda.synchronize()
+        outs = [(got, ref, chain)] if e is None else list(zip(got, ref, chain))
+        for what, (g_, r_, c_) in zip(("out", "pred"), outs):
+            what = f"B2 group {n} B={B} epilogue={e is not None} {what}"
+            check("fused_layers_prefix_group", what, g_, r_)
+            _same_bits(f"{tag} {what} vs {n} B1 launches", g_, c_)
     return err
 
 
@@ -1141,24 +1154,32 @@ def main() -> None:
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the bf16 fused layer: {hgmma}")
     if len(hgmma) != 3 or not all(hgmma.values()):
         fail("the fused-layer kernel's instantiations do not all run their products on wgmma")
-    hmma = sass_counts(so, "fused_layer_f32_kernel", "HMMA")
-    print(f"  cuobjdump -sass, HMMA (mma.sync) instructions of the f32 fused layer: {hmma}")
-    if len(hmma) != 2 or not all(hmma.values()):
-        fail("the f32 fused-layer kernel's instantiations do not run their products on "
-             "the tensor cores")
+    hgmma_f32 = sass_counts(so, "fused_layer_f32_kernel", "HGMMA")
+    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the f32 fused layer: {hgmma_f32}")
+    if len(hgmma_f32) != 3 or not all(hgmma_f32.values()):
+        fail("the f32 fused-layer kernel's instantiations do not all run their products on "
+             "wgmma")
+    for name, props in report.items():
+        if name.startswith("fused_layer_f32_kernel"):
+            print(f"  f32 fused layer {name}: {spill_bytes(props)} spill bytes; {props}")
 
     # ---- 2. kernel against its plain version -----------------------------
     print(f"[2] ({since_start()}) kernel vs plain version (bf16, then f32)")
     gen = torch.Generator().manual_seed(0)
     # batches that leave the last 64-row tile part-filled: 1999 envs of 8
-    # tokens (8 envs per tile), 2000 envs of 10 tokens (6 envs per tile);
-    # in f32 (32-row tiles, 4 and 3 envs) both leave the last tile part-filled too
+    # tokens (8 envs per tile), 2000 envs of 10 tokens (6 envs per tile)
     err = max(check_kernel("kitchen", 360, 6, 3, 8, 3, 9, 1999, device, gen),
               check_kernel("block_push", 240, 12, 2, 10, 3, 2, 2000, device, gen))
-    err_f32 = max(check_kernel("kitchen", 360, 6, 3, 8, 3, 9, 1999, device, gen,
-                               torch.float32, F32_FRACTION),
-                  check_kernel("block_push", 240, 12, 2, 10, 3, 2, 2000, device, gen,
-                               torch.float32, F32_FRACTION))
+    lim = fl._limits(torch.float32)
+    print(f"  f32 kernel: {lim.rows} rows per block, clusters of {lim.cluster} blocks")
+    # and in f32 batches with an odd tile count: 1985 envs of 8 tokens (249
+    # tiles), 1995 of 10 (333): the last cluster's second block has no rows
+    err_f32 = max(check_kernel(name, D, H, P, T2, 3, M, B, device, gen, torch.float32,
+                               F32_FRACTION)
+                  for name, D, H, P, T2, M, B in (
+                      ("kitchen", 360, 6, 3, 8, 9, 1999), ("block_push", 240, 12, 2, 10, 2, 2000),
+                      ("kitchen", 360, 6, 3, 8, 9, 1985),
+                      ("block_push", 240, 12, 2, 10, 2, 1995)))
     B_serve = 2 * N_ENVS  # lambda=1.5 CFG stacks [cond, uncond]
     ms, plain_ms = time_kernel(B_serve, device, gen)
     print(f"  time at the kitchen serving shape (B={B_serve}, 2T=8, D=360): "

@@ -211,6 +211,55 @@ def test_f32_tiles_reconstruct_padded_weights(D, H):
     assert off == p.tiles.numel()
 
 
+def _f32_product_shape(p, H, Dp, hdp, Dq, n_mlp):
+    """(N, k-steps) of product p of an f32 layer, as the f32 kernel's
+    `product_shape` gives them: per head [q|k|v] then its proj columns, then
+    per MLP chunk fc and fc2."""
+    if p < 2 * H:
+        return (Dq, hdp // 16) if p % 2 else (3 * hdp, Dp // 16)
+    return (Dq, fl.MLP_CHUNK // 16) if (p - 2 * H) % 2 else (fl.MLP_CHUNK, Dp // 16)
+
+
+@pytest.mark.parametrize("D,H", [(360, 6), (240, 12)], ids=["kitchen", "block_push"])
+def test_f32_tiles_in_kernel_consumption_order(D, H):
+    """Walk the f32 kernel's ring in its consumption order (`product_shape`
+    and `Producer.issue`: per product its chunks of `chunk_steps(f32=True)`,
+    each chunk a hi then a lo part in one ring slot, one bulk copy of a
+    multiple of 16 bytes): every chunk fits a slot, the chunks' bytes add up
+    to the tiled copy, and the hi and lo parts rebuild the padded weights
+    within 2^-16 of their largest magnitude: [q|k|v] and proj head by head,
+    then fc and fc2 per MLP chunk."""
+    p = port_layer(layer_weights(D, seed=53), H, torch.float32)
+    hdp, Dp, Fp = p.wqkv.shape[0] // (3 * H), p.wqkv.shape[1], p.wfc.shape[0]
+    Dq, n_mlp = -(-Dp // 128) * 128, -(-Fp // fl.MLP_CHUNK)
+    tiles = p.tiles.float()
+    off, got = 0, []
+    for prod in range(2 * H + 2 * n_mlp):
+        N, ksteps = _f32_product_shape(prod, H, Dp, hdp, Dq, n_mlp)
+        cols = []
+        for kn in fl.chunk_steps(N, ksteps, f32=True):
+            part = N * 16 * kn          # elements of one part
+            assert 2 * 2 * part <= fl.F32_SLOT_BYTES and (2 * 2 * part) % 16 == 0
+            hi, lo = (tiles[off + i * part:off + (i + 1) * part]
+                      .reshape(2 * kn, N // 8, 8, 8).permute(1, 2, 0, 3).reshape(N, 16 * kn)
+                      for i in (0, 1))
+            cols.append(hi + lo)
+            off += 2 * part
+        got.append(torch.cat(cols, 1))
+    assert off == p.tiles.numel()
+
+    def close(a, b):
+        return (a - b).abs().max() <= 2 ** -16 * b.abs().max()
+
+    qkv = torch.stack([g.reshape(3, hdp, Dp) for g in got[:2 * H:2]], 1).reshape(-1, Dp)
+    assert close(qkv, p.wqkv)
+    proj = torch.cat(got[1:2 * H:2], 1)
+    assert close(proj[:Dp], p.wproj) and not proj[Dp:].any()
+    fc, fc2 = torch.cat(got[2 * H::2], 0), torch.cat(got[2 * H + 1::2], 1)
+    assert close(fc[:Fp], p.wfc) and not fc[Fp:].any()
+    assert close(fc2[:Dp, :Fp], p.wfc2) and not fc2[Dp:].any() and not fc2[:, Fp:].any()
+
+
 def test_library_path_keyed_by_sources():
     path = build.kernel_library_path()
     assert path == build.kernel_library_path()

@@ -5,8 +5,10 @@ dims up to 128; each kernel also bit-equal from launch to launch) and the
 fused layers B1 (at the ragged edge, block push and with the epilogue, and
 its timed entry), B2 (layer group), B3 (one selected prefix row) and B4
 (whole causal sequence), in bf16 and f32, which must also equal B1 launches
-bit for bit where they compute the same thing; the three fused engines of
-an f32 model against the plain f32 engines within 2^-10. Marked `gpu`:
+bit for bit where they compute the same thing, in f32 also at batches that
+leave the last 2-block cluster's second block empty, and the f32 phase
+clock; the three fused engines of an f32 model against the plain f32
+engines within 2^-10. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -334,8 +336,7 @@ B1_SHAPES = [(360, 6, 3, 8, 1999), (240, 12, 2, 10, 2000)]
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_fused_layer_b1_matches_plain(D, H, P, T2, B, epilogue, dtype):
     """Kitchen and block-push widths on every prefix row; 1999 envs of 8
-    tokens and 2000 of 10 leave the last tile part-filled (64 rows in bf16,
-    32 in f32)."""
+    tokens and 2000 of 10 leave the last 64-row tile part-filled."""
     dev = _cuda()
     rng = np.random.RandomState(B)
     p = _fused_layer(D, H, rng, dev, dtype)
@@ -375,3 +376,77 @@ def test_fused_layer_b1_timed_equals_b1():
     assert torch.equal(out, ref)
     assert cycles.shape == (256, len(fl.PHASES))
     assert bool((cycles[:, :fl.PHASES.index("write") + 1] > 0).all())
+
+
+@pytest.mark.gpu
+def test_fused_layer_b1_f32_timed_equals_b1():
+    """The f32 phase-clock entry computes what f32 B1 does, bit for bit,
+    gives every block (whole clusters) a positive cycle count per phase it
+    runs, and leaves B1's launch count alone."""
+    dev = _cuda()
+    rng = np.random.RandomState(6)
+    f32 = torch.float32
+    p = _fused_layer(360, 6, rng, dev, f32)
+    x = _bf16(rng, 2048, 8, 360, dev=dev, dtype=f32)
+    pk, pv = (_bf16(rng, 3, 2048, 3, 360, dev=dev, dtype=f32) for _ in range(2))
+    idx = torch.tensor([1], dtype=torch.int32, device=dev)
+    before = fl.fused_layer_prefix.launches
+    out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=6)
+    assert fl.fused_layer_prefix.launches == before
+    ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=6)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert cycles.shape == (256, len(fl.F32_PHASES))
+    assert bool((cycles[:, :fl.PHASES.index("write") + 1] > 0).all())
+
+
+# f32 batches whose tile count is odd, so the last 2-block cluster's second
+# block has no rows: 1985 kitchen envs of 8 tokens (249 tiles of 8 envs),
+# 1995 block-push envs of 10 (333 tiles of 6), 2041 envs of 11 tokens for B4
+# (409 tiles of 5)
+EMPTY_BLOCK_CASES = ["b1-kitchen-1985", "b1-block_push-1995", "b3-kitchen-1985",
+                     "b4-kitchen-2041", "b2-kitchen-1985"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EMPTY_BLOCK_CASES)
+def test_fused_layers_f32_cluster_with_empty_block(case):
+    """The f32 kernels at batches that leave the last cluster's second block
+    empty: within 2^-12 of max |ref| of the plain versions, B3 and B2
+    bit-equal to B1 launches (the empty block must still take its share of
+    the cluster's weight chunks, or its peer would hang)."""
+    dev = _cuda()
+    kind, name, B = case.split("-")
+    B = int(B)
+    D, H, P, T2 = (240, 12, 2, 10) if name == "block_push" else (360, 6, 3, 8)
+    f32 = torch.float32
+    rng = np.random.RandomState(B)
+    p = _fused_layer(D, H, rng, dev, f32)
+    idx = torch.tensor([1], dtype=torch.int32, device=dev)
+    if kind == "b4":
+        x = _bf16(rng, B, 11, D, dev=dev, dtype=f32)
+        got, ref = fl.fused_layer(x, p, n_heads=H), fl.fused_layer_reference(x, p, n_heads=H)
+        torch.cuda.synchronize()
+        assert _close(got, ref, FRACTION[f32])
+        return
+    x = _bf16(rng, B, T2, D, dev=dev, dtype=f32)
+    pk, pv = (_bf16(rng, 3, B, P, D, dev=dev, dtype=f32) for _ in range(2))
+    b1 = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H)
+    if kind == "b1":
+        ref = fl.fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=H)
+        torch.cuda.synchronize()
+        assert _close(b1, ref, FRACTION[f32])
+    elif kind == "b3":
+        got = fl.fused_layer_with_prefix(x, pk[1], pv[1], p, n_heads=H)
+        ref = fl.fused_layer_with_prefix_reference(x, pk[1], pv[1], p, n_heads=H)
+        torch.cuda.synchronize()
+        assert _close(got, ref, FRACTION[f32]) and torch.equal(got, b1)
+    else:
+        p2 = _fused_layer(D, H, rng, dev, f32)
+        pk2, pv2 = (_bf16(rng, 3, B, P, D, dev=dev, dtype=f32) for _ in range(2))
+        got = fl.fused_layers_prefix_group(x, [pk, pk2], [pv, pv2], idx, [p, p2], n_heads=H)
+        ref = fl.fused_layers_prefix_group_reference(x, [pk, pk2], [pv, pv2], idx, [p, p2],
+                                                     n_heads=H)
+        chain = fl.fused_layer_prefix(b1, pk2, pv2, idx, p2, n_heads=H)
+        torch.cuda.synchronize()
+        assert _close(got, ref, FRACTION[f32]) and torch.equal(got, chain)
