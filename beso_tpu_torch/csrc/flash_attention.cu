@@ -52,10 +52,11 @@
 //   blocks per SM at <= 128 registers.
 // - Head dims up to 128 (the JAX kernels' working range): each kernel is
 //   instantiated at tile width 64 (hdp <= 64: the chunked training path's
-//   hd 60) and 128 (hdp 80-128), chosen on hdp at launch. The width-128
-//   instantiations hold twice the fragments, accumulators and tiles per
-//   block, so their launch bounds ask for half the blocks per SM (bf16 two,
-//   f32 one); register spills are allowed in them only.
+//   hd 60); above, the launchers call flash_attention_wide.cu's `wgmma`
+//   kernels for the forward and the f32 backward, and the bf16 backward
+//   runs this template at tile width 128, which holds twice the fragments,
+//   accumulators and tiles per block, so its launch bounds ask for half the
+//   blocks per SM; register spills are allowed there only.
 // Padded rows get lse = 0 and zero q/k, so their p is finite; the dK/dV
 // kernel masks p (not s) for query columns >= T, as the JAX kernel does.
 //
@@ -67,7 +68,7 @@
 // are split the same way at their repack. That is f32 accuracy (~2^-16
 // relative per product, not TF32's 2^-11) on the tensor cores, at three
 // times the products and twice the shared memory, with up to 255 registers:
-// two blocks per SM (the forward three).
+// two blocks per SM (the forward three) at tile width 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +78,18 @@
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
+
+// flash_attention_wide.cu: the forward at tile width 128 and the f32
+// backward at tile width 128.
+int flash_wide_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T,
+                   int hd, int causal, int f32, void* stream);
+int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const void* lse, void* dq, void* delta, int BH, int T,
+                      int hd, int causal, void* stream);
+int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int BH, int T,
+                       int hd, int causal, void* stream);
+int flash_wide_blocks_per_sm(int which, int f32);
 
 namespace {
 
@@ -241,39 +254,28 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const float* src, int nrows
 
 // c[0:2][0:4] += A . B^T over the head dim, for 16 rows (A: the warp's A
 // fragments, one per k16 step) against the 16 rows of `b` (a [*, LDH]
-// shared tile at the chunk's first row). kSplit: the odd k-steps sum into a
-// second pair of accumulators, added at the end, so that the products form
-// four dependent chains, not two (the width-128 forward, whose score chains
-// are eight deep; the dQ kernel runs two products' chains already).
-template <int HDP, int NS, bool kSplit = false>
+// shared tile at the chunk's first row).
+template <int HDP, int NS>
 __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
                                                    uint32_t (&af)[NS][NT_D<HDP>][4],
                                                    const bf16* b, int nks, int lane) {
-  float d[2][4] = {};
   const bf16* row = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH<HDP> + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < NT_D<HDP>; ++kk) {
     if (kk < nks) {
-      float(&e)[2][4] = kSplit && (kk & 1) ? d : c;
       uint32_t bf[4];   // columns 0-7 of the chunk, then 8-15
       hopper::ldmatrix_x4<false>(bf, row + kk * 16);
-      hopper::mma_16816(e[0], af[0][kk], bf);
-      hopper::mma_16816(e[1], af[0][kk], bf + 2);
+      hopper::mma_16816(c[0], af[0][kk], bf);
+      hopper::mma_16816(c[1], af[0][kk], bf + 2);
       if constexpr (NS == 2) {
         uint32_t bl[4];
         hopper::ldmatrix_x4<false>(bl, row + SPLIT<HDP> + kk * 16);
-        hopper::mma_16816(e[0], af[1][kk], bf);
-        hopper::mma_16816(e[1], af[1][kk], bf + 2);
-        hopper::mma_16816(e[0], af[0][kk], bl);
-        hopper::mma_16816(e[1], af[0][kk], bl + 2);
+        hopper::mma_16816(c[0], af[1][kk], bf);
+        hopper::mma_16816(c[1], af[1][kk], bf + 2);
+        hopper::mma_16816(c[0], af[0][kk], bl);
+        hopper::mma_16816(c[1], af[0][kk], bl + 2);
       }
     }
-  }
-  if constexpr (kSplit) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[j][i] += d[j][i];
   }
 }
 
@@ -467,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
         const int kc = kt * TILE + 16 * c;   // the chunk's first key
         if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
         float s[2][4] = {};
-        rows_times_chunk_t<HDP, NS, (HDP > 64)>(s, qf, ks + 16 * c * LDH<HDP>, nks, lane);
+        rows_times_chunk_t<HDP, NS>(s, qf, ks + 16 * c * LDH<HDP>, nks, lane);
         // every row keeps key kc (kc < T, and kc <= r0 when causal), so m stays finite
         const bool edge = kc + 16 > T || (a.causal && kc == r0);
         float mx[2] = {-INFINITY, -INFINITY};
@@ -781,7 +783,9 @@ void set_inputs(A& a, const void* q, const void* k, const void* v, int T, int hd
 }
 
 // Each launcher takes the tile width 64 for hd <= 64 (the instantiations
-// the chunked training path runs) and 128 above.
+// the chunked training path runs); above, flash_attention_wide.cu's kernels
+// (the forward, the f32 backward) or this template at width 128 (the bf16
+// backward).
 template <typename E>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T, int hd,
         int causal, void* stream) {
@@ -791,7 +795,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
   a.lse = static_cast<float*>(lse);
   if (a.hdp <= 64)
     return launch(flash_fwd_kernel<E, 64>, fwd_smem<E, 64>(), a, BH * tiles(T), stream);
-  return launch(flash_fwd_kernel<E, 128>, fwd_smem<E, 128>(), a, BH * tiles(T), stream);
+  return flash_wide_fwd(q, k, v, o, lse, BH, T, hd, causal, sizeof(E) == 4, stream);
 }
 
 template <typename E>
@@ -807,7 +811,10 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   a.delta = static_cast<float*>(delta);
   if (a.hdp <= 64)
     return launch(flash_bwd_dq_kernel<E, 64>, dq_smem<E, 64>(), a, BH * tiles(T), stream);
-  return launch(flash_bwd_dq_kernel<E, 128>, dq_smem<E, 128>(), a, BH * tiles(T), stream);
+  if constexpr (sizeof(E) == 4)
+    return flash_wide_bwd_dq(q, k, v, o, dout, lse, dq, delta, BH, T, hd, causal, stream);
+  else
+    return launch(flash_bwd_dq_kernel<E, 128>, dq_smem<E, 128>(), a, BH * tiles(T), stream);
 }
 
 template <typename E>
@@ -823,7 +830,10 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.dv = static_cast<E*>(dv);
   if (a.hdp <= 64)
     return launch(flash_bwd_dkv_kernel<E, 64>, dkv_smem<E, 64>(), a, BH * tiles(T), stream);
-  return launch(flash_bwd_dkv_kernel<E, 128>, dkv_smem<E, 128>(), a, BH * tiles(T), stream);
+  if constexpr (sizeof(E) == 4)
+    return flash_wide_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, BH, T, hd, causal, stream);
+  else
+    return launch(flash_bwd_dkv_kernel<E, 128>, dkv_smem<E, 128>(), a, BH * tiles(T), stream);
 }
 
 template <typename E, int HDP>
@@ -872,7 +882,9 @@ int beso_flash_max_head_dim(void) { return MAX_HDP; }
 int beso_flash_blocks_per_sm(int which, int f32, int hd) {
   if (hd <= 64)
     return f32 ? kernel_blocks_per_sm<float, 64>(which) : kernel_blocks_per_sm<bf16, 64>(which);
-  return f32 ? kernel_blocks_per_sm<float, 128>(which) : kernel_blocks_per_sm<bf16, 128>(which);
+  if (which == 0 || f32) return flash_wide_blocks_per_sm(which, f32);
+  return which == 1 ? blocks_per_sm(flash_bwd_dq_kernel<bf16, 128>, dq_smem<bf16, 128>())
+                    : blocks_per_sm(flash_bwd_dkv_kernel<bf16, 128>, dkv_smem<bf16, 128>());
 }
 
 }  // extern "C"

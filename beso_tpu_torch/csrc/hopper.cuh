@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
 // mbarriers, bulk asynchronous copies from global to shared memory (also
-// multicast to the blocks of a cluster), cluster rank and barrier,
-// per-thread asynchronous copies with zero fill (cp.async), the
-// warp-level m16n8k16 product with ldmatrix, the shared-memory matrix
-// descriptor of `wgmma`, and the `wgmma` products (bf16 operands from
-// shared memory, f32 accumulators in registers) at the tile widths the
-// kernels use.
+// multicast to the blocks of a cluster, and boxes of a tensor map), cluster
+// rank and barrier, per-thread asynchronous copies with zero fill
+// (cp.async), the warp-level m16n8k16 product with ldmatrix, the
+// shared-memory matrix descriptors of `wgmma`, and the `wgmma` products
+// (bf16 operands from shared memory, or A from registers; f32 accumulators
+// in registers) at the tile widths the kernels use.
 //
-// Operand layout: every `wgmma` operand here is K-major without swizzle, a
+// Operand layout: a `wgmma` operand here is K-major without swizzle (or,
+// with the descriptors noted at smem_desc_sw128 and wgmma_rs, MN-major or
+// in the 128-byte swizzle), a
 // grid of 8 x 8 bf16 "core matrices" of 128 contiguous bytes (8 rows of 16
 // bytes). The descriptor's leading byte offset (LBO) is the distance between
 // two core matrices next to each other along K, the stride byte offset
@@ -104,6 +106,20 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
 // async proxy); put before the barrier that hands the tile over.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A box of the tensor map at `map` (a __grid_constant__ kernel parameter's
+// address) at coordinates (c0, c1, c2), innermost first, to shared `dst`;
+// its bytes (the whole box, out-of-bounds elements zero-filled) complete on
+// `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(smem_u32(bar))
+      : "memory");
 }
 
 // ---- thread block clusters -------------------------------------------------
@@ -217,6 +233,17 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
 }
 
+// As smem_desc, for an operand in the 128-byte swizzle layout (rows of 128
+// bytes, 16-byte chunk j of row r at chunk j ^ (r % 8), in 1024-byte-aligned
+// atoms of 8 rows; as a bulk tensor copy with CU_TENSOR_MAP_SWIZZLE_128B
+// writes it). K-major: SBO the distance between two 8-row groups, LBO
+// unused, a k16 step 32 bytes further in the row. MN-major: 64 elements
+// along MN per row, LBO the distance to the next 64, SBO to the next 8
+// rows along K.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return smem_desc(p, lbo, sbo) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -241,6 +268,18 @@ __device__ __forceinline__ void fence_regs(float* d) {
 // B K-major; scale_d == 0 overwrites d instead of adding to it.
 template <int N>
 __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma<24>(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -382,5 +421,38 @@ __device__ __forceinline__ void wgmma<192>(float* d, uint64_t da, uint64_t db, i
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(scale_d));
 }
+
+
+// d[0 : N/2] (+)= A[64 x 16] * B[16 x N] with A in registers: a[0:4] is the
+// m16n8k16 A fragment (mma_16816) of the warp's 16 rows 16 w .. 16 w + 15.
+// kTransB = 0: B K-major, as in wgmma<N>; kTransB = 1: B MN-major, a grid
+// of 8 x 8 core matrices whose 16-byte rows run along N (8 consecutive
+// columns of one k), LBO the distance between two core matrices along K
+// and SBO along N.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, 1>(float* d, const uint32_t* a, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 
 }  // namespace hopper

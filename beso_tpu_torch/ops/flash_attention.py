@@ -11,15 +11,18 @@ package computes outside Pallas (:212-214), comes out of the dQ kernel
 beside dq, so a backward is exactly two launches.
 
 What bounds the kernels on the H100, and the design (details in
-`csrc/flash_attention.cu`): at the chunked training shape [256, 6, 131, 60]
-a launch reads ~24 MB per tensor and its products take a few microseconds
-at the tensor cores' peak, so it is bound by bytes and latency. Each warp
-keeps its 16 rows' score, P and dS tiles in `mma.sync` fragments (the
-forward runs its online softmax on them), the streamed tiles come in by
-`cp.async` two stages deep, and warps skip the 16-row chunks past T and
-above the diagonal. The head dim is zero-padded to a multiple of 16 in
-shared memory and the ragged edge is masked in the kernels, with no padded
-copies.
+`csrc/flash_attention.cu` and `csrc/flash_attention_wide.cu`): at the
+chunked training shape [256, 6, 131, 60] a launch reads ~24 MB per tensor
+and its products take a few microseconds at the tensor cores' peak, so it
+is bound by bytes and latency. Up to hd 64 each warp keeps its 16 rows'
+score, P and dS tiles in `mma.sync` fragments (the forward runs its online
+softmax on them), the streamed tiles come in by `cp.async` two stages deep,
+and warps skip the 16-row chunks past T and above the diagonal. Above hd 64
+the forward (both dtypes) and the f32 backward run 64-row tiles on `wgmma`
+(the bf16 forward's tiles by bulk tensor copies where rows are 16-byte
+aligned); the bf16 backward keeps the `mma.sync` kernels at tile width
+128. The head dim is zero-padded to a multiple of 16 in shared memory and
+the ragged edge is masked in the kernels, with no padded copies.
 
 The kernels take q, k, v (and o, dO) all bf16 or all f32, as the JAX
 kernels take the model's dtype, and head dims up to 128; the f32
@@ -116,8 +119,8 @@ MAX_HEAD_DIM = 128   # the kernels' largest head dim (beso_flash_max_head_dim)
 
 
 def blocks_per_sm(dtype: torch.dtype = torch.bfloat16, head_dim: int = 64) -> dict:
-    """Resident blocks per SM of the three kernels' `dtype` instantiations
-    for `head_dim` (tile width 64 up to hd 64, else 128) on the current
+    """Resident blocks per SM of the three kernels that `dtype` and
+    `head_dim` select (tile width 64 up to hd 64, else 128) on the current
     card, as the CUDA runtime's occupancy calculator gives them."""
     lib = _library()
     f32 = int(dtype == torch.float32)

@@ -11,8 +11,10 @@ exits non-zero on failure:
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
 1. build: compile the kernel library for sm_90a, print seconds, ptxas's
    registers, stack and spill bytes per kernel (each flash kernel in its
-   bf16 and f32 instantiation at tile widths 64 and 128; no bf16 width-64
-   flash kernel may spill) and, from cuobjdump -sass, the HGMMA (wgmma)
+   bf16 and f32 instantiation at tile width 64, the bf16 backward at 128,
+   and the five width-128 `wgmma` kernels of flash_attention_wide.cu, all
+   of which must be there; no bf16 width-64 flash kernel may spill) and,
+   from cuobjdump -sass, the HGMMA (wgmma)
    instructions of each instantiation of the bf16 and of the f32
    fused-layer kernel, none of which may have none, with each f32
    instantiation's registers and spill bytes;
@@ -42,17 +44,20 @@ exits non-zero on failure:
    within 2^-5 of max |ref| in bf16, then the same in f32 within 2^-12, at
    the chunked training shape [256, 6, 131, 60] (causal), at ragged small
    shapes ([3, 2, 77, 20] causal and full, T = 16 and 144 at hd 60, hd 18
-   and hd 15) and at the width-128 shapes [2, 4, 131, 128] causal and
-   [2, 2, 77, 96] full; a second launch of each kernel must be bit-equal to
+   and hd 15) and at the width-128 shapes [2, 4, 131, 128] causal,
+   [2, 2, 77, 96] full, [2, 3, 131, 120] causal, [2, 2, 65, 100] causal (rows
+   not 16-byte aligned) and [2, 2, 16, 72] full; a second launch of each
+   kernel must be bit-equal to
    the first; prints the three kernels' resident blocks per SM in both
    instantiations at both widths; the autograd backward must run exactly
    two device kernels, the dQ and the dK/dV kernel (torch.profiler; "not
    measured" if it sees no kernel). Times each kernel, the backward total
    (dQ with delta + dK/dV) and forward + backward against the plain
    versions at the chunked shape, and each kernel at [256, 3, 131, 128]
-   (width 128), with CUDA events, in bf16 and in f32, and, as their
-   yardstick, F.scaled_dot_product_attention's forward and backward in the
-   same dtype at the same shape with the attention kernels it ran;
+   (width 128) and at the 3-head model's [256, 3, 131, 120], with CUDA
+   events, in bf16 and in f32, and, as their yardstick,
+   F.scaled_dot_product_attention's forward and backward in the same dtype
+   at the same shape with the attention kernels it ran;
 6. model: the chunked kitchen model (`configs/franka_kitchen_chunked.yaml`,
    full width) from one seeded state: loss and every parameter's gradient
    with attention="pallas" (the flash kernels) against
@@ -65,7 +70,9 @@ exits non-zero on failure:
    EVAL_EVERY steps; the flash launch counters must move by exactly 6 per
    step (each kernel) plus 6 x 3 NFE per evaluation batch (forward), every
    loss and test MSE must be finite. Prints train steps/s and peak memory
-   (informational);
+   (informational); then WIDE_TRAIN_STEPS steps of the same config at 3
+   heads (hd 120: the width-128 kernels), with the same exact launch counts,
+   and its train steps/s (informational);
 8. fused-layer kernels B2, B3 and B4 against their plain PyTorch versions,
    each within 2^-5 of max |ref| in bf16 and 2^-12 in f32: B4
    (`fused_layer`, whole causal sequence) at the kitchen (11 tokens, 2047
@@ -131,6 +138,8 @@ TRAIN_STEPS, EVAL_EVERY, TRAIN_BATCH = 240, 80, 256
 CHUNKED_SHAPE = (256, 6, 131, 60)   # [B, H, T, hd] of the chunked train step
 WIDE_SHAPE = (256, 3, 131, 128)     # the flash kernels' width-128 instantiations, timed
 WIDE_HEADS = 3   # the chunked model at 3 heads: hd 120, the width-128 instantiations
+WIDE_MODEL_SHAPE = (256, WIDE_HEADS, 131, 120)   # its attention shape, also timed
+WIDE_TRAIN_STEPS = 40   # phase 7's timed train run of the 3-head model
 MAIN_TRAIN_STEPS = 20   # phase 11's train steps before its rollout
 # model-level bounds, flash kernels vs broadcast in bf16 (phase 6): the two
 # forms round the probabilities to bf16 at different points (after the
@@ -145,7 +154,8 @@ MODEL_LOSS_FRACTION_F32 = 2.0 ** -12
 MODEL_GRAD_FRACTION_F32 = 2.0 ** -10
 FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), False),
                 ((2, 3, 16, 60), True), ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
-                ((2, 2, 50, 15), False), ((2, 4, 131, 128), True), ((2, 2, 77, 96), False))
+                ((2, 2, 50, 15), False), ((2, 4, 131, 128), True), ((2, 2, 77, 96), False),
+                ((2, 3, 131, 120), True), ((2, 2, 65, 100), True), ((2, 2, 16, 72), False))
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
 # bf16 tensor-core operations and HBM3 bytes per second. The flash kernels'
 # f32 instantiations run each f32 product on the tensor cores as three bf16
@@ -1011,8 +1021,9 @@ def check_model_grads(device, seed, dtype, B=64, n_heads=None):
     return out
 
 
-def run_training(device, seed, writer):
-    """The training main path: BesoAgent.train_agent on the chunked config."""
+def run_training(device, seed, writer, **overrides):
+    """The training main path: BesoAgent.train_agent on the chunked config
+    (with `overrides` of its fields)."""
     import torch
 
     from beso_tpu_torch.agents.beso_agent import BesoAgent, BesoAgentConfig
@@ -1026,7 +1037,7 @@ def run_training(device, seed, writer):
                                 train_fraction=0.95,     # train_fraction: 0.95 (:64)
                                 eval_n_times=64, eval_n_steps=4, device=device)
     ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
-    agent = BesoAgent(BesoAgentConfig(**chunked_config()), ws.scaler,
+    agent = BesoAgent(BesoAgentConfig(**{**chunked_config(), **overrides}), ws.scaler,
                       checkpoint_dir=str(ckpt), metrics_writer=writer, device=device)
     agent.init(torch.Generator().manual_seed(seed))
     return ws, agent
@@ -1162,6 +1173,11 @@ def main() -> None:
     for name, props in report.items():
         if name.startswith("fused_layer_f32_kernel"):
             print(f"  f32 fused layer {name}: {spill_bytes(props)} spill bytes; {props}")
+    wide = {n: p for n, p in report.items() if n.startswith("flash_") and "_wide_" in n}
+    if len(wide) != 5:
+        fail(f"ptxas reported {len(wide)} width-128 wgmma flash kernels, not 5")
+    for name, props in wide.items():
+        print(f"  width-128 flash {name}: {spill_bytes(props)} spill bytes; {props}")
 
     # ---- 2. kernel against its plain version -----------------------------
     print(f"[2] ({since_start()}) kernel vs plain version (bf16, then f32)")
@@ -1276,6 +1292,13 @@ def main() -> None:
         sdpa_ms["_hd128" + suffix] = (fwd_w, bwd_w)
         print(f"  yardstick SDPA at {list(WIDE_SHAPE)} {tag}: forward {fwd_w:.4f} ms, backward "
               f"{bwd_w:.4f} ms; kernels: {kern_w} ({card})")
+        # and at the 3-head chunked model's shape (hd 120), information
+        times_m = time_flash(device, gen, dtype, WIDE_MODEL_SHAPE)
+        fwd_m, bwd_m, _ = time_sdpa(device, gen, dtype, WIDE_MODEL_SHAPE)
+        print(f"  time at {list(WIDE_MODEL_SHAPE)} {tag}: forward {times_m['flash_forward'][0]:.4f}"
+              f" ms (SDPA {fwd_m:.4f}), dQ {times_m['flash_backward_dq'][0]:.4f} + dK/dV "
+              f"{times_m['flash_backward_dkv'][0]:.4f} = backward {times_m['backward'][0]:.4f} ms "
+              f"(SDPA {bwd_m:.4f}) ({card})")
 
     # ---- 6. model-level: flash kernels vs broadcast -----------------------
     counts_by_dtype = {}
@@ -1354,6 +1377,32 @@ def main() -> None:
         fail("the trained agent's rollout metrics are not finite")
     print(f"  trained agent, {ws.eval_n_times} envs x {ws.eval_n_steps} steps on the "
           f"cached engine: avrg_reward {mg['avrg_reward']:.4f}")
+    # the same config at WIDE_HEADS heads (hd 120): the width-128 flash kernels
+    # end to end, WIDE_TRAIN_STEPS steps after the step-0 evaluation
+    records_w = Records()
+    ws_w, agent_w = run_training(device, seed=7, writer=records_w, n_heads=WIDE_HEADS,
+                                 max_train_steps=WIDE_TRAIN_STEPS,
+                                 eval_every_n_steps=WIDE_TRAIN_STEPS)
+    for f in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv):
+        f.launches = 0
+    agent_w.train_agent(ws_w.train_set, ws_w.test_set, torch.Generator(device).manual_seed(8))
+    torch.cuda.synchronize()
+    counts_w = {f.__name__: f.launches
+                for f in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)}
+    n_batches_w = len(ws_w.test_set) // min(TRAIN_BATCH, len(ws_w.test_set))
+    expect_w = {"flash_forward": N_LAYERS * WIDE_TRAIN_STEPS + N_LAYERS * NFE * n_batches_w,
+                "flash_backward_dq": N_LAYERS * WIDE_TRAIN_STEPS,
+                "flash_backward_dkv": N_LAYERS * WIDE_TRAIN_STEPS}
+    losses_w = [r["loss"] for r in records_w.rows if "loss" in r]
+    if counts_w != expect_w or not losses_w or not all(math.isfinite(x) for x in losses_w):
+        fail(f"the {WIDE_HEADS}-head training launched {counts_w} (expected {expect_w}) or "
+             f"a loss is not finite ({losses_w})")
+    t_eval0 = next(r["_time"] for r in records_w.rows if "test_loss" in r)
+    t_loss1 = next(r["_time"] for r in records_w.rows if "loss" in r)
+    print(f"  {WIDE_HEADS}-head model (hd 120, the width-128 kernels): {WIDE_TRAIN_STEPS} steps "
+          f"x batch {TRAIN_BATCH}, launches {counts_w}; train "
+          f"{WIDE_TRAIN_STEPS / (t_loss1 - t_eval0):.2f} steps/s (informational; random "
+          f"weights; {card})")
 
     # ---- 8. fused-layer kernels B2, B3, B4 against their plain versions ---
     print(f"[8] ({since_start()}) fused-layer kernels B4, B3, B2 vs plain versions "
@@ -1473,13 +1522,17 @@ def main() -> None:
                             *layer_ms[name + suffix]))
     gemm_ms["fused_layer_prefix_f32"] = gemm_b1_f32
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
+    wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
     flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],
                        "_hd128": counts_by_dtype[WIDE_HEADS, torch.bfloat16],
                        "_hd128_f32": counts_by_dtype[WIDE_HEADS, torch.float32]}
     for key, n_of in flash_counts_of.items():
         for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
                            ("flash_backward_dkv", 112)):
-            entries.append((name + key, flash_src, f"beso_tpu/ops/flash_attention.py:{line}",
+            # width 128: the forward and the f32 backward in the wgmma source
+            wide = key.startswith("_hd128") and (name == "flash_forward" or key.endswith("_f32"))
+            entries.append((name + key, wide_src if wide else flash_src,
+                            f"beso_tpu/ops/flash_attention.py:{line}",
                             n_of[name], flash_err[name + key], *flash_ms[name + key]))
     kernels = []
     for name, source, replaces, n, e, k_ms, p_ms in entries:

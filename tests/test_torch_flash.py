@@ -91,12 +91,15 @@ def test_backward_kernels_plain_match_jax(T, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [96, 128])
+@pytest.mark.parametrize("hd", [72, 96, 100, 120, 128])
 def test_wide_heads_plain_match_jax(hd, causal):
-    """Head dims above 64 (the kernels' width-128 instantiations): the plain
-    forward (o, lse) against `_flash_forward`, and the plain dQ (with delta)
-    and dK/dV against `_flash_attention_bwd` (Pallas, interpret mode) on the
-    same forward output, lse and cotangent."""
+    """Head dims above 64 (the kernels' tile width 128): the plain forward
+    (o, lse) against `_flash_forward`, and the plain dQ (with delta) and
+    dK/dV against `_flash_attention_bwd` (Pallas, interpret mode) on the
+    same forward output, lse and cotangent, at TOL. hd 72 is the smallest
+    width-128 head dim, 100 one whose rows are not 16-byte aligned (the
+    kernels' `cp.async` path and a padded tile), 120 the 3-head chunked
+    model's."""
     q, k, v, g = _qkv(1, 2, 77, hd, seed=hd + causal, n=4)
     jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
     jo, jlse = jfa._flash_forward(jq, jk, jv, causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,

@@ -1,7 +1,8 @@
 """Kernel-vs-plain tests of the port's CUDA kernels on the card, within
 2^-5 of max |ref| in bf16 (chip_smoke.py's bound) and 2^-12 in f32: B5 and
 B6 (flash attention forward, dQ with delta, dK/dV, in bf16 and f32, at head
-dims up to 128; each kernel also bit-equal from launch to launch) and the
+dims up to 128, the tile-width-128 kernels at T from 2 to 144; each kernel
+also bit-equal from launch to launch) and the
 fused layers B1 (at the ragged edge, block push and with the epilogue, and
 its timed entry), B2 (layer group), B3 (one selected prefix row) and B4
 (whole causal sequence), in bf16 and f32, which must also equal B1 launches
@@ -83,14 +84,51 @@ def test_flash_kernels_match_plain(shape, causal, dtype):
         assert _close(got, ref, FRACTION[dtype])
 
 
+WIDE_TS = (2, 16, 63, 64, 65, 131, 144)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("hd", [72, 100, 120, 128])
+def test_wide_flash_kernels_match_plain(hd, dtype, causal):
+    """The tile-width-128 kernels (flash_attention_wide.cu: the forward in
+    both dtypes, the f32 dQ and dK/dV; the bf16 backward's width-128
+    template) against the plain versions at T of 2 up to 144: one tile and
+    its ragged edge (2, 16, 63), whole tiles (64), one row past a tile (65),
+    the 3-row last tile (131) and a 16-row one (144). Odd tile counts leave
+    the f32 forward's last block without its second query tile; hd 100
+    (rows not 16-byte aligned) takes the bf16 forward's `cp.async` path, the
+    others its bulk tensor copies."""
+    dev = _cuda()
+    for T in WIDE_TS:
+        rng = np.random.RandomState(hd + T)
+        q, k, v, do = (torch.as_tensor(rng.randn(2, 3, T, hd).astype(np.float32)).to(dev, dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_forward(q, k, v, causal)
+        o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
+        dq, delta = fa.flash_backward_dq(q, k, v, o_ref, do, lse_ref, causal)
+        dq_ref, delta_ref = fa.flash_backward_dq_reference(q, k, v, o_ref, do, lse_ref, causal)
+        dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta_ref, causal)
+        dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref, delta_ref, causal)
+        torch.cuda.synchronize()
+        for name, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+                               ("delta", delta, delta_ref), ("dk", dk, dk_ref),
+                               ("dv", dv, dv_ref)):
+            assert _close(got, ref, FRACTION[dtype]), f"{name} at T={T}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernels", ["forward", "backward"])
 @pytest.mark.parametrize("shape,causal,dtype", [
     ((2, 3, 131, 60), True, torch.bfloat16), ((3, 2, 77, 20), False, torch.bfloat16),
     ((2, 4, 131, 128), True, torch.bfloat16), ((2, 2, 77, 96), False, torch.bfloat16),
-    ((2, 4, 131, 128), True, torch.float32), ((2, 2, 77, 96), False, torch.float32)],
+    ((2, 4, 131, 128), True, torch.float32), ((2, 2, 77, 96), False, torch.float32),
+    ((2, 3, 131, 120), True, torch.bfloat16), ((2, 3, 131, 120), True, torch.float32),
+    ((2, 2, 65, 100), True, torch.bfloat16), ((2, 2, 65, 100), False, torch.float32)],
     ids=["131-60-causal", "77-20-full", "131-128-causal", "77-96-full", "131-128-causal-f32",
-         "77-96-full-f32"])
+         "77-96-full-f32", "131-120-causal", "131-120-causal-f32", "65-100-causal",
+         "65-100-full-f32"])
 def test_flash_kernels_deterministic(shape, causal, dtype, kernels):
     """Two launches of the forward, or of each backward kernel, on the same
     inputs give bit-equal o and lse, or dq, delta, dk and dv (no atomics)."""
@@ -112,7 +150,7 @@ def test_flash_kernels_deterministic(shape, causal, dtype, kernels):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [60, 96, 128])
+@pytest.mark.parametrize("hd", [60, 96, 120, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_flash_autograd_on_card_matches_plain_autograd(dtype, hd):
     """Gradients through the autograd Function (kernels) against autograd
