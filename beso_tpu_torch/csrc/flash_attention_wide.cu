@@ -18,7 +18,7 @@
 // tensor cores. The `mma.sync` template at width 128 spent, per warp, ~7,000
 // cycles per 64-key tile on dependent 16-key chains, ~6,800 cycles waiting
 // for its first tiles and ~6,800 storing its output with 4-byte stores, with
-// 8 warps per SM (4 in f32) to hide any of it (PERF.md §6, the clock). And
+// 8-12 warps per SM (4 in f32) to hide any of it (PERF.md §6, the clock). And
 // per-thread `cp.async` copies keep only a few tens of KB in flight per SM:
 // a block that issues its tiles that way spends most of its life issuing.
 // What the design does about it:
