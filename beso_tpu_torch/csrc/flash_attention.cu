@@ -75,21 +75,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
-
-// flash_attention_wide.cu: the forward at tile width 128 and the f32
-// backward at tile width 128.
-int flash_wide_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T,
-                   int hd, int causal, int f32, void* stream);
-int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const void* lse, void* dq, void* delta, int BH, int T,
-                      int hd, int causal, void* stream);
-int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int BH, int T,
-                       int hd, int causal, void* stream);
-int flash_wide_blocks_per_sm(int which, int f32);
 
 namespace {
 
@@ -128,35 +117,6 @@ struct Parts<float> {
 };
 template <typename E, int HDP>
 constexpr int MIN_BLOCKS = HDP <= 64 ? Parts<E>::MIN_BLOCKS : Parts<E>::MIN_BLOCKS / 2;
-
-template <typename E>
-struct FwdArgs {
-  const E* q;
-  const E* k;
-  const E* v;
-  E* o;
-  float* lse;
-  int T, hd, hdp, causal;
-  int vec;           // bytes per bf16 tile copy: 8 (hd % 4 == 0), 4 (hd even), 2 (plain loads)
-  float scale;
-};
-
-template <typename E>
-struct BwdArgs {
-  const E* q;
-  const E* k;
-  const E* v;
-  const E* o;        // forward output (dQ kernel: delta)
-  const E* dout;
-  const float* lse;
-  float* delta;      // written by the dQ kernel, read by the dK/dV kernel
-  E* dq;
-  E* dk;
-  E* dv;
-  int T, hd, hdp, causal;
-  int vec;           // as in FwdArgs
-  float scale;
-};
 
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 
@@ -738,34 +698,14 @@ constexpr size_t dkv_smem() {
          2 * (2 * Parts<E>::N * kTileBytes<HDP> + 2 * sizeof(float) * TILE);
 }
 
-// Sets the kernel's dynamic shared memory and the largest shared-memory
-// carveout (for the resident blocks the launch bounds ask for), launches it
-// on `blocks` blocks and returns cudaGetLastError().
-template <typename A>
-int launch(void (*kernel)(const A), size_t smem, const A& a, int blocks, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// Launches `kernel` on one block of THREADS per query (or key) tile.
+template <typename K, typename A>
+int launch(K kernel, size_t smem, const A& a, int BH, void* stream) {
+  return hopper::launch(kernel, smem, BH * ((a.T + TILE - 1) / TILE), THREADS, stream, a);
 }
 
-int tiles(int T) { return (T + TILE - 1) / TILE; }
-
-template <typename A>
-int blocks_per_sm(void (*kernel)(const A), size_t smem) {
-  int n = -1;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess ||
-      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, smem) != cudaSuccess)
-    return -1;
-  return n;
-}
+template <typename K>
+int blocks_per_sm(K kernel, size_t smem) { return hopper::blocks_per_sm(kernel, smem, THREADS); }
 
 // The fields every kernel's arguments share.
 template <class A>
@@ -794,8 +734,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
   a.o = static_cast<E*>(o);
   a.lse = static_cast<float*>(lse);
   if (a.hdp <= 64)
-    return launch(flash_fwd_kernel<E, 64>, fwd_smem<E, 64>(), a, BH * tiles(T), stream);
-  return flash_wide_fwd(q, k, v, o, lse, BH, T, hd, causal, sizeof(E) == 4, stream);
+    return launch(flash_fwd_kernel<E, 64>, fwd_smem<E, 64>(), a, BH, stream);
+  return flash_wide_fwd(a, BH, stream);
 }
 
 template <typename E>
@@ -810,11 +750,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   a.dq = static_cast<E*>(dq);
   a.delta = static_cast<float*>(delta);
   if (a.hdp <= 64)
-    return launch(flash_bwd_dq_kernel<E, 64>, dq_smem<E, 64>(), a, BH * tiles(T), stream);
+    return launch(flash_bwd_dq_kernel<E, 64>, dq_smem<E, 64>(), a, BH, stream);
   if constexpr (sizeof(E) == 4)
-    return flash_wide_bwd_dq(q, k, v, o, dout, lse, dq, delta, BH, T, hd, causal, stream);
+    return flash_wide_bwd_dq(a, BH, stream);
   else
-    return launch(flash_bwd_dq_kernel<E, 128>, dq_smem<E, 128>(), a, BH * tiles(T), stream);
+    return launch(flash_bwd_dq_kernel<E, 128>, dq_smem<E, 128>(), a, BH, stream);
 }
 
 template <typename E>
@@ -829,11 +769,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.dk = static_cast<E*>(dk);
   a.dv = static_cast<E*>(dv);
   if (a.hdp <= 64)
-    return launch(flash_bwd_dkv_kernel<E, 64>, dkv_smem<E, 64>(), a, BH * tiles(T), stream);
+    return launch(flash_bwd_dkv_kernel<E, 64>, dkv_smem<E, 64>(), a, BH, stream);
   if constexpr (sizeof(E) == 4)
-    return flash_wide_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, BH, T, hd, causal, stream);
+    return flash_wide_bwd_dkv(a, BH, stream);
   else
-    return launch(flash_bwd_dkv_kernel<E, 128>, dkv_smem<E, 128>(), a, BH * tiles(T), stream);
+    return launch(flash_bwd_dkv_kernel<E, 128>, dkv_smem<E, 128>(), a, BH, stream);
 }
 
 template <typename E, int HDP>

@@ -1,0 +1,47 @@
+// What the two flash-attention sources share: the kernels' arguments, which
+// flash_attention.cu's launchers fill, and the entries of
+// flash_attention_wide.cu that those launchers call at tile width 128 (the
+// forward in both dtypes, the f32 backward).
+#pragma once
+
+#include <cuda_bf16.h>
+
+template <typename E>
+struct FwdArgs {
+  const E* q;
+  const E* k;
+  const E* v;
+  E* o;
+  float* lse;
+  int T, hd, hdp, causal;
+  int vec;           // bytes per bf16 tile copy: 8 (hd % 4 == 0), 4 (hd even), 2 (plain loads)
+  float scale;
+};
+
+template <typename E>
+struct BwdArgs {
+  const E* q;
+  const E* k;
+  const E* v;
+  const E* o;        // forward output (dQ kernel: delta)
+  const E* dout;
+  const float* lse;
+  float* delta;      // written by the dQ kernel, read by the dK/dV kernel
+  E* dq;
+  E* dk;
+  E* dv;
+  int T, hd, hdp, causal;
+  int vec;           // as in FwdArgs
+  float scale;
+};
+
+// flash_attention_wide.cu, for hdp 80-128: each launches on `stream` the
+// kernel for BH heads' worth of `a` and returns cudaGetLastError() (0 =
+// launched). `vec` is the mma.sync kernels' alone; these ignore it.
+int flash_wide_fwd(const FwdArgs<__nv_bfloat16>& a, int BH, void* stream);
+int flash_wide_fwd(const FwdArgs<float>& a, int BH, void* stream);
+int flash_wide_bwd_dq(const BwdArgs<float>& a, int BH, void* stream);
+int flash_wide_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream);
+// Resident blocks per SM of the forward (which = 0; bf16 or f32), the f32 dQ
+// (1) and the f32 dK/dV kernel (2); -1 on an error.
+int flash_wide_blocks_per_sm(int which, int f32);

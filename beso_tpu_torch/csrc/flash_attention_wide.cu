@@ -61,6 +61,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -93,33 +94,6 @@ __device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * (ROWS * 8) +
 __device__ __forceinline__ int sw(int r, int c) {
   return (c >> 6) * (ROWS * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
 }
-
-template <typename E>
-struct FwdArgs {
-  const E* q;
-  const E* k;
-  const E* v;
-  E* o;
-  float* lse;
-  int T, hd, hdp, causal;
-  float scale;
-};
-
-template <typename E>
-struct BwdArgs {
-  const E* q;
-  const E* k;
-  const E* v;
-  const E* o;
-  const E* dout;
-  const float* lse;
-  float* delta;
-  E* dq;
-  E* dk;
-  E* dv;
-  int T, hd, hdp, causal;
-  float scale;
-};
 
 __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -848,44 +822,6 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_wide_kernel(const Bwd
   }
 }
 
-template <typename A>
-int launch(void (*kernel)(const A), size_t smem, const A& a, int blocks, int threads,
-           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename K>
-int occupancy(K kernel, size_t smem, int threads) {
-  int n = -1;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess ||
-      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
-    return -1;
-  return n;
-}
-
-template <class A>
-void set_inputs(A& a, const void* q, const void* k, const void* v, int T, int hd, int causal) {
-  using P = decltype(a.q);
-  a.q = static_cast<P>(q);
-  a.k = static_cast<P>(k);
-  a.v = static_cast<P>(v);
-  a.T = T;
-  a.hd = hd;
-  a.hdp = (hd + 15) / 16 * 16;
-  a.causal = causal;
-  a.scale = 1.0f / sqrtf(static_cast<float>(hd));
-}
-
 // cuTensorMapEncodeTiled from the driver, through the runtime (no link
 // against the driver library).
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -916,84 +852,40 @@ bool bf16_map(CUtensorMap* m, const void* p, int BH, int T, int hd) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename K, typename A>
-int launch_maps(K kernel, size_t smem, const FwdMaps& maps, const A& a, int blocks,
-                void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, WG, smem, static_cast<cudaStream_t>(stream)>>>(maps, a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename E>
-FwdArgs<E> fwd_args(const void* q, const void* k, const void* v, void* o, void* lse, int T,
-                    int hd, int causal) {
-  FwdArgs<E> a = {};
-  set_inputs(a, q, k, v, T, hd, causal);
-  a.o = static_cast<E*>(o);
-  a.lse = static_cast<float*>(lse);
-  return a;
-}
-
 }  // namespace
 
-// Entries for flash_attention.cu's launchers (hdp 80-128), same arguments
-// and return value as its entries.
-int flash_wide_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T,
-                   int hd, int causal, int f32, void* stream) {
-  if (f32)
-    return launch(flash_fwd_wide_f32_kernel, FWD_F32_SMEM,
-                  fwd_args<float>(q, k, v, o, lse, T, hd, causal), BH * ((n_tiles(T) + 1) / 2),
-                  2 * WG, stream);
-  const FwdArgs<bf16> a = fwd_args<bf16>(q, k, v, o, lse, T, hd, causal);
+// Entries for flash_attention.cu's launchers (flash_attention.cuh).
+int flash_wide_fwd(const FwdArgs<float>& a, int BH, void* stream) {
+  return hopper::launch(flash_fwd_wide_f32_kernel, FWD_F32_SMEM, BH * ((n_tiles(a.T) + 1) / 2),
+                        2 * WG, stream, a);
+}
+
+int flash_wide_fwd(const FwdArgs<bf16>& a, int BH, void* stream) {
   FwdMaps maps = {};
-  if (hd % 8)   // rows not 16-byte aligned: no tensor map, cp.async copies
-    return launch_maps(flash_fwd_wide_bf16_kernel<false>, FWD_BF16_SMEM, maps, a, BH * n_tiles(T),
-                       stream);
-  if (!bf16_map(&maps.q, q, BH, T, hd) || !bf16_map(&maps.k, k, BH, T, hd) ||
-      !bf16_map(&maps.v, v, BH, T, hd))
+  if (a.hd % 8)   // rows not 16-byte aligned: no tensor map, cp.async copies
+    return hopper::launch(flash_fwd_wide_bf16_kernel<false>, FWD_BF16_SMEM, BH * n_tiles(a.T), WG,
+                          stream, maps, a);
+  if (!bf16_map(&maps.q, a.q, BH, a.T, a.hd) || !bf16_map(&maps.k, a.k, BH, a.T, a.hd) ||
+      !bf16_map(&maps.v, a.v, BH, a.T, a.hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_maps(flash_fwd_wide_bf16_kernel<true>, FWD_BF16_SMEM, maps, a, BH * n_tiles(T),
-                     stream);
+  return hopper::launch(flash_fwd_wide_bf16_kernel<true>, FWD_BF16_SMEM, BH * n_tiles(a.T), WG,
+                        stream, maps, a);
 }
 
-// The f32 backward: dQ with delta, then dK/dV (f32 tensors only).
-int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const void* lse, void* dq, void* delta, int BH, int T,
-                      int hd, int causal, void* stream) {
-  BwdArgs<float> a = {};
-  set_inputs(a, q, k, v, T, hd, causal);
-  a.o = static_cast<const float*>(o);
-  a.dout = static_cast<const float*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.dq = static_cast<float*>(dq);
-  a.delta = static_cast<float*>(delta);
-  return launch(flash_bwd_dq_wide_kernel, BWD_SMEM, a, BH * n_tiles(T), 2 * WG, stream);
+// The f32 backward: dQ with delta, then dK/dV.
+int flash_wide_bwd_dq(const BwdArgs<float>& a, int BH, void* stream) {
+  return hopper::launch(flash_bwd_dq_wide_kernel, BWD_SMEM, BH * n_tiles(a.T), 2 * WG, stream, a);
 }
 
-int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int BH, int T,
-                       int hd, int causal, void* stream) {
-  BwdArgs<float> a = {};
-  set_inputs(a, q, k, v, T, hd, causal);
-  a.dout = static_cast<const float*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = const_cast<float*>(static_cast<const float*>(delta));
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  return launch(flash_bwd_dkv_wide_kernel, BWD_SMEM, a, BH * n_tiles(T), 2 * WG, stream);
+int flash_wide_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream) {
+  return hopper::launch(flash_bwd_dkv_wide_kernel, BWD_SMEM, BH * n_tiles(a.T), 2 * WG, stream,
+                        a);
 }
 
-// Resident blocks per SM of the forward (which = 0; bf16 or f32), the f32 dQ
-// (1) and the f32 dK/dV kernel (2).
 int flash_wide_blocks_per_sm(int which, int f32) {
   if (which == 0)
-    return f32 ? occupancy(flash_fwd_wide_f32_kernel, FWD_F32_SMEM, 2 * WG)
-               : occupancy(flash_fwd_wide_bf16_kernel<true>, FWD_BF16_SMEM, WG);
-  return occupancy(which == 1 ? flash_bwd_dq_wide_kernel : flash_bwd_dkv_wide_kernel, BWD_SMEM,
-                   2 * WG);
+    return f32 ? hopper::blocks_per_sm(flash_fwd_wide_f32_kernel, FWD_F32_SMEM, 2 * WG)
+               : hopper::blocks_per_sm(flash_fwd_wide_bf16_kernel<true>, FWD_BF16_SMEM, WG);
+  return hopper::blocks_per_sm(which == 1 ? flash_bwd_dq_wide_kernel : flash_bwd_dkv_wide_kernel,
+                               BWD_SMEM, 2 * WG);
 }

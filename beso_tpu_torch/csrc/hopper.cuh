@@ -5,7 +5,8 @@
 // (cp.async), the warp-level m16n8k16 product with ldmatrix, the
 // shared-memory matrix descriptors of `wgmma`, and the `wgmma` products
 // (bf16 operands from shared memory, or A from registers; f32 accumulators
-// in registers) at the tile widths the kernels use.
+// in registers) at the tile widths the kernels use; and, on the host, a
+// kernel's launch with its shared memory set, and its resident blocks.
 //
 // Operand layout: a `wgmma` operand here is K-major without swizzle (or,
 // with the descriptors noted at smem_desc_sw128 and wgmma_rs, MN-major or
@@ -454,5 +455,41 @@ __device__ __forceinline__ void wgmma_rs<128, 1>(float* d, const uint32_t* a, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// ---- host: launches -------------------------------------------------------
+// Sets `kernel`'s dynamic shared memory to `smem` bytes and asks for the
+// largest shared-memory carveout (room for the resident blocks its launch
+// bounds ask for).
+template <typename... P>
+cudaError_t set_smem(void (*kernel)(P...), size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// Launches kernel(args...) on `blocks` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory on `stream`; returns
+// cudaGetLastError() (0 = launched).
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), size_t smem, int blocks, int threads, void* stream,
+           const A&... args) {
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of `kernel` as launch() launches it, from the CUDA
+// runtime's occupancy calculator; -1 on an error.
+template <typename... P>
+int blocks_per_sm(void (*kernel)(P...), size_t smem, int threads) {
+  int n = -1;
+  if (set_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
+    return -1;
+  return n;
+}
 
 }  // namespace hopper

@@ -46,7 +46,9 @@ exits non-zero on failure:
    shapes ([3, 2, 77, 20] causal and full, T = 16 and 144 at hd 60, hd 18
    and hd 15) and at the width-128 shapes [2, 4, 131, 128] causal,
    [2, 2, 77, 96] full, [2, 3, 131, 120] causal, [2, 2, 65, 100] causal (rows
-   not 16-byte aligned) and [2, 2, 16, 72] full; a second launch of each
+   not 16-byte aligned), [2, 2, 16, 72] full, and the timed width-128 shapes
+   [256, 3, 131, 120] and [256, 3, 131, 128] causal (the 3-head model's
+   grid, with blocks sharing SMs); a second launch of each
    kernel must be bit-equal to
    the first; prints the three kernels' resident blocks per SM in both
    instantiations at both widths; the autograd backward must run exactly
@@ -155,7 +157,8 @@ MODEL_GRAD_FRACTION_F32 = 2.0 ** -10
 FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), False),
                 ((2, 3, 16, 60), True), ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
                 ((2, 2, 50, 15), False), ((2, 4, 131, 128), True), ((2, 2, 77, 96), False),
-                ((2, 3, 131, 120), True), ((2, 2, 65, 100), True), ((2, 2, 16, 72), False))
+                ((2, 3, 131, 120), True), ((2, 2, 65, 100), True), ((2, 2, 16, 72), False),
+                (WIDE_MODEL_SHAPE, True), (WIDE_SHAPE, True))
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
 # bf16 tensor-core operations and HBM3 bytes per second. The flash kernels'
 # f32 instantiations run each f32 product on the tensor cores as three bf16
@@ -1490,8 +1493,9 @@ def main() -> None:
     # PyTorch call computing the same function in the same dtype, where
     # there is one (SDPA for B5; for both B6 kernels SDPA's whole backward,
     # forward + backward minus forward). Launches: bf16 B1 on phase 4, f32 B1
-    # on phase 11, B2-B4 on phase 10, the flash kernels on phase 7 (bf16) and
-    # phase 6 (f32, and the 3-head model for the width-128 ones).
+    # on phase 11, B2-B4 on phase 10, the flash kernels on phase 7 (bf16: the
+    # 6-head model at width 64, the 3-head model at width 128) and phase 6
+    # (f32: the 6-head and the 3-head model).
     work, library_ms = {}, {}
     for suffix, elem in (("", 2), ("_f32", 4)):
         work.update({"fused_layer_prefix" + suffix: layer_work(B_serve, 8, 360, 3, elem=elem),
@@ -1524,7 +1528,7 @@ def main() -> None:
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
     wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
     flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],
-                       "_hd128": counts_by_dtype[WIDE_HEADS, torch.bfloat16],
+                       "_hd128": counts_w,
                        "_hd128_f32": counts_by_dtype[WIDE_HEADS, torch.float32]}
     for key, n_of in flash_counts_of.items():
         for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
