@@ -13,14 +13,15 @@ Functional parity target: `TrajectorySlicerDataset`
 
 The dataset lives on the device as padded tensors and a batch is one
 gather, as in the JAX package; random draws come from an explicit
-`torch.Generator` on that device. The JAX slicer's other goal modes
-(`only_sample_tail`, `only_sample_seq_end`, no goal) and its `transform`
-hook have no caller in either package and are not carried over.
+`torch.Generator` on that device. An optional `transform` maps each batch
+dict (the block-push workspace masks goals with it, `data/transforms.py`).
+The JAX slicer's other goal modes (`only_sample_tail`,
+`only_sample_seq_end`, no goal) are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -40,10 +41,12 @@ class SlicedDataset:
     """Batched window sampler over a TrajectoryData, on `device`."""
 
     def __init__(self, data: TrajectoryData, window: int, future_seq_len: int,
-                 min_future_sep: int = 0, device="cuda"):
+                 min_future_sep: int = 0,
+                 transform: Optional[Callable[[dict], dict]] = None, device="cuda"):
         self.window = window
         self.future_seq_len = future_seq_len
         self.min_future_sep = min_future_sep
+        self.transform = transform
         self.device = torch.device(device)
 
         def dev(a, dtype):
@@ -78,7 +81,7 @@ class SlicedDataset:
         goal = self.observations[traj[:, None], g_idx]
         batch["goal_observation"] = torch.where((lo < hi)[:, None, None], goal,
                                                 torch.zeros((), device=self.device))
-        return batch
+        return batch if self.transform is None else self.transform(batch)
 
     def sample_batch(self, generator: Optional[torch.Generator],
                      batch_size: int) -> dict:

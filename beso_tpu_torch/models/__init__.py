@@ -1,9 +1,9 @@
 from beso_tpu_torch.models.cached import make_rollout_denoise_factory
 from beso_tpu_torch.models.denoiser import GCDenoiser
 from beso_tpu_torch.models.gpt import DiffusionGPT
-from beso_tpu_torch.models.scaler import Scaler, fit_scaler
+from beso_tpu_torch.models.scaler import Scaler, fit_minmax_scaler, fit_scaler
 
-__all__ = ["DiffusionGPT", "GCDenoiser", "Scaler", "fit_scaler",
+__all__ = ["DiffusionGPT", "GCDenoiser", "Scaler", "fit_minmax_scaler", "fit_scaler",
            "make_fused_denoise_fn", "make_rollout_denoise_factory"]
 
 

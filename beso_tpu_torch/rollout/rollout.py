@@ -1,12 +1,14 @@
-"""Batched evaluation rollouts (torch port of the kitchen part of
-`beso_tpu/rollout/rollout.py`).
+"""Batched evaluation rollouts (torch port of `beso_tpu/rollout/rollout.py`:
+kitchen and block push).
 
 All episodes run at once over a batch of B envs; the JAX `lax.scan` over
 env steps becomes a Python loop of policy -> physics steps under
 `torch.inference_mode`. Success metrics follow the reference protocol:
-kitchen result = |completed tasks ∩ expected tasks|
-(kitchen_workspace_manager.py:527-578), and success-rate-at-k histograms
-(compute_performance, :455-471).
+* kitchen: result = |completed tasks ∩ expected tasks|
+  (kitchen_workspace_manager.py:527-578), and success-rate-at-k histograms
+  (compute_performance, :455-471);
+* block push: result = |completed ∩ expected| / 2 in {0, 0.5, 1}
+  (block_push_workspace.py:218-240); reward accumulates the env reward.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ import torch
 
 from beso_tpu_torch.agents.policy import (PolicyConfig, policy_predict,
                                           policy_reset)
+from beso_tpu_torch.envs.block_push.env import (block_push_obs, block_push_reset,
+                                                block_push_step)
+from beso_tpu_torch.envs.block_push.goals import build_block_push_goals
 from beso_tpu_torch.envs.kitchen.env import (kitchen_obs, kitchen_reset,
                                              kitchen_reset_from_qpos,
                                              kitchen_step)
@@ -51,11 +56,13 @@ def _run_rollout(env_state, step_fn, obs_fn, completed_of, order_of,
                  denoise_factory=None) -> RolloutMetrics:
     B = expected.shape[0]
     device = expected.device
+    obs_full = obs_fn(env_state)
+    if callable(goals):
+        goals = goals(obs_full)  # goals of the live reset state (the flip fix)
     if denoise_factory is not None:
         # per-episode engine (the prefix-KV cache), built once goals are known
         denoise_fn = denoise_factory(goals)
-    obs = obs_fn(env_state)
-    obs = obs[:, :obs_slice] if obs_slice is not None else obs
+    obs = obs_full[:, :obs_slice] if obs_slice is not None else obs_full
     pstate = policy_reset(B, cfg, device)
     total_reward = torch.zeros(B, device=device)
     for _ in range(n_steps):
@@ -97,3 +104,41 @@ def rollout_kitchen(denoise_fn, scaler: Scaler, cfg: PolicyConfig,
         kitchen_obs, lambda s: s.completed, lambda s: s.completion_order,
         denoise_fn, scaler, cfg, goals, expected, generator, n_steps,
         obs_slice=30, result_divisor=1.0, denoise_factory=denoise_factory)
+
+
+@torch.inference_mode()
+def rollout_block_push(denoise_fn, scaler: Scaler, cfg: PolicyConfig,
+                       goal_frames: torch.Tensor,  # [B, 16] dataset final frames
+                       expected: torch.Tensor,     # [B, 4] expected-task masks
+                       generator: Optional[torch.Generator] = None,
+                       n_steps: int = 300, goal_seq_len: int = 1,
+                       reduce_obs_dim: bool = True, mask_targets: bool = False,
+                       denoise_factory=None) -> RolloutMetrics:
+    """Batched block-push evaluation (block_push_workspace.py:90-216:
+    episodes x 300 steps; result = |completed ∩ expected| / 2) on
+    goal_frames' device.
+
+    `generator` draws the resets, then the policy's action noise. The
+    flip-fixed goals (envs/block_push/goals.py) are built from the live reset
+    observations, before the per-episode engine. With `mask_targets` and the
+    full 16-dim observation, the stepped observations' target dims are
+    zeroed (the reset observation is not, as in `beso_tpu`)."""
+    B, device = expected.shape[0], expected.device
+
+    def goals_of(obs0_full):
+        return build_block_push_goals(obs0_full, goal_frames, goal_seq_len,
+                                      zero_goals=True, reduce_obs_dim=reduce_obs_dim)
+
+    def step_masked(state, action):
+        s, o, r, d = block_push_step(state, action)
+        if mask_targets and not reduce_obs_dim:
+            o = torch.cat([o[..., :10], torch.zeros_like(o[..., 10:])], -1)
+        return s, o, r, d
+
+    return _run_rollout(
+        block_push_reset(B, generator, device), step_masked, block_push_obs,
+        lambda s: s.completed,
+        lambda s: torch.full_like(s.completed, -1, dtype=torch.int32),  # no order kept
+        denoise_fn, scaler, cfg, goals_of, expected,
+        generator, n_steps, obs_slice=10 if reduce_obs_dim else None,
+        result_divisor=2.0, denoise_factory=denoise_factory)

@@ -2,17 +2,17 @@
 
 Functional parity target: `scripts/training.py:22-78` of the reference: seed
 the generators, build workspace + agent from the config, train, store the
-train state, then run the final multigoal evaluation (CFG-wrapped when
+train state, then run the final evaluation (CFG-wrapped when
 cond_mask_prob > 0), keeping the resolved config and checkpoints in a run
 directory.
 
 Usage:
     python -m beso_tpu_torch.scripts.training \\
-        --config configs/franka_kitchen_chunked.yaml \\
+        --config configs/block_push.yaml \\
         [--run-dir logs/run1] [--device cuda] [max_train_steps=2000 seed=7 ...]
 
-Only kitchen configs (obs_dim 30) are ported; the block-push workspace
-waits for slice 2 (ROADMAP.md).
+A config with obs_dim 30 builds the kitchen workspace, any other the
+block-push workspace, as `scripts/training.py` does.
 """
 
 from __future__ import annotations
@@ -72,20 +72,24 @@ def build_agent_config(cfg):
 
 
 def build_workspace(cfg, device, metrics_writer=None):
-    from beso_tpu_torch.workspaces import FrankaKitchenWorkspace
+    from beso_tpu_torch.workspaces import BlockPushWorkspace, FrankaKitchenWorkspace
 
-    if cfg["obs_dim"] != 30:
-        raise NotImplementedError("only the kitchen workspace is ported "
-                                  "(block push: ROADMAP.md, slice 2)")
-    return FrankaKitchenWorkspace(
-        seed=cfg["seed"], data_path=cfg.get("data_path"),
-        eval_n_times=cfg.get("eval_n_times", 100),
-        eval_n_steps=cfg.get("eval_n_steps", 280),
-        scale_data=cfg.get("scale_data", False),
-        window_size=cfg["window_size"],
-        goal_seq_len=cfg["future_seq_length"],
-        train_fraction=cfg.get("train_fraction", 0.95),
-        metrics_writer=metrics_writer, device=device)
+    common = dict(seed=cfg["seed"], data_path=cfg.get("data_path"),
+                  eval_n_times=cfg.get("eval_n_times", 100),
+                  window_size=cfg["window_size"],
+                  goal_seq_len=cfg["future_seq_length"],
+                  train_fraction=cfg.get("train_fraction", 0.95),
+                  metrics_writer=metrics_writer, device=device)
+    if cfg["obs_dim"] == 30:
+        return FrankaKitchenWorkspace(
+            eval_n_steps=cfg.get("eval_n_steps", 280),
+            scale_data=cfg.get("scale_data", False), **common)
+    return BlockPushWorkspace(
+        eval_n_steps=cfg.get("eval_n_steps", 300),
+        scale_data=cfg.get("scale_data", True),
+        use_minmax_scaler=cfg.get("use_minmax_scaler", True),
+        mask_targets=cfg.get("mask_targets", False),
+        reduce_obs_dim=cfg.get("reduce_obs_dim", True), **common)
 
 
 def main(argv=None):

@@ -30,7 +30,9 @@ exits non-zero on failure:
    and runs B1's phase clock there in both dtypes
    (`fused_layer_prefix_timed`, which must equal B1 bit for bit): each
    phase's mean clock64() cycles per 64-row block and its share (f32 with
-   the cycles spent on the weight ring, held apart);
+   the cycles spent on the weight ring, held apart); f32 also at the
+   block-push serving shape (2048 rows x 10 tokens, D=240, 12 heads, P=2):
+   time, plain time, torch.matmul time, bound and phase clock;
 3. engine: the `fused_cached` engine against the plain `cached` engine on
    the same inputs at every grid sigma, for a bf16 kitchen model (2^-5) and
    an f32 one (2^-10);
@@ -107,7 +109,24 @@ exits non-zero on failure:
    trained MAIN_TRAIN_STEPS steps at batch 1024, then the workspace's
    1024-env x 280-step multigoal evaluation on the agent's `fused_cached`
    engine: exactly 280 x 3 x 6 f32 B1 launches and no other fused-layer
-   launch, every metric finite, env-steps/s printed (informational).
+   launch, every metric finite, env-steps/s printed (informational);
+12. main path, the shipped block-push config as shipped (f32,
+   `configs/block_push.yaml`: 4 layers x 240 x 12 heads, window 5, one goal
+   token, the min-max scaler, lambda=2 CFG): multimodal-push files written
+   by `export_multimodal_push` from synthetic trajectories, loaded by
+   `BlockPushWorkspace(data_path=...)`, `block_push_step` on the card
+   against the CPU (256 envs x 3 steps pushing a block, the dither hash
+   replaced on both sides by a smooth stand-in: positions within 1e-5),
+   an f32 `BesoAgent` trained
+   MAIN_TRAIN_STEPS steps at batch 1024 (adam), its EMA model's
+   `fused_cached` engine against the plain `cached` one at every grid sigma
+   (2^-10), then the workspace's 1024-env x 300-step evaluation on
+   `fused_cached`: exactly 300 x 3 x 4 f32 B1 launches and no other
+   fused-layer launch, every metric finite, env-steps/s printed; then a
+   30-step evaluation with a host clock around each physics step (after a
+   device sync): the physics' share of the wall time. Prints one JSON line
+   with f32 B1's numbers at this shape (phase 2's times, its bound, the
+   launches) (informational).
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
@@ -142,7 +161,12 @@ WIDE_SHAPE = (256, 3, 131, 128)     # the flash kernels' width-128 instantiation
 WIDE_HEADS = 3   # the chunked model at 3 heads: hd 120, the width-128 instantiations
 WIDE_MODEL_SHAPE = (256, WIDE_HEADS, 131, 120)   # its attention shape, also timed
 WIDE_TRAIN_STEPS = 40   # phase 7's timed train run of the 3-head model
-MAIN_TRAIN_STEPS = 20   # phase 11's train steps before its rollout
+MAIN_TRAIN_STEPS = 20   # phase 11's and phase 12's train steps before the evaluation
+BP_STEPS, BP_LAYERS = 300, 4   # block push: eval_n_steps (configs/block_push.yaml:62), layers
+BP_PHYSICS_STEPS = 30   # phase 12's second, instrumented evaluation (300 cut to 30)
+# a serving layer's (D, heads, prefix tokens P, suffix tokens 2T)
+KITCHEN_LAYER = (360, 6, 3, 8)      # sigma + 2 goal tokens, window 4
+BLOCK_PUSH_LAYER = (240, 12, 2, 10)  # sigma + 1 goal token, window 5; hd 20
 # model-level bounds, flash kernels vs broadcast in bf16 (phase 6): the two
 # forms round the probabilities to bf16 at different points (after the
 # normalisation in the broadcast form, before it in the online softmax), so
@@ -433,46 +457,49 @@ def time_ms(fn, n, device):
     return start.elapsed_time(end) / n
 
 
-def time_kernel(B, device, gen, dtype=None):
-    """Kernel and plain-version times at the kitchen serving shape: B rows
-    of the CFG-stacked batch, one inner layer (no epilogue), in `dtype`
-    (bf16 unless given)."""
+def time_kernel(B, device, gen, dtype=None, shape=KITCHEN_LAYER):
+    """Kernel and plain-version times at a serving shape (D, heads, prefix
+    P, suffix tokens 2T; the kitchen's unless given): B rows of the
+    CFG-stacked batch, one inner layer (no epilogue), in `dtype` (bf16
+    unless given)."""
     import torch
 
     from beso_tpu_torch.ops.fused_layer import (fused_layer_prefix,
                                                 fused_layer_prefix_reference)
 
     dtype = dtype or torch.bfloat16
-    p, _ = random_layer(360, 6, 9, gen, device, dtype)
-    x = _rand(gen, B, 8, 360, device=device, dtype=dtype)
-    pk = _rand(gen, 3, B, 3, 360, device=device, dtype=dtype)
-    pv = _rand(gen, 3, B, 3, 360, device=device, dtype=dtype)
+    D, H, P, T2 = shape
+    p, _ = random_layer(D, H, 9, gen, device, dtype)
+    x = _rand(gen, B, T2, D, device=device, dtype=dtype)
+    pk = _rand(gen, 3, B, P, D, device=device, dtype=dtype)
+    pv = _rand(gen, 3, B, P, D, device=device, dtype=dtype)
     idx = torch.tensor([1], dtype=torch.int32, device=device)
-    ms = time_ms(lambda: fused_layer_prefix(x, pk, pv, idx, p, n_heads=6), 50, device)
-    plain_ms = time_ms(lambda: fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=6),
+    ms = time_ms(lambda: fused_layer_prefix(x, pk, pv, idx, p, n_heads=H), 50, device)
+    plain_ms = time_ms(lambda: fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=H),
                        10, device)
     return ms, plain_ms
 
 
-def phase_split(B, device, gen, dtype=None):
-    """B1's phase clock at the kitchen serving shape (B rows, 2T=8, D=360,
-    P=3, no epilogue) in `dtype` (bf16 unless given): the timed launch must
-    equal the plain B1 launch bit for bit. Returns {phase: mean cycles per
-    block} over the blocks."""
+def phase_split(B, device, gen, dtype=None, shape=KITCHEN_LAYER):
+    """B1's phase clock at a serving shape (B rows; D, heads, P and 2T of
+    `shape`, the kitchen's unless given; no epilogue) in `dtype` (bf16
+    unless given): the timed launch must equal the plain B1 launch bit for
+    bit. Returns {phase: mean cycles per block} over the blocks."""
     import torch
 
     from beso_tpu_torch.ops import fused_layer as fl
 
     dtype = dtype or torch.bfloat16
-    p, _ = random_layer(360, 6, 9, gen, device, dtype)
-    x = _rand(gen, B, 8, 360, device=device, dtype=dtype)
-    pk, pv = (_rand(gen, 3, B, 3, 360, device=device, dtype=dtype) for _ in range(2))
+    D, H, P, T2 = shape
+    p, _ = random_layer(D, H, 9, gen, device, dtype)
+    x = _rand(gen, B, T2, D, device=device, dtype=dtype)
+    pk, pv = (_rand(gen, 3, B, P, D, device=device, dtype=dtype) for _ in range(2))
     idx = torch.tensor([1], dtype=torch.int32, device=device)
-    out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=6)
-    ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=6)
+    out, cycles = fl.fused_layer_prefix_timed(x, pk, pv, idx, p, n_heads=H)
+    ref = fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H)
     torch.cuda.synchronize()
     tag = str(dtype)[6:]
-    _same_bits(f"{tag} timed B1 vs B1 at B={B}", out, ref)
+    _same_bits(f"{tag} timed B1 vs B1 at B={B}, D={D}, {H} heads", out, ref)
     names = fl.timed_phases(dtype)
     mean = cycles.double().mean(0).tolist()
     total = sum(mean)
@@ -772,9 +799,10 @@ def build_model(model_kw, device, seed, dtype=None):
     return GCDenoiser(model, sigma_data=0.5)
 
 
-def check_engine(den, device, B, gen, frac=ERR_FRACTION):
-    """fused_cached vs cached engine on the same inputs, every grid sigma,
-    within frac of max |cached|, in the model's dtype."""
+def check_engine(den, device, B, gen, frac=ERR_FRACTION, sigma_min=0.005):
+    """fused_cached vs cached engine on the same inputs, every sigma of the
+    grid from `sigma_min` (the kitchen configs' unless given), within frac
+    of max |cached|, in the model's dtype."""
     import torch
 
     from beso_tpu_torch.core.schedules import get_noise_schedule
@@ -786,7 +814,7 @@ def check_engine(den, device, B, gen, frac=ERR_FRACTION):
     s = torch.randn(B, T, m.state_dim, generator=gen).to(device)
     a = torch.randn(B, T, m.action_dim, generator=gen).to(device)
     g = torch.randn(B, G, m.state_dim, generator=gen).to(device)
-    grid = get_noise_schedule(NFE, 0.005, 1.0, 5.0, "exponential")[:-1]
+    grid = get_noise_schedule(NFE, sigma_min, 1.0, 5.0, "exponential")[:-1]
     fused = make_fused_cached_denoise_fn(den, g, grid)
     plain = make_cached_denoise_fn(den, g, grid)
     worst = 0.0
@@ -1112,6 +1140,234 @@ def run_f32_main_path(device, card):
     return counts
 
 
+def block_push_agent_config():
+    """The shipped block-push config, `configs/block_push.yaml`, as
+    BesoAgentConfig fields (no YAML parser on the card's host, so the values
+    are written out). Only the step counts are cut."""
+    return dict(obs_dim=10, action_dim=2,              # (:14, :13)
+                hidden_dim=240, n_layers=BP_LAYERS,    # (:18, :19)
+                n_heads=12, goal_seq_len=1,            # (:20, :7)
+                window_size=5, goal_conditioned=True,  # (:8, :11)
+                attn_pdrop=0.05, resid_pdrop=0.05,     # (:21, :22)
+                linear_output=True,                    # (:23)
+                max_train_steps=MAIN_TRAIN_STEPS,      # max_train_steps: 60000 (:27), cut
+                eval_every_n_steps=MAIN_TRAIN_STEPS,   # eval_every_n_steps: 4000 (:28), cut
+                train_batch_size=1024,                 # (:29)
+                optimizer="adam", lr=1e-4,             # (:31, :32)
+                betas=(0.9, 0.999), weight_decay=0.0,  # (:33, :34)
+                lr_step_size=100, lr_gamma=0.99,       # (:35, :36)
+                use_ema=True, decay=0.999,             # (:37, :38)
+                update_ema_every_n_steps=1,            # (:39)
+                compute_dtype="float32",               # compute_dtype: float32 (:40)
+                sampler_type="ddim", sigma_data=0.5,   # (:43, :44)
+                sigma_min=0.05, sigma_max=1.0,         # (:45, :46)
+                rho=5.0, noise_scheduler="exponential",  # (:47, :48)
+                sigma_sample_density_type="loglogistic",  # (:49)
+                sigma_sample_density_mean=-0.6,        # (:50)
+                sigma_sample_density_std=1.6,          # (:51)
+                cond_mask_prob=0.1, cond_lambda=2.0,   # (:52, :53)
+                num_sampling_steps=NFE,                # n_timesteps: 3 (:54)
+                pred_last_action_only=False,           # (:55)
+                inference_engine="fused_cached")       # the CUDA fused-layer engine
+
+
+def check_physics_on_card(device, n_envs=256, steps=3):
+    """`block_push_step` on the card against the same steps on the CPU:
+    n_envs envs from one reset, the pusher driven into block 0, with the
+    dither hash replaced on both sides by the smooth sin(_HASH_W @ u) (the
+    shipped sin-hash decorrelates at an ulp, and the card's sin is not the
+    CPU's): positions within 1e-5 m, yaws within 5e-5 rad, velocities within
+    1e-4 of their largest magnitude, flags, rewards and done equal."""
+    import torch
+
+    import beso_tpu_torch.envs.block_push.env as bp
+
+    w = torch.as_tensor(bp._HASH_W.copy())
+
+    def smooth_hash(bpos, byaw, eff):
+        u = torch.cat([bpos, byaw[..., None], eff], -1)
+        return torch.sin((w.to(u.device) * u[..., None, :]).sum(-1))
+
+    state = bp.block_push_reset(n_envs, torch.Generator().manual_seed(28))
+    eff = state.block_pos[:, 0] - torch.tensor([0.0, 0.05])
+    state = state._replace(effector=eff, effector_target=eff.clone())
+    action = torch.tensor([0.0, 0.03]).expand(n_envs, 2)
+    cpu, card = state, bp.BlockPushState(*(v.to(device) for v in state))
+    real_hash, bp._hash_noise = bp._hash_noise, smooth_hash
+    try:
+        for _ in range(steps):
+            cpu, _, r_cpu, d_cpu = bp.block_push_step(cpu, action)
+            card, _, r_card, d_card = bp.block_push_step(card, action.to(device))
+    finally:
+        bp._hash_noise = real_hash
+    worst = {}
+    for field, a, b in zip(cpu._fields, cpu, card):
+        b = b.cpu()
+        if a.dtype != torch.float32:
+            worst[field] = 0.0 if torch.equal(a, b) else math.inf
+            continue
+        err = (a - b).abs().max().item()
+        lim = {"block_vel": 1e-4 * max(a.abs().max().item(), 1.0),
+               "block_yawrate": 1e-4 * max(a.abs().max().item(), 1.0),
+               "block_yaw": 5e-5, "target_yaw": 5e-5}.get(field, 1e-5)
+        worst[field] = err if err <= lim else math.inf
+    moved = (cpu.block_pos - state.block_pos).abs().amax((1, 2))
+    print(f"  physics on the card vs the CPU, {n_envs} envs x {steps} steps pushing block 0 "
+          f"(smooth stand-in hash): max |diff| per field {json.dumps(worst)}; "
+          f"{int((moved > 1e-3).sum())} envs moved a block")
+    if (not all(math.isfinite(v) for v in worst.values()) or not torch.equal(r_cpu, r_card.cpu())
+            or not torch.equal(d_cpu, d_card.cpu()) or (moved > 1e-3).float().mean() < 0.5):
+        fail("block_push_step on the card disagrees with the CPU")
+
+
+def physics_op_count(device):
+    """(operations, views): the aten operations one `block_push_step` of
+    N_ENVS envs dispatches, views (which launch nothing) counted apart."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from beso_tpu_torch.envs.block_push.env import block_push_reset, block_push_step
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.views = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "is_view", False):
+                self.views += 1
+            else:
+                self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    state = block_push_reset(N_ENVS, torch.Generator(device).manual_seed(27), device)
+    with Count() as count:
+        block_push_step(state, torch.zeros(N_ENVS, 2, device=device))
+    return count.ops, count.views
+
+
+def run_block_push_main_path(device, card, b1):
+    """Phase 12, the shipped block-push config as shipped: multimodal-push
+    files written by `export_multimodal_push` (synthetic trajectories),
+    loaded by `BlockPushWorkspace(data_path=...)` with the min-max scaler;
+    the physics on the card against the CPU (`check_physics_on_card`);
+    an f32 BesoAgent trained MAIN_TRAIN_STEPS steps at batch 1024; its EMA
+    model's `fused_cached` engine against the plain `cached` engine at every
+    grid sigma (2^-10); then the workspace's evaluation, N_ENVS envs x
+    BP_STEPS steps on `fused_cached`, with every fused-layer counter set to 0
+    just before it and read just after; then BP_PHYSICS_STEPS steps again
+    with a host clock around each physics step (after a device sync).
+    `b1`: phase 2's f32 B1 numbers at this shape, printed with the launch
+    count as one JSON line. Returns the counts."""
+    import torch
+
+    import beso_tpu_torch.rollout.rollout as rollout_mod
+    from beso_tpu_torch.agents.beso_agent import BesoAgent, BesoAgentConfig
+    from beso_tpu_torch.data.export import export_multimodal_push
+    from beso_tpu_torch.data.trajectories import synthetic_push_data
+    from beso_tpu_torch.ops import fused_layer as fl
+    from beso_tpu_torch.workspaces import BlockPushWorkspace
+
+    data_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_multimodal_push"
+    export_multimodal_push(synthetic_push_data(n_traj=64, t_max=100, seed=21), data_dir)
+    ws = BlockPushWorkspace(seed=6, data_path=str(data_dir),   # seed: 6 (:5)
+                            eval_n_times=N_ENVS,          # eval_n_times: 100 (:61), raised
+                            eval_n_steps=BP_STEPS,        # eval_n_steps: 300 (:62)
+                            scale_data=True,              # scale_data: true (:6)
+                            window_size=5, goal_seq_len=1,  # (:8, :7)
+                            use_minmax_scaler=True,       # use_minmax_scaler: true (:56)
+                            mask_targets=False,           # mask_targets: false (:9)
+                            reduce_obs_dim=True,          # reduce_obs_dim: true (:10)
+                            train_fraction=0.95,          # train_fraction: 0.95 (:63)
+                            device=device)
+    check_physics_on_card(device)
+    print(f"  data_path {data_dir.name}: {ws.full_data.num_trajectories} trajectories of "
+          f"{ws.full_data.obs_dim} dims, {len(ws.train_set)} train / {len(ws.test_set)} test "
+          f"windows, scaler {ws.scaler.kind}")
+    if ws.scaler.kind != "minmax":
+        fail("the block-push workspace did not fit the min-max scaler")
+    records = Records()
+    agent = BesoAgent(BesoAgentConfig(**block_push_agent_config()), ws.scaler,
+                      metrics_writer=records, device=device)
+    agent.init(torch.Generator().manual_seed(22))
+    if agent.denoiser.inner_model.dtype != torch.float32:
+        fail("the shipped block-push config did not build an f32 model")
+    agent.train_agent(ws.train_set, ws.test_set, torch.Generator(device).manual_seed(23))
+    torch.cuda.synchronize()
+    losses = [r[k] for r in records.rows for k in ("loss", "test_loss") if k in r]
+    print(f"  {MAIN_TRAIN_STEPS} f32 train steps at batch {agent.cfg.train_batch_size} "
+          f"(adam): losses {losses}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail("a block-push training loss is not finite")
+    check_engine(agent.eval_denoiser(), device, 256, torch.Generator().manual_seed(24),
+                 F32_ENGINE_FRACTION, sigma_min=0.05)
+
+    counters = (fl.fused_layer_prefix, fl.fused_layers_prefix_group,
+                fl.fused_layer_with_prefix, fl.fused_layer)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = ws.test_agent(agent, generator=torch.Generator(device).manual_seed(25),
+                        log_metrics=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: 0 for c in counters}
+    want["fused_layer_prefix"] = BP_STEPS * NFE * BP_LAYERS
+    print(f"  launches: {counts} (expected {want})")
+    if counts != want:
+        fail(f"the block-push evaluation launched the fused-layer kernels {counts}, not {want}")
+    bad = [k for k, v in out.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"the block-push evaluation's metrics are not finite ({bad})")
+    print(f"  evaluation, {N_ENVS} envs x {BP_STEPS} steps on fused_cached (f32): "
+          f"{json.dumps(out)}; wall {wall:.3f} s, {N_ENVS * BP_STEPS / wall:.1f} env-steps/s "
+          f"(informational; random weights; {card})")
+
+    # where an env step's time goes: a host clock around each physics step,
+    # after a device sync, over a shorter evaluation
+    real_step, physics = rollout_mod.block_push_step, []
+
+    def clocked_step(state, action):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        result = real_step(state, action)
+        torch.cuda.synchronize()
+        physics.append(time.perf_counter() - t_start)
+        return result
+
+    rollout_mod.block_push_step = clocked_step
+    ws.eval_n_steps = BP_PHYSICS_STEPS
+    try:
+        t0 = time.perf_counter()
+        ws.test_agent(agent, generator=torch.Generator(device).manual_seed(26),
+                      log_metrics=False)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+    finally:
+        rollout_mod.block_push_step = real_step
+        ws.eval_n_steps = BP_STEPS
+    if len(physics) != BP_PHYSICS_STEPS:
+        fail(f"the clocked evaluation stepped the physics {len(physics)} times")
+    t_phys = sum(physics)
+    print(f"  clocked {BP_PHYSICS_STEPS}-step evaluation: wall {wall_c:.3f} s, block_push_step "
+          f"{t_phys:.3f} s ({100 * t_phys / wall_c:.1f}%, {1e3 * t_phys / len(physics):.2f} ms "
+          f"per env step of {N_ENVS} envs), the rest (policy, goals, reset) "
+          f"{wall_c - t_phys:.3f} s (host clock; {card})")
+    ops, views = physics_op_count(device)
+    print(f"  one block_push_step dispatches {ops} aten operations and {views} views "
+          f"({ops / 24:.0f} operations per substep)")
+    bound_ms, bound_by = bound(*layer_work(2 * N_ENVS, 10, 240, 2, elem=4),
+                               PEAK_F32_BF16X3_FLOPS)
+    print(json.dumps({"block_push_f32_b1": {
+        "shape": "2048 rows x 10 tokens, D=240, 12 heads (hd 20), P=2",
+        "launches": counts["fused_layer_prefix"], "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+        "gemm_ms": b1["gemm_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "env_steps_per_s": N_ENVS * BP_STEPS / wall,
+        "physics_share": t_phys / wall_c, "physics_ops_per_step": ops}}))
+    return counts
+
+
 class Records:
     """In-memory metrics writer: keeps every record the trainer logs."""
 
@@ -1211,6 +1467,19 @@ def main() -> None:
     print(f"  phase split: {json.dumps({k: round(v) for k, v in phases.items()})}")
     phases_f32 = phase_split(B_serve, device, gen, torch.float32)
     print(f"  f32 phase split: {json.dumps({k: round(v) for k, v in phases_f32.items()})}")
+    # f32 B1 at the block-push serving shape (phase 12's launches)
+    bp_ms, bp_plain_ms = time_kernel(B_serve, device, gen, torch.float32, BLOCK_PUSH_LAYER)
+    bp_gemm_ms = time_layer_gemms(B_serve * 10, 240, device, gen, dtype=torch.float32)
+    bp_bound, bp_bound_by = bound(*layer_work(B_serve, 10, 240, 2, elem=4),
+                                  PEAK_F32_BF16X3_FLOPS)
+    print(f"  f32 at the block-push serving shape (B={B_serve}, 2T=10, D=240, 12 heads, P=2): "
+          f"kernel {bp_ms:.4f} ms, plain {bp_plain_ms:.4f} ms, f32 torch.matmul of its four "
+          f"products {bp_gemm_ms:.4f} ms, bound {bp_bound:.4f} ms ({bp_bound_by}), "
+          f"{100 * bp_bound / bp_ms:.1f}% of the roofline ({card})")
+    phases_bp = phase_split(B_serve, device, gen, torch.float32, BLOCK_PUSH_LAYER)
+    print(f"  f32 block-push phase split: "
+          f"{json.dumps({k: round(v) for k, v in phases_bp.items()})}")
+    b1_block_push = {"ms": bp_ms, "plain_ms": bp_plain_ms, "gemm_ms": bp_gemm_ms}
 
     # ---- 3. engine parity -------------------------------------------------
     print(f"[3] ({since_start()}) fused_cached vs cached engine (kitchen model, bf16, "
@@ -1484,6 +1753,12 @@ def main() -> None:
           f"{MAIN_TRAIN_STEPS} train "
           f"steps, then a {N_ENVS}-env x {N_STEPS}-step multigoal evaluation on fused_cached")
     f32_counts = run_f32_main_path(device, card)
+
+    # ---- 12. main path: the shipped block-push config as shipped (f32) ----
+    print(f"[12] ({since_start()}) shipped block-push config (f32) from data_path files: "
+          f"{MAIN_TRAIN_STEPS} train steps, then a {N_ENVS}-env x {BP_STEPS}-step evaluation "
+          f"on fused_cached")
+    run_block_push_main_path(device, card, b1_block_push)
 
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash

@@ -107,3 +107,24 @@ def jax_layer(lw: dict, n_heads: int):
     return jprepare(*(jnp.asarray(lw[k]) for k in (
         "wqkv", "bqkv", "wproj", "bproj", "wfc", "bfc", "wfc2", "bfc2",
         "ln1_s", "ln1_b", "ln2_s", "ln2_b")), n_heads=n_heads, dtype=jnp.float32)
+
+
+def smooth_block_push_hashes(monkeypatch):
+    """Replace both packages' block-push dither hash by the same smooth
+    function, sin(_HASH_W @ u). The shipped sin-hash moves by up to ~0.1 for
+    an ulp of its product, which XLA and torch round differently, so from
+    the first contact on the two packages would draw different dithers."""
+    import beso_tpu.envs.block_push.env as jenv
+    import beso_tpu_torch.envs.block_push.env as tenv
+
+    w = torch.as_tensor(np.asarray(jenv._HASH_W).copy())
+
+    def jax_hash(bpos, byaw, eff):
+        return jnp.sin(jenv._HASH_W @ jnp.concatenate([bpos, byaw[None], eff]))
+
+    def torch_hash(bpos, byaw, eff):
+        u = torch.cat([bpos, byaw[..., None], eff], -1)
+        return torch.sin((w * u[..., None, :]).sum(-1))
+
+    monkeypatch.setattr(jenv, "_hash_noise", jax_hash)
+    monkeypatch.setattr(tenv, "_hash_noise", torch_hash)
