@@ -17,9 +17,11 @@ over an explicit leading batch dimension instead of `vmap`:
   the convention of `jnp.argmin` / `jnp.argmax` on ties;
 * finished envs stay frozen field by field.
 
-Only the shipped block-block law, the 2-point box-box manifold
-(`BB_BOX_BOX = True` in the JAX module), is ported; the legacy box-vs-disk
-pair behind `BB_BOX_BOX = False` is not.
+Only the shipped laws are ported: the 2-point box-box manifold for the
+block-block contact (`BB_BOX_BOX = True` in the JAX module; the legacy
+box-vs-disk pair behind `BB_BOX_BOX = False` is not), and the face-slab
+normal in the pusher contact's corner region (`CORNER_RADIAL = False`;
+the radial normal is not).
 """
 
 from __future__ import annotations
@@ -49,9 +51,9 @@ EFFECTOR_SPEED = 1.0
 CONTROL_DT = 0.1
 N_SUBSTEPS = 24
 FRICTION_K2 = (2.0 / 3.0) * BLOCK_HALF * BLOCK_HALF
-PUSHER_MU = 0.5
 SUB_DT = CONTROL_DT / N_SUBSTEPS
 BLOCK_MASS = 0.01
+INV_I = 1.0 / (BLOCK_MASS * FRICTION_K2)   # inverse yaw inertia
 GRAVITY = 9.81
 GROUND_MU = 1.0
 CONTACT_MU = 0.05
@@ -63,7 +65,6 @@ PLOW_RANGE = 0.12
 BACKED_STIFF = 8.0
 TIP_TORQUE_LEAK = 0.0
 DAMP_RATIO = 1.0
-CORNER_RADIAL = False
 CONTACT_K = BLOCK_MASS / (0.02 * 0.02)
 CONTACT_B = 2.0 * BLOCK_MASS / 0.02
 V_EPS = 0.002
@@ -271,7 +272,7 @@ def _hash_noise(bpos: torch.Tensor, byaw: torch.Tensor, eff: torch.Tensor) -> to
     return 2.0 * torch.remainder(s * 10.0 * c.hash_f_rev, 1.0) - 1.0
 
 
-def _box_point_geom(block_pos, block_yaw, point, radius, radial_corner: bool = False):
+def _box_point_geom(block_pos, block_yaw, point, radius):
     """Disk-vs-oriented-box closest-point geometry over leading dims.
 
     Returns (pen [...], n_in [..., 2], c_local [..., 2], R [..., 2, 2]):
@@ -295,9 +296,8 @@ def _box_point_geom(block_pos, block_yaw, point, radius, radial_corner: bool = F
     n_face = torch.stack([torch.where(ax1, zero, s_ax), torch.where(ax1, s_ax, zero)], -1)
     n_out = delta / torch.clamp(dist, min=1e-9)[..., None]
     to_center = -local / torch.clamp(_norm(local), min=1e-9)[..., None]
-    corner_n = -n_out if radial_corner else n_face
     n_in = torch.where(inside[..., None], to_center,
-                       torch.where(corner[..., None], corner_n, -n_out))
+                       torch.where(corner[..., None], n_face, -n_out))
     return pen, n_in, clamped, R
 
 
@@ -354,40 +354,9 @@ def _box_box_manifold(pos_a, yaw_a, pos_b, yaw_b, half):
     return pen, n, pts, live
 
 
-def _push_block(block_pos, block_yaw, point, radius, k2=None, de=None, mu=None):
-    """Quasi-static point push of an oriented box (Mason/Lynch pushing
-    mechanics with the sticking/slipping motion cone), over leading dims;
-    the law of the JAX module's single-block env. `de` [..., 2] is the
-    pusher's substep displacement (None: no tangential drive). Returns
-    (new_pos, new_yaw, in_contact)."""
-    k2 = FRICTION_K2 if k2 is None else k2
-    mu = PUSHER_MU if mu is None else mu
-    pen, n_in, c, R = _box_point_geom(block_pos, block_yaw, point, radius)
-    pen = torch.clamp(pen, 0.0, EFFECTOR_SPEED * CONTROL_DT / N_SUBSTEPS)
-    t_dir = _perp(n_in)
-    p = _perp(c)
-    D = k2 + (c * c).sum(-1)
-    # A = (k2 I + p p^T) / D
-    A = (k2 * torch.eye(2, device=c.device) + p[..., :, None] * p[..., None, :]) / D[..., None, None]
-    u_t = torch.zeros_like(pen) if de is None else _dot(_mtv(R, de), t_dir)
-    u = pen[..., None] * n_in + torch.where(pen > 0, u_t, 0.0)[..., None] * t_dir
-    f_stick = torch.linalg.solve(A, u[..., None])[..., 0]
-    fn = _dot(f_stick, n_in)
-    ft = _dot(f_stick, t_dir)
-    stick = torch.abs(ft) <= mu * torch.clamp(fn, min=0.0)
-    edge = (n_in + (mu * torch.sign(ft))[..., None] * t_dir) * (1.0 / math.sqrt(1.0 + mu * mu))
-    fmax = 4.0 * torch.clamp(pen, min=1e-9)
-    f_st = f_stick * torch.minimum(
-        torch.ones_like(fmax), fmax / torch.clamp(_norm(f_stick), min=1e-9))[..., None]
-    f = torch.where(stick[..., None], f_st, pen[..., None] * edge)
-    v_local = (k2 * f + _dot(c, f)[..., None] * c) / D[..., None]
-    dyaw = _dot(p, f) / D
-    return block_pos + _mv(R, v_local), block_yaw + dyaw, pen > 0
-
-
 # ---- dynamics ----------------------------------------------------------------
 
-def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push, inv_i):
+def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push):
     """One substep's contact-force integration: pusher-block spring-damper
     with the tipping plateau, the 2-point box-box block contact, then
     4-point ground friction by sequential impulses (3 passes).
@@ -404,8 +373,7 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push, inv_i):
 
     # pusher-block spring-damper + Coulomb tangent, both blocks at once
     eff_b = eff[:, None, :].expand(-1, 2, -1)
-    pen, n_l, c_l, R_b = _box_point_geom(bpos, byaw, eff_b, EFFECTOR_RADIUS,
-                                         radial_corner=CORNER_RADIAL)
+    pen, n_l, c_l, R_b = _box_point_geom(bpos, byaw, eff_b, EFFECTOR_RADIUS)
     to_other = torch.stack([dir01, -dir01], 1)
     ahead = _dot(_mv(R_b, n_l), to_other) > BACKED_COS
     backed = near_bb[:, None] & ahead
@@ -459,7 +427,7 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push, inv_i):
     tq0 = torques[:, 0] + _cross2(r_i[:, 0], f[:, 0]) + _cross2(r_i[:, 1], f[:, 1])
     tq1 = torques[:, 1] + _cross2(r_j[:, 0], -f[:, 0]) + _cross2(r_j[:, 1], -f[:, 1])
     bvel = bvel + torch.stack([f0, f1], 1) * (SUB_DT * inv_m)
-    byr = byr + torch.stack([tq0, tq1], 1) * (SUB_DT * inv_i)
+    byr = byr + torch.stack([tq0, tq1], 1) * (SUB_DT * INV_I)
 
     # ground friction: sequential impulses at the 4 corner points, 3 passes,
     # each point's accumulated impulse clamped to mu (m g / 4) h
@@ -470,9 +438,9 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push, inv_i):
     for gx, gy in _GROUND_PTS.tolist():
         rx, ry = gx * c + gy * -s, gx * s + gy * c      # R @ point, world arm
         px, py = -ry, rx                                  # perp(arm)
-        k00 = inv_m + inv_i * px * px
-        k11 = inv_m + inv_i * py * py
-        k01 = inv_i * px * py
+        k00 = inv_m + INV_I * px * px
+        k11 = inv_m + INV_I * py * py
+        k01 = INV_I * px * py
         points.append((rx, ry, px, py, k00, k11, k01, k00 * k11 - k01 * k01))
     lam = [(torch.zeros_like(vx), torch.zeros_like(vx)) for _ in points]
     for _ in range(3):
@@ -487,24 +455,19 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push, inv_i):
             nx, ny = nx * scale, ny * scale
             dx, dy = nx - lx, ny - ly
             vx, vy = vx + dx * inv_m, vy + dy * inv_m
-            wb = wb + (rx * dy - ry * dx) * inv_i
+            wb = wb + (rx * dy - ry * dx) * INV_I
             lam[i] = (nx, ny)
     return torch.stack([vx, vy], -1), wb
 
 
 def block_push_step(state: BlockPushState, action: torch.Tensor,
-                    friction_k2: Optional[float] = None,
                     ) -> Tuple[BlockPushState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One 10 Hz control step of B envs, action [B, 2]. Returns (state,
     obs [B, 16], reward [B], done [B]).
 
-    Envs already done keep their state and get reward 0. `friction_k2`
-    overrides the friction radius of gyration squared (the perturbed-physics
-    protocol: larger k2, stiffer rotation response)."""
+    Envs already done keep their state and get reward 0."""
     c = _consts(action.device)
     tgt = torch.minimum(torch.maximum(state.effector_target + action, c.lo), c.hi)
-    k2 = FRICTION_K2 if friction_k2 is None else friction_k2
-    inv_i = 1.0 / (BLOCK_MASS * k2)
 
     eff, bpos, byaw = state.effector, state.block_pos, state.block_yaw
     bvel, byr = state.block_vel, state.block_yawrate
@@ -515,7 +478,7 @@ def block_push_step(state: BlockPushState, action: torch.Tensor,
         step_len = torch.clamp(d, max=EFFECTOR_SPEED * SUB_DT)
         de = to_tgt / torch.clamp(d, min=1e-9)[:, None] * step_len[:, None]
         eff = eff + de
-        bvel, byr = _solve_contact_velocities(bpos, byaw, bvel, byr, eff, de / SUB_DT, inv_i)
+        bvel, byr = _solve_contact_velocities(bpos, byaw, bvel, byr, eff, de / SUB_DT)
         bpos = bpos + bvel * SUB_DT
         byaw = byaw + byr * SUB_DT
 

@@ -117,6 +117,9 @@ exits non-zero on failure:
    `BlockPushWorkspace(data_path=...)`, `block_push_step` on the card
    against the CPU (256 envs x 3 steps pushing a block, the dither hash
    replaced on both sides by a smooth stand-in: positions within 1e-5),
+   the shipped dither hash on the card against the CPU (within 5e-4 where
+   its product is one multiply), every MuJoCo golden band of
+   tests/test_block_push_fidelity.py on the card with the shipped hash,
    an f32 `BesoAgent` trained
    MAIN_TRAIN_STEPS steps at batch 1024 (adam), its EMA model's
    `fused_cached` engine against the plain `cached` one at every grid sigma
@@ -1220,6 +1223,139 @@ def check_physics_on_card(device, n_envs=256, steps=3):
         fail("block_push_step on the card disagrees with the CPU")
 
 
+def check_hash_on_card(device, n=4000):
+    """The shipped dither hash `_hash_noise` on the card against the CPU, as
+    tests/test_torch_block_push.py holds it against JAX: where its product is
+    one multiply (one nonzero input) within 5e-4 in circular distance on
+    [-1, 1) (an ulp of sin times the x500 scale); on general states more
+    than half within 1e-3 and the same zero-mean law (std within 0.02)."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.envs.block_push.env import _hash_noise
+
+    def both(u):
+        u = torch.as_tensor(u)
+        args = (u[:, :2], u[:, 2], u[:, 3:])
+        cpu = _hash_noise(*args)
+        card = _hash_noise(*(a.to(device) for a in args)).cpu()
+        d = (cpu - card).abs()
+        return cpu, card, torch.minimum(d, 2.0 - d)
+
+    rng = np.random.RandomState(0)
+    u = np.zeros((n, 5), np.float32)
+    u[np.arange(n), rng.randint(0, 5, n)] = rng.uniform(-0.6, 0.6, n)
+    _, _, d_one = both(u)
+    u = np.concatenate([rng.uniform(0.2, 0.6, (n, 2)), rng.uniform(0.0, 3.2, (n, 1)),
+                        rng.uniform(-0.5, 0.6, (n, 2))], 1).astype(np.float32)
+    cpu, card, d = both(u)
+    near = (d < 1e-3).float().mean().item()
+    print(f"  shipped dither hash on the card vs the CPU, {n} states: single-multiply max "
+          f"circular diff {d_one.max().item():.3g} (bound 5e-4); general states max "
+          f"{d.max().item():.3g}, {100 * near:.1f}% within 1e-3 (bound 50%), std "
+          f"{card.std().item():.4f} vs {cpu.std().item():.4f}")
+    if (d_one.max().item() > 5e-4 or near <= 0.5
+            or abs(card.std().item() - cpu.std().item()) >= 0.02
+            or card.mean().abs().item() >= 0.03 or not bool((card.abs() <= 1.0).all())):
+        fail("the block-push dither hash on the card disagrees with the CPU")
+
+
+def check_fidelity_on_card(device):
+    """Every band of tests/test_block_push_fidelity.py, on the card with the
+    shipped dither hash: the MuJoCo golden scenarios (first engaged step
+    within 12 mm / 0.20 rad; the off-center push's rotation sign; stable-push
+    RMSE under 8 mm and 16 deg), the 16-push ensemble's displacement bands,
+    the knocked block coming to rest and the two-block train. All 24 scripted
+    pushes run as one batch of 12 control steps (shorter scripts padded with
+    a still pusher, read at their own last step)."""
+    import numpy as np
+    import torch
+
+    import beso_tpu_torch.envs.block_push.env as bp
+
+    golden = np.load(Path(__file__).resolve().parent / "tests" / "golden"
+                     / "block_push_mujoco.npz")
+    stable = ["offcenter_0.25", "offcenter_0.5", "offcenter_0.75", "rotated", "diagonal"]
+    starts, scripts = [], []          # (b0, yaw0, b1, eff0), offsets [T, 2]
+    for name in ["central"] + stable:
+        meta = golden[f"{name}__meta"]
+        starts.append((meta[:2], meta[2], meta[3:5], meta[5:7]))
+        scripts.append(golden[f"{name}__offsets"])
+    rng = np.random.default_rng(0)    # the ensemble's draws
+    for _ in range(16):
+        yaw, dx = rng.uniform(0, np.pi), rng.uniform(-0.8, 0.8) * bp.BLOCK_HALF
+        starts.append(((0.4, -0.2), yaw, (0.8, 0.6), (0.4 + dx, -0.33)))
+        scripts.append(np.tile([0.0, 0.035], (12, 1)))
+    starts.append(((0.4, -0.24), 0.3, (0.8, 0.6), (0.405, -0.30)))      # knocked block
+    scripts.append(np.asarray([(0.0, 0.035)] * 3 + [(0.0, 0.0)] * 6))
+    starts.append(((0.4, -0.2), 0.0, (0.4, -0.11), (0.4, -0.3)))        # two-block train
+    scripts.append(np.asarray([(0.0, 0.035)] * 8))
+    B, T = len(starts), 12
+    offsets = np.zeros((T, B, 2), np.float32)
+    for i, sc in enumerate(scripts):
+        offsets[:len(sc), i] = sc
+
+    def col(k):
+        return torch.as_tensor(np.asarray([s[k] for s in starts], np.float32), device=device)
+
+    b0, yaw0, b1, eff = col(0), col(1), col(2), col(3)
+    state = bp.BlockPushState(
+        effector=eff, effector_target=eff.clone(), block_pos=torch.stack([b0, b1], 1),
+        block_yaw=torch.stack([yaw0, torch.zeros_like(yaw0)], 1),
+        target_pos=torch.tensor([[0.28, 0.2], [0.52, 0.2]], device=device).expand(B, 2, 2),
+        target_yaw=torch.full((B, 2), math.pi, device=device),
+        in_target=torch.zeros(B, 2, 2, dtype=torch.bool, device=device),
+        completed=torch.zeros(B, 4, dtype=torch.bool, device=device),
+        done=torch.zeros(B, dtype=torch.bool, device=device),
+        steps=torch.zeros(B, dtype=torch.int32, device=device),
+        block_vel=torch.zeros(B, 2, 2, device=device),
+        block_yawrate=torch.zeros(B, 2, device=device))
+    traj = []
+    for a in torch.as_tensor(offsets, device=device):
+        state, obs, _, _ = bp.block_push_step(state, a)
+        traj.append(obs[:, :5].cpu().numpy())
+    tr = np.stack(traj, 1).astype(np.float64)    # [B, T, 5]
+
+    def wrap(a):
+        return (a + np.pi) % (2 * np.pi) - np.pi
+
+    names = ["central"] + stable
+    got, ok = {}, []
+    for name in ("central", "offcenter_0.5", "rotated"):
+        mj, t_ = golden[name], tr[names.index(name)]
+        got[f"early_mm_{name}"] = 1e3 * np.abs(mj[2, :2] - t_[2, :2]).max()
+        got[f"early_rad_{name}"] = abs(wrap(mj[2, 2] - t_[2, 2]))
+        ok += [got[f"early_mm_{name}"] < 12.0, got[f"early_rad_{name}"] < 0.20]
+    mj, t_ = golden["offcenter_0.5"], tr[names.index("offcenter_0.5")]
+    got["offcenter_yaw"] = t_[2, 2]
+    ok.append(t_[2, 2] > 0.01 and np.sign(t_[2, 2]) == np.sign(mj[2, 2]))
+    xy = [0, 1, 3, 4]
+    pos = np.mean([np.sqrt(np.mean((golden[n][:, xy] - tr[names.index(n)][:, xy]) ** 2))
+                   for n in stable])
+    yaw = np.mean([np.sqrt(np.mean(wrap(golden[n][:, 2] - tr[names.index(n)][:, 2]) ** 2))
+                   for n in stable])
+    got["stable_rmse_mm"], got["stable_rmse_deg"] = 1e3 * pos, np.degrees(yaw)
+    ok += [pos < 0.008, np.degrees(yaw) < 16.0]
+    ens = tr[len(names):len(names) + 16, -1]
+    yaw_e = np.asarray([s[1] for s in starts[len(names):len(names) + 16]])
+    got["ens_par"] = (ens[:, 1] + 0.2).mean()
+    got["ens_perp"] = np.abs(ens[:, 0] - 0.4).mean()
+    got["ens_yaw_deg"] = np.degrees(np.abs(wrap(ens[:, 2] - yaw_e)).mean())
+    ok += [0.016 < got["ens_par"] < 0.045, 0.010 < got["ens_perp"] < 0.045,
+           3.0 < got["ens_yaw_deg"] < 21.0]
+    kn, tw = tr[-2], tr[-1]
+    got["knocked_moved"] = np.linalg.norm(kn[3, :2] - [0.4, -0.24])
+    got["knocked_drift"] = np.linalg.norm(kn[8, :2] - kn[6, :2])
+    got["knocked_spin"] = abs(wrap(kn[8, 2] - kn[6, 2]))
+    ok += [got["knocked_moved"] > 0.005, got["knocked_drift"] < 5e-4,
+           got["knocked_spin"] < 0.01, tw[7, 4] > -0.11 + 0.005, tw[7, 1] < tw[7, 4]]
+    print(f"  MuJoCo golden bands on the card, shipped hash, {B} scripted pushes x {T} steps: "
+          f"{json.dumps({k: float(v) for k, v in got.items()})}; "
+          f"{sum(map(bool, ok))}/{len(ok)} bands held")
+    if not np.isfinite(tr).all() or not all(ok):
+        fail("block_push_step on the card left a band of tests/test_block_push_fidelity.py")
+
+
 def physics_op_count(device):
     """(operations, views): the aten operations one `block_push_step` of
     N_ENVS envs dispatches, views (which launch nothing) counted apart."""
@@ -1250,7 +1386,9 @@ def run_block_push_main_path(device, card, b1):
     """Phase 12, the shipped block-push config as shipped: multimodal-push
     files written by `export_multimodal_push` (synthetic trajectories),
     loaded by `BlockPushWorkspace(data_path=...)` with the min-max scaler;
-    the physics on the card against the CPU (`check_physics_on_card`);
+    the physics on the card against the CPU (`check_physics_on_card`), the
+    shipped dither hash on the card against the CPU (`check_hash_on_card`)
+    and the MuJoCo golden bands on the card (`check_fidelity_on_card`);
     an f32 BesoAgent trained MAIN_TRAIN_STEPS steps at batch 1024; its EMA
     model's `fused_cached` engine against the plain `cached` engine at every
     grid sigma (2^-10); then the workspace's evaluation, N_ENVS envs x
@@ -1281,6 +1419,8 @@ def run_block_push_main_path(device, card, b1):
                             train_fraction=0.95,          # train_fraction: 0.95 (:63)
                             device=device)
     check_physics_on_card(device)
+    check_hash_on_card(device)
+    check_fidelity_on_card(device)
     print(f"  data_path {data_dir.name}: {ws.full_data.num_trajectories} trajectories of "
           f"{ws.full_data.obs_dim} dims, {len(ws.train_set)} train / {len(ws.test_set)} test "
           f"windows, scaler {ws.scaler.kind}")
