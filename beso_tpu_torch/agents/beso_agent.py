@@ -18,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from beso_tpu_torch.agents.policy import PolicyConfig
+from beso_tpu_torch.agents.policy import (PolicyConfig, PolicyState, policy_predict,
+                                          policy_reset)
 from beso_tpu_torch.core.densities import make_sample_density
 from beso_tpu_torch.models.denoiser import GCDenoiser
 from beso_tpu_torch.models.gpt import DiffusionGPT
@@ -28,6 +29,12 @@ from beso_tpu_torch.train.trainer import TrainState, Trainer, make_optimizer
 log = logging.getLogger(__name__)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def ode_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Unit normal draws of `BesoAgent.visualize_ode`'s start, its only
+    random draw."""
+    return torch.randn(shape, generator=generator, device=device)
 
 
 @dataclasses.dataclass
@@ -227,6 +234,49 @@ class BesoAgent:
         base.update({k: v for k, v in overrides.items() if v is not None})
         return PolicyConfig(**base)
 
+    def reset(self, batch_size: int, policy_cfg: Optional[PolicyConfig] = None) -> PolicyState:
+        """Cleared rolling contexts on the agent's device (beso_agent.py:291-294)."""
+        return policy_reset(batch_size, policy_cfg or self.policy_config(), self.device)
+
+    def predict(self, pstate: PolicyState, obs: torch.Tensor, goal: torch.Tensor,
+                generator: Optional[torch.Generator],
+                policy_cfg: Optional[PolicyConfig] = None):
+        """One batched control step with the evaluation weights
+        (beso_agent.py:296-388): (action [B, act_dim] in env units, new
+        state)."""
+        return policy_predict(self.make_denoise_fn(), self.scaler, pstate, obs, goal,
+                              generator, policy_cfg or self.policy_config())
+
+    @torch.no_grad()
+    def visualize_ode(self, state: torch.Tensor, goal: torch.Tensor,
+                      generator: Optional[torch.Generator], get_mean: int = 1000,
+                      new_sampling_steps: Optional[int] = None,
+                      noise_scheduler: Optional[str] = None) -> torch.Tensor:
+        """Debug utility (beso_agent.py:478-538): repeat one (state, goal)
+        `get_mean` times and record the actions after every step of a
+        step-wise DDIM trajectory. Returns [n_steps + 1, get_mean, T, act]."""
+        from beso_tpu_torch.core.schedules import get_noise_schedule
+        from beso_tpu_torch.sampling.samplers import sample_ddim
+
+        cfg = self.cfg
+        n = new_sampling_steps or cfg.num_sampling_steps
+        sigmas = get_noise_schedule(n, cfg.sigma_min, cfg.sigma_max, cfg.rho,
+                                    noise_scheduler or cfg.noise_scheduler)
+        state_rpt = self.scaler.scale_input(state).repeat_interleave(get_mean, dim=0)
+        goal_rpt = self.scaler.scale_input(goal).repeat_interleave(get_mean, dim=0)
+        T = state.shape[-2] if state.ndim > 2 else 1
+        x = ode_noise((get_mean, T, cfg.action_dim), generator, state.device) * cfg.sigma_max
+        denoise = self.make_denoise_fn()
+
+        def dn(actions, sigma):
+            return denoise(state_rpt, actions, goal_rpt, sigma)
+
+        samples = [x]
+        for i in range(n):
+            x = sample_ddim(dn, x, sigmas[i:i + 2])
+            samples.append(x)
+        return torch.stack(samples)
+
     # -- weight I/O ----------------------------------------------------------
     def store_model_weights(self, store_path: str):
         """Store the full train state (EMA included) as `train_state.pt`,
@@ -236,9 +286,24 @@ class BesoAgent:
         save_train_state(self.state, store_path, "train_state")
 
     def load_pretrained_model(self, weights_path: str):
-        from beso_tpu_torch.train.checkpoint import restore_train_state
+        if self.state is None:
+            raise RuntimeError("call init() first to build a template")
+        self.state = self.trainer.restore(self.state, weights_path, "train_state")
+        log.info("Loaded pre-trained model parameters")
+
+    def load_torch_checkpoint(self, weights_path: str,
+                              filename: str = "model_state_dict.pth"):
+        """Import a reference .pth checkpoint (beso_agent.py:458-464): its
+        weights into the model, and the EMA shadow started afresh from them,
+        as `beso_tpu/agents/beso_agent.py:282-291` does. The agent's model
+        keeps its tanh GELU, as the JAX agent's does; the reference computed
+        with erf (`DiffusionGPT(approximate_gelu=False)` reproduces it)."""
+        from beso_tpu_torch.models.ema import ema_init
+        from beso_tpu_torch.train.checkpoint import (load_reference_weights,
+                                                     load_torch_checkpoint)
 
         if self.state is None:
             raise RuntimeError("call init() first to build a template")
-        self.state = restore_train_state(self.state, weights_path, "train_state")
-        log.info("Loaded pre-trained model parameters")
+        load_reference_weights(self.state.model, load_torch_checkpoint(
+            weights_path, self.cfg.n_layers, filename))
+        self.state.ema = ema_init(self.state.model.named_parameters())

@@ -40,8 +40,9 @@ class PolicyState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
-    """Inference-time knobs: the fields of `beso_tpu`'s PolicyConfig that the
-    ported path reads. `n_action_samples > 1` and Picard sampling raise."""
+    """Inference-time knobs: `beso_tpu`'s PolicyConfig but for Picard's
+    options. `policy_predict` raises for what is not ported
+    (`check_ported`)."""
 
     window_size: int
     obs_dim: int
@@ -54,8 +55,12 @@ class PolicyConfig:
     rho: float = 5.0
     noise_scheduler: str = "exponential"
     cond_lambda: float = 1.0  # >1/<1 wraps the model in CFG
-    s_churn: float = 0.0
+    s_churn: float = 0.0      # read by the stochastic samplers (A14); DDIM ignores it
+    s_tmin: float = 0.0
+    # multi-sample action selection (reference get_mean/use_kde,
+    # beso_agent.py:352-368); only one sample is ported
     n_action_samples: int = 1
+    aggregation: str = "single"  # 'single' | 'mean' | 'kde'
 
 
 def scale_goal_for_model(scaler: Scaler, goal: torch.Tensor) -> torch.Tensor:
@@ -66,6 +71,24 @@ def scale_goal_for_model(scaler: Scaler, goal: torch.Tensor) -> torch.Tensor:
         goal_s = goal_s.clone()
         goal_s[..., [2, 5, 6, 7, 8, 9]] = 0.0
     return goal_s
+
+
+# the samplers `sampling/samplers.py::sample_loop` runs
+PORTED_SAMPLERS = ("ddim",)
+
+
+def check_ported(sampler_type: Optional[str] = None,
+                 n_action_samples: Optional[int] = None) -> None:
+    """Raise NotImplementedError, with its ROADMAP item, for a sampler or a
+    multi-sample action selection that is not ported; None is not checked."""
+    if n_action_samples is not None and n_action_samples > 1:
+        raise NotImplementedError(
+            "n_action_samples > 1 (mean and KDE aggregation) is not ported yet "
+            "(ROADMAP.md, queue A, item A20)")
+    if sampler_type is not None and sampler_type not in PORTED_SAMPLERS:
+        raise NotImplementedError(
+            f"sampler {sampler_type!r} is not ported to beso_tpu_torch yet "
+            f"(ROADMAP.md, queue A, item A14)")
 
 
 def policy_reset(batch_size: int, cfg: PolicyConfig, device=None) -> PolicyState:
@@ -105,12 +128,7 @@ def policy_predict(denoise: Callable[..., torch.Tensor], scaler: Scaler,
     `denoise(states, actions, goals, sigma)` is the preconditioned denoiser.
     obs: [B, obs_dim] raw observation; goal: [B, G, goal_dim] raw goal.
     """
-    if cfg.n_action_samples > 1:
-        raise NotImplementedError(
-            "n_action_samples > 1 is not ported yet (ROADMAP.md, queue A)")
-    if cfg.sampler_type == "picard":
-        raise NotImplementedError(
-            "Picard sampling is not ported yet (ROADMAP.md, queue A, item A14)")
+    check_ported(cfg.sampler_type, cfg.n_action_samples)
     B = obs.shape[0]
     W = cfg.window_size
     rows = torch.arange(B, device=obs.device)

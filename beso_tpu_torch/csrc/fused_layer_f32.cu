@@ -7,7 +7,9 @@
 // sequence of operations:
 //
 //   LN1 -> fused QKV -> attention over P prefix keys plus the causal own
-//   keys -> proj + residual -> LN2 -> 4x tanh-GELU MLP + residual
+//   keys -> proj + residual -> LN2 -> 4x GELU MLP + residual (tanh, or in
+//   fused_layer_f32_erf.cu's build of this source the exact erf GELU: a
+//   template argument, so the tanh instantiations are as they were)
 //   [-> next layer] [-> ln_f + linear head]
 //
 // Layout: x [B, T2, D] f32, pk/pv [S, B, P, D] f32 per layer (S = 1 for B3),
@@ -34,9 +36,10 @@
 // and fc2 products: x + bias first, then the products summed onto it. The
 // attention (a few thousand multiply-adds per row) runs on the CUDA cores in
 // plain f32, and GELU uses the accurate tanhf (the bf16 body's
-// tanh.approx.f32 errs by ~2^-11). Sums whose order could differ between
-// instantiations are written with explicit fmaf / __f*_rn, so that no
-// contraction choice of the compiler tells B2 from the B1 chain.
+// tanh.approx.f32 errs by ~2^-11) or, in its erf form, the accurate erff.
+// Sums whose order could differ between instantiations are written with
+// explicit fmaf / __f*_rn, so that no contraction choice of the compiler
+// tells B2 from the B1 chain.
 //
 // What bounds it: at the kitchen serving shape (B = 2048, 2T = 8, D = 360) a
 // launch does 51 GFLOP of products, each run three times on the bf16 tensor
@@ -95,6 +98,15 @@
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
+
+// This source builds the tanh GELU form; fused_layer_f32_erf.cu includes it
+// with BESO_ERF_GELU 1 to build the erf GELU form as a translation unit of
+// its own, which the build compiles beside this one, in parallel: its
+// kernels are the kErf instantiations, its entries carry `erf_` in their
+// names.
+#ifndef BESO_ERF_GELU
+#define BESO_ERF_GELU 0
+#endif
 
 namespace {
 
@@ -198,6 +210,18 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   const float x3 = __fmul_rn(__fmul_rn(x, x), x);
   const float u = __fmul_rn(0.7978845608028654f, fmaf(0.044715f, x3, x));
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(u)));
+}
+
+// The exact GELU with the accurate erff, 0.5 x (1 + erf(x / sqrt 2)): the
+// reference's nn.GELU(), for its checkpoints.
+__device__ __forceinline__ float gelu_erf(float x) {
+  const float e = erff(__fmul_rn(x, 0.7071067811865476f));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, e));
+}
+
+template <bool kErf>
+__device__ __forceinline__ float gelu(float x) {
+  return kErf ? gelu_erf(x) : gelu_tanh(x);
 }
 
 // Element offset of (row r, column c) in an A tile of the core-matrix
@@ -654,7 +678,7 @@ __device__ __forceinline__ void heads(const Args& a, const LayerArgs& w, Ring<kG
 
 // One layer over the tile: LN1, per head QKV, attention and proj onto the
 // residual, LN2, the MLP onto the residual. The residual stays in `res`.
-template <bool kGroup, bool kTimed>
+template <bool kGroup, bool kTimed, bool kErf>
 __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
                                       Ring<kGroup>& ring, PhaseClock<kTimed>& clk, float* res,
                                       int nrows, int n_env, size_t prow) {
@@ -694,8 +718,9 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
     for (int i = 0; i < FC / 4; i += 2) {
       const int r = frag_row(i), c = n0 + frag_col(i), f = m * FC + c;
       const bool in = r < nrows;
-      const float g0 = in && f < a.F ? gelu_tanh(__fadd_rn(acc[i], w.bfc[f])) : 0.f;
-      const float g1 = in && f + 1 < a.F ? gelu_tanh(__fadd_rn(acc[i + 1], w.bfc[f + 1])) : 0.f;
+      const float g0 = in && f < a.F ? gelu<kErf>(__fadd_rn(acc[i], w.bfc[f])) : 0.f;
+      const float g1 =
+          in && f + 1 < a.F ? gelu<kErf>(__fadd_rn(acc[i + 1], w.bfc[f + 1])) : 0.f;
       store_split2(gbuf + a_off(r, c), gsplit, g0, g1);
     }
     hopper::fence_proxy_async();
@@ -727,7 +752,7 @@ __device__ __forceinline__ void row_stats(const float* row, int D, int lane, flo
 
 // The block: two warpgroups over every product and epilogue; thread 0 also
 // issues the weight copies.
-template <bool kGroup, bool kTimed>
+template <bool kGroup, bool kTimed, bool kErf>
 __device__ __forceinline__ void consume(const Args& a, const Smem& sm, uint32_t rank) {
   PhaseClock<kTimed> clk;
   clk.start();
@@ -765,7 +790,8 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm, uint32_t 
   clk.mark(PH_LOAD);
 
   for (int l = 0; l < n_layers; ++l)
-    layer(a, sm, a.layer[kGroup ? l : 0], ring, clk, res, nrows, n_env, prow);
+    layer<kGroup, kTimed, kErf>(a, sm, a.layer[kGroup ? l : 0], ring, clk, res, nrows, n_env,
+                                prow);
 
   // the residual to shared memory (the LN tile's room), then to `out`
   float* xs = reinterpret_cast<float*>(sm.hs);
@@ -821,8 +847,8 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm, uint32_t 
 
 // kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
 // the single-layer one (B1, B3, B4) indexes a.layer[0] statically. kTimed:
-// B1 with the phase clock.
-template <bool kGroup, bool kTimed = false>
+// B1 with the phase clock (tanh GELU only). kErf: the erf GELU.
+template <bool kGroup, bool kTimed = false, bool kErf = false>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 fused_layer_f32_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -836,7 +862,7 @@ fused_layer_f32_kernel(const __grid_constant__ Args a) {
     hopper::fence_mbar_init();
   }
   hopper::cluster_sync();   // both blocks' barriers are ready
-  consume<kGroup, kTimed>(a, sm, rank);
+  consume<kGroup, kTimed, kErf>(a, sm, rank);
   hopper::cluster_sync();
 }
 
@@ -866,7 +892,8 @@ LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
 // shape outside the limits. `a.layer[:n_layers]` must be set by the caller;
 // `group` takes the B2 instantiation, a non-null `cycles` the timed
-// single-layer one. The grid is rounded up to whole clusters.
+// single-layer one; in the erf unit the kErf instantiations (no timed
+// one). The grid is rounded up to whole clusters.
 int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx,
            int n_layers, const void* lnf_s, const void* lnf_b, const void* whead,
            const void* bhead, void* out, void* pred, int B, int T2, int D, int H, int P, int S,
@@ -905,9 +932,15 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
   const size_t smem = BAR_BYTES + STATS_BYTES + STAGES * SLOT_BYTES +
                       2 * sizeof(bf16) * ROWS * a.Dp + region_bytes(a.hdp, a.key_rows);
   if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+#if BESO_ERF_GELU
+  if (cycles) return static_cast<int>(cudaErrorInvalidValue);   // the clock times tanh B1
+  const auto kernel = group ? fused_layer_f32_kernel<true, false, true>
+                            : fused_layer_f32_kernel<false, false, true>;
+#else
   const auto kernel = group    ? fused_layer_f32_kernel<true>
                       : cycles ? fused_layer_f32_kernel<false, true>
                                : fused_layer_f32_kernel<false>;
+#endif
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -918,6 +951,14 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
 }
 
 }  // namespace
+
+#if BESO_ERF_GELU
+// the erf unit's entries: the names below with `erf_` after the prefix
+#define beso_fused_f32_layer_prefix beso_fused_f32_erf_layer_prefix
+#define beso_fused_f32_layers_prefix_group beso_fused_f32_erf_layers_prefix_group
+#define beso_fused_f32_layer_with_prefix beso_fused_f32_erf_layer_with_prefix
+#define beso_fused_f32_layer beso_fused_f32_erf_layer
+#endif
 
 extern "C" {
 
@@ -938,6 +979,7 @@ int beso_fused_f32_layer_prefix(const void* x, const void* pk, const void* pv, c
                 H, P, S, F, M, stream);
 }
 
+#if !BESO_ERF_GELU
 // B1 with the phase clock: as beso_fused_f32_layer_prefix, and each block
 // adds its clock64() cycles per phase (enum Phase) to cycles [blocks,
 // N_PHASES], blocks the launch's grid (whole clusters).
@@ -951,6 +993,7 @@ int beso_fused_f32_layer_prefix_timed(const void* x, const void* pk, const void*
   return launch(a, false, static_cast<long long*>(cycles), x, idx, 1, lnf_s, lnf_b, whead,
                 bhead, out, pred, B, T2, D, H, P, S, F, M, stream);
 }
+#endif
 
 // B2: n_layers blocks in one launch. `layers` holds n_layers x 15 pointers:
 // each layer's thirteen (as `w` above), then its pk and pv [S, B, P, D].
@@ -987,6 +1030,7 @@ int beso_fused_f32_layer(const void* x, const void* const* w, void* out, int B, 
                 nullptr, B, T, D, H, 0, 1, F, 0, stream);
 }
 
+#if !BESO_ERF_GELU
 // Kernel limits the wrapper checks against, and the tiling constants
 // `tile_layer_weights` must share with the kernel.
 int beso_fused_f32_limits(int which) {
@@ -1005,5 +1049,6 @@ int beso_fused_f32_limits(int which) {
     default: return -1;
   }
 }
+#endif
 
 }  // extern "C"

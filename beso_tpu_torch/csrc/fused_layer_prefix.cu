@@ -19,7 +19,11 @@
 //      no prefix (P = 0; no index is read).
 //
 //   LN1 -> fused QKV -> attention over P prefix keys plus the causal own
-//   keys -> proj + residual -> LN2 -> 4x tanh-GELU MLP + residual
+//   keys -> proj + residual -> LN2 -> 4x GELU MLP + residual (the tanh
+//   GELU, or in fused_layer_prefix_erf.cu's build of this source the exact
+//   erf one: a template argument, so the tanh instantiations are as they
+//   were; as a runtime branch the erf code spilled in B1's register-capped
+//   epilogue and slowed the tanh path)
 //   [-> next layer] [-> ln_f (f32) + linear head (f32)]
 //
 // Layout: x [B, T2, D] bf16, pk/pv [S, B, P, D] bf16 per layer (S = 1 for
@@ -89,6 +93,15 @@
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
+
+// This source builds the tanh GELU form; fused_layer_prefix_erf.cu includes it
+// with BESO_ERF_GELU 1 to build the erf GELU form as a translation unit of
+// its own, which the build compiles beside this one, in parallel: its
+// kernels are the kErf instantiations, its entries carry `erf_` in their
+// names.
+#ifndef BESO_ERF_GELU
+#define BESO_ERF_GELU 0
+#endif
 
 namespace {
 
@@ -185,6 +198,17 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   float t;
   asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.7978845608028654f * (x + 0.044715f * x * x * x)));
   return 0.5f * x * (1.0f + t);
+}
+
+// The exact GELU with the accurate erff, 0.5 x (1 + erf(x / sqrt 2)): the
+// reference's nn.GELU(), for its checkpoints.
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
+}
+
+template <bool kErf>
+__device__ __forceinline__ float gelu(float x) {
+  return kErf ? gelu_erf(x) : gelu_tanh(x);
 }
 
 // A zero the compiler cannot see through. Added to the shared-memory
@@ -744,7 +768,7 @@ __device__ __forceinline__ void heads(const Args& a, const LayerArgs& w, Ring& r
 
 // One layer over the tile: LN1, QKV and attention head by head, proj +
 // residual, LN2, the MLP + residual; the residual stays in sm.xs.
-template <bool kTimed>
+template <bool kTimed, bool kErf>
 __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const LayerArgs& w,
                                       Ring& ring, PhaseClock<kTimed>& clk, int np,
                                       int nrows, int n_env, size_t prow) {
@@ -803,8 +827,8 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
 #pragma unroll
       for (int i = 0; i < FC / 4; i += 2) {
         const int c = wg * (FC / 2) + frag_col(i), f = m * FC + c;
-        const float g0 = f < a.F ? gelu_tanh(round_bf(acc[i] + bfc[f])) : 0.f;
-        const float g1 = f + 1 < a.F ? gelu_tanh(round_bf(acc[i + 1] + bfc[f + 1])) : 0.f;
+        const float g0 = f < a.F ? gelu<kErf>(round_bf(acc[i] + bfc[f])) : 0.f;
+        const float g1 = f + 1 < a.F ? gelu<kErf>(round_bf(acc[i + 1] + bfc[f + 1])) : 0.f;
         *reinterpret_cast<__nv_bfloat162*>(gbuf + a_off(frag_row(i), c)) =
             __floats2bfloat162_rn(g0, g1);
       }
@@ -821,7 +845,7 @@ __device__ __forceinline__ void layer(const Args& a, const Smem& sm, const Layer
 }
 
 // The two consumer warpgroups: everything but the weight copies.
-template <bool kGroup, bool kTimed>
+template <bool kGroup, bool kTimed, bool kErf>
 __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
   bf16 *xs = sm.xs, *kh = sm.kh;
   const int tid = threadIdx.x;
@@ -851,7 +875,7 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
   clk.mark(PH_LOAD);
 
   for (int l = 0; l < n_layers; ++l) {
-    layer<kTimed>(a, sm, a.layer[kGroup ? l : 0], ring, clk, np, nrows, n_env, prow);
+    layer<kTimed, kErf>(a, sm, a.layer[kGroup ? l : 0], ring, clk, np, nrows, n_env, prow);
   }
 
   write_out(a.out + row0 * D, xs, D, Dp, nrows, ctid);
@@ -890,11 +914,12 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm) {
 
 // kGroup: the B2 instantiation, with a runtime layer loop over a.layer[];
 // the single-layer one (B1, B3, B4) indexes a.layer[0] statically. kTimed:
-// B1 with the phase clock. Warpgroups 0 and 1 consume, warpgroup 2 produces
-// (one thread copies); `setmaxnreg` moves the producer's registers to the
-// consumers: the 384-thread launch holds 168 x 384 registers, which
-// become 40 for each producer thread and 232 for each consumer thread.
-template <bool kGroup, bool kTimed = false>
+// B1 with the phase clock (tanh GELU only). kErf: the erf GELU. Warpgroups
+// 0 and 1 consume, warpgroup 2 produces (one thread copies); `setmaxnreg`
+// moves the producer's registers to the consumers: the 384-thread launch
+// holds 168 x 384 registers, which become 40 for each producer thread and
+// 232 for each consumer thread.
+template <bool kGroup, bool kTimed = false, bool kErf = false>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_layer_prefix_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -912,7 +937,7 @@ fused_layer_prefix_kernel(const __grid_constant__ Args a) {
     if (threadIdx.x == CONSUMERS) produce<kGroup>(a, sm);
   } else {
     hopper::setmaxnreg_inc<232>();
-    consume<kGroup, kTimed>(a, sm);
+    consume<kGroup, kTimed, kErf>(a, sm);
   }
 }
 
@@ -942,7 +967,7 @@ LayerArgs layer_args(const void* const* w, const void* pk, const void* pv) {
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
 // shape outside the limits. `a.layer[:n_layers]` must be set by the caller;
 // `group` takes the B2 instantiation, a non-null `cycles` the timed
-// single-layer one.
+// single-layer one; in the erf unit the kErf instantiations (no timed one).
 int launch(Args& a, bool group, long long* cycles, const void* x, const void* idx,
            int n_layers, const void* lnf_s, const void* lnf_b, const void* whead,
            const void* bhead, void* out, void* pred, int B, int T2, int D, int H, int P, int S,
@@ -991,9 +1016,15 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
                       (ROWS + 2 * a.key_rows) * (a.hdp + 8)) +
       sizeof(float) * 8 * ROWS;
   if (smem > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+#if BESO_ERF_GELU
+  if (cycles) return static_cast<int>(cudaErrorInvalidValue);   // the clock times tanh B1
+  const auto kernel = group ? fused_layer_prefix_kernel<true, false, true>
+                            : fused_layer_prefix_kernel<false, false, true>;
+#else
   const auto kernel = group ? fused_layer_prefix_kernel<true>
                       : cycles ? fused_layer_prefix_kernel<false, true>
                                : fused_layer_prefix_kernel<false>;
+#endif
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1003,6 +1034,14 @@ int launch(Args& a, bool group, long long* cycles, const void* x, const void* id
 }
 
 }  // namespace
+
+#if BESO_ERF_GELU
+// the erf unit's entries: the names below with `erf_` after the prefix
+#define beso_fused_layer_prefix beso_fused_erf_layer_prefix
+#define beso_fused_layers_prefix_group beso_fused_erf_layers_prefix_group
+#define beso_fused_layer_with_prefix beso_fused_erf_layer_with_prefix
+#define beso_fused_layer beso_fused_erf_layer
+#endif
 
 extern "C" {
 
@@ -1023,6 +1062,7 @@ int beso_fused_layer_prefix(const void* x, const void* pk, const void* pv, const
                 D, H, P, S, F, M, stream);
 }
 
+#if !BESO_ERF_GELU
 // B1 with the phase clock: as beso_fused_layer_prefix, and each block adds
 // its clock64() cycles per phase (enum Phase) to cycles [blocks, N_PHASES].
 int beso_fused_layer_prefix_timed(const void* x, const void* pk, const void* pv,
@@ -1035,6 +1075,7 @@ int beso_fused_layer_prefix_timed(const void* x, const void* pk, const void* pv,
   return launch(a, false, static_cast<long long*>(cycles), x, idx, 1, lnf_s, lnf_b, whead,
                 bhead, out, pred, B, T2, D, H, P, S, F, M, stream);
 }
+#endif
 
 // B2: n_layers blocks in one launch. `layers` holds n_layers x 15 pointers:
 // each layer's thirteen (as `w` above), then its pk and pv [S, B, P, D].
@@ -1071,6 +1112,7 @@ int beso_fused_layer(const void* x, const void* const* w, void* out, int B, int 
                 nullptr, B, T, D, H, 0, 1, F, 0, stream);
 }
 
+#if !BESO_ERF_GELU
 const char* beso_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -1093,5 +1135,6 @@ int beso_fused_layer_prefix_limits(int which) {
     default: return -1;
   }
 }
+#endif
 
 }  // extern "C"

@@ -8,15 +8,15 @@ Functional parity target: `TrajectorySlicerDataset`
   (slice table built once, trajectory_loader.py:129-138);
 * each item is a dict {observation[W], action[W], goal_observation[G]};
 * the future-conditional goal is a random window at least `min_future_sep`
-  after the slice end (trajectory_loader.py:169-182); zeros if the
-  trajectory is too short (trajectory_loader.py:183-186).
+  after the slice end (trajectory_loader.py:169-182), or the trajectory tail
+  (`only_sample_tail`), or the window right after the slice
+  (`only_sample_seq_end`); zeros if the trajectory is too short
+  (trajectory_loader.py:183-186); with `future_conditional=False` no goal.
 
 The dataset lives on the device as padded tensors and a batch is one
 gather, as in the JAX package; random draws come from an explicit
 `torch.Generator` on that device. An optional `transform` maps each batch
 dict (the block-push workspace masks goals with it, `data/transforms.py`).
-The JAX slicer's other goal modes (`only_sample_tail`,
-`only_sample_seq_end`, no goal) are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -40,11 +40,18 @@ def make_slices(lengths: np.ndarray, window: int) -> np.ndarray:
 class SlicedDataset:
     """Batched window sampler over a TrajectoryData, on `device`."""
 
-    def __init__(self, data: TrajectoryData, window: int, future_seq_len: int,
-                 min_future_sep: int = 0,
-                 transform: Optional[Callable[[dict], dict]] = None, device="cuda"):
+    def __init__(self, data: TrajectoryData, window: int,
+                 future_seq_len: Optional[int] = None, min_future_sep: int = 0,
+                 transform: Optional[Callable[[dict], dict]] = None, device="cuda", *,
+                 future_conditional: bool = True, only_sample_tail: bool = False,
+                 only_sample_seq_end: bool = False):
+        if future_conditional and future_seq_len is None:
+            raise ValueError("a future-conditional slicer needs future_seq_len")
         self.window = window
-        self.future_seq_len = future_seq_len
+        self.future_conditional = future_conditional
+        self.future_seq_len = future_seq_len or 1
+        self.only_sample_tail = only_sample_tail
+        self.only_sample_seq_end = only_sample_seq_end
         self.min_future_sep = min_future_sep
         self.transform = transform
         self.device = torch.device(device)
@@ -68,20 +75,30 @@ class SlicedDataset:
         t_idx = start[:, None] + torch.arange(W, device=self.device)[None, :]
         batch = {"observation": self.observations[traj[:, None], t_idx],
                  "action": self.actions[traj[:, None], t_idx]}
+        if self.future_conditional:
+            batch["goal_observation"] = self._goals(traj, start + W, generator)
+        return batch if self.transform is None else self.transform(batch)
 
+    def _goals(self, traj: torch.Tensor, end: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Goal windows [B, G, obs] of the slices ending (exclusive) at `end`."""
         G = self.future_seq_len
-        end = start + W
         T = self.lengths[traj]
         lo = end + self.min_future_sep
         hi = T - G                                   # exclusive upper start
-        span = torch.clamp(hi - lo, min=1)
-        u = torch.randint(0, 1 << 30, lo.shape, generator=generator, device=self.device)
-        g_idx = (lo + u % span)[:, None] + torch.arange(G, device=self.device)[None, :]
+        if self.only_sample_tail:
+            g_start = T - G
+        elif self.only_sample_seq_end:
+            g_start = end
+        else:
+            span = torch.clamp(hi - lo, min=1)
+            u = torch.randint(0, 1 << 30, lo.shape, generator=generator, device=self.device)
+            g_start = lo + u % span
+        g_idx = g_start[:, None] + torch.arange(G, device=self.device)[None, :]
         g_idx = torch.clamp(g_idx, 0, self.observations.shape[1] - 1)
         goal = self.observations[traj[:, None], g_idx]
-        batch["goal_observation"] = torch.where((lo < hi)[:, None, None], goal,
-                                                torch.zeros((), device=self.device))
-        return batch if self.transform is None else self.transform(batch)
+        return torch.where((lo < hi)[:, None, None], goal,
+                           torch.zeros((), device=self.device))
 
     def sample_batch(self, generator: Optional[torch.Generator],
                      batch_size: int) -> dict:

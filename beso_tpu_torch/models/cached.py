@@ -52,6 +52,13 @@ class PrefixKV(NamedTuple):
 
 
 def extract_gpt_params(model) -> RawGPTParams:
+    """The model's weights as plain tensors. Raises NotImplementedError for a
+    sigma embedding other than the shipped "Linear" one, whose token the
+    engines build with one product (`beso_tpu/models/cached.py:61`)."""
+    if model.sigma_embedding != "Linear":
+        raise NotImplementedError(
+            "cached inference supports the shipped 'Linear' sigma embedding")
+
     def lin(m):
         return m.weight.detach(), m.bias.detach()
 
@@ -95,7 +102,8 @@ def build_prefix(model, rp: RawGPTParams, goals_scaled: torch.Tensor,
     mask = torch.ones(P, P, dtype=torch.bool, device=x.device).tril()
     ks, vs = [], []
     for lp in rp.layers:
-        x, (k, v) = block_forward(lp, x, model.n_heads, dtype, mask)
+        x, (k, v) = block_forward(lp, x, model.n_heads, dtype, mask,
+                                  approximate_gelu=model.approximate_gelu)
         ks.append(k)
         vs.append(v)
     H = model.n_heads
@@ -135,7 +143,8 @@ def suffix_forward(model, rp: RawGPTParams, prefix: PrefixKV,
     v_rows = prefix.v.index_select(0, idx)[0]
     for li, lp in enumerate(rp.layers):
         x, _ = block_forward(lp, x, model.n_heads, dtype, mask,
-                             (k_rows[li], v_rows[li]))
+                             (k_rows[li], v_rows[li]),
+                             approximate_gelu=model.approximate_gelu)
 
     x = layer_norm(x, rp.lnf_scale, rp.lnf_bias, dtype)
     x = x.reshape(B, T, 2, D)[:, :, 1]                       # action slots

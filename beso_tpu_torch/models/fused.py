@@ -17,9 +17,12 @@ kernels of ops/fused_layer.py, one form per engine:
   layers per launch (`layer_group > 1`); or through `fused_layer_with_prefix`
   (B3) on the prefix row selected with `index_select` (`token_lanes=False`).
 
-The sigma-grid row is chosen on the device (`grid_index`), so a call never
-syncs the host. On CPU tensors the layer wrappers run their plain versions,
-which is how the CPU tests hold these engines against the JAX ones.
+Every layer launch takes the model's GELU form (`model.approximate_gelu`:
+tanh, or the erf GELU of a reference checkpoint), as the JAX engines pass it
+(`:139,300,311,332`). The sigma-grid row is chosen on the device
+(`grid_index`), so a call never syncs the host. On CPU tensors the layer
+wrappers run their plain versions, which is how the CPU tests hold these
+engines against the JAX ones.
 """
 
 from __future__ import annotations
@@ -56,8 +59,7 @@ def prepare_fused_gpt(model) -> FusedGPTParams:
     model's dtype, as the JAX ones do: bf16 or f32 on the card (the f32
     kernels compute to f32 accuracy). Raises TypeError for a model on the
     card that computes in another dtype (`check_fused_dtype`)."""
-    sigma_embedding = getattr(model, "sigma_embedding", "Linear")
-    if sigma_embedding != "Linear":
+    if model.sigma_embedding != "Linear":
         raise NotImplementedError(
             "fused inference supports the shipped 'Linear' sigma embedding")
     check_fused_dtype(next(model.parameters()).device, model.dtype)
@@ -88,7 +90,7 @@ def fused_gpt_apply(model, fp: FusedGPTParams, states: torch.Tensor,
     parts.append(model.embed_suffix(states, actions))
     x = torch.cat([p.to(model.dtype) for p in parts], dim=1).contiguous()
     for lp in fp.layers:
-        x = fused_layer(x, lp, n_heads=model.n_heads)
+        x = fused_layer(x, lp, n_heads=model.n_heads, approximate_gelu=model.approximate_gelu)
     return _final_head(model, fp.raw, x[:, G + 1:])
 
 
@@ -136,6 +138,7 @@ def make_fused_cached_denoise_fn(den, goals_scaled: torch.Tensor, sigmas, *,
     dtype = model.dtype
     H = model.n_heads
     D = model.embed_dim
+    gelu_kw = dict(n_heads=H, approximate_gelu=model.approximate_gelu)
     prefix = build_prefix(model, rp, goals_scaled, sigmas)
     S, L, B_pref, P = prefix.k.shape[:4]
     # [S, L, B, P, H, hd] -> per layer [S, B, P, D], the kernels' layout
@@ -157,18 +160,17 @@ def make_fused_cached_denoise_fn(den, goals_scaled: torch.Tensor, sigmas, *,
         if not token_lanes:
             for li, lp in enumerate(layers):
                 x = fused_layer_with_prefix(x, pk[li].index_select(0, idx)[0],
-                                            pv[li].index_select(0, idx)[0], lp,
-                                            n_heads=H)
+                                            pv[li].index_select(0, idx)[0], lp, **gelu_kw)
             return x, None
         idx = idx.to(torch.int32)
         for lo, hi in groups:
             e = epi if hi == L else None
             if layer_group > 1:
                 out = fused_layers_prefix_group(x, pk[lo:hi], pv[lo:hi], idx,
-                                                layers[lo:hi], n_heads=H, epilogue=e)
+                                                layers[lo:hi], epilogue=e, **gelu_kw)
             else:
-                out = fused_layer_prefix(x, pk[lo], pv[lo], idx, layers[lo],
-                                         n_heads=H, epilogue=e)
+                out = fused_layer_prefix(x, pk[lo], pv[lo], idx, layers[lo], epilogue=e,
+                                         **gelu_kw)
             x = out if e is None else out[0]
         return x, (None if epi is None else out[1])
 

@@ -4,7 +4,8 @@ Torch port of `beso_tpu/models/gpt.py` (itself the reference's
 `score_gpts.py:15-374`):
 
 token layout   [sigma_emb, g_1..g_G, s_1, a_1, ..., s_T, a_T]
-sigma token    Linear(log(sigma)/4)         (score_gpts.py:284-286)
+sigma token    Linear(log(sigma)/4)         (score_gpts.py:284-286), or one
+               of the other `sigma_embedding` kinds (models/embeddings.py)
 tok_emb        shared Linear for states AND goals, unless goal_dim differs
                from state_dim, where goals get their own `goal_emb`
 pos_emb        learned, shared between s_t and a_t
@@ -12,8 +13,9 @@ head           linear, or Linear(D,100)+SiLU+Linear(100,A)
 output         action-slot tokens of the second half
 
 Numerics follow the JAX package: the "broadcast" attention form with f32
-softmax, tanh GELU (`gpt.py:127,175`; torch's own default is erf), LayerNorm
-statistics in f32 with variance E[x^2] - mu^2, and every Linear computed as
+softmax, tanh GELU by default (`gpt.py:127,175`; `approximate_gelu=False`
+takes the erf GELU of the reference's `nn.GELU()`, for its checkpoints),
+LayerNorm statistics in f32 with variance E[x^2] - mu^2, and every Linear computed as
 an f32-accumulated product of `dtype` operands plus an f32 bias, rounded to
 `dtype` once. Parameters stay f32; `dtype` is the compute type.
 
@@ -68,9 +70,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + 1e-5) * scale + bias).to(dtype)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """tanh GELU in f32, returned in the input's dtype."""
-    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """GELU in f32, returned in the input's dtype: the tanh form, or with
+    `approximate=False` the exact 0.5 x (1 + erf(x / sqrt 2))."""
+    return F.gelu(x.float(), approximate="tanh" if approximate else "none").to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -104,14 +107,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def block_forward(lp: dict, x: torch.Tensor, n_heads: int, dtype: torch.dtype,
                   mask: Optional[torch.Tensor], kv_prefix=None, *,
                   flash: bool = False, attn_drop: Drop = None,
-                  resid_drop: Drop = None):
+                  resid_drop: Drop = None, approximate_gelu: bool = True):
     """One pre-LN block (score_gpts.py:83-115) over tokens x [B, T, D] with
     weights `lp` (`Block.weights()` names, Linear weights [out, in]).
     Queries attend to [kv_prefix ++ own K/V] under mask [T, P+T], or, with
     `flash`, causally to their own K/V through the flash kernels. The
     optional dropouts act on the attention probabilities and after the
-    projection and the MLP. Returns (x_out, (k, v)) with the block's own k,
-    v as [B, T, H, hd]."""
+    projection and the MLP; `approximate_gelu` picks the MLP's GELU.
+    Returns (x_out, (k, v)) with the block's own k, v as [B, T, H, hd]."""
     B, T, D = x.shape
     h = layer_norm(x, lp["ln1_s"], lp["ln1_b"], dtype)
     q, k, v = dense(h, lp["wqkv"], lp["bqkv"], dtype).split(D, dim=-1)
@@ -130,7 +133,8 @@ def block_forward(lp: dict, x: torch.Tensor, n_heads: int, dtype: torch.dtype,
     y = dense(y, lp["wproj"], lp["bproj"], dtype)
     x = x + (y if resid_drop is None else resid_drop(y))
     h = layer_norm(x, lp["ln2_s"], lp["ln2_b"], dtype)
-    h = dense(gelu(dense(h, lp["wfc"], lp["bfc"], dtype)), lp["wfc2"], lp["bfc2"], dtype)
+    h = gelu(dense(h, lp["wfc"], lp["bfc"], dtype), approximate_gelu)
+    h = dense(h, lp["wfc2"], lp["bfc2"], dtype)
     return x + (h if resid_drop is None else resid_drop(h)), (k, v)
 
 
@@ -168,10 +172,13 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with a 4x tanh-GELU MLP (score_gpts.py:83-115)."""
+    """Pre-LN transformer block with a 4x GELU MLP (score_gpts.py:83-115):
+    tanh GELU, or erf with `approximate_gelu=False`."""
 
-    def __init__(self, n_embd: int, n_heads: int, generator=None, device=None):
+    def __init__(self, n_embd: int, n_heads: int, generator=None, device=None,
+                 approximate_gelu: bool = True):
         super().__init__()
+        self.approximate_gelu = approximate_gelu
         self.ln1 = nn.LayerNorm(n_embd, eps=1e-5, device=device)
         self.attn = CausalSelfAttention(n_embd, n_heads, generator, device)
         self.ln2 = nn.LayerNorm(n_embd, eps=1e-5, device=device)
@@ -195,11 +202,17 @@ class Block(nn.Module):
                   torch.ones(T, T, dtype=torch.bool, device=x.device).tril())
         return block_forward(self.weights(), x, self.attn.n_heads, dtype, causal,
                              flash=flash, attn_drop=attn_drop,
-                             resid_drop=resid_drop)[0]
+                             resid_drop=resid_drop,
+                             approximate_gelu=self.approximate_gelu)[0]
 
 
 class DiffusionGPT(nn.Module):
-    """Goal-conditioned noise-aware causal GPT over state/action tokens."""
+    """Goal-conditioned noise-aware causal GPT over state/action tokens.
+
+    `sigma_embedding` is the sigma token's embedding kind (utils.py:8-23):
+    "Linear", the shipped one, or another kind of `models/embeddings.py`,
+    held as `sigma_emb` as the reference holds it. `approximate_gelu=False`
+    takes the erf GELU in every block."""
 
     def __init__(self, state_dim: int, action_dim: int, embed_dim: int,
                  n_layers: int, n_heads: int, goal_seq_len: int,
@@ -207,6 +220,7 @@ class DiffusionGPT(nn.Module):
                  embed_pdrob: float = 0.0, attn_pdrop: float = 0.0,
                  resid_pdrop: float = 0.0, cond_mask_prob: float = 0.0,
                  linear_output: bool = True, goal_dim: Optional[int] = None,
+                 sigma_embedding: str = "Linear", approximate_gelu: bool = True,
                  attention: str = "auto", dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -227,11 +241,18 @@ class DiffusionGPT(nn.Module):
         self.cond_mask_prob = cond_mask_prob
         self.linear_output = linear_output
         self.goal_dim = goal_dim
+        self.sigma_embedding = sigma_embedding
+        self.approximate_gelu = approximate_gelu
         self.attention = attention
         self.dtype = dtype
 
         g, dev, D = generator, device, embed_dim
-        self.sigma_emb = _normal_linear(1, D, g, dev)
+        if sigma_embedding == "Linear":
+            self.sigma_emb = _normal_linear(1, D, g, dev)
+        else:
+            from beso_tpu_torch.models.embeddings import make_time_embedding
+
+            self.sigma_emb = make_time_embedding(sigma_embedding, D, g, dev)
         self.tok_emb = _normal_linear(state_dim, D, g, dev)
         self.goal_emb = (_normal_linear(goal_dim, D, g, dev)
                          if self.has_goal_emb else None)
@@ -240,7 +261,7 @@ class DiffusionGPT(nn.Module):
         with torch.no_grad():
             nn.init.normal_(self.pos_emb, 0.0, 0.02, generator=g)
         self.blocks = nn.ModuleList(
-            [Block(D, n_heads, g, dev) for _ in range(n_layers)])
+            [Block(D, n_heads, g, dev, approximate_gelu) for _ in range(n_layers)])
         self.ln_f = nn.LayerNorm(D, eps=1e-5, device=dev)
         if linear_output:
             self.action_pred = _normal_linear(D, action_dim, g, dev)
@@ -261,9 +282,12 @@ class DiffusionGPT(nn.Module):
         return self.eff_goal_len + self.obs_seq_len + 1
 
     def embed_sigma(self, sigma: torch.Tensor) -> torch.Tensor:
-        """Sigma token [..., 1, D] from sigma [...]: Linear(log(sigma)/4)."""
+        """Sigma token [..., 1, D] from sigma [...]: Linear(log(sigma)/4) in
+        the compute dtype, or another embedding kind of log(sigma)/4 in f32."""
         sig = (torch.log(sigma.float()) / 4.0)[..., None, None]
-        return dense(sig, self.sigma_emb.weight, self.sigma_emb.bias, self.dtype)
+        if self.sigma_embedding == "Linear":
+            return dense(sig, self.sigma_emb.weight, self.sigma_emb.bias, self.dtype)
+        return self.sigma_emb(sig.reshape(-1)).reshape(*sigma.shape, 1, self.embed_dim)
 
     def embed_goals(self, goals: torch.Tensor, drop: Drop = None) -> torch.Tensor:
         """Goal tokens [B, G, D] (f32: the f32 pos_emb promotes them)."""

@@ -24,6 +24,11 @@ int32[1] the kernel reads itself, so choosing the sigma row never syncs the
 host. In each dtype all four run one kernel body (bf16
 `csrc/fused_layer_prefix.cu`, f32 `csrc/fused_layer_f32.cu`), so B2 equals
 a chain of B1 launches and B3 a B1 launch on the same row, bit for bit.
+Every form takes `approximate_gelu` as the JAX kernels do: the tanh GELU
+(True, the default) or the exact erf GELU of the reference's torch model
+(False), whose kernels are the same bodies instantiated for erf and built
+as translation units of their own (`csrc/fused_layer_prefix_erf.cu`,
+`csrc/fused_layer_f32_erf.cu`; entries `beso_fused_[f32_]erf_*`).
 
 What bounds it on the H100, and the design (details in
 `csrc/fused_layer_prefix.cu`): at kitchen shapes a launch does ~51 GFLOP of
@@ -43,7 +48,8 @@ blocks that share each weight chunk, the residual in registers.
 Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches its kernel (the bf16 or the f32 one, by x's dtype) or
 raises, and for any other device it raises. Its `launches` counter goes up
-by one per kernel launch, in either dtype.
+by one per kernel launch, in either dtype and GELU form, and its
+`erf_launches` counter by one per launch of the erf form.
 """
 
 from __future__ import annotations
@@ -236,11 +242,13 @@ def tile_layer_weights(p: FusedLayerParams, n_heads: int) -> torch.Tensor:
 
 
 def _block_reference(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-                     p: FusedLayerParams, n_heads: int) -> torch.Tensor:
+                     p: FusedLayerParams, n_heads: int,
+                     approximate_gelu: bool = True) -> torch.Tensor:
     """One block over x [B, T, D] whose queries see all P keys of pk/pv
-    [B, P, D] (P may be 0) plus their own causal keys. Rounds at the
-    kernels' points: after every bias, the attention probabilities, and
-    each residual add."""
+    [B, P, D] (P may be 0) plus their own causal keys, with the tanh GELU
+    or (`approximate_gelu=False`) the erf one. Rounds at the kernels'
+    points: after every bias, the attention probabilities, and each
+    residual add."""
     B, T, D = x.shape
     H = n_heads
     hd = D // H
@@ -260,14 +268,15 @@ def _block_reference(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     y = F.pad(y.reshape(B, T, H, hd), (0, hdp - hd)).reshape(B, T, H * hdp)
     x1 = x + dense(y, p.wproj, p.bproj, dtype)[..., :D]
     h2 = F.pad(layer_norm(x1, p.ln2_s, p.ln2_b, dtype), (0, Dp - D))
-    h2 = gelu(dense(h2, p.wfc, p.bfc, dtype))
+    h2 = gelu(dense(h2, p.wfc, p.bfc, dtype), approximate_gelu)
     return x1 + dense(h2, p.wfc2, p.bfc2, dtype)[..., :D]
 
 
 def fused_layer_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
                                  pv: torch.Tensor, idx: torch.Tensor,
                                  p: FusedLayerParams, *, n_heads: int,
-                                 epilogue: Optional[FusedEpilogue] = None):
+                                 epilogue: Optional[FusedEpilogue] = None,
+                                 approximate_gelu: bool = True):
     """Plain PyTorch version of B1, same inputs and outputs.
 
     x [B, T2, D]; pk/pv [S, B, P, D]; idx int32[1]. Returns out [B, T2, D]
@@ -275,7 +284,7 @@ def fused_layer_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
     """
     row = idx.reshape(1).long()
     out = _block_reference(x, pk.index_select(0, row)[0],
-                           pv.index_select(0, row)[0], p, n_heads)
+                           pv.index_select(0, row)[0], p, n_heads, approximate_gelu)
     if epilogue is None:
         return out
     xe = layer_norm(out, epilogue.lnf_s, epilogue.lnf_b, torch.float32)
@@ -285,38 +294,41 @@ def fused_layer_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
 def fused_layers_prefix_group_reference(x: torch.Tensor, pk_layers, pv_layers,
                                         idx: torch.Tensor, layer_params, *,
                                         n_heads: int,
-                                        epilogue: Optional[FusedEpilogue] = None):
+                                        epilogue: Optional[FusedEpilogue] = None,
+                                        approximate_gelu: bool = True):
     """Plain PyTorch version of B2: the chain of B1's plain version over the
     group's layers, the epilogue on the last."""
     n = len(layer_params)
     for li, (pk, pv, p) in enumerate(zip(pk_layers, pv_layers, layer_params)):
         out = fused_layer_prefix_reference(
             x, pk, pv, idx, p, n_heads=n_heads,
-            epilogue=epilogue if li == n - 1 else None)
+            epilogue=epilogue if li == n - 1 else None,
+            approximate_gelu=approximate_gelu)
         x = out if (epilogue is None or li < n - 1) else out[0]
     return out
 
 
 def fused_layer_with_prefix_reference(x: torch.Tensor, pk: torch.Tensor,
                                       pv: torch.Tensor, p: FusedLayerParams, *,
-                                      n_heads: int) -> torch.Tensor:
+                                      n_heads: int,
+                                      approximate_gelu: bool = True) -> torch.Tensor:
     """Plain PyTorch version of B3: x [B, T2, D] against one prefix row
     pk/pv [B, P, D]."""
-    return _block_reference(x, pk, pv, p, n_heads)
+    return _block_reference(x, pk, pv, p, n_heads, approximate_gelu)
 
 
 def fused_layer_reference(x: torch.Tensor, p: FusedLayerParams, *,
-                          n_heads: int) -> torch.Tensor:
+                          n_heads: int, approximate_gelu: bool = True) -> torch.Tensor:
     """Plain PyTorch version of B4: one causal block over x [B, T, D]."""
     empty = x.new_zeros(x.shape[0], 0, x.shape[2])
-    return _block_reference(x, empty, empty, p, n_heads)
+    return _block_reference(x, empty, empty, p, n_heads, approximate_gelu)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for prefix in ("beso_fused_", "beso_fused_f32_"):
+    for prefix in ("beso_fused_", "beso_fused_f32_", "beso_fused_erf_", "beso_fused_f32_erf_"):
         getattr(lib, prefix + "layer_prefix").argtypes = [vp] * 11 + [ci] * 8 + [vp]
         getattr(lib, prefix + "layers_prefix_group").argtypes = (
             [vp] * 3 + [ci] + [vp] * 6 + [ci] * 8 + [vp])
@@ -333,11 +345,13 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _entry(name: str, dtype: torch.dtype):
+def _entry(name: str, dtype: torch.dtype, approximate_gelu: bool = True):
     """The library's entry point `name` (e.g. "layer_prefix") of the bf16
-    or the f32 kernel."""
+    or the f32 kernel, in its tanh or (not `approximate_gelu`) erf GELU
+    form."""
     f32 = "f32_" if dtype == torch.float32 else ""
-    return getattr(_library(), f"beso_fused_{f32}{name}")
+    erf = "" if approximate_gelu else "erf_"
+    return getattr(_library(), f"beso_fused_{f32}{erf}{name}")
 
 
 class _Limits(NamedTuple):
@@ -463,7 +477,7 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: " + build.error_string(rc))
 
 
-def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=None):
+def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, approximate_gelu=True, cycles=None):
     """Checks and launches B1 (with the phase clock when `cycles` is given);
     returns what `fused_layer_prefix` does."""
     S, B, P, D = pk.shape
@@ -477,23 +491,33 @@ def _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=None):
             *epi, out.data_ptr(), None if pred is None else pred.data_ptr()]
     tail = [B, T2, D, n_heads, P, S, Fp, M, torch.cuda.current_stream(x.device).cuda_stream]
     if cycles is None:
-        rc = _entry("layer_prefix", x.dtype)(*args, *tail)
-    else:
+        rc = _entry("layer_prefix", x.dtype, approximate_gelu)(*args, *tail)
+    else:   # the timed entry is the tanh form's
         rc = _entry("layer_prefix_timed", x.dtype)(*args, cycles.data_ptr(), *tail)
     _raise_on(rc, "fused_layer_prefix")
     return out if epilogue is None else (out, pred)
 
 
+def _count(wrapper, approximate_gelu: bool) -> None:
+    """One launch of `wrapper`'s kernel, in the erf form unless
+    `approximate_gelu`."""
+    wrapper.launches += 1
+    if not approximate_gelu:
+        wrapper.erf_launches += 1
+
+
 def fused_layer_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                        idx: torch.Tensor, p: FusedLayerParams, *,
-                       n_heads: int, epilogue: Optional[FusedEpilogue] = None):
+                       n_heads: int, epilogue: Optional[FusedEpilogue] = None,
+                       approximate_gelu: bool = True):
     """B1 (see module docstring). CPU tensors take the plain version; CUDA
     tensors launch the kernel of their dtype (bf16 or f32) or raise."""
     if not _on_cuda(x, "fused_layer_prefix"):
         return fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=n_heads,
-                                            epilogue=epilogue)
-    res = _launch_b1(x, pk, pv, idx, p, n_heads, epilogue)
-    fused_layer_prefix.launches += 1
+                                            epilogue=epilogue,
+                                            approximate_gelu=approximate_gelu)
+    res = _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, approximate_gelu)
+    _count(fused_layer_prefix, approximate_gelu)
     return res
 
 
@@ -527,14 +551,15 @@ def fused_layer_prefix_timed(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor
     blocks = -(-tiles // lim.cluster) * lim.cluster
     cycles = torch.zeros(blocks, len(timed_phases(x.dtype)), dtype=torch.int64,
                          device=x.device)
-    return _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles), cycles
+    return _launch_b1(x, pk, pv, idx, p, n_heads, epilogue, cycles=cycles), cycles
 
 
 def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor],
                               pv_layers: Sequence[torch.Tensor], idx: torch.Tensor,
                               layer_params: Sequence[FusedLayerParams], *,
                               n_heads: int,
-                              epilogue: Optional[FusedEpilogue] = None):
+                              epilogue: Optional[FusedEpilogue] = None,
+                              approximate_gelu: bool = True):
     """B2: the blocks of `layer_params` in one launch, each against its own
     pk/pv [S, B, P, D] at row `idx`, the epilogue after the last. Returns
     what the last B1 launch of the chain would. CPU tensors take the plain
@@ -543,7 +568,7 @@ def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor]
     if not _on_cuda(x, "fused_layers_prefix_group"):
         return fused_layers_prefix_group_reference(
             x, pk_layers, pv_layers, idx, layer_params, n_heads=n_heads,
-            epilogue=epilogue)
+            epilogue=epilogue, approximate_gelu=approximate_gelu)
     n = len(layer_params)
     max_layers = _limits(_kernel_dtype(x)).max_layers
     if not 1 <= n <= max_layers or len(pk_layers) != n or len(pv_layers) != n:
@@ -560,52 +585,56 @@ def fused_layers_prefix_group(x: torch.Tensor, pk_layers: Sequence[torch.Tensor]
     build.check_tensor(idx, "idx", (1,), torch.int32, x.device)
     M, epi, pred = _check_epilogue(epilogue, x)
     out = torch.empty_like(x)
-    rc = _entry("layers_prefix_group", x.dtype)(
+    rc = _entry("layers_prefix_group", x.dtype, approximate_gelu)(
         x.data_ptr(), idx.data_ptr(), _ptr_array(ptrs), n, *epi, out.data_ptr(),
         None if pred is None else pred.data_ptr(), B, T2, D, n_heads, P, S, Fp, M,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "fused_layers_prefix_group")
-    fused_layers_prefix_group.launches += 1
+    _count(fused_layers_prefix_group, approximate_gelu)
     return out if epilogue is None else (out, pred)
 
 
 def fused_layer_with_prefix(x: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-                            p: FusedLayerParams, *, n_heads: int) -> torch.Tensor:
+                            p: FusedLayerParams, *, n_heads: int,
+                            approximate_gelu: bool = True) -> torch.Tensor:
     """B3: one block over x [B, T2, D] against the prefix row pk/pv
     [B, P, D] the caller selected. CPU tensors take the plain version; CUDA
     tensors launch the kernel of their dtype (bf16 or f32) or raise."""
     if not _on_cuda(x, "fused_layer_with_prefix"):
-        return fused_layer_with_prefix_reference(x, pk, pv, p, n_heads=n_heads)
+        return fused_layer_with_prefix_reference(x, pk, pv, p, n_heads=n_heads,
+                                                 approximate_gelu=approximate_gelu)
     B, P, D = pk.shape
     (B, T2, D, Fp), (w,) = _check_launch(x, P, n_heads, [p])
     for name, t in (("pk", pk), ("pv", pv)):
         build.check_tensor(t, name, (B, P, D), x.dtype, x.device)
     out = torch.empty_like(x)
-    rc = _entry("layer_with_prefix", x.dtype)(
+    rc = _entry("layer_with_prefix", x.dtype, approximate_gelu)(
         x.data_ptr(), pk.data_ptr(), pv.data_ptr(), _ptr_array(w), out.data_ptr(),
         B, T2, D, n_heads, P, Fp, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "fused_layer_with_prefix")
-    fused_layer_with_prefix.launches += 1
+    _count(fused_layer_with_prefix, approximate_gelu)
     return out
 
 
-def fused_layer(x: torch.Tensor, p: FusedLayerParams, *, n_heads: int) -> torch.Tensor:
+def fused_layer(x: torch.Tensor, p: FusedLayerParams, *, n_heads: int,
+                approximate_gelu: bool = True) -> torch.Tensor:
     """B4: one causal block over the whole token sequence x [B, T, D]. CPU
     tensors take the plain version; CUDA tensors launch the kernel of their
     dtype (bf16 or f32) or raise."""
     if not _on_cuda(x, "fused_layer"):
-        return fused_layer_reference(x, p, n_heads=n_heads)
+        return fused_layer_reference(x, p, n_heads=n_heads,
+                                     approximate_gelu=approximate_gelu)
     (B, T, D, Fp), (w,) = _check_launch(x, 0, n_heads, [p])
     out = torch.empty_like(x)
-    rc = _entry("layer", x.dtype)(
+    rc = _entry("layer", x.dtype, approximate_gelu)(
         x.data_ptr(), _ptr_array(w), out.data_ptr(), B, T, D, n_heads, Fp,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "fused_layer")
-    fused_layer.launches += 1
+    _count(fused_layer, approximate_gelu)
     return out
 
 
-fused_layer_prefix.launches = 0
-fused_layers_prefix_group.launches = 0
-fused_layer_with_prefix.launches = 0
-fused_layer.launches = 0
+fused_layer_prefix.launches = fused_layer_prefix.erf_launches = 0
+fused_layers_prefix_group.launches = fused_layers_prefix_group.erf_launches = 0
+fused_layer_with_prefix.launches = fused_layer_with_prefix.erf_launches = 0
+fused_layer.launches = fused_layer.erf_launches = 0

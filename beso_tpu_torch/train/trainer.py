@@ -271,6 +271,14 @@ class Trainer:
 
         save_train_state(ts, directory, name)
 
+    def restore(self, ts_template: TrainState, directory: str,
+                name: str = "best") -> TrainState:
+        """A saved state loaded into `ts_template` in place
+        (`beso_tpu/train/trainer.py:346-350`)."""
+        from beso_tpu_torch.train.checkpoint import restore_train_state
+
+        return restore_train_state(ts_template, directory, name)
+
 
 def _child_generator(generator: torch.Generator) -> torch.Generator:
     """A second generator on the same device, seeded from `generator`

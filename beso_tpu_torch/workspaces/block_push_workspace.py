@@ -33,11 +33,12 @@ from beso_tpu_torch.data.transforms import blockpush_mask_targets
 from beso_tpu_torch.envs.block_push.goals import block_push_goal_frames
 from beso_tpu_torch.models.scaler import fit_minmax_scaler, fit_scaler
 from beso_tpu_torch.rollout.rollout import rollout_block_push
+from beso_tpu_torch.workspaces.base import BaseWorkspace
 
 log = logging.getLogger(__name__)
 
 
-class BlockPushWorkspace:
+class BlockPushWorkspace(BaseWorkspace):
     def __init__(self, seed: int = 6, data_path: Optional[str] = None,
                  eval_n_times: int = 100, eval_n_steps: int = 300,
                  scale_data: bool = True, window_size: int = 5,
@@ -81,19 +82,21 @@ class BlockPushWorkspace:
 
     def test_agent(self, agent, evaluate_multigoal: bool = True,
                    evaluate_sequential: bool = True,
-                   generator: Optional[torch.Generator] = None,
-                   log_metrics: bool = True, cond_lambda: Optional[float] = None) -> dict:
+                   generator: Optional[torch.Generator] = None, extra_args=None,
+                   log_metrics: bool = True, **overrides) -> dict:
         """The block-push evaluation: eval_n_times episodes in one batched
-        rollout; `cond_lambda` overrides the agent's CFG weight.
-        `evaluate_multigoal` and `evaluate_sequential` are accepted and
-        ignored, as in the reference ("just for same input as kitchen
-        environment", block_push_workspace.py:90-99): block push has one
-        evaluation protocol."""
+        rollout; `overrides` (new_sampler_type, n_inference_steps,
+        noise_scheduler, cond_lambda, get_mean, aggregation) and
+        `extra_args` (s_churn, s_min) change the agent's policy config for
+        it (`_policy_cfg`). `evaluate_multigoal` and `evaluate_sequential`
+        are accepted and ignored, as in the reference ("just for same input
+        as kitchen environment", block_push_workspace.py:90-99): block push
+        has one evaluation protocol."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(self.seed)
         frames, expected = block_push_goal_frames(self.full_data, self.eval_n_times,
                                                   self.seed, self.train_fraction)
-        cfg = agent.policy_config(cond_lambda=cond_lambda)
+        cfg = self._policy_cfg(agent, extra_args=extra_args, **overrides)
         metrics = rollout_block_push(
             agent.make_denoise_fn(), agent.scaler, cfg,
             torch.as_tensor(frames, device=self.device),

@@ -12,8 +12,8 @@ Functional parity target: `FrankaKitchenManager`
 
 `data_path` names a directory in the relay-kitchen dataset's own layout
 (`data/trajectories.py::load_relay_kitchen`; `data/export.py` writes one).
-Not ported yet (ROADMAP queue A): the sequential-task evaluation and the
-comparison studies of `workspaces/base.py`.
+The comparison studies come from `workspaces/base.py`. Not ported yet
+(ROADMAP queue A, A20): the sequential-task evaluation.
 """
 
 from __future__ import annotations
@@ -32,11 +32,12 @@ from beso_tpu_torch.envs.kitchen.env import ALL_TASKS
 from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
 from beso_tpu_torch.models.scaler import fit_scaler
 from beso_tpu_torch.rollout.rollout import rollout_kitchen, success_rate_histogram
+from beso_tpu_torch.workspaces.base import BaseWorkspace
 
 log = logging.getLogger(__name__)
 
 
-class FrankaKitchenWorkspace:
+class FrankaKitchenWorkspace(BaseWorkspace):
     def __init__(self, seed: int = 42, data_path: Optional[str] = None,
                  eval_n_times: int = 100, eval_n_steps: int = 280,
                  scale_data: bool = False, window_size: int = 4,
@@ -72,28 +73,33 @@ class FrankaKitchenWorkspace:
     # -- evaluation ----------------------------------------------------------
     def test_agent(self, agent, evaluate_multigoal: bool = True,
                    evaluate_sequential: bool = False,
-                   generator: Optional[torch.Generator] = None,
-                   log_metrics: bool = True, cond_lambda: Optional[float] = None):
+                   generator: Optional[torch.Generator] = None, extra_args=None,
+                   log_metrics: bool = True, **overrides):
+        """The multigoal evaluation; `overrides` (new_sampler_type,
+        n_inference_steps, noise_scheduler, cond_lambda, get_mean,
+        aggregation) and `extra_args` (s_churn, s_min) change the agent's
+        policy config for it (`_policy_cfg`)."""
         if evaluate_sequential:
             raise NotImplementedError(
                 "the sequential kitchen evaluation is not ported yet (ROADMAP.md, "
-                "queue A)")
+                "queue A, item A20)")
         if not evaluate_multigoal:
             return None
-        return self.test_agent_on_multigoal(agent, generator, log_metrics, cond_lambda)
+        return self.test_agent_on_multigoal(agent, generator, extra_args, log_metrics,
+                                            **overrides)
 
     def test_agent_on_multigoal(self, agent, generator: Optional[torch.Generator] = None,
-                                log_metrics: bool = True,
-                                cond_lambda: Optional[float] = None) -> dict:
+                                extra_args=None, log_metrics: bool = True,
+                                **overrides) -> dict:
         """Multigoal evaluation: all eval_n_times episodes in one batched
-        rollout on the workspace's device; `cond_lambda` overrides the
-        agent's CFG weight."""
+        rollout on the workspace's device, with the policy overrides of
+        `test_agent`."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(self.seed)
         goals, expected = multigoal_kitchen_goals(
             self.full_data, self.goal_seq_len, self.eval_n_times, self.seed,
             self.train_fraction)
-        cfg = agent.policy_config(cond_lambda=cond_lambda)
+        cfg = self._policy_cfg(agent, extra_args=extra_args, **overrides)
         metrics = rollout_kitchen(agent.make_denoise_fn(), agent.scaler, cfg,
                                   torch.as_tensor(goals, device=self.device),
                                   torch.as_tensor(expected, device=self.device),

@@ -15,9 +15,10 @@ exits non-zero on failure:
    and the five width-128 `wgmma` kernels of flash_attention_wide.cu, all
    of which must be there; no bf16 width-64 flash kernel may spill) and,
    from cuobjdump -sass, the HGMMA (wgmma)
-   instructions of each instantiation of the bf16 and of the f32
-   fused-layer kernel, none of which may have none, with each f32
-   instantiation's registers and spill bytes;
+   instructions of each of the five instantiations of the bf16 and of the
+   f32 fused-layer kernel (tanh: B2's group, the single layer, the timed
+   one; erf: the group, the single layer), none of which may have none,
+   with each f32 instantiation's registers and spill bytes;
 2. kernel: `fused_layer_prefix` (CUDA) against its plain PyTorch version at
    the kitchen (D=360, H=6, P=3, 2T=8) and block-push (D=240, H=12, hd=20,
    P=2, 2T=10) shapes, epilogue on and off, every sigma row, each with a
@@ -123,21 +124,43 @@ exits non-zero on failure:
    an f32 `BesoAgent` trained
    MAIN_TRAIN_STEPS steps at batch 1024 (adam), its EMA model's
    `fused_cached` engine against the plain `cached` one at every grid sigma
-   (2^-10), then the workspace's 1024-env x 300-step evaluation on
-   `fused_cached`: exactly 300 x 3 x 4 f32 B1 launches and no other
+   (2^-10), then the workspace's 1024-env x 100-step evaluation (300 cut
+   to 100) on `fused_cached`: exactly 100 x 3 x 4 f32 B1 launches and no other
    fused-layer launch, every metric finite, env-steps/s printed; then a
    30-step evaluation with a host clock around each physics step (after a
    device sync): the physics' share of the wall time. Prints one JSON line
    with f32 B1's numbers at this shape (phase 2's times, its bound, the
-   launches) (informational).
+   launches) (informational);
+13. the reference-checkpoint model and the evaluation CLI: (a) the erf GELU
+   form (`approximate_gelu=False`) of B1 (every sigma row, epilogue on), B2
+   (a group of 2), B3 and B4 at the kitchen shape (D=360, 6 heads, 2048 CFG
+   rows) against their plain versions, within 2^-5 of max |ref| in bf16 and
+   2^-12 in f32, each bit-equal on a second launch, B3 and B2 bit-equal to
+   erf B1 launches; erf B1 timed beside tanh B1 on the same inputs in both
+   dtypes; (b) an f32 and a bf16 kitchen `DiffusionGPT(approximate_gelu=
+   False)` written to a reference-keyed .pth by `export_torch_state_dict`
+   and read back by `load_torch_checkpoint` (every tensor bit-equal), its
+   `fused_cached` engine against `cached` at the three grid sigmas (2^-5
+   bf16, 2^-10 f32) and its uncached engine (erf B4) against the plain
+   forward, then a 1024-env x 40-step kitchen rollout on it: exactly 40 x 3
+   x 6 erf B1 launches and no other fused-layer launch, every metric finite;
+   (c) the training CLI on the shipped kitchen config for 20 steps (phase
+   11's files; its final evaluation cut to 8 envs x 3 steps), then
+   `beso_tpu_torch.scripts.evaluate` with `configs/evaluate_kitchen.yaml` as
+   shipped (100 runs x 280 steps) and its CFG study at 5 lambdas x 40 steps;
+   the same for `configs/block_push.yaml` (phase 12's files) and
+   `configs/evaluate_blocks.yaml` (100 x 300): the agent's "auto" engine,
+   the plain cached one, so no fused-layer launch; env-steps/s over each
+   command's wall time and finite metrics printed.
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
 of its work at the timed shape with what bounds it, the PyTorch library
 call's ms where one computes the same function, and for the fused layers
 the torch.matmul ms of their products in the same dtype; f32 forms as
-`*_f32`, the flash kernels' width-128 instantiations as `*_hd128`); the
-last line `{"ok": true, "device": {...}}`.
+`*_f32`, the flash kernels' width-128 instantiations as `*_hd128`, B1's
+erf GELU form as `fused_layer_prefix_erf` and `fused_layer_prefix_f32_erf`);
+the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -164,8 +187,11 @@ WIDE_SHAPE = (256, 3, 131, 128)     # the flash kernels' width-128 instantiation
 WIDE_HEADS = 3   # the chunked model at 3 heads: hd 120, the width-128 instantiations
 WIDE_MODEL_SHAPE = (256, WIDE_HEADS, 131, 120)   # its attention shape, also timed
 WIDE_TRAIN_STEPS = 40   # phase 7's timed train run of the 3-head model
-MAIN_TRAIN_STEPS = 20   # phase 11's and phase 12's train steps before the evaluation
-BP_STEPS, BP_LAYERS = 300, 4   # block push: eval_n_steps (configs/block_push.yaml:62), layers
+MAIN_TRAIN_STEPS = 20   # phase 11's, 12's and 13c's train steps before the evaluation
+ERF_ROLLOUT_STEPS = 40  # phase 13b's rollout of the erf model (280 cut to 40)
+# block push: phase 12's evaluation steps (eval_n_steps: 300, configs/block_push.yaml:62,
+# cut to 100 since phase 13 came, to hold the run near half its time limit), layers
+BP_STEPS, BP_LAYERS = 100, 4
 BP_PHYSICS_STEPS = 30   # phase 12's second, instrumented evaluation (300 cut to 30)
 # a serving layer's (D, heads, prefix tokens P, suffix tokens 2T)
 KITCHEN_LAYER = (360, 6, 3, 8)      # sigma + 2 goal tokens, window 4
@@ -249,7 +275,8 @@ def sass_counts(so, kernel, opcode):
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             # the mangled name from the kernel's on: its template arguments
-            fn = name[name.index(kernel):][:len(kernel) + 10] if kernel in name else None
+            fn = name[name.index(kernel):] if kernel in name else None
+            fn = fn[:fn.index("EE") + 2] if fn and "EE" in fn else fn
             if fn:
                 counts[fn] = 0
         elif fn and opcode in line:
@@ -1410,7 +1437,7 @@ def run_block_push_main_path(device, card, b1):
     export_multimodal_push(synthetic_push_data(n_traj=64, t_max=100, seed=21), data_dir)
     ws = BlockPushWorkspace(seed=6, data_path=str(data_dir),   # seed: 6 (:5)
                             eval_n_times=N_ENVS,          # eval_n_times: 100 (:61), raised
-                            eval_n_steps=BP_STEPS,        # eval_n_steps: 300 (:62)
+                            eval_n_steps=BP_STEPS,        # eval_n_steps: 300 (:62), cut
                             scale_data=True,              # scale_data: true (:6)
                             window_size=5, goal_seq_len=1,  # (:8, :7)
                             use_minmax_scaler=True,       # use_minmax_scaler: true (:56)
@@ -1508,6 +1535,244 @@ def run_block_push_main_path(device, card, b1):
     return counts
 
 
+FUSED_WRAPPERS = ("fused_layer_prefix", "fused_layers_prefix_group", "fused_layer_with_prefix",
+                  "fused_layer")
+
+
+def fused_counts():
+    """{wrapper: (launches, erf launches)} of the four fused-layer wrappers."""
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    return {n: (getattr(fl, n).launches, getattr(fl, n).erf_launches) for n in FUSED_WRAPPERS}
+
+
+def reset_fused_counts():
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    for n in FUSED_WRAPPERS:
+        getattr(fl, n).launches = getattr(fl, n).erf_launches = 0
+
+
+def check_erf_kernels(device, gen, dtype, frac):
+    """Phase 13a: the erf GELU form of B1 (every sigma row, epilogue on), B2
+    (a group of 2), B3 and B4 at the kitchen shape, 2048 CFG rows, in
+    `dtype`, against their plain versions within frac of max |ref|; each
+    bit-equal on a second launch, B3 and B2 to erf B1 launches; the erf B1
+    launch differs from the tanh one and, in f32, is nearer the erf plain
+    version than the tanh one by 4x. Returns {kernel: largest max |diff|}."""
+    import torch
+
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    D, H, P, T2 = KITCHEN_LAYER
+    S, M, B = 3, 9, 2 * N_ENVS
+    erf = dict(approximate_gelu=False)
+    tag = str(dtype)[6:]
+    (p, epi), (p2, _) = (random_layer(D, H, M, gen, device, dtype) for _ in range(2))
+
+    def rand(*shape):
+        return _rand(gen, *shape, device=device, dtype=dtype)
+
+    x8, x11 = rand(B, T2, D), rand(B, 11, D)
+    pk, pv, pk2, pv2 = (rand(S, B, P, D) for _ in range(4))
+    err = dict.fromkeys(FUSED_WRAPPERS, 0.0)
+
+    def check(kernel, what, launch, plain):
+        got, again, ref = launch(), launch(), plain()
+        torch.cuda.synchronize()
+        got_t, again_t, ref_t = ((v if isinstance(v, tuple) else (v,)) for v in (got, again, ref))
+        for part, g_, a_, r_ in zip(("out", "pred"), got_t, again_t, ref_t):
+            err[kernel] = max(err[kernel], _rel_check(f"{tag} erf {what} {part}", g_, r_, frac))
+            _same_bits(f"{tag} erf {what} {part}, second launch", a_, g_)
+        return got
+
+    for row in range(S):
+        idx = torch.tensor([row], dtype=torch.int32, device=device)
+        check("fused_layer_prefix", f"B1 B={B} row={row} epilogue",
+              lambda: fl.fused_layer_prefix(x8, pk, pv, idx, p, n_heads=H, epilogue=epi, **erf),
+              lambda: fl.fused_layer_prefix_reference(x8, pk, pv, idx, p, n_heads=H,
+                                                      epilogue=epi, **erf))
+    idx = torch.tensor([1], dtype=torch.int32, device=device)
+    b1 = fl.fused_layer_prefix(x8, pk, pv, idx, p, n_heads=H, **erf)
+    # the two forms differ by less than the bounds: the erf launch must
+    # differ from the tanh launch, and in f32 be nearer the erf plain version
+    tanh = fl.fused_layer_prefix(x8, pk, pv, idx, p, n_heads=H)
+    e_erf, e_tanh = ((b1.float() - fl.fused_layer_prefix_reference(
+        x8, pk, pv, idx, p, n_heads=H, approximate_gelu=g).float()).abs().max().item()
+        for g in (False, True))
+    torch.cuda.synchronize()
+    print(f"  {tag} erf B1 launch: max|diff| {e_erf:.6g} to the erf plain version, {e_tanh:.6g} "
+          f"to the tanh one; equal to the tanh launch: {torch.equal(tanh, b1)}")
+    if torch.equal(tanh, b1) or (dtype == torch.float32 and not 4 * e_erf < e_tanh):
+        fail(f"the {tag} erf B1 launch cannot be told from the tanh form")
+    b3 = check("fused_layer_with_prefix", f"B3 B={B} row=1",
+               lambda: fl.fused_layer_with_prefix(x8, pk[1], pv[1], p, n_heads=H, **erf),
+               lambda: fl.fused_layer_with_prefix_reference(x8, pk[1], pv[1], p, n_heads=H,
+                                                            **erf))
+    _same_bits(f"{tag} erf B3 vs erf B1 on row 1", b3, b1)
+    b2 = check("fused_layers_prefix_group", f"B2 group 2 B={B}",
+               lambda: fl.fused_layers_prefix_group(x8, [pk, pk2], [pv, pv2], idx, [p, p2],
+                                                    n_heads=H, **erf),
+               lambda: fl.fused_layers_prefix_group_reference(x8, [pk, pk2], [pv, pv2], idx,
+                                                              [p, p2], n_heads=H, **erf))
+    _same_bits(f"{tag} erf B2 vs 2 erf B1 launches", b2,
+               fl.fused_layer_prefix(b1, pk2, pv2, idx, p2, n_heads=H, **erf))
+    check("fused_layer", f"B4 B={B} T=11", lambda: fl.fused_layer(x11, p, n_heads=H, **erf),
+          lambda: fl.fused_layer_reference(x11, p, n_heads=H, **erf))
+    return err
+
+
+def time_erf_b1(B, device, gen, dtype):
+    """Phase 13a: B1 in its tanh and its erf GELU form on the same inputs at
+    the kitchen serving shape (one inner layer, no epilogue), timed tanh,
+    erf, erf, tanh; returns (tanh ms, erf ms, erf plain ms), each pair's
+    mean."""
+    import torch
+
+    from beso_tpu_torch.ops import fused_layer as fl
+
+    D, H, P, T2 = KITCHEN_LAYER
+    p, _ = random_layer(D, H, 9, gen, device, dtype)
+    x = _rand(gen, B, T2, D, device=device, dtype=dtype)
+    pk, pv = (_rand(gen, 3, B, P, D, device=device, dtype=dtype) for _ in range(2))
+    idx = torch.tensor([1], dtype=torch.int32, device=device)
+
+    def run(tanh):
+        return lambda: fl.fused_layer_prefix(x, pk, pv, idx, p, n_heads=H,
+                                             approximate_gelu=tanh)
+
+    times = [time_ms(run(tanh), 50, device) for tanh in (True, False, False, True)]
+    plain = time_ms(lambda: fl.fused_layer_prefix_reference(x, pk, pv, idx, p, n_heads=H,
+                                                            approximate_gelu=False), 10, device)
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2, plain
+
+
+def run_reference_checkpoint_path(device, card, gen):
+    """Phase 13b: an f32 and a bf16 kitchen `DiffusionGPT(approximate_gelu=
+    False)` through a reference-keyed .pth (`export_torch_state_dict`, then
+    `load_torch_checkpoint` into a fresh model: every tensor bit-equal), its
+    `fused_cached` engine against `cached` and its uncached engine against
+    the plain forward, then an N_ENVS x ERF_ROLLOUT_STEPS kitchen rollout on
+    `fused_cached` with every fused-layer counter set to 0 just before it.
+    Returns {dtype suffix: erf B1 launches of the rollout}."""
+    import torch
+
+    from beso_tpu_torch.models import DiffusionGPT, GCDenoiser
+    from beso_tpu_torch.train.checkpoint import (export_torch_state_dict,
+                                                 load_reference_weights,
+                                                 load_torch_checkpoint)
+
+    model_kw, policy_kw, scale_data = kitchen_config()
+    model_kw = {**model_kw, "approximate_gelu": False}
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_reference"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches = {}
+    for dtype, suffix, frac in ((torch.float32, "_f32", F32_ENGINE_FRACTION),
+                                (torch.bfloat16, "", ERR_FRACTION)):
+        tag = str(dtype)[6:]
+        src = build_model(model_kw, device, seed=31, dtype=dtype).inner_model
+        name = f"model_state_dict_{tag}.pth"
+        torch.save(export_torch_state_dict(src.state_dict(), N_LAYERS), out_dir / name)
+        model = DiffusionGPT(**model_kw, dtype=dtype).to(device)
+        load_reference_weights(model, load_torch_checkpoint(str(out_dir), N_LAYERS, name))
+        same = all(torch.equal(v, model.state_dict()[k]) for k, v in src.state_dict().items())
+        print(f"  {tag} erf model through {name}: every tensor "
+              f"{'bit-equal' if same else 'NOT bit-equal: FAIL'}")
+        if not same:
+            fail("the reference .pth round trip changed the weights")
+        den = GCDenoiser(model, sigma_data=0.5)
+        check_engine(den, device, 256, gen, frac)
+        before = fused_counts()["fused_layer"]
+        check_full_engine(den, device, 256, gen, f"{tag} erf", frac)
+        after = fused_counts()["fused_layer"]
+        print(f"  uncached engine: {after[1] - before[1]} erf B4 launches of "
+              f"{after[0] - before[0]}")
+        if after[1] - before[1] != after[0] - before[0] or after[0] == before[0]:
+            fail("the erf model's uncached engine did not launch the erf B4 kernel only")
+        run_rollout(den, policy_kw, scale_data, N_ENVS, 2, device, seed=1)  # warm-up
+        torch.cuda.synchronize()
+        reset_fused_counts()
+        t0 = time.perf_counter()
+        metrics = run_rollout(den, policy_kw, scale_data, N_ENVS, ERF_ROLLOUT_STEPS, device,
+                              seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fused_counts()
+        n = ERF_ROLLOUT_STEPS * NFE * N_LAYERS
+        want = {k: ((n, n) if k == "fused_layer_prefix" else (0, 0)) for k in counts}
+        print(f"  {tag} erf rollout, {N_ENVS} envs x {ERF_ROLLOUT_STEPS} steps on fused_cached: "
+              f"(launches, erf launches) {counts} (expected {want}); wall {wall:.3f} s, "
+              f"{N_ENVS * ERF_ROLLOUT_STEPS / wall:.1f} env-steps/s (informational; {card})")
+        if counts != want:
+            fail(f"the erf model's rollout launched {counts}, not {want}")
+        check_rollout_metrics(metrics, N_ENVS, ERF_ROLLOUT_STEPS)
+        launches[suffix] = counts["fused_layer_prefix"][1]
+    return launches
+
+
+def run_evaluation_cli(device, card):
+    """Phase 13c: for each shipped evaluation config, the training CLI on its
+    model config for MAIN_TRAIN_STEPS steps from phase 11's or 12's data
+    files (the final evaluation cut to 8 envs x 3 steps), then
+    `beso_tpu_torch.scripts.evaluate` with the evaluation config as shipped,
+    then its CFG study at 5 lambdas x 40 steps; the fused-layer counters set
+    to 0 before each evaluation and read after (the "auto" engine is the
+    plain cached one: none may launch). Prints env-steps/s over each
+    command's wall time, set-up included, and the metrics, which must be
+    finite."""
+    import torch
+
+    from beso_tpu_torch.scripts import evaluate, training
+    from beso_tpu_torch.utils.config import load_config
+
+    repo = Path(__file__).resolve().parent
+    build = repo / "build"
+    cases = (("kitchen", "franka_kitchen.yaml", "evaluate_kitchen.yaml",
+              build / "chip_smoke_relay_kitchen"),
+             ("block_push", "block_push.yaml", "evaluate_blocks.yaml",
+              build / "chip_smoke_multimodal_push"))
+    results = {}
+    for name, model_yaml, eval_yaml, data_dir in cases:
+        run = build / f"chip_smoke_eval_{name}"
+        t0 = time.perf_counter()
+        res = training.main(["--config", str(repo / "configs" / model_yaml), "--run-dir",
+                             str(run), f"data_path={data_dir}",
+                             f"max_train_steps={MAIN_TRAIN_STEPS}",
+                             f"eval_every_n_steps={MAIN_TRAIN_STEPS}", "eval_n_times=8",
+                             "eval_n_steps=3"])
+        torch.cuda.synchronize()
+        print(f"  training CLI, {model_yaml}, {MAIN_TRAIN_STEPS} steps from {data_dir.name}: "
+              f"{time.perf_counter() - t0:.3f} s, final evaluation (8 envs x 3 steps) "
+              f"avrg_reward {res['avrg_reward']:.4f}")
+        ev = ["--config", str(repo / "configs" / eval_yaml), f"model_store_path={run}"]
+        for study, extra, n_cfg in (
+                ("single variant", [], 1),
+                ("CFG study", ["test_single_variant=false",
+                               "compare_classifier_free_guidance=true",
+                               "num_steps_per_run=40"], 5)):
+            eval_cfg = load_config(ev[1], extra)
+            n_runs, n_steps = eval_cfg["num_runs"], eval_cfg["num_steps_per_run"]
+            reset_fused_counts()
+            t0 = time.perf_counter()
+            out = evaluate.main([*ev, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = fused_counts()
+            vals = ([out[k] for k in ("avrg_reward", "std_reward", "avrg_result", "std_result")]
+                    if n_cfg == 1 else out["avrg_rewards"] + out["results"])
+            rate = n_runs * n_cfg * n_steps / wall
+            print(f"  evaluate CLI, {eval_yaml} {study}: {n_runs} runs x {n_steps} steps x {n_cfg} "
+                  f"configuration(s) in {wall:.3f} s, {rate:.1f} env-steps/s (the command's "
+                  f"wall, set-up included; random weights; {card}); fused-layer launches "
+                  f"{counts}; results {json.dumps(out if n_cfg > 1 else vals)}")
+            if any(c != (0, 0) for c in counts.values()):
+                fail(f"the evaluation CLI's auto engine launched fused-layer kernels {counts}")
+            if not vals or not all(math.isfinite(v) for v in vals):
+                fail(f"the evaluation CLI's {eval_yaml} {study} metrics are not finite")
+            results[f"{name} {study}"] = {"wall_s": wall, "env_steps_per_s": rate}
+    print(json.dumps({"evaluation_cli": results}))
+
+
 class Records:
     """In-memory metrics writer: keeps every record the trainer logs."""
 
@@ -1562,11 +1827,13 @@ def main() -> None:
         fail(f"bf16 flash kernels spill: {spilled}")
     hgmma = sass_counts(so, "fused_layer_prefix_kernel", "HGMMA")
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the bf16 fused layer: {hgmma}")
-    if len(hgmma) != 3 or not all(hgmma.values()):
+    # three tanh instantiations (B2's group, the single layer, the timed one)
+    # and two erf ones (the group, the single layer)
+    if len(hgmma) != 5 or not all(hgmma.values()):
         fail("the fused-layer kernel's instantiations do not all run their products on wgmma")
     hgmma_f32 = sass_counts(so, "fused_layer_f32_kernel", "HGMMA")
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the f32 fused layer: {hgmma_f32}")
-    if len(hgmma_f32) != 3 or not all(hgmma_f32.values()):
+    if len(hgmma_f32) != 5 or not all(hgmma_f32.values()):
         fail("the f32 fused-layer kernel's instantiations do not all run their products on "
              "wgmma")
     for name, props in report.items():
@@ -1900,6 +2167,23 @@ def main() -> None:
           f"on fused_cached")
     run_block_push_main_path(device, card, b1_block_push)
 
+    # ---- 13. the reference-checkpoint model and the evaluation CLI -------
+    print(f"[13a] ({since_start()}) erf GELU form of B1-B4 vs plain versions (bf16, then "
+          f"f32); erf B1 timed beside tanh B1")
+    erf_err = {"": check_erf_kernels(device, gen, torch.bfloat16, ERR_FRACTION),
+               "_f32": check_erf_kernels(device, gen, torch.float32, F32_FRACTION)}
+    erf_ms = {}
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        tanh_ms, e_ms, e_plain = time_erf_b1(B_serve, device, gen, dtype)
+        erf_ms[suffix] = (e_ms, e_plain)
+        print(f"  {str(dtype)[6:]} B1 at the kitchen serving shape: tanh {tanh_ms:.4f} ms, erf "
+              f"{e_ms:.4f} ms ({e_ms / tanh_ms:.4f}x), erf plain {e_plain:.4f} ms ({card})")
+    print(f"[13b] ({since_start()}) reference-checkpoint model (erf GELU, kitchen width) "
+          f"through a .pth: engines, then a {N_ENVS}-env x {ERF_ROLLOUT_STEPS}-step rollout")
+    erf_launches = run_reference_checkpoint_path(device, card, gen)
+    print(f"[13c] ({since_start()}) evaluation CLI on the shipped evaluation configs")
+    run_evaluation_cli(device, card)
+
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash
     # kernels at the chunked shape and their width-128 instantiations at
@@ -1910,7 +2194,7 @@ def main() -> None:
     # forward + backward minus forward). Launches: bf16 B1 on phase 4, f32 B1
     # on phase 11, B2-B4 on phase 10, the flash kernels on phase 7 (bf16: the
     # 6-head model at width 64, the 3-head model at width 128) and phase 6
-    # (f32: the 6-head and the 3-head model).
+    # (f32: the 6-head and the 3-head model); B1's erf form on phase 13b.
     work, library_ms = {}, {}
     for suffix, elem in (("", 2), ("_f32", 4)):
         work.update({"fused_layer_prefix" + suffix: layer_work(B_serve, 8, 360, 3, elem=elem),
@@ -1940,6 +2224,16 @@ def main() -> None:
                             form_counts[name + suffix], layer_err[name + suffix],
                             *layer_ms[name + suffix]))
     gemm_ms["fused_layer_prefix_f32"] = gemm_b1_f32
+    # B1's erf GELU form: the same work and products as tanh B1 (the GELU
+    # adds elementwise work only); launches on phase 13b's rollouts
+    for suffix, src in (("", "beso_tpu_torch/csrc/fused_layer_prefix_erf.cu"),
+                        ("_f32", "beso_tpu_torch/csrc/fused_layer_f32_erf.cu")):
+        name = "fused_layer_prefix" + suffix
+        work[name + "_erf"] = work[name]
+        gemm_ms[name + "_erf"] = gemm_ms[name]
+        entries.append((name + "_erf", src, "beso_tpu/ops/fused_layer.py:618",
+                        erf_launches[suffix], erf_err[suffix]["fused_layer_prefix"],
+                        *erf_ms[suffix]))
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
     wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
     flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],
@@ -1955,7 +2249,7 @@ def main() -> None:
                             n_of[name], flash_err[name + key], *flash_ms[name + key]))
     kernels = []
     for name, source, replaces, n, e, k_ms, p_ms in entries:
-        bound_ms, bound_by = bound(*work[name], PEAK_F32_BF16X3_FLOPS if name.endswith("_f32")
+        bound_ms, bound_by = bound(*work[name], PEAK_F32_BF16X3_FLOPS if "_f32" in name
                                    else PEAK_BF16_FLOPS)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": n, "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms,

@@ -22,8 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import (TOL, jax_layer, layer_weights, make_inputs,
-                          make_models, port_layer, t)
+from torch_parity import (E, TOL, from_tl, jax_layer, layer_weights, make_inputs,
+                          make_models, port_layer, prefix_tdb, prefix_tl, t, to_tdb)
 
 import beso_tpu.models.fused as jfused
 from beso_tpu.ops import fused_layer as jfl
@@ -33,39 +33,8 @@ from beso_tpu_torch.ops import fused_layer as fl
 from beso_tpu_torch.sampling.samplers import sample_ddim
 
 ENGINE_TOL = dict(atol=1e-5, rtol=1e-4)
-E = 8           # JAX env_block
 PUSH = dict(state_dim=10, action_dim=2, embed_dim=48, n_layers=2, n_heads=4,
             goal_seq_len=1, obs_seq_len=5)
-
-
-def _to_tdb(a):
-    """[B, T, C] -> the JAX phase-split layout [T, C, B]."""
-    return jnp.asarray(np.ascontiguousarray(a.transpose(1, 2, 0)))
-
-
-def _prefix_tdb(a, H):
-    """[B, P, D] -> [P, H*hdp, B] with the head dim zero-padded to hdp."""
-    B, P, D = a.shape
-    hd = D // H
-    hdp = jfl.padded_head_dim(hd)
-    a = np.pad(a.reshape(B, P, H, hd), [(0, 0)] * 3 + [(0, hdp - hd)])
-    return jnp.asarray(a.reshape(B, P, H * hdp).transpose(1, 2, 0))
-
-
-def _prefix_tl(a, H):
-    """[S, B, P, D] -> the token-lanes layout [S, nB, H*hdp, P*E]."""
-    S, B, P, D = a.shape
-    hd = D // H
-    hdp = jfl.padded_head_dim(hd)
-    a = np.pad(a.reshape(S, B, P, H, hd), [(0, 0)] * 4 + [(0, hdp - hd)])
-    a = a.reshape(S, B // E, E, P, H * hdp).transpose(0, 1, 4, 3, 2)
-    return jnp.asarray(a.reshape(S, B // E, H * hdp, P * E))
-
-
-def _from_tl(a, B, T2):
-    """[nB, C, T2*E] -> [B, T2, C]."""
-    a = np.asarray(a)
-    return a.reshape(B // E, a.shape[1], T2, E).transpose(0, 3, 2, 1).reshape(B, T2, -1)
 
 
 # ---- kernels: plain versions against the JAX TPU kernels -------------------
@@ -76,7 +45,7 @@ def test_b4_plain_matches_jax_fused_layer(H, hd, T):
     D, B = H * hd, 8
     lw = layer_weights(D, seed=H + T)
     x = np.random.RandomState(T).randn(B, T, D).astype(np.float32)
-    ref = jfl.fused_layer(_to_tdb(x), jax_layer(lw, H), n_heads=H, head_dim=hd,
+    ref = jfl.fused_layer(to_tdb(x), jax_layer(lw, H), n_heads=H, head_dim=hd,
                           env_block=E, interpret=True)
     out = fl.fused_layer_reference(t(x), port_layer(lw, H), n_heads=H)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref).transpose(2, 0, 1), **TOL)
@@ -90,7 +59,7 @@ def test_b3_plain_matches_jax_fused_layer_with_prefix(D, H, P, T2):
     x, pk, pv = (rng.randn(B, n, D).astype(np.float32) for n in (T2, P, P))
     lw = layer_weights(D, seed=D)
     ref = jfl.fused_layer_with_prefix(
-        _to_tdb(x), _prefix_tdb(pk, H), _prefix_tdb(pv, H), jax_layer(lw, H),
+        to_tdb(x), prefix_tdb(pk, H), prefix_tdb(pv, H), jax_layer(lw, H),
         n_heads=H, head_dim=D // H, env_block=E, interpret=True)
     out = fl.fused_layer_with_prefix_reference(t(x), t(pk), t(pv), port_layer(lw, H),
                                                n_heads=H)
@@ -116,16 +85,16 @@ def test_b2_plain_matches_jax_layer_group(n_group):
             jnp.asarray(np.pad(epi[3], (0, Mp - M))[:, None]))
     x_tl = x.reshape(B // E, E, T2, D).transpose(0, 3, 2, 1).reshape(B // E, D, T2 * E)
     jout, jpred = jfl.fused_layers_prefix_tl_v2_group(
-        jnp.asarray(x_tl), [_prefix_tl(a, H) for a in pks],
-        [_prefix_tl(a, H) for a in pvs], jnp.asarray(idx),
+        jnp.asarray(x_tl), [prefix_tl(a, H) for a in pks],
+        [prefix_tl(a, H) for a in pvs], jnp.asarray(idx),
         [jax_layer(lw, H) for lw in lws], n_heads=H, head_dim=D // H,
         suffix_len=T2, epilogue=jepi, interpret=True)
     out, pred = fl.fused_layers_prefix_group_reference(
         t(x), [t(a) for a in pks], [t(a) for a in pvs], t(idx),
         [port_layer(lw, H) for lw in lws], n_heads=H,
         epilogue=fl.FusedEpilogue(*(t(a) for a in epi)))
-    np.testing.assert_allclose(out.numpy(), _from_tl(jout, B, T2), **TOL)
-    np.testing.assert_allclose(pred.numpy(), _from_tl(jpred, B, T2)[..., :M], **TOL)
+    np.testing.assert_allclose(out.numpy(), from_tl(jout, B, T2), **TOL)
+    np.testing.assert_allclose(pred.numpy(), from_tl(jpred, B, T2)[..., :M], **TOL)
 
 
 def _prefix_case(seed, D=48, H=2, P=3, T2=8, S=3, B=5):

@@ -8,8 +8,8 @@ its timed entry), B2 (layer group), B3 (one selected prefix row) and B4
 (whole causal sequence), in bf16 and f32, which must also equal B1 launches
 bit for bit where they compute the same thing, in f32 also at batches that
 leave the last 2-block cluster's second block empty, and the f32 phase
-clock; the three fused engines of an f32 model against the plain f32
-engines within 2^-10. Marked `gpu`:
+clock; their erf GELU forms, and the engines of an erf model; the three
+fused engines of an f32 model against the plain f32 engines within 2^-10. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -488,3 +488,107 @@ def test_fused_layers_f32_cluster_with_empty_block(case):
         chain = fl.fused_layer_prefix(b1, pk2, pv2, idx, p2, n_heads=H)
         torch.cuda.synchronize()
         assert _close(got, ref, FRACTION[f32]) and torch.equal(got, chain)
+
+
+ERF_KERNELS = ["b1", "b2", "b3", "b4"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("kernel", ERF_KERNELS)
+def test_fused_layers_erf_match_plain(kernel, dtype):
+    """The erf GELU form of B1-B4 (`approximate_gelu=False`) at the kitchen
+    width against its plain version (2^-5 bf16, 2^-12 f32), counted in
+    `erf_launches`, apart from the tanh form, and in f32 nearer the erf than
+    the tanh plain version; B2 and B3 erf bit-equal to B1 erf launches; and
+    the tanh form (`approximate_gelu=True`) bit-equal to the launch without
+    the argument, the path as it was before the erf form came."""
+    dev = _cuda()
+    rng = np.random.RandomState(41)
+    D, H, P, T2, B = 360, 6, 3, 8, 1999
+    erf = dict(approximate_gelu=False)
+    p, p2 = _fused_layer(D, H, rng, dev, dtype), _fused_layer(D, H, rng, dev, dtype)
+    pk, pv, pk2, pv2 = (_bf16(rng, 3, B, P, D, dev=dev, dtype=dtype) for _ in range(4))
+    idx = torch.tensor([1], dtype=torch.int32, device=dev)
+    x = _bf16(rng, 2047, 11, D, dev=dev, dtype=dtype)
+    x8 = _bf16(rng, B, T2, D, dev=dev, dtype=dtype)
+    pk1, pv1 = pk[1].clone(), pv[1].clone()   # row 1 as the engine selects it, aligned
+    forms = {   # (wrapper, its launch with keyword args kw, its plain version)
+        "b4": (fl.fused_layer, lambda kw: fl.fused_layer(x, p, n_heads=H, **kw),
+               lambda kw: fl.fused_layer_reference(x, p, n_heads=H, **kw)),
+        "b1": (fl.fused_layer_prefix,
+               lambda kw: fl.fused_layer_prefix(x8, pk, pv, idx, p, n_heads=H, **kw),
+               lambda kw: fl.fused_layer_prefix_reference(x8, pk, pv, idx, p, n_heads=H, **kw)),
+        "b3": (fl.fused_layer_with_prefix,
+               lambda kw: fl.fused_layer_with_prefix(x8, pk1, pv1, p, n_heads=H, **kw),
+               lambda kw: fl.fused_layer_with_prefix_reference(x8, pk1, pv1, p, n_heads=H,
+                                                               **kw)),
+        "b2": (fl.fused_layers_prefix_group,
+               lambda kw: fl.fused_layers_prefix_group(x8, [pk, pk2], [pv, pv2], idx, [p, p2],
+                                                       n_heads=H, **kw),
+               lambda kw: fl.fused_layers_prefix_group_reference(
+                   x8, [pk, pk2], [pv, pv2], idx, [p, p2], n_heads=H, **kw)),
+    }
+    wrapper, call, plain_of = forms[kernel]
+    plain = plain_of(erf)
+    same = None   # the B1 erf launches B3 and B2 must equal
+    if kernel in ("b3", "b2"):
+        same = fl.fused_layer_prefix(x8, pk, pv, idx, p, n_heads=H, **erf)
+        if kernel == "b2":
+            same = fl.fused_layer_prefix(same, pk2, pv2, idx, p2, n_heads=H, **erf)
+    launches, erf_launches = wrapper.launches, wrapper.erf_launches
+    got, again = call(erf), call(erf)
+    tanh, tanh_default = call(dict(approximate_gelu=True)), call({})
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.erf_launches) == (launches + 4, erf_launches + 2)
+    assert _close(got, plain, FRACTION[dtype])
+    assert torch.equal(got, again)
+    if same is not None:
+        assert torch.equal(got, same)
+    assert torch.equal(tanh, tanh_default)
+    # the erf and tanh forms differ by less than bf16's rounding and by less
+    # than the f32 bound: in bf16 the two launches differ; in f32 the erf
+    # launch is nearer the erf plain version than the tanh one
+    assert not torch.equal(tanh, got)
+    if dtype == torch.float32:
+        def err(ref):
+            return (got - ref).abs().max()
+
+        assert 4 * err(plain) < err(plain_of({}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", **DTYPES)
+def test_erf_model_engines_launch_erf_kernels(dtype):
+    """A `DiffusionGPT(approximate_gelu=False)` on the card: its fused_cached
+    engine runs erf B1 launches only and matches the plain cached engine,
+    and its uncached engine erf B4 launches, matching the plain forward
+    (2^-5 bf16, 2^-10 f32 of max |ref|)."""
+    from beso_tpu_torch.core.schedules import get_noise_schedule
+    from beso_tpu_torch.models import DiffusionGPT, GCDenoiser, make_fused_denoise_fn
+    from beso_tpu_torch.models.cached import make_cached_denoise_fn
+    from beso_tpu_torch.models.fused import make_fused_cached_denoise_fn
+
+    dev = _cuda()
+    rng = np.random.RandomState(43)
+    model = DiffusionGPT(state_dim=30, action_dim=9, embed_dim=96, n_layers=2, n_heads=2,
+                         goal_seq_len=2, obs_seq_len=4, dtype=dtype, approximate_gelu=False,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    den = GCDenoiser(model, sigma_data=0.5)
+    B = 6
+    s, a, g = (torch.as_tensor(rng.randn(B, n, d).astype(np.float32)).to(dev)
+               for n, d in ((4, 30), (4, 9), (2, 30)))
+    frac = 2 ** -10 if dtype == torch.float32 else FRACTION[torch.bfloat16]
+    grid = get_noise_schedule(3, 0.005, 1.0, 5.0, "exponential")[:-1]
+    fused, plain = make_fused_cached_denoise_fn(den, g, grid), make_cached_denoise_fn(den, g, grid)
+    uncached = make_fused_denoise_fn(den)
+    counts = [(w.launches, w.erf_launches) for w in (fl.fused_layer_prefix, fl.fused_layer)]
+    for sg in grid:
+        sig = torch.full((B,), float(sg), device=dev)
+        got, ref = fused(s, a, g, sig), plain(s, a, g, sig)
+        got4, ref4 = uncached(s, a, g, sig), den(s, a, g, sig)
+        torch.cuda.synchronize()
+        assert _close(got, ref, frac) and _close(got4, ref4, frac)
+    n = 3 * 2
+    assert [(w.launches, w.erf_launches) for w in (fl.fused_layer_prefix, fl.fused_layer)] == [
+        (c[0] + n, c[1] + n) for c in counts]

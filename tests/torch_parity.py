@@ -17,6 +17,7 @@ import torch
 
 from beso_tpu.models import DiffusionGPT as JaxGPT
 from beso_tpu.models import GCDenoiser as JaxDenoiser
+from beso_tpu.ops.fused_layer import padded_head_dim
 from beso_tpu_torch.models.convert import params_from_jax
 from beso_tpu_torch.models.denoiser import GCDenoiser
 from beso_tpu_torch.models.gpt import DiffusionGPT
@@ -107,6 +108,39 @@ def jax_layer(lw: dict, n_heads: int):
     return jprepare(*(jnp.asarray(lw[k]) for k in (
         "wqkv", "bqkv", "wproj", "bproj", "wfc", "bfc", "wfc2", "bfc2",
         "ln1_s", "ln1_b", "ln2_s", "ln2_b")), n_heads=n_heads, dtype=jnp.float32)
+
+
+E = 8   # env_block of the JAX fused kernels in the parity tests
+
+
+def to_tdb(a):
+    """[B, T, C] -> the JAX phase-split layout [T, C, B]."""
+    return jnp.asarray(np.ascontiguousarray(a.transpose(1, 2, 0)))
+
+
+def prefix_tdb(a, H):
+    """[B, P, D] -> [P, H*hdp, B] with the head dim zero-padded to hdp."""
+    B, P, D = a.shape
+    hd = D // H
+    hdp = padded_head_dim(hd)
+    a = np.pad(a.reshape(B, P, H, hd), [(0, 0)] * 3 + [(0, hdp - hd)])
+    return jnp.asarray(a.reshape(B, P, H * hdp).transpose(1, 2, 0))
+
+
+def prefix_tl(a, H):
+    """[S, B, P, D] -> the token-lanes layout [S, nB, H*hdp, P*E]."""
+    S, B, P, D = a.shape
+    hd = D // H
+    hdp = padded_head_dim(hd)
+    a = np.pad(a.reshape(S, B, P, H, hd), [(0, 0)] * 4 + [(0, hdp - hd)])
+    a = a.reshape(S, B // E, E, P, H * hdp).transpose(0, 1, 4, 3, 2)
+    return jnp.asarray(a.reshape(S, B // E, H * hdp, P * E))
+
+
+def from_tl(a, B, T2):
+    """[nB, C, T2*E] -> [B, T2, C]."""
+    a = np.asarray(a)
+    return a.reshape(B // E, a.shape[1], T2, E).transpose(0, 3, 2, 1).reshape(B, T2, -1)
 
 
 def smooth_block_push_hashes(monkeypatch):
