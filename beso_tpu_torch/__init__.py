@@ -8,11 +8,14 @@ Ported so far: kitchen serving (the DiffusionGPT forward, the prefix-KV
 cached engine, the fused engines on the hand-written CUDA layer kernels
 B1-B4 in `ops/fused_layer.py`, `csrc/fused_layer_prefix.cu` (bf16) and
 `csrc/fused_layer_f32.cu` (f32): the `fused_cached` engine in its three
-forms and the uncached `make_fused_denoise_fn`; DDIM sampling, the
-windowed policy, the batched kitchen physics and the rollout), the
+forms and the uncached `make_fused_denoise_fn`; every sampler, Picard
+and the log-likelihood in `sampling/`, the windowed policy with n-sample
+mean / KDE selection, the batched kitchen physics and the multigoal and
+sequential rollouts), the
 chunked-kitchen training path (densities, EMA, the training forward with
 the flash-attention kernels B5/B6 in `ops/flash_attention.py` and
 `csrc/flash_attention.cu`, the EDM loss, the slicer, the trainer,
 checkpoints, the agent, the kitchen workspace and the training CLI) and
-the dataset loaders and writers behind the workspace's `data_path`.
+the dataset loaders and writers behind the workspace's `data_path`, Block
+Push, and the evaluation CLI with every study.
 """

@@ -191,17 +191,32 @@ class BesoAgent:
         params = self.eval_params() if params is None else params
         return partial(self.denoiser, params=params)
 
+    def make_uncached_denoise_fn(self, params=None):
+        """The denoiser of the calls that cannot use the prefix cache (a
+        sampler that leaves the sigma grid, churn, several action samples, a
+        goal that changes mid-episode): under 'fused_cached' the whole
+        sequence on the B4 kernel (models/fused.py, `make_fused_denoise_fn`),
+        under every other engine the plain forward."""
+        if self.cfg.inference_engine != "fused_cached":
+            return self.make_denoise_fn(params)
+        from beso_tpu_torch.models.fused import make_fused_denoise_fn
+
+        return make_fused_denoise_fn(self.eval_denoiser(params))
+
     def make_denoise_factory(self, policy_cfg: PolicyConfig, params=None):
-        """Per-episode denoise-fn factory for the rollouts, or None.
+        """Per-episode denoise-fn factory for the rollouts, or None (the
+        plain forward).
 
         `inference_engine`: 'auto' (default) uses the prefix-KV cached engine
         (models/cached.py) whenever the policy config is eligible (grid-sigma
-        sampler, no churn, single action sample); 'cached' requires
-        eligibility (raises if not); 'fused_cached' runs the suffix tokens
-        through the fused layer kernels (models/fused.py); 'full' always uses
-        the plain forward. Every engine but 'cached' falls back to the full
-        forward (None) when the config is ineligible, as
-        `beso_tpu/agents/beso_agent.py:198-206` does.
+        sampler, no churn, single action sample) and the plain forward
+        otherwise, as `beso_tpu/agents/beso_agent.py:198-206` does; 'cached'
+        requires eligibility (raises if not); 'full' always uses the plain
+        forward. 'fused_cached' runs the suffix tokens through the B1 kernels
+        (models/fused.py) where the config is eligible, and the whole
+        sequence through B4 (`make_uncached_denoise_fn`) where it is not; it
+        never falls back to the plain forward (JAX's falls back to its full
+        forward), and raises for a model the kernels cannot serve.
         """
         engine = self.cfg.inference_engine
         if engine == "full":
@@ -212,10 +227,13 @@ class BesoAgent:
             return make_rollout_denoise_factory(
                 self.eval_denoiser(params), self.scaler, policy_cfg,
                 engine="fused_cached" if engine == "fused_cached" else "cached")
-        except (ValueError, NotImplementedError):
-            if engine == "cached":
+        except (ValueError, NotImplementedError) as err:
+            if engine == "auto":
+                return None  # ineligible sampler/config -> full forward
+            if engine == "cached" or not isinstance(err, ValueError):
                 raise
-            return None  # ineligible sampler/config -> full forward
+        fn = self.make_uncached_denoise_fn(params)  # fused_cached, ineligible config
+        return lambda goals: fn
 
     def policy_config(self, **overrides) -> PolicyConfig:
         base = dict(

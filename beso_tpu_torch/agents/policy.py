@@ -27,6 +27,7 @@ import torch
 from beso_tpu_torch.core.schedules import get_noise_schedule
 from beso_tpu_torch.models.cfg import cfg_denoise_fn
 from beso_tpu_torch.models.scaler import Scaler
+from beso_tpu_torch.sampling.parallel import sample_picard
 from beso_tpu_torch.sampling.samplers import sample_loop
 
 
@@ -40,9 +41,7 @@ class PolicyState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
-    """Inference-time knobs: `beso_tpu`'s PolicyConfig but for Picard's
-    options. `policy_predict` raises for what is not ported
-    (`check_ported`)."""
+    """Inference-time knobs (a subset of BesoAgent's ctor args)."""
 
     window_size: int
     obs_dim: int
@@ -55,12 +54,17 @@ class PolicyConfig:
     rho: float = 5.0
     noise_scheduler: str = "exponential"
     cond_lambda: float = 1.0  # >1/<1 wraps the model in CFG
-    s_churn: float = 0.0      # read by the stochastic samplers (A14); DDIM ignores it
+    s_churn: float = 0.0      # churn of heun, euler and dpm; the others ignore it
     s_tmin: float = 0.0
     # multi-sample action selection (reference get_mean/use_kde,
-    # beso_agent.py:352-368); only one sample is ported
+    # beso_agent.py:352-368)
     n_action_samples: int = 1
     aggregation: str = "single"  # 'single' | 'mean' | 'kde'
+    # sampler_type='picard' runs Picard parallel sampling
+    # (sampling/parallel.py): K sweeps of one [n*B]-row denoise each in
+    # place of n sequential calls
+    picard_update: str = "ddim"          # 'ddim' | 'euler'
+    picard_iterations: Optional[int] = None  # None = n (exact)
 
 
 def scale_goal_for_model(scaler: Scaler, goal: torch.Tensor) -> torch.Tensor:
@@ -71,24 +75,6 @@ def scale_goal_for_model(scaler: Scaler, goal: torch.Tensor) -> torch.Tensor:
         goal_s = goal_s.clone()
         goal_s[..., [2, 5, 6, 7, 8, 9]] = 0.0
     return goal_s
-
-
-# the samplers `sampling/samplers.py::sample_loop` runs
-PORTED_SAMPLERS = ("ddim",)
-
-
-def check_ported(sampler_type: Optional[str] = None,
-                 n_action_samples: Optional[int] = None) -> None:
-    """Raise NotImplementedError, with its ROADMAP item, for a sampler or a
-    multi-sample action selection that is not ported; None is not checked."""
-    if n_action_samples is not None and n_action_samples > 1:
-        raise NotImplementedError(
-            "n_action_samples > 1 (mean and KDE aggregation) is not ported yet "
-            "(ROADMAP.md, queue A, item A20)")
-    if sampler_type is not None and sampler_type not in PORTED_SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {sampler_type!r} is not ported to beso_tpu_torch yet "
-            f"(ROADMAP.md, queue A, item A14)")
 
 
 def policy_reset(batch_size: int, cfg: PolicyConfig, device=None) -> PolicyState:
@@ -116,8 +102,27 @@ def action_noise(batch: int, action_dim: int,
                  generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
     """Unit normal draws for the newest action slot, [batch, action_dim].
-    The policy's only random draw."""
+    The policy's own random draw; a stochastic sampler then draws from the
+    same generator (`sampling/samplers.py::sampler_noise`)."""
     return torch.randn(batch, action_dim, generator=generator, device=device)
+
+
+def kde_density(cands: torch.Tensor) -> torch.Tensor:
+    """Each candidate's density under a gaussian KDE over its env's
+    candidate set (Scott's-rule bandwidth, population std as jnp.std).
+    cands: [B, n, d] -> [B, n]."""
+    B, n, d = cands.shape
+    std = torch.std(cands, dim=1, keepdim=True, correction=0).mean(dim=-1, keepdim=True)
+    h = torch.clamp(std * n ** (-1.0 / (d + 4)), min=1e-6)        # [B, 1, 1]
+    sq = torch.sum((cands[:, :, None, :] - cands[:, None, :, :]) ** 2, dim=-1)
+    return torch.sum(torch.exp(-0.5 * sq / h ** 2), dim=-1)
+
+
+def _kde_select(cands: torch.Tensor) -> torch.Tensor:
+    """The max-density sample per env (`kde_density`). cands: [B, n, d] ->
+    [B, d]."""
+    best = torch.argmax(kde_density(cands), dim=-1)
+    return cands[torch.arange(cands.shape[0], device=cands.device), best]
 
 
 def policy_predict(denoise: Callable[..., torch.Tensor], scaler: Scaler,
@@ -127,8 +132,11 @@ def policy_predict(denoise: Callable[..., torch.Tensor], scaler: Scaler,
 
     `denoise(states, actions, goals, sigma)` is the preconditioned denoiser.
     obs: [B, obs_dim] raw observation; goal: [B, G, goal_dim] raw goal.
+    With `n_action_samples` = n > 1, each env's rows are repeated n times
+    (`repeat_interleave`) into one [B*n]-row sampler call and `aggregation`
+    picks the action from the n candidates. `generator` draws the action
+    noise, then the sampler's noise.
     """
-    check_ported(cfg.sampler_type, cfg.n_action_samples)
     B = obs.shape[0]
     W = cfg.window_size
     rows = torch.arange(B, device=obs.device)
@@ -139,19 +147,44 @@ def policy_predict(denoise: Callable[..., torch.Tensor], scaler: Scaler,
     count = state.count + 1
 
     # fresh noise for ONLY the newest action token (beso_agent.py:352-362)
+    n_samp = max(1, cfg.n_action_samples)
     newest = torch.clamp(count - 1, max=W - 1).long()
-    x = state.act_buf.clone()
-    x[rows, newest] = action_noise(B, cfg.action_dim, generator,
-                                   obs.device) * cfg.sigma_max
+    x, obs_in, goal_in, newest_in = state.act_buf, obs_buf, goal_s, newest
+    if n_samp > 1:
+        x, obs_in, goal_in, newest_in = (v.repeat_interleave(n_samp, dim=0)
+                                         for v in (x, obs_in, goal_in, newest_in))
+    Bn = B * n_samp
+    x = x.clone()
+    x[torch.arange(Bn, device=obs.device), newest_in] = action_noise(
+        Bn, cfg.action_dim, generator, obs.device) * cfg.sigma_max
 
     sigmas = get_noise_schedule(cfg.num_sampling_steps, cfg.sigma_min,
                                 cfg.sigma_max, cfg.rho, cfg.noise_scheduler)
     dn = cfg_denoise_fn(denoise, cfg.cond_lambda)
-    x0 = sample_loop(cfg.sampler_type,
-                     lambda a, sig: dn(obs_buf, a, goal_s, sig), x, sigmas)
+    if cfg.sampler_type == "picard":
+        def dn_tiled(actions, sigma):
+            # the conditioning tiled over the folded [n_grid * Bn] batch
+            reps = actions.shape[0] // Bn
+            return dn(obs_in.repeat(reps, 1, 1), actions, goal_in.repeat(reps, 1, 1),
+                      sigma)
+
+        x0 = sample_picard(dn_tiled, x, sigmas, update=cfg.picard_update,
+                           n_iterations=cfg.picard_iterations)
+    else:
+        x0 = sample_loop(cfg.sampler_type, lambda a, sig: dn(obs_in, a, goal_in, sig),
+                         x, sigmas, generator, s_churn=cfg.s_churn, s_tmin=cfg.s_tmin)
 
     # keep only the newest action slot (beso_agent.py:373-374)
-    a_scaled = scaler.clip_action(x0[rows, newest])
+    a_scaled = x0[torch.arange(Bn, device=obs.device), newest_in]
+    if n_samp > 1:
+        cands = a_scaled.reshape(B, n_samp, cfg.action_dim)
+        if cfg.aggregation == "mean":
+            a_scaled = cands.mean(dim=1)
+        elif cfg.aggregation == "kde":
+            a_scaled = _kde_select(cands)
+        else:  # 'single'
+            a_scaled = cands[:, 0]
+    a_scaled = scaler.clip_action(a_scaled)
     action = scaler.inverse_scale_output(a_scaled)
 
     # queue the clipped scaled action as next-step context (beso_agent.py:387)

@@ -195,6 +195,15 @@ def kitchen_reset(batch_size: int, device=None, task_mask=None) -> KitchenState:
     return kitchen_reset_from_qpos(qpos.clone(), task_mask)
 
 
+def load_init_qpos(data_path):
+    """Demonstration start states (kitchen_workspace_manager.py:500-509):
+    (all_init_qpos.npy, all_init_qvel.npy) of the dataset directory."""
+    from pathlib import Path
+
+    return (np.load(Path(data_path) / "all_init_qpos.npy"),
+            np.load(Path(data_path) / "all_init_qvel.npy"))
+
+
 def kitchen_obs(state: KitchenState) -> torch.Tensor:
     return state.qpos
 
@@ -218,6 +227,16 @@ def kitchen_handles(qpos: torch.Tensor, params: KitchenParams) -> torch.Tensor:
     lin = params.handle0 + params.axes * q_primary[..., None]
     handles = torch.where(params.rotary[:, None] > 0.5, arc, lin)
     return torch.cat([handles[:, :6], qpos[:, None, 23:26]], dim=1)
+
+
+def handle_tangents(qpos: torch.Tensor, params: KitchenParams) -> torch.Tensor:
+    """Unit direction of increasing joint value at each current handle
+    position [B, 7, 3]: the arc tangent of a rotary element, the slide axis
+    of the slide."""
+    tan = torch.linalg.cross(params.axes.expand(qpos.shape[0], 7, 3),
+                             kitchen_handles(qpos, params) - params.pivots)
+    tan = tan / torch.clamp(torch.linalg.norm(tan, dim=-1, keepdim=True), min=1e-9)
+    return torch.where(params.rotary[:, None] > 0.5, tan, params.axes)
 
 
 def _segment_dist(p: torch.Tensor, centers: torch.Tensor,

@@ -9,10 +9,12 @@ the five study modes:
   compare_samplers_over_diffent_steps [sic] |
   compare_classifier_free_guidance | compare_noisy_sampler.
 
-The agent serves with its configured engine, "auto" (the plain cached
-engine where the sampler allows it), as the JAX CLI's does: neither
-training CLI reads `inference_engine` from a config. The studies that need
-samplers other than DDIM raise (ROADMAP A14; `workspaces/base.py`).
+The agent serves with the engine that the eval config's `inference_engine`
+names, by default "auto" (the plain cached engine where the sampler allows
+it, else the plain forward), as the JAX CLI's does. `inference_engine=
+fused_cached`, a port option, serves every configuration of a study on the
+fused-layer kernels: B1 where the sampler stays on the sigma grid, B4
+(`BesoAgent.make_uncached_denoise_fn`) where it does not.
 
 Usage:
     python -m beso_tpu_torch.scripts.evaluate \\
@@ -32,14 +34,15 @@ import torch
 
 def eval_agent_config(eval_cfg, model_cfg):
     """The trained run's agent config with the eval config's sigma range
-    (evaluate.py:49-50)."""
+    (evaluate.py:49-50) and serving engine."""
     from beso_tpu_torch.scripts.training import build_agent_config
 
     agent_cfg = build_agent_config(model_cfg)
     return dataclasses.replace(
         agent_cfg,
         sigma_min=eval_cfg.get("sigma_min", agent_cfg.sigma_min),
-        sigma_max=eval_cfg.get("sigma_max", agent_cfg.sigma_max))
+        sigma_max=eval_cfg.get("sigma_max", agent_cfg.sigma_max),
+        inference_engine=eval_cfg.get("inference_engine", agent_cfg.inference_engine))
 
 
 def policy_overrides(eval_cfg, model_cfg) -> dict:

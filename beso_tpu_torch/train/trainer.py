@@ -140,7 +140,7 @@ def evaluate_mse(denoiser: GCDenoiser, params, batch: dict, scaler: Scaler,
         return precondition(inner, state_t, actions, goal_t, sigma,
                             denoiser.sigma_data)
 
-    x_0 = sample_loop(sampler_type, denoise, x, sigmas)
+    x_0 = sample_loop(sampler_type, denoise, x, sigmas, generator)
     if pred_last_action_only:
         return torch.mean((x_0[:, -1:] - action_t[:, -1:]) ** 2)
     return torch.mean((x_0 - action_t) ** 2)

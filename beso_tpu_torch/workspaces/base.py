@@ -8,13 +8,7 @@ study runs `test_agent` per configuration, collects avg/std of reward and
 result, and saves numpy arrays and a matplotlib plot when given a
 `store_path`.
 
-Each `test_agent` call is one batched rollout of all episodes. Only DDIM and
-one action sample per step are ported, so the studies that sweep other
-samplers (`compare_sampler_types`, `compare_noisy_sampler`,
-`compare_sde_sampling`; ROADMAP A14) or the mean and KDE aggregations
-(`compare_kde_vs_mean_vs_single`; A20) raise NotImplementedError before
-their first rollout. `compare_classifier_free_guidance` runs in full, and
-`compare_sampler_types_over_n_steps` with `samplers_list=("ddim",)`.
+Each `test_agent` call is one batched rollout of all episodes.
 """
 
 from __future__ import annotations
@@ -24,8 +18,6 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
-
-from beso_tpu_torch.agents.policy import check_ported
 
 log = logging.getLogger(__name__)
 
@@ -37,14 +29,6 @@ NOISY_STUDY_SAMPLERS = ("euler", "dpm", "dpmpp_2m", "euler_ancestral",
                         "ancestral", "dpmpp_2m_sde")
 STUDY_STEP_COUNTS = (3, 4, 5, 10, 20, 40, 50)   # scripts/evaluate.py:93
 STUDY_CFG_LAMBDAS = (0.0, 1.0, 1.5, 2.0, 2.5)   # scripts/evaluate.py:109
-
-
-def _check_configs(configs: Sequence[dict], common: dict) -> None:
-    """Raise before any rollout if a study configuration asks for a sampler
-    or an action aggregation that is not ported (`check_ported`)."""
-    for overrides in configs:
-        kw = {**common, **overrides}
-        check_ported(kw.get("new_sampler_type"), kw.get("get_mean"))
 
 
 class BaseWorkspace:
@@ -80,7 +64,6 @@ class BaseWorkspace:
     def _sweep(self, agent, configs: Sequence[dict], labels: Sequence[str],
                num_runs=None, num_steps_per_run=None, store_path=None,
                plot_name="study", **common) -> dict:
-        _check_configs(configs, common)
         old_times, old_steps = self.eval_n_times, self.eval_n_steps
         if num_runs is not None:
             self.eval_n_times = num_runs
@@ -198,7 +181,6 @@ class BaseWorkspace:
                                            store_path=None, **kw):
         """Sampler x NFE grid with line plots (base_workspace_manager.py:520-662)."""
         samplers = tuple(samplers_list) if samplers_list else STUDY_SAMPLERS
-        _check_configs([dict(new_sampler_type=s) for s in samplers], kw)
         result_arr = np.zeros((len(samplers), len(steps_list)))
         reward_arr = np.zeros_like(result_arr)
         result_std = np.zeros_like(result_arr)

@@ -5,15 +5,16 @@ Functional parity target: `FrankaKitchenManager`
 (`beso/workspaces/kitchen_workspace_manager.py:27-708`):
 * builds the kitchen datasets + Scaler + train/test streams (:137-167);
 * multigoal evaluation: eval_n_times episodes x eval_n_steps steps against
-  dataset-tail goals; result = |completed ∩ expected| (:213-316, 527-578);
+  dataset-tail goals; result = |completed ∩ expected| (:213-316, 527-578),
+  optionally from known start states (:500-525) or under other physics;
+* sequential evaluation: 4 sub-goals with per-goal step budgets (:318-423);
 * compute_performance: avg/std reward+result, Cond_success_ratio,
   success-rate-at-1..5, per-task solved/expected counts, trajectory
   multimodality census and the task-transition tree (:425-498, 596-708).
 
 `data_path` names a directory in the relay-kitchen dataset's own layout
 (`data/trajectories.py::load_relay_kitchen`; `data/export.py` writes one).
-The comparison studies come from `workspaces/base.py`. Not ported yet
-(ROADMAP queue A, A20): the sequential-task evaluation.
+The comparison studies come from `workspaces/base.py`.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ from beso_tpu_torch.data.trajectories import (TrajectoryData, load_relay_kitchen
                                              split_trajectories,
                                              synthetic_kitchen_data)
 from beso_tpu_torch.envs.kitchen.env import ALL_TASKS
-from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
+from beso_tpu_torch.envs.kitchen.goals import (multigoal_kitchen_goals,
+                                               sequential_kitchen_goals)
 from beso_tpu_torch.models.scaler import fit_scaler
 from beso_tpu_torch.rollout.rollout import rollout_kitchen, success_rate_histogram
+from beso_tpu_torch.rollout.sequential import rollout_kitchen_sequential
 from beso_tpu_torch.workspaces.base import BaseWorkspace
 
 log = logging.getLogger(__name__)
@@ -74,38 +77,90 @@ class FrankaKitchenWorkspace(BaseWorkspace):
     def test_agent(self, agent, evaluate_multigoal: bool = True,
                    evaluate_sequential: bool = False,
                    generator: Optional[torch.Generator] = None, extra_args=None,
-                   log_metrics: bool = True, **overrides):
-        """The multigoal evaluation; `overrides` (new_sampler_type,
-        n_inference_steps, noise_scheduler, cond_lambda, get_mean,
-        aggregation) and `extra_args` (s_churn, s_min) change the agent's
-        policy config for it (`_policy_cfg`)."""
+                   log_metrics: bool = True, physics_params=None,
+                   start_from_known: bool = False, init_qpos=None, **overrides):
+        """The multigoal and/or the sequential evaluation (both: a pair of
+        results); `overrides` (new_sampler_type, n_inference_steps,
+        noise_scheduler, cond_lambda, get_mean, aggregation) and
+        `extra_args` (s_churn, s_min) change the agent's policy config for
+        them (`_policy_cfg`). Each evaluation starts from the draws of
+        `generator` as the call found it (the sequential one on a copy of
+        its state, as JAX hands both evaluations the same key), or from a
+        generator seeded with the workspace's seed."""
+        seq_generator = generator
+        if generator is not None and evaluate_multigoal:
+            seq_generator = torch.Generator(generator.device)
+            seq_generator.set_state(generator.get_state())
+        mg = seq = None
+        if evaluate_multigoal:
+            mg = self.test_agent_on_multigoal(
+                agent, generator, extra_args, log_metrics, physics_params=physics_params,
+                start_from_known=start_from_known, init_qpos=init_qpos, **overrides)
         if evaluate_sequential:
-            raise NotImplementedError(
-                "the sequential kitchen evaluation is not ported yet (ROADMAP.md, "
-                "queue A, item A20)")
-        if not evaluate_multigoal:
-            return None
-        return self.test_agent_on_multigoal(agent, generator, extra_args, log_metrics,
-                                            **overrides)
+            seq = self.test_agent_on_sequential_tasks(
+                agent, seq_generator, extra_args, log_metrics,
+                physics_params=physics_params, **overrides)
+        if evaluate_multigoal and evaluate_sequential:
+            return mg, seq
+        return mg if mg is not None else seq
+
+    def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(self.seed)
+        return generator
 
     def test_agent_on_multigoal(self, agent, generator: Optional[torch.Generator] = None,
                                 extra_args=None, log_metrics: bool = True,
-                                **overrides) -> dict:
+                                physics_params=None, start_from_known: bool = False,
+                                init_qpos=None, **overrides) -> dict:
         """Multigoal evaluation: all eval_n_times episodes in one batched
         rollout on the workspace's device, with the policy overrides of
-        `test_agent`."""
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(self.seed)
+        `test_agent`. `physics_params` (a KitchenParams) evaluates under
+        other surrogate physics. `start_from_known` starts episode i from
+        known start state i (wrapping) of `init_qpos` [N, 30] (e.g. from
+        `envs.kitchen.env.load_init_qpos`), or of the dataset's first
+        frames (the reference's `_start_from_known`, :500-525)."""
         goals, expected = multigoal_kitchen_goals(
             self.full_data, self.goal_seq_len, self.eval_n_times, self.seed,
             self.train_fraction)
+        starts = None
+        if start_from_known:
+            pool = (np.asarray(init_qpos) if init_qpos is not None
+                    else np.asarray(self.full_data.observations[:, 0, :30]))
+            starts = torch.as_tensor(pool[np.arange(self.eval_n_times) % len(pool)],
+                                     dtype=torch.float32, device=self.device)
         cfg = self._policy_cfg(agent, extra_args=extra_args, **overrides)
         metrics = rollout_kitchen(agent.make_denoise_fn(), agent.scaler, cfg,
                                   torch.as_tensor(goals, device=self.device),
                                   torch.as_tensor(expected, device=self.device),
-                                  generator, n_steps=self.eval_n_steps,
+                                  self._generator(generator), n_steps=self.eval_n_steps,
+                                  physics_params=physics_params, init_qpos=starts,
                                   denoise_factory=agent.make_denoise_factory(cfg))
         return self.compute_performance(metrics, expected, "multigoal", log_metrics)
+
+    def test_agent_on_sequential_tasks(self, agent,
+                                       generator: Optional[torch.Generator] = None,
+                                       extra_args=None, log_metrics: bool = True,
+                                       physics_params=None, budget_margin: int = 50,
+                                       **overrides) -> dict:
+        """Sequential evaluation: each episode walks its 4 dataset sub-goals
+        with per-goal step budgets (`rollout/sequential.py`), on the agent's
+        uncached denoiser (the goal changes mid-episode, so no prefix cache:
+        B4 under 'fused_cached', else the plain forward)."""
+        goals, timeframes, task_ids, expected = sequential_kitchen_goals(
+            self.full_data, self.goal_seq_len, self.eval_n_times, self.seed,
+            self.train_fraction)
+        cfg = self._policy_cfg(agent, extra_args=extra_args, **overrides)
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        metrics = rollout_kitchen_sequential(
+            agent.make_uncached_denoise_fn(), agent.scaler, cfg, dev(goals), dev(timeframes),
+            dev(task_ids), dev(expected), self._generator(generator),
+            n_steps=self.eval_n_steps, physics_params=physics_params,
+            budget_margin=budget_margin)
+        return self.compute_performance(metrics, expected, "sequential", log_metrics)
 
     # -- metrics -------------------------------------------------------------
     def compute_performance(self, metrics, expected: np.ndarray,

@@ -151,11 +151,40 @@ exits non-zero on failure:
    the same for `configs/block_push.yaml` (phase 12's files) and
    `configs/evaluate_blocks.yaml` (100 x 300): the agent's "auto" engine,
    the plain cached one, so no fused-layer launch; env-steps/s over each
-   command's wall time and finite metrics printed.
+   command's wall time and finite metrics printed;
+14. every sampler, the mean and KDE action selection and the sequential
+   kitchen evaluation, on phase 11's f32 `fused_cached` agent (EMA
+   weights), through the engines it serves the workspaces with (its
+   per-episode factory: B1 where the prefix cache serves the config, B4
+   where it does not; its uncached engine: B4): (a) a W+1-step
+   `policy_predict` window, 1024 envs, lambda=1.5 CFG, for every name in
+   `SAMPLERS` and Picard on B4 against the plain forward (the same
+   generator seed, 2^-10 of max |ref|), the grid samplers (ddim, euler,
+   dpmpp_2m, lms) also on B1 against `cached`, every engine's launches
+   exactly 6 per denoiser call (calls counted by wrapping the denoise fn),
+   and dpm_adaptive's accepted and rejected steps equal on B4 and the
+   plain forward; (b) 4 action samples per env with the mean and the KDE
+   aggregation on B4 (8192 rows per call): the first step against the
+   plain forward (mean: the actions; KDE: the candidates, and B4's pick a
+   maximum of the plain candidates' density), then the workspace's
+   multigoal evaluation with those overrides, 1024 envs x 40 steps, exact
+   launch counts; (c) the workspace's sequential evaluation
+   (`test_agent(evaluate_sequential=True)`), 1024 envs x 280 steps on B4,
+   exact launch counts; (d) the scripted `kitchen_step` episodes of
+   tests/kitchen_scenarios.py (microwave drags, kettle grasps, tracking,
+   release) replayed on the card against the CPU (1e-5), and their MuJoCo
+   golden bands held on the card's outcome; (e) the evaluation CLI's
+   `test_all_samplers` and `compare_noisy_sampler` modes on
+   `configs/evaluate_kitchen.yaml` and phase 13c's run (100 runs, 20 steps
+   cut from 280) with `inference_engine=fused_cached`: exactly 6 B1 or B4
+   launches per denoiser call, both kernels launched, the command's
+   seconds; (f) `bench_picard` at
+   BESO scale (window 4, batch 4, 50 NFE), information only.
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
-of its work at the timed shape with what bounds it, the PyTorch library
+of its work at the timed shape with what bounds it (f32 B1 and B4 with
+phase 14's launches added), the PyTorch library
 call's ms where one computes the same function, and for the fused layers
 the torch.matmul ms of their products in the same dtype; f32 forms as
 `*_f32`, the flash kernels' width-128 instantiations as `*_hd128`, B1's
@@ -188,6 +217,8 @@ WIDE_HEADS = 3   # the chunked model at 3 heads: hd 120, the width-128 instantia
 WIDE_MODEL_SHAPE = (256, WIDE_HEADS, 131, 120)   # its attention shape, also timed
 WIDE_TRAIN_STEPS = 40   # phase 7's timed train run of the 3-head model
 MAIN_TRAIN_STEPS = 20   # phase 11's, 12's and 13c's train steps before the evaluation
+MS_STEPS, N_SAMPLES = 40, 4   # phase 14b's mean / KDE rollouts (280 cut to 40), samples
+CLI_STEPS = 20          # phase 14e's CLI studies (num_steps_per_run: 280, cut to 20)
 ERF_ROLLOUT_STEPS = 40  # phase 13b's rollout of the erf model (280 cut to 40)
 # block push: phase 12's evaluation steps (eval_n_steps: 300, configs/block_push.yaml:62,
 # cut to 100 since phase 13 came, to hold the run near half its time limit), layers
@@ -1111,7 +1142,7 @@ def run_f32_main_path(device, card):
     MAIN_TRAIN_STEPS steps; then the workspace's multigoal evaluation, N_ENVS
     envs x N_STEPS steps on the agent's `fused_cached` engine in f32, with
     every fused-layer counter set to 0 just before it and read just after.
-    Returns the counts."""
+    Returns the counts, the workspace and the trained agent."""
     import torch
 
     from beso_tpu_torch.agents.beso_agent import BesoAgent, BesoAgentConfig
@@ -1167,7 +1198,7 @@ def run_f32_main_path(device, card):
           f"avrg_reward {mg['avrg_reward']:.4f}, avrg_result {mg['avrg_result']:.4f}; wall "
           f"{wall:.3f} s, {N_ENVS * N_STEPS / wall:.1f} env-steps/s (informational; "
           f"{card})")
-    return counts
+    return counts, ws, agent
 
 
 def block_push_agent_config():
@@ -1773,6 +1804,316 @@ def run_evaluation_cli(device, card):
     print(json.dumps({"evaluation_cli": results}))
 
 
+def counted(fn, calls):
+    """`fn`, adding one to calls[0] per call: the denoiser calls that the
+    launch counts are held to."""
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def policy_window(dn, scaler, cfg, goals, obs_seq, seed, device):
+    """`policy_predict` from a reset state over the observations obs_seq,
+    its noise from a generator seeded `seed`; the actions [steps, B, A]."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import policy_predict, policy_reset
+
+    gen = torch.Generator(device).manual_seed(seed)
+    state = policy_reset(goals.shape[0], cfg, device)
+    actions = []
+    for obs in obs_seq:
+        a, state = policy_predict(dn, scaler, state, obs, goals, gen, cfg)
+        actions.append(a)
+    return torch.stack(actions)
+
+
+def expect_launches(what, kernel, calls):
+    """Fail unless the fused-layer wrappers launched exactly N_LAYERS per
+    denoiser call of `kernel` and nothing else since the last reset."""
+    counts = fused_counts()
+    want = {k: ((N_LAYERS * calls, 0) if k == kernel else (0, 0)) for k in counts}
+    if counts != want:
+        fail(f"{what} launched {counts}, not {want}")
+    return N_LAYERS * calls
+
+
+def _require_fused_cached(agent):
+    if agent.cfg.inference_engine != "fused_cached":
+        fail(f"phase 14 needs phase 11's fused_cached agent, not "
+             f"{agent.cfg.inference_engine!r}")
+
+
+def check_samplers_on_card(agent, ws, device, card):
+    """Phase 14a: a W+1-step `policy_predict` window, N_ENVS envs with
+    lambda=1.5 CFG, for every sampler and Picard, on the engines that the
+    fused_cached agent serves the workspaces with: its per-episode factory
+    (`make_denoise_factory`: B1 for the grid samplers, B4 for the others)
+    and its uncached engine (`make_uncached_denoise_fn`, B4) for the grid
+    samplers too; B4 against the plain GCDenoiser forward, B1 against the
+    plain `cached` engine, the same generator seed, within
+    F32_ENGINE_FRACTION of max |ref|; each engine's launches exactly
+    N_LAYERS per denoiser call; dpm_adaptive's accepted and rejected steps
+    equal on B4 and the plain forward. Returns {kernel: launches}."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import scale_goal_for_model
+    from beso_tpu_torch.envs.kitchen.env import INIT_QPOS
+    from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
+    from beso_tpu_torch.models import make_rollout_denoise_factory
+    from beso_tpu_torch.models.cached import CACHED_SAFE_SAMPLERS
+    from beso_tpu_torch.sampling.dpm_solver import sample_dpm_adaptive
+    from beso_tpu_torch.sampling.samplers import SAMPLERS
+
+    _require_fused_cached(agent)
+    den = agent.eval_denoiser()
+    b4 = agent.make_uncached_denoise_fn()
+    goals = torch.as_tensor(multigoal_kitchen_goals(ws.full_data, 2, N_ENVS, ws.seed)[0],
+                            device=device)
+    gen = torch.Generator().manual_seed(31)
+    W = agent.cfg.window_size
+    obs_seq = [(torch.as_tensor(INIT_QPOS) + 0.05 * torch.randn(N_ENVS, 30, generator=gen))
+               .to(device) for _ in range(W + 1)]
+    launches = {"fused_layer": 0, "fused_layer_prefix": 0}
+    t0 = time.perf_counter()
+    for name in SAMPLERS + ("picard",):
+        cfg = agent.policy_config(sampler_type=name)
+        served = agent.make_denoise_factory(cfg)(goals)
+        if name in CACHED_SAFE_SAMPLERS:
+            cached = make_rollout_denoise_factory(den, ws.scaler, cfg, engine="cached")(goals)
+            engines = [("fused_layer", "B4 (the agent's uncached engine) vs plain forward",
+                        b4, den),
+                       ("fused_layer_prefix", "B1 (the agent's factory) vs cached", served,
+                        cached)]
+        else:
+            engines = [("fused_layer", "B4 (the agent's factory) vs plain forward", served,
+                        den)]
+        for kernel, label, fused, plain in engines:
+            calls = [0]
+            reset_fused_counts()
+            got = policy_window(counted(fused, calls), ws.scaler, cfg, goals, obs_seq, 41,
+                                device)
+            torch.cuda.synchronize()
+            launches[kernel] += expect_launches(f"{name} on {kernel}", kernel, calls[0])
+            ref = policy_window(plain, ws.scaler, cfg, goals, obs_seq, 41, device)
+            _rel_check(f"{name}, {W + 1} steps x {N_ENVS} envs, {calls[0]} denoiser calls: "
+                       f"{label}", got, ref, F32_ENGINE_FRACTION)
+    # dpm_adaptive's PID decisions on both engines, one batch of the window
+    s = ws.scaler.scale_input(torch.stack(obs_seq[:W], 1))
+    g_in = scale_goal_for_model(ws.scaler, goals)
+    x = torch.randn(N_ENVS, W, 9, generator=gen).to(device)
+    infos = [sample_dpm_adaptive(lambda a, sig, fn=fn: fn(s, a, g_in, sig), x, 0.005, 1.0,
+                                 return_info=True) for fn in (b4, den)]
+    print(f"  dpm_adaptive on B4 {infos[0][1]}, on the plain forward {infos[1][1]}")
+    if infos[0][1] != infos[1][1]:
+        fail("dpm_adaptive accepted or rejected other steps on B4 than on the plain forward")
+    _rel_check("dpm_adaptive, B4 vs plain forward", infos[0][0], infos[1][0],
+               F32_ENGINE_FRACTION)
+    print(f"  {len(SAMPLERS) + 1} samplers in {time.perf_counter() - t0:.3f} s; launches "
+          f"{launches} ({card})")
+    return launches
+
+
+def _workspace_eval(ws, n_steps, **kw):
+    """`ws.test_agent` at N_ENVS envs x n_steps steps, its wall seconds
+    (device synced) and metrics; the workspace's sizes restored after."""
+    import torch
+
+    old = ws.eval_n_times, ws.eval_n_steps
+    ws.eval_n_times, ws.eval_n_steps = N_ENVS, n_steps
+    t0 = time.perf_counter()
+    try:
+        out = ws.test_agent(log_metrics=False, **kw)
+    finally:
+        ws.eval_n_times, ws.eval_n_steps = old
+    torch.cuda.synchronize()
+    vals = [out[k] for k in ("avrg_reward", "std_reward", "avrg_result", "std_result")]
+    if not all(math.isfinite(v) for v in vals):
+        fail(f"the workspace evaluation {kw} gave metrics that are not finite: {vals}")
+    return time.perf_counter() - t0, out
+
+
+def check_multi_sample_on_card(agent, ws, device, card):
+    """Phase 14b: N_SAMPLES action samples per env with the mean and the
+    KDE aggregation, on the engine the fused_cached agent's factory gives
+    such a config (B4, N_ENVS x N_SAMPLES x 2 CFG rows per call): the first
+    step against the plain forward (mean: the actions; KDE: the candidates,
+    and B4's pick a maximum of the plain candidates' density within
+    F32_ENGINE_FRACTION); then the workspace's multigoal evaluation with
+    the same overrides (`test_agent(get_mean=, aggregation=)`), N_ENVS envs
+    x MS_STEPS steps, with exactly N_LAYERS B4 launches per denoiser call
+    (NFE per step) and finite metrics. Returns the B4 launches."""
+    import torch
+
+    from beso_tpu_torch.agents import policy
+    from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
+
+    _require_fused_cached(agent)
+    den = agent.eval_denoiser()
+    goals = torch.as_tensor(multigoal_kitchen_goals(ws.full_data, 2, N_ENVS, ws.seed)[0],
+                            device=device)
+    obs = ws.full_data.observations[:1, 0, :30].repeat(N_ENVS, 0)
+    obs = torch.as_tensor(obs, device=device)
+    launches = 0
+    for agg in ("mean", "kde"):
+        cfg = agent.policy_config(n_action_samples=N_SAMPLES, aggregation=agg)
+        b4 = agent.make_denoise_factory(cfg)(goals)
+        cands, real = [], policy._kde_select
+        policy._kde_select = lambda c: cands.append(c) or real(c)
+        calls = [0]
+        reset_fused_counts()
+        try:
+            first = [policy.policy_predict(fn, ws.scaler, policy.policy_reset(N_ENVS, cfg, device),
+                                           obs, goals, torch.Generator(device).manual_seed(51),
+                                           cfg)[0] for fn in (counted(b4, calls), den)]
+        finally:
+            policy._kde_select = real
+        torch.cuda.synchronize()
+        expect_launches(f"the agent's {agg} engine", "fused_layer", calls[0])
+        if agg == "mean":
+            _rel_check(f"mean of {N_SAMPLES}, first step: B4 vs plain forward", *first,
+                       F32_ENGINE_FRACTION)
+        else:
+            _rel_check(f"KDE candidates ({N_SAMPLES} per env), first step: B4 vs plain "
+                       f"forward", *cands, F32_ENGINE_FRACTION)
+            dens = policy.kde_density(cands[1])
+            pick = policy.kde_density(cands[0]).argmax(-1)
+            at_pick = dens.gather(1, pick[:, None])[:, 0]
+            near_max = at_pick >= dens.max(-1).values * (1 - F32_ENGINE_FRACTION)
+            same = int((pick == dens.argmax(-1)).sum())
+            print(f"  KDE picks: {same} of {N_ENVS} envs pick the plain forward's candidate; "
+                  f"{int(near_max.sum())} of {N_ENVS} pick a maximum of its density within "
+                  f"{F32_ENGINE_FRACTION:.6g}")
+            if not bool(near_max.all()):
+                fail("a KDE pick on B4 is not a density maximum of the plain candidates")
+        reset_fused_counts()
+        wall, mg = _workspace_eval(ws, MS_STEPS, agent=agent, get_mean=N_SAMPLES,
+                                   aggregation=agg,
+                                   generator=torch.Generator(device).manual_seed(52))
+        n = expect_launches(f"the workspace's {agg} evaluation", "fused_layer",
+                            MS_STEPS * NFE)
+        launches += n
+        print(f"  workspace test_agent(get_mean={N_SAMPLES}, aggregation={agg!r}): {N_ENVS} "
+              f"envs x {MS_STEPS} steps on B4 ({2 * N_SAMPLES * N_ENVS} rows per call), {n} "
+              f"B4 launches, avrg result {mg['avrg_result']:.4f}; wall {wall:.3f} s, "
+              f"{N_ENVS * MS_STEPS / wall:.1f} env-steps/s (informational; {card})")
+    return launches
+
+
+def run_sequential_on_card(agent, ws, device, card):
+    """Phase 14c: the workspace's sequential evaluation
+    (`test_agent(evaluate_sequential=True)`, `rollout_kitchen_sequential`
+    on the agent's uncached engine: the goal changes per env mid-episode,
+    so no prefix cache), N_ENVS envs x N_STEPS steps on B4, exactly
+    N_LAYERS launches per denoiser call (NFE per step), finite metrics,
+    env-steps/s. Returns the B4 launches."""
+    import torch
+
+    _require_fused_cached(agent)
+    reset_fused_counts()
+    wall, out = _workspace_eval(ws, N_STEPS, agent=agent, evaluate_multigoal=False,
+                                evaluate_sequential=True,
+                                generator=torch.Generator(device).manual_seed(61))
+    launches = expect_launches("the workspace's sequential evaluation", "fused_layer",
+                               N_STEPS * NFE)
+    print(f"  workspace test_agent(evaluate_sequential=True), {N_ENVS} envs x {N_STEPS} steps "
+          f"on B4: {launches} launches, avrg result {out['avrg_result']:.4f}; wall "
+          f"{wall:.3f} s, {N_ENVS * N_STEPS / wall:.1f} env-steps/s (informational; {card})")
+    return launches
+
+
+def check_kitchen_fidelity_on_card(device):
+    """Phase 14d: the scripted batch of tests/kitchen_scenarios.py (microwave
+    drags, kettle grasps, tracking and release), its actions found on the
+    CPU, replayed by `kitchen_step` on the card and on the CPU: states within
+    1e-5, the same grasps, and every golden band of the batch held on the
+    card's outcome. The bands on the shipped constants alone do not depend
+    on the device and are held on the CPU only
+    (tests/test_torch_kitchen_fidelity.py)."""
+    import numpy as np
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import kitchen_scenarios
+
+    script = kitchen_scenarios.script_kitchen_scenarios()
+    cpu, card = (kitchen_scenarios.replay(*script, d) for d in ("cpu", device))
+    err = max(float(np.abs(card.qpos - cpu.qpos).max()), float(np.abs(card.ee - cpu.ee).max()))
+    bands = kitchen_scenarios.kitchen_bands(card)
+    failed = [name for name, (held, _) in bands.items() if not held]
+    print(f"  {kitchen_scenarios.N_STEPS} scripted kitchen_step steps x 6 envs on the card: "
+          f"max |card - CPU| {err:.3g} over qpos and fingertip; grasps equal: "
+          f"{bool((card.grasped == cpu.grasped).all())}; {len(bands) - len(failed)} of "
+          f"{len(bands)} bands held: " + json.dumps({k: v for k, (_, v) in bands.items()}))
+    if err > 1e-5 or not (card.grasped == cpu.grasped).all():
+        fail("kitchen_step on the card left the CPU's trajectory")
+    if failed:
+        fail(f"kitchen bands left on the card: {failed}")
+
+
+def run_cli_modes(card):
+    """Phase 14e: the evaluation CLI's sampler study (`test_all_samplers`) and
+    noisy-sampler study (`compare_noisy_sampler`) on the shipped
+    `configs/evaluate_kitchen.yaml` (100 runs) with `inference_engine=
+    fused_cached`, on phase 13c's kitchen run, num_steps_per_run cut from
+    280 to CLI_STEPS: every configuration's engine from the agent's factory,
+    its denoiser calls counted, exactly N_LAYERS launches per call of B1
+    (configs the prefix cache serves) and of B4 (the others), both kernels
+    launched, finite results; prints each command's seconds. Returns the
+    launches of each kernel."""
+    import torch
+
+    from beso_tpu_torch.agents.beso_agent import BesoAgent
+    from beso_tpu_torch.models.cached import CACHED_SAFE_SAMPLERS
+    from beso_tpu_torch.scripts import evaluate
+
+    calls = {"fused_layer": [0], "fused_layer_prefix": [0]}
+    real = BesoAgent.make_denoise_factory
+
+    def factory(self, cfg, params=None):
+        make = real(self, cfg, params)
+        cached = (cfg.sampler_type in CACHED_SAFE_SAMPLERS and not cfg.s_churn
+                  and cfg.n_action_samples == 1)
+        tally = calls["fused_layer_prefix" if cached else "fused_layer"]
+        return lambda goals: counted(make(goals), tally)
+
+    repo = Path(__file__).resolve().parent
+    ev = ["--config", str(repo / "configs" / "evaluate_kitchen.yaml"),
+          f"model_store_path={repo / 'build' / 'chip_smoke_eval_kitchen'}",
+          f"num_steps_per_run={CLI_STEPS}", "test_single_variant=false",
+          "inference_engine=fused_cached"]
+    results = {}
+    BesoAgent.make_denoise_factory = factory
+    try:
+        for mode in ("test_all_samplers", "compare_noisy_sampler"):
+            for c in calls.values():
+                c[0] = 0
+            reset_fused_counts()
+            t0 = time.perf_counter()
+            out = evaluate.main([*ev, f"{mode}=true"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = fused_counts()
+            want = {k: (N_LAYERS * calls[k][0] if k in calls else 0, 0) for k in counts}
+            if counts != want or not all(c[0] for c in calls.values()):
+                fail(f"the evaluation CLI's {mode} launched {counts}, not {want} (both "
+                     f"kernels launched)")
+            vals = out["avrg_rewards"] + out["results"]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"the evaluation CLI's {mode} results are not finite")
+            print(f"  evaluate CLI, evaluate_kitchen.yaml {mode} inference_engine=fused_cached: "
+                  f"{len(out['labels'])} samplers x 100 runs x {CLI_STEPS} steps in {wall:.3f} s "
+                  f"(the command's wall, set-up included; {card}); launches "
+                  f"{ {k: v[0] for k, v in counts.items() if v[0]} }; results {json.dumps(out)}")
+            results[mode] = {"wall_s": wall, "samplers": out["labels"],
+                             "launches": {k: N_LAYERS * c[0] for k, c in calls.items()}}
+    finally:
+        BesoAgent.make_denoise_factory = real
+    print(json.dumps({"evaluation_cli_modes": results}))
+    return {k: sum(r["launches"][k] for r in results.values()) for k in calls}
+
+
 class Records:
     """In-memory metrics writer: keeps every record the trainer logs."""
 
@@ -2159,7 +2500,7 @@ def main() -> None:
     print(f"[11] ({since_start()}) shipped kitchen config (f32) from data_path files: "
           f"{MAIN_TRAIN_STEPS} train "
           f"steps, then a {N_ENVS}-env x {N_STEPS}-step multigoal evaluation on fused_cached")
-    f32_counts = run_f32_main_path(device, card)
+    f32_counts, kitchen_ws, kitchen_agent = run_f32_main_path(device, card)
 
     # ---- 12. main path: the shipped block-push config as shipped (f32) ----
     print(f"[12] ({since_start()}) shipped block-push config (f32) from data_path files: "
@@ -2183,6 +2524,31 @@ def main() -> None:
     erf_launches = run_reference_checkpoint_path(device, card, gen)
     print(f"[13c] ({since_start()}) evaluation CLI on the shipped evaluation configs")
     run_evaluation_cli(device, card)
+
+    # ---- 14. every sampler, mean/KDE, the sequential evaluation -----------
+    t14 = time.perf_counter()
+    print(f"[14a] ({since_start()}) every sampler and Picard on phase 11's f32 fused_cached "
+          f"agent's engines: B4 vs plain forward, B1 vs cached")
+    seq_launches = check_samplers_on_card(kitchen_agent, kitchen_ws, device, card)
+    print(f"[14b] ({since_start()}) mean and KDE of {N_SAMPLES} action samples: the agent's "
+          f"engine (B4), then the workspace's multigoal evaluation")
+    seq_launches["fused_layer"] += check_multi_sample_on_card(kitchen_agent, kitchen_ws,
+                                                              device, card)
+    print(f"[14c] ({since_start()}) the workspace's sequential kitchen evaluation on B4")
+    seq_launches["fused_layer"] += run_sequential_on_card(kitchen_agent, kitchen_ws, device,
+                                                          card)
+    print(f"[14d] ({since_start()}) scripted kitchen_step episodes on the card vs the CPU, "
+          f"the MuJoCo bands on the card's outcome")
+    check_kitchen_fidelity_on_card(device)
+    print(f"[14e] ({since_start()}) evaluation CLI modes test_all_samplers and "
+          f"compare_noisy_sampler, inference_engine=fused_cached")
+    for kernel, n in run_cli_modes(card).items():
+        seq_launches[kernel] += n
+    print(f"[14f] ({since_start()}) bench_picard at BESO scale (information only)")
+    from beso_tpu_torch.scripts import bench_picard
+
+    bench_picard.main(["--window", "4", "--batch", "4", "--nfe", "50", "--reps", "10"])
+    print(f"  phase 14: {time.perf_counter() - t14:.3f} s; its f32 launches {seq_launches}")
 
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash
@@ -2216,7 +2582,9 @@ def main() -> None:
     entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618", launches,
                 err, ms, plain_ms),
                ("fused_layer_prefix_f32", f32_src, "beso_tpu/ops/fused_layer.py:618",
-                f32_counts["fused_layer_prefix"], err_f32, ms_f32, plain_ms_f32)]
+                f32_counts["fused_layer_prefix"] + seq_launches["fused_layer_prefix"], err_f32,
+                ms_f32, plain_ms_f32)]
+    form_counts["fused_layer_f32"] += seq_launches["fused_layer"]
     for name, line in (("fused_layers_prefix_group", 488), ("fused_layer_with_prefix", 258),
                        ("fused_layer", 298)):
         for suffix, src in (("", layer_src), ("_f32", f32_src)):

@@ -2,7 +2,7 @@
 slicer's tail and sequence-end goals, `Trainer.restore`, the agent's
 `reset` / `predict` (JAX's action noise injected) and `visualize_ode` (JAX's
 start noise injected), the study sweep of `workspaces/base.py` with a stub
-`test_agent`, the agent and policy configs the evaluation CLI builds from
+`test_agent` (every study), the agent and policy configs the evaluation CLI builds from
 the shipped evaluation configs, and the training and evaluation CLIs end to
 end at a tiny size. Tolerance atol = rtol = 1e-5, as `test_torch_policy.py`."""
 
@@ -217,13 +217,23 @@ def test_sweep_matches_jax(tmp_path):
 @pytest.mark.parametrize("study", ["compare_sampler_types", "compare_noisy_sampler",
                                    "compare_sde_sampling", "compare_kde_vs_mean_vs_single",
                                    "compare_sampler_types_over_n_steps"])
-def test_unported_studies_raise_before_a_rollout(study):
-    _, ws = _stub_workspaces()
-    kw = {"compare_sde_sampling": dict(churn_list=[0.0, 0.5]),
-          "compare_kde_vs_mean_vs_single": dict(sampler_type="ddim")}.get(study, {})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*A(14|20)"):
-        getattr(ws, study)(None, 2, 2, **kw)
-    assert ws.calls == []
+def test_studies_match_jax(study, tmp_path):
+    """Each study that sweeps samplers, churn or the action aggregations:
+    the same test_agent calls as JAX's, the same results and files, the
+    episode counts restored."""
+    jws, ws = _stub_workspaces()
+    kw = {"compare_sde_sampling": dict(churn_list=[0.0, 0.5, 1.0], s_min=0.1),
+          "compare_kde_vs_mean_vs_single": dict(sampler_type="euler", get_mean=4),
+          "compare_sampler_types_over_n_steps": dict(steps_list=(3, 10))}.get(study, {})
+    outs = [getattr(w, study)(None, 2, 2, store_path=str(tmp_path / name), **kw)
+            for w, name in ((jws, "jax"), (ws, "port"))]
+    assert ws.calls == jws.calls and len(ws.calls) > 2
+    assert (ws.eval_n_times, ws.eval_n_steps) == (10, 20)
+    assert outs[0].keys() == outs[1].keys()
+    for k in outs[0]:
+        np.testing.assert_array_equal(np.asarray(outs[1][k]), np.asarray(outs[0][k]))
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == sorted(
+        p.name for p in (tmp_path / "jax").iterdir())
 
 
 # ---- the evaluation CLI --------------------------------------------------------------
@@ -291,8 +301,6 @@ def test_training_and_evaluate_clis_end_to_end(name, tmp_path):
     assert study["labels"] == [f"lambda={v}" for v in (0.0, 1.0, 1.5, 2.0, 2.5)]
     assert all(math.isfinite(v) for v in study["results"] + study["avrg_rewards"])
     assert (tmp_path / "cfg" / "cfg_lambda_comparison_results.npy").exists()
-    with pytest.raises(NotImplementedError, match="A14"):
-        evaluate.main([*ev, "test_all_samplers=true"])
 
 
 @pytest.mark.parametrize("name", sorted(EVAL_CONFIGS))

@@ -5,7 +5,8 @@
   `BESO_LAYER_GROUP=2`, against the JAX engines as
   `tests/test_fused_inference.py` runs them (interpret mode, env_block 8),
   atol 1e-5, rtol 1e-4;
-- the agent's fall-back to the full forward for an ineligible policy config.
+- the agent's engine for an ineligible policy config: JAX's full forward,
+  the port's B4 under `fused_cached`.
 
 The kernels' plain versions and the uncached engine are in
 `tests/test_torch_fused_engines.py`.
@@ -141,11 +142,21 @@ def _agents(engine):
 
 
 @pytest.mark.parametrize("engine", ["fused_cached", "cached"])
-def test_agent_falls_back_only_where_jax_does(engine):
-    """An ineligible policy config (churn, several action samples): the full
-    forward (None) for 'fused_cached', a ValueError for 'cached', in both
-    packages; an eligible one gives a factory in both."""
+def test_agent_falls_back_only_where_jax_does(engine, monkeypatch):
+    """An ineligible policy config (churn, several action samples): a
+    ValueError for 'cached' in both packages; for 'fused_cached' JAX's full
+    forward (None), and in the port the whole sequence on B4 (every layer
+    through `fused_layer`), equal to the plain forward. An eligible config
+    gives a factory in both."""
     jagent, agent = _agents(engine)
+    calls = [0]
+    real = tfused.fused_layer
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tfused, "fused_layer", counted)
     for a in (jagent, agent):
         assert a.make_denoise_factory(a.policy_config()) is not None
         for change in (dict(s_churn=0.5), dict(n_action_samples=2)):
@@ -153,5 +164,13 @@ def test_agent_falls_back_only_where_jax_does(engine):
             if engine == "cached":
                 with pytest.raises(ValueError):
                     a.make_denoise_factory(pcfg)
-            else:
+            elif a is jagent:
                 assert a.make_denoise_factory(pcfg) is None
+            else:
+                kw = dict(state_dim=30, action_dim=9, obs_seq_len=4, goal_seq_len=2)
+                s, act, g, sig = make_inputs(kw, B=3, seed=53)
+                calls[0] = 0
+                got = a.make_denoise_factory(pcfg)(t(g))(t(s), t(act), t(g), t(sig))
+                assert calls[0] == a.cfg.n_layers
+                ref = a.make_denoise_fn()(t(s), t(act), t(g), t(sig))
+                np.testing.assert_allclose(got.numpy(), ref.numpy(), **ENGINE_TOL)

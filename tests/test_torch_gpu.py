@@ -9,7 +9,10 @@ its timed entry), B2 (layer group), B3 (one selected prefix row) and B4
 bit for bit where they compute the same thing, in f32 also at batches that
 leave the last 2-block cluster's second block empty, and the f32 phase
 clock; their erf GELU forms, and the engines of an erf model; the three
-fused engines of an f32 model against the plain f32 engines within 2^-10. Marked `gpu`:
+fused engines of an f32 model against the plain f32 engines within 2^-10;
+every sampler and Picard through `policy_predict` on B4 against the plain
+forward, and the grid samplers on `fused_cached` against `cached`; the
+scripted kitchen steps of `kitchen_scenarios.py` against the CPU. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -592,3 +595,107 @@ def test_erf_model_engines_launch_erf_kernels(dtype):
     n = 3 * 2
     assert [(w.launches, w.erf_launches) for w in (fl.fused_layer_prefix, fl.fused_layer)] == [
         (c[0] + n, c[1] + n) for c in counts]
+
+
+def _policy_setup(dev):
+    """A small f32 kitchen-layout model on the card, a scaler, 6 envs' goals
+    and W+1 observations."""
+    from beso_tpu_torch.models import DiffusionGPT, GCDenoiser, fit_scaler
+
+    rng = np.random.RandomState(44)
+    model = DiffusionGPT(state_dim=30, action_dim=9, embed_dim=96, n_layers=2, n_heads=2,
+                         goal_seq_len=2, obs_seq_len=4, dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    scaler = fit_scaler(rng.randn(64, 30), rng.randn(64, 9), False, device=dev)
+    goals = torch.as_tensor(rng.randn(6, 2, 30).astype(np.float32)).to(dev)
+    obs_seq = [torch.as_tensor(rng.randn(6, 30).astype(np.float32)).to(dev) for _ in range(5)]
+    return GCDenoiser(model, sigma_data=0.5), scaler, goals, obs_seq
+
+
+def _window(dn, scaler, cfg, goals, obs_seq, dev):
+    from beso_tpu_torch.agents.policy import policy_predict, policy_reset
+
+    gen = torch.Generator(dev).manual_seed(3)
+    state, acts = policy_reset(goals.shape[0], cfg, dev), []
+    for obs in obs_seq:
+        a, state = policy_predict(dn, scaler, state, obs, goals, gen, cfg)
+        acts.append(a)
+    return torch.stack(acts)
+
+
+@pytest.mark.gpu
+def test_every_sampler_on_b4_matches_plain_forward():
+    """chip_smoke.py phase 14a's uncached engine at 6 envs: a W+1-step
+    policy window (lambda=1.5 CFG) for every sampler and Picard on B4
+    against the plain forward, within 2^-10 of max |ref|, the same
+    generator seed, exactly 2 B4 launches per denoiser call."""
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.models import make_fused_denoise_fn
+    from beso_tpu_torch.sampling.samplers import SAMPLERS
+
+    dev = _cuda()
+    den, scaler, goals, obs_seq = _policy_setup(dev)
+    b4 = make_fused_denoise_fn(den)
+    for name in SAMPLERS + ("picard",):
+        cfg = PolicyConfig(window_size=4, obs_dim=30, action_dim=9, sampler_type=name,
+                           cond_lambda=1.5)
+        calls = [0]
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return b4(*a, **kw)
+
+        before = fl.fused_layer.launches
+        got = _window(counted, scaler, cfg, goals, obs_seq, dev)
+        ref = _window(den, scaler, cfg, goals, obs_seq, dev)
+        torch.cuda.synchronize()
+        assert fl.fused_layer.launches - before == 2 * calls[0], name
+        assert _close(got, ref, 2 ** -10), name
+
+
+@pytest.mark.gpu
+def test_grid_samplers_on_fused_cached_match_cached():
+    """chip_smoke.py phase 14a's cached engines at 6 envs: the grid samplers
+    (ddim, euler, dpmpp_2m, lms) on `fused_cached` (B1) against the plain
+    `cached` engine, within 2^-10 of max |ref|, exactly 2 B1 launches per
+    denoiser call."""
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.models import make_rollout_denoise_factory
+    from beso_tpu_torch.models.cached import CACHED_SAFE_SAMPLERS
+
+    dev = _cuda()
+    den, scaler, goals, obs_seq = _policy_setup(dev)
+    for name in CACHED_SAFE_SAMPLERS:
+        cfg = PolicyConfig(window_size=4, obs_dim=30, action_dim=9, sampler_type=name,
+                           cond_lambda=1.5)
+        fused, plain = (make_rollout_denoise_factory(den, scaler, cfg, engine=e)(goals)
+                        for e in ("fused_cached", "cached"))
+        calls = [0]
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return fused(*a, **kw)
+
+        before = fl.fused_layer_prefix.launches
+        got = _window(counted, scaler, cfg, goals, obs_seq, dev)
+        ref = _window(plain, scaler, cfg, goals, obs_seq, dev)
+        torch.cuda.synchronize()
+        assert fl.fused_layer_prefix.launches - before == 2 * calls[0], name
+        assert _close(got, ref, 2 ** -10), name
+
+
+@pytest.mark.gpu
+def test_scripted_kitchen_steps_on_card_match_cpu():
+    """chip_smoke.py phase 14d: the scripted batch of `kitchen_scenarios`
+    (microwave drags, kettle grasps, tracking and release; actions found on
+    the CPU) replayed by `kitchen_step` on the card: states within 1e-5 of
+    the CPU's, the same grasps, and every golden band held on the card."""
+    import kitchen_scenarios
+
+    script = kitchen_scenarios.script_kitchen_scenarios()
+    cpu, card = (kitchen_scenarios.replay(*script, d) for d in ("cpu", _cuda()))
+    np.testing.assert_allclose(card.qpos, cpu.qpos, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card.ee, cpu.ee, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(card.grasped, cpu.grasped)
+    bands = kitchen_scenarios.kitchen_bands(card)
+    assert all(held for held, _ in bands.values()), bands

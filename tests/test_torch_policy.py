@@ -1,21 +1,17 @@
-"""DDIM and `policy_predict` against `beso_tpu`, with the JAX action noise
-injected into the port through its one noise-drawing helper."""
+"""DDIM, `policy_predict` (one sample per step, lambda 1 and 1.5) and the
+KDE selection against `beso_tpu`, with the JAX action noise injected into
+the port through its noise-drawing helper; the Picard bench CLI on the
+CPU. `test_torch_policy_options.py` holds the other policy options."""
 
-import dataclasses
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import TOL, make_models, t
+from torch_parity import TOL, check_policy_against_jax, t
 
 import beso_tpu_torch.agents.policy as tpolicy
 from beso_tpu.agents import policy as jpolicy
-from beso_tpu.models.scaler import fit_scaler as jax_fit
 from beso_tpu.sampling.samplers import sample_ddim as jax_ddim
-from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
-from beso_tpu_torch.models.scaler import fit_scaler
 from beso_tpu_torch.sampling.samplers import sample_ddim, sample_loop
 
 GRID = np.asarray([1.0, 0.3, 0.05, 0.0], np.float32)
@@ -38,9 +34,9 @@ def test_ddim_matches_jax():
     assert clip.abs().max() <= 0.2
 
 
-@pytest.mark.parametrize("name", ["euler", "heun", "dpmpp_2m", "no_such"])
+@pytest.mark.parametrize("name", ["no_such"])
 def test_other_samplers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="desired sampler type not found"):
         sample_loop(name, lambda v, s: v, torch.zeros(2, 3), GRID)
 
 
@@ -48,45 +44,25 @@ def test_other_samplers_raise(name):
 def test_policy_predict_matches_jax(cond_lambda, monkeypatch):
     """W+2 steps: the window fills, then rolls; actions, buffers and
     counts agree each step."""
-    _, jden, params, tden = make_models(seed=12)
-    data = synthetic_kitchen_data(n_traj=8, t_max=30, seed=3)
-    obs_all, act_all = data.all_observations(), data.all_actions()
-    jscaler, scaler = jax_fit(obs_all, act_all, False), fit_scaler(obs_all, act_all, False)
-    kw = dict(window_size=4, obs_dim=30, action_dim=9, num_sampling_steps=3,
-              cond_lambda=cond_lambda)
-    jcfg, cfg = jpolicy.PolicyConfig(**kw), tpolicy.PolicyConfig(**kw)
-    B = 6
-    rng = np.random.RandomState(4)
-    goal = rng.randn(B, 2, 30).astype(np.float32)
-    noise = {}
-    monkeypatch.setattr(tpolicy, "action_noise",
-                        lambda b, a, gen, dev: t(noise["now"]))
-
-    def jdn(s, a, g, sig):
-        return jden.apply(params, s, a, g, sig)
-
-    jstate, state = jpolicy.policy_reset(B, jcfg), tpolicy.policy_reset(B, cfg)
-    for step in range(cfg.window_size + 2):
-        obs = rng.randn(B, 30).astype(np.float32)
-        key = jax.random.PRNGKey(100 + step)
-        noise["now"] = np.asarray(jax.random.normal(key, (B, 9)))
-        jact, jstate = jpolicy.policy_predict(jdn, jscaler, jstate, jnp.asarray(obs),
-                                              jnp.asarray(goal), key, jcfg)
-        act, state = tpolicy.policy_predict(tden, scaler, state, t(obs), t(goal),
-                                            None, cfg)
-        np.testing.assert_allclose(act.numpy(), np.asarray(jact), **TOL)
-        for name in ("obs_buf", "act_buf"):
-            np.testing.assert_allclose(getattr(state, name).numpy(),
-                                       np.asarray(getattr(jstate, name)), **TOL)
-        np.testing.assert_array_equal(state.count.numpy(), np.asarray(jstate.count))
+    check_policy_against_jax(dict(cond_lambda=cond_lambda), monkeypatch)
 
 
-@pytest.mark.parametrize("change", [dict(n_action_samples=2),
-                                    dict(sampler_type="picard")])
-def test_policy_unported_options_raise(change):
-    cfg = dataclasses.replace(
-        tpolicy.PolicyConfig(window_size=2, obs_dim=3, action_dim=2), **change)
-    scaler = fit_scaler(np.zeros((4, 3)), np.ones((4, 2)), False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpolicy.policy_predict(lambda *a: a[1], scaler, tpolicy.policy_reset(2, cfg),
-                               torch.zeros(2, 3), torch.zeros(2, 1, 3), None, cfg)
+def test_kde_select_matches_jax():
+    """The max-density candidate with the population std bandwidth, on
+    candidate sets with a clear mode and a spread one."""
+    rng = np.random.RandomState(5)
+    cands = rng.randn(6, 5, 3).astype(np.float32)
+    cands[:3, :3] = cands[:3, :1] + 0.01 * rng.randn(3, 3, 3).astype(np.float32)
+    got = tpolicy._kde_select(t(cands))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jpolicy._kde_select(cands)))
+
+
+def test_bench_picard_runs_on_the_cpu():
+    """`python -m beso_tpu_torch.scripts.bench_picard --device cpu` at a tiny
+    grid: its JSON record, every time positive."""
+    from beso_tpu_torch.scripts import bench_picard
+
+    out = bench_picard.main(["--device", "cpu", "--window", "4", "--batch", "2", "--nfe", "3",
+                             "--reps", "1"])
+    assert (out["device"], out["tokens"], out["nfe"]) == ("cpu", 11, 3)
+    assert all(out[k] > 0 for k in ("sequential_ddim_ms", "picard_k7_ms", "picard_k12_ms"))

@@ -78,6 +78,23 @@ def t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a))
 
 
+def inject_sampler_draws(monkeypatch, key, name: str = "euler"):
+    """Replace the port's `sampler_noise` by the JAX package's draws for
+    sampler `name`: step i draws `normal(fold_in(key, i))`, split in two
+    (parts 0 and 1) where `sample_dpmpp_sde` splits."""
+    import beso_tpu_torch.sampling.samplers as tsamplers
+
+    split = name in ("dpmpp_sde", "dpmpp_2m_sde")
+
+    def noise(x, generator, step, part=0):
+        k = jax.random.fold_in(key, step)
+        if split:
+            k = jax.random.split(k)[part]
+        return t(np.asarray(jax.random.normal(k, tuple(x.shape))))
+
+    monkeypatch.setattr(tsamplers, "sampler_noise", noise)
+
+
 def layer_weights(D: int, seed: int) -> dict:
     """One block's weights in flax orientation ([in, out]) as numpy, under
     `Block.weights()`'s names."""
@@ -162,3 +179,58 @@ def smooth_block_push_hashes(monkeypatch):
 
     monkeypatch.setattr(jenv, "_hash_noise", jax_hash)
     monkeypatch.setattr(tenv, "_hash_noise", torch_hash)
+
+
+def check_policy_against_jax(policy_kw: dict, monkeypatch, B: int = 6,
+                             on_a_line: bool = False):
+    """`policy_predict` of both packages for W+2 steps from the same
+    states on `make_models(seed=12)`, the JAX one jitted: actions, buffers
+    and counts agree each step. Each step's key draws the action noise of
+    all B x n rows and the sampler's draws, which the port is handed
+    through `action_noise` and `sampler_noise`.
+
+    `on_a_line` averages the denoiser's output over the action dims, so
+    that the candidates lie on a line: in 9 dims, n random candidates are
+    far apart against the KDE bandwidth, each density is 1 plus terms near
+    the float32 epsilon, and the two members of the closest pair tie up to
+    rounding; on a line the densities differ by ~1e-3."""
+    from beso_tpu.agents import policy as jpolicy
+    from beso_tpu.models.scaler import fit_scaler as jax_fit
+    from beso_tpu_torch.agents import policy as tpolicy
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.models.scaler import fit_scaler
+
+    _, jden, params, tden = make_models(seed=12)
+    data = synthetic_kitchen_data(n_traj=8, t_max=30, seed=3)
+    obs_all, act_all = data.all_observations(), data.all_actions()
+    jscaler, scaler = jax_fit(obs_all, act_all, False), fit_scaler(obs_all, act_all, False)
+    kw = {**dict(window_size=4, obs_dim=30, action_dim=9, num_sampling_steps=3), **policy_kw}
+    jcfg, cfg = jpolicy.PolicyConfig(**kw), tpolicy.PolicyConfig(**kw)
+    rng = np.random.RandomState(4)
+    goal = rng.randn(B, 2, 30).astype(np.float32)
+    noise = {}
+    monkeypatch.setattr(tpolicy, "action_noise", lambda b, a, gen, dev: t(noise["now"]))
+
+    def jdn(s, a, g, sig):
+        out = jden.apply(params, s, a, g, sig)
+        return jnp.broadcast_to(out.mean(-1, keepdims=True), out.shape) if on_a_line else out
+
+    def tdn(s, a, g, sig):
+        out = tden(s, a, g, sig)
+        return out.mean(-1, keepdim=True).expand(out.shape) if on_a_line else out
+
+    jstep = jax.jit(lambda st, o, k: jpolicy.policy_predict(jdn, jscaler, st, o,
+                                                            jnp.asarray(goal), k, jcfg))
+    jstate, state = jpolicy.policy_reset(B, jcfg), tpolicy.policy_reset(B, cfg)
+    for step in range(cfg.window_size + 2):
+        obs = rng.randn(B, 30).astype(np.float32)
+        key = jax.random.PRNGKey(100 + step)
+        noise["now"] = np.asarray(jax.random.normal(key, (B * cfg.n_action_samples, 9)))
+        inject_sampler_draws(monkeypatch, key, cfg.sampler_type)
+        jact, jstate = jstep(jstate, jnp.asarray(obs), key)
+        act, state = tpolicy.policy_predict(tdn, scaler, state, t(obs), t(goal), None, cfg)
+        np.testing.assert_allclose(act.numpy(), np.asarray(jact), **TOL)
+        for name in ("obs_buf", "act_buf"):
+            np.testing.assert_allclose(getattr(state, name).numpy(),
+                                       np.asarray(getattr(jstate, name)), **TOL)
+        np.testing.assert_array_equal(state.count.numpy(), np.asarray(jstate.count))
