@@ -17,5 +17,9 @@ the flash-attention kernels B5/B6 in `ops/flash_attention.py` and
 `csrc/flash_attention.cu`, the EDM loss, the slicer, the trainer,
 checkpoints, the agent, the kitchen workspace and the training CLI) and
 the dataset loaders and writers behind the workspace's `data_path`, Block
-Push, and the evaluation CLI with every study.
+Push, the evaluation CLI with every study, and the vision slice: both
+scripted oracles with `scripts/generate_demos.py` and
+`scripts/demo_census.py`, both ray-cast cameras, the vision modules and
+policies on `VisionDiffusionGPT`, the encoder pretraining and graft,
+`agents/encoders.py` and `scripts/validate_vision_e2e.py`.
 """

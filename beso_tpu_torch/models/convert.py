@@ -1,4 +1,4 @@
-"""Carry DiffusionGPT weights between the flax tree and the torch module.
+"""Carry model weights between the flax tree and the torch module.
 
 No JAX counterpart: this is the hand-off that lets both packages compute
 with the same weights, in both directions: `params_from_jax` loads a flax
@@ -7,14 +7,18 @@ back under the flax names (to compare trained weights leaf by leaf). Trees
 are numpy arrays (for example `jax.tree.map(np.asarray, params)`), so this
 module imports no JAX.
 
-Names map one to one: `block_{i}/{ln1,attn/qkv,attn/proj,ln2,fc,fc_proj}`,
+DiffusionGPT names map one to one: `block_{i}/{ln1,attn/qkv,attn/proj,ln2,fc,fc_proj}`,
 `ln_f`, `sigma_emb`, `tok_emb`, `goal_emb`, `action_emb`, `pos_emb`, and
 `action_pred` or `action_pred_fc`/`action_pred_out`. A sigma embedding of
 another kind than "Linear" is the flax submodule `{class name}_0`
 (models/embeddings.py), its Denses `Dense_0`, `Dense_1`, FourierFeatures'
 `weight`, and GaussianFourier's fixed projection the "constants" leaf
-`GaussianFourierProjection_0/W`. Flax Dense kernels are [in, out]; torch
-Linear weights are [out, in].
+`GaussianFourierProjection_0/W`. The vision models: ConvImageEncoder's
+`Conv_{i}` and `Dense_0`; a vision policy's `encoder` and
+`VisionDiffusionGPT_0` (a DiffusionGPT tree); StateRegressionNet's
+`encoder`, `head_hidden` and `head_out`. Flax Dense kernels are [in, out]
+and torch Linear weights [out, in]; flax Conv kernels are [kh, kw, in, out]
+and torch Conv2d weights [out, in, kh, kw].
 """
 
 from __future__ import annotations
@@ -42,6 +46,11 @@ def _dense(lin: nn.Linear, tree: Mapping[str, Any]) -> None:
 def _norm(ln: nn.LayerNorm, tree: Mapping[str, Any]) -> None:
     _copy(ln.weight, tree["scale"])
     _copy(ln.bias, tree["bias"])
+
+
+def _conv(conv: nn.Conv2d, tree: Mapping[str, Any]) -> None:
+    _copy(conv.weight, np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+    _copy(conv.bias, tree["bias"])
 
 
 def embedding_entries(emb, prefix=()):
@@ -103,6 +112,29 @@ def _named_modules(model):
     return out
 
 
+def _prefixed(prefix: str, entries):
+    return [((prefix,) + path, mod, kind) for path, mod, kind in entries]
+
+
+def model_entries(model):
+    """(flax path, torch module or tensor, kind) of every parameterised
+    layer of a DiffusionGPT, a ConvImageEncoder, either vision policy or a
+    StateRegressionNet, under the flax module names."""
+    from beso_tpu_torch.models import pretrain, vision_policy as vp
+
+    if isinstance(model, vp.ConvImageEncoder):
+        return ([((f"Conv_{i}",), conv, "conv") for i, conv in enumerate(model.convs)]
+                + [(("Dense_0",), model.dense, "dense")])
+    if isinstance(model, (vp.VisionPolicyGPT, vp.KitchenVisionPolicyGPT)):
+        return (_prefixed("encoder", model_entries(model.encoder))
+                + _prefixed("VisionDiffusionGPT_0", model_entries(model.inner)))
+    if isinstance(model, pretrain.StateRegressionNet):
+        return (_prefixed("encoder", model_entries(model.encoder))
+                + [(("head_hidden",), model.head_hidden, "dense"),
+                   (("head_out",), model.head_out, "dense")])
+    return [(("pos_emb",), model.pos_emb, "param"), *_named_modules(model)]
+
+
 def params_to_numpy_tree(model, params=None) -> dict:
     """The torch model's weights (or `params`, a name -> tensor dict such as
     the EMA shadow, in `model.named_parameters()` names; buffers from the
@@ -116,12 +148,15 @@ def params_to_numpy_tree(model, params=None) -> dict:
         return values[names[id(t)]].detach().float().cpu().numpy()
 
     trees: dict = {}
-    for path, mod, kind in [(("pos_emb",), model.pos_emb, "param"), *_named_modules(model)]:
+    for path, mod, kind in model_entries(model):
         node = trees.setdefault("constants" if kind == "const" else "params", {})
         for part in path[:-1]:
             node = node.setdefault(part, {})
         if kind == "dense":
             node[path[-1]] = {"kernel": get(mod.weight).T, "bias": get(mod.bias)}
+        elif kind == "conv":
+            node[path[-1]] = {"kernel": get(mod.weight).transpose(2, 3, 1, 0),
+                              "bias": get(mod.bias)}
         elif kind == "norm":
             node[path[-1]] = {"scale": get(mod.weight), "bias": get(mod.bias)}
         else:
@@ -142,6 +177,8 @@ def entries_from_jax(flax_params: Mapping[str, Any], entries) -> None:
                 node = node[part]
             if kind == "dense":
                 _dense(mod, node)
+            elif kind == "conv":
+                _conv(mod, node)
             elif kind == "norm":
                 _norm(mod, node)
             else:
@@ -149,8 +186,7 @@ def entries_from_jax(flax_params: Mapping[str, Any], entries) -> None:
 
 
 def params_from_jax(flax_params: Mapping[str, Any], model) -> None:
-    """Copy a flax DiffusionGPT tree (numpy leaves, the variables
-    {"params": ..., "constants": ...} or the bare params tree) into `model`
-    in place."""
-    entries_from_jax(flax_params, [(("pos_emb",), model.pos_emb, "param"),
-                                   *_named_modules(model)])
+    """Copy a flax tree (numpy leaves, the variables {"params": ...,
+    "constants": ...} or the bare params tree) of a model of
+    `model_entries` into `model` in place."""
+    entries_from_jax(flax_params, model_entries(model))

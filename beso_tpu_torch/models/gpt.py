@@ -368,3 +368,14 @@ class DiffusionGPT(nn.Module):
         x = layer_norm(x, self.ln_f.weight, self.ln_f.bias, self.dtype)
         x = x[:, G + 1:].reshape(B, T, 2, self.embed_dim)[:, :, 1]
         return self.head(x)
+
+
+class VisionDiffusionGPT(DiffusionGPT):
+    """DiffusionGPT whose goals, image embeddings, get their own `goal_emb`
+    (score_gpts.py:377-642; `beso_tpu/models/gpt.py:286-294`); `goal_dim`
+    defaults to state_dim - 14."""
+
+    def __init__(self, state_dim: int, *args, goal_dim: Optional[int] = None, **kwargs):
+        super().__init__(state_dim, *args,
+                         goal_dim=state_dim - 14 if goal_dim is None else goal_dim,
+                         **kwargs)

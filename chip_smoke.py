@@ -149,7 +149,8 @@ exits non-zero on failure:
    `beso_tpu_torch.scripts.evaluate` with `configs/evaluate_kitchen.yaml` as
    shipped (100 runs x 280 steps) and its CFG study at 5 lambdas x 40 steps;
    the same for `configs/block_push.yaml` (phase 12's files) and
-   `configs/evaluate_blocks.yaml` (100 x 300): the agent's "auto" engine,
+   `configs/evaluate_blocks.yaml` (100 runs, 300 steps cut to 100; its CFG
+   study at 20 steps): the agent's "auto" engine,
    the plain cached one, so no fused-layer launch; env-steps/s over each
    command's wall time and finite metrics printed;
 14. every sampler, the mean and KDE action selection and the sequential
@@ -179,7 +180,31 @@ exits non-zero on failure:
    cut from 280) with `inference_engine=fused_cached`: exactly 6 B1 or B4
    launches per denoiser call, both kernels launched, the command's
    seconds; (f) `bench_picard` at
-   BESO scale (window 4, batch 4, 50 NFE), information only.
+   BESO scale (window 4, batch 4, 50 NFE), information only;
+15. the vision path, at the scripts' widths (no kernel on it: the vision
+   models run the plain forward, as the JAX package's do): (a)
+   `generate_demos` through its CLI on the card, 1024 episodes of block
+   push (160 steps) and of kitchen (280 steps): the files read back by the
+   port's loaders equal the oracle's rollout, and the JAX tests' bands hold
+   on the card's outcome (tests/test_oracle.py: both blocks done in >= 90%
+   of the episodes, >= 1.5 labels per episode, actions within the cap;
+   tests/test_kitchen_oracle.py: >= 3.8 of 4 assigned tasks); seconds and
+   env-steps/s of each command; (b) both cameras at 128 x 128 on 1024 demo
+   frames (block push RGB and masks, kitchen RGB), the card against the
+   port's CPU render of the same observations: all but 0.5% of the pixels
+   within 1e-5; ms per 1536-frame batch (one batch-256 train step's frames)
+   and its peak memory; (c) both vision policies at full width, batch 64 of
+   demo windows: the f32 loss and every gradient on the card against the
+   CPU with the same weights, sigma and noise (both encode the CPU's
+   renders), within 2^-10 of max |ref|; the bf16 forward against the f32
+   one (2^-5); (d) `validate_vision_e2e` through its CLI (128 px, batch
+   256, embed 48, 1024 episodes, bf16), block push with 50 pretraining
+   steps, then kitchen, train steps cut from 20,000 to 200 and the 100-env
+   evaluation from 300 / 280 steps to 60: the JSON line parses and is
+   finite; train steps/s, peak memory, demo seconds, evaluation
+   env-steps/s; (e) torch.profiler over three block-push vision train steps
+   at batch 256: device time by kernel family and the idle share
+   (information).
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
@@ -224,6 +249,23 @@ ERF_ROLLOUT_STEPS = 40  # phase 13b's rollout of the erf model (280 cut to 40)
 # cut to 100 since phase 13 came, to hold the run near half its time limit), layers
 BP_STEPS, BP_LAYERS = 100, 4
 BP_PHYSICS_STEPS = 30   # phase 12's second, instrumented evaluation (300 cut to 30)
+# phase 13c's block-push evaluation CLI, cut since phase 15 came (to hold the
+# cold run near 900 s): evaluate_blocks.yaml's num_steps_per_run 300 cut to
+# 100, and its CFG study's 40 steps to 20; the kitchen one stays as shipped
+CLI_BP_STEPS, CLI_CFG_STEPS = 100, {"kitchen": 40, "block_push": 20}
+# phase 15, the vision path: generate_demos at validate_vision_e2e's 1024
+# episodes (--episodes; each env's default --steps, 160 and 280), the
+# cameras held on RENDER_FRAMES frames and timed on one batch-256 train
+# step's frames, 256 x (5 + 1), the vision gradients at VISION_GRAD_BATCH,
+# and validate_vision_e2e at its own widths with its step counts cut
+DEMO_EPISODES = 1024
+RENDER_FRAMES, RENDER_BATCH, VISION_GRAD_BATCH = 1024, 1536, 64
+VISION_PROFILE_BATCH = 256   # 15e: the script's --batch-size
+VISION_TRAIN_STEPS = 200     # --train-steps: 20,000, cut to 200
+VISION_EVAL_STEPS = 60       # its evaluation: 300 (block push) and 280 (kitchen) steps, cut to 60
+VISION_PRETRAIN_STEPS = 50   # --pretrain-steps of the block-push run
+PIXEL_TOL, PIXEL_SHARE = 1e-5, 0.005   # images: all but 0.5% of pixels within 1e-5
+VISION_GRAD_FRACTION = 2.0 ** -10      # the f32 vision loss and gradients, card vs CPU
 # a serving layer's (D, heads, prefix tokens P, suffix tokens 2T)
 KITCHEN_LAYER = (360, 6, 3, 8)      # sigma + 2 goal tokens, window 4
 BLOCK_PUSH_LAYER = (240, 12, 2, 10)  # sigma + 1 goal token, window 5; hd 20
@@ -1745,8 +1787,9 @@ def run_evaluation_cli(device, card):
     """Phase 13c: for each shipped evaluation config, the training CLI on its
     model config for MAIN_TRAIN_STEPS steps from phase 11's or 12's data
     files (the final evaluation cut to 8 envs x 3 steps), then
-    `beso_tpu_torch.scripts.evaluate` with the evaluation config as shipped,
-    then its CFG study at 5 lambdas x 40 steps; the fused-layer counters set
+    `beso_tpu_torch.scripts.evaluate` with the evaluation config as shipped
+    (block push: its steps cut to CLI_BP_STEPS), then its CFG study at 5
+    lambdas x CLI_CFG_STEPS steps; the fused-layer counters set
     to 0 before each evaluation and read after (the "auto" engine is the
     plain cached one: none may launch). Prints env-steps/s over each
     command's wall time, set-up included, and the metrics, which must be
@@ -1777,10 +1820,11 @@ def run_evaluation_cli(device, card):
               f"avrg_reward {res['avrg_reward']:.4f}")
         ev = ["--config", str(repo / "configs" / eval_yaml), f"model_store_path={run}"]
         for study, extra, n_cfg in (
-                ("single variant", [], 1),
+                ("single variant",
+                 [f"num_steps_per_run={CLI_BP_STEPS}"] if name == "block_push" else [], 1),
                 ("CFG study", ["test_single_variant=false",
                                "compare_classifier_free_guidance=true",
-                               "num_steps_per_run=40"], 5)):
+                               f"num_steps_per_run={CLI_CFG_STEPS[name]}"], 5)):
             eval_cfg = load_config(ev[1], extra)
             n_runs, n_steps = eval_cfg["num_runs"], eval_cfg["num_steps_per_run"]
             reset_fused_counts()
@@ -2122,6 +2166,318 @@ class Records:
 
     def log(self, metrics, step=None):
         self.rows.append({"_time": time.perf_counter(), "_step": step, **metrics})
+
+
+# ---- phase 15: the vision path ------------------------------------------------
+
+def _recording(module, name, store):
+    """Replace `module.name` by a wrapper that keeps each call's result and
+    wall seconds (after a device sync) in `store[name]`; returns the undo."""
+    import torch
+
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        store.setdefault(name, []).append((out, time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, real)
+
+
+def run_demo_generation(card):
+    """Phase 15a: `generate_demos` through its CLI on the card, block push
+    (DEMO_EPISODES x 160 steps) and kitchen (x 280): the files read back by
+    the port's loaders equal the oracle's rollout; the JAX tests' bands on
+    the card's outcome (tests/test_oracle.py: both blocks done in >= 90% of
+    the episodes, >= 1.5 labels per episode, actions within the env's cap;
+    tests/test_kitchen_oracle.py: >= 3.8 of the 4 assigned tasks); seconds
+    and env-steps/s of each command. Returns {env: observations [N, T, D]}."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.data.trajectories import load_multimodal_push, load_relay_kitchen
+    from beso_tpu_torch.envs.block_push import oracle as bp_oracle
+    from beso_tpu_torch.envs.kitchen import oracle as k_oracle
+    from beso_tpu_torch.scripts import generate_demos
+
+    out_obs = {}
+    for env, steps, module, fn in (("block_push", 160, bp_oracle, "rollout_oracle"),
+                                   ("kitchen", 280, k_oracle, "rollout_kitchen_oracle")):
+        runs = {}
+        undo = _recording(module, fn, runs)
+        out = Path("build") / f"chip_smoke_demos_{env}"
+        t0 = time.perf_counter()
+        try:
+            generate_demos.main(["--env", env, "--out", str(out), "--episodes",
+                                 str(DEMO_EPISODES), "--seed", "0"])
+        finally:
+            undo()
+        secs = time.perf_counter() - t0
+        rollout, _ = runs[fn][0]
+        obs, act = rollout[0].cpu().numpy(), rollout[1].cpu().numpy()
+        data = (load_multimodal_push(out, onehot_goals=True, reduce_obs_dim=False)
+                if env == "block_push" else load_relay_kitchen(out, onehot_goals=True))
+        if data.observations.shape != obs.shape or not np.array_equal(data.observations, obs):
+            fail(f"{env} demos read back from {out} differ from the oracle's rollout")
+        if not np.isfinite(obs).all():
+            fail(f"{env} demos not finite")
+        labels = float(data.onehot_goals.sum((1, 2)).mean())
+        if env == "block_push":
+            both = float((rollout[2].sum(1) >= 2).float().mean())
+            cap = float(np.abs(act).max())
+            band = f"both blocks done in {both:.4f} of the episodes (>= 0.9), " \
+                   f"{labels:.3f} labels per episode (>= 1.5), max |action| {cap:.4f} (<= 0.1)"
+            ok = both >= 0.9 and labels >= 1.5 and cap <= 0.1 + 1e-6
+        else:
+            completed, seqs = rollout[2].cpu().numpy(), rollout[4].cpu().numpy()
+            assigned = float(np.mean([completed[i, s[s >= 0]].sum()
+                                      for i, s in enumerate(seqs)]))
+            band = f"{assigned:.4f} of 4 assigned tasks done (>= 3.8), {labels:.3f} labels " \
+                   f"per episode"
+            ok = assigned >= 3.8
+        print(f"  {env}: {DEMO_EPISODES} episodes x {steps} steps in {secs:.3f} s of command "
+              f"time ({DEMO_EPISODES * steps / secs:,.1f} env-steps/s; rollout "
+              f"{runs[fn][0][1]:.3f} s), read back equal; {band} ({card})")
+        if not ok:
+            fail(f"{env} oracle demos outside the JAX tests' bands")
+        out_obs[env] = obs
+    return out_obs
+
+
+def _pixel_share(what, got, ref):
+    bad = ((got - ref).abs() > PIXEL_TOL).any(-1)
+    share = bad.float().mean().item()
+    print(f"  {what}: {int(bad.sum())} of {bad.numel()} pixels off by > {PIXEL_TOL} "
+          f"({100 * share:.4f}%; max {(got - ref).abs().max().item():.3g})")
+    if share > PIXEL_SHARE:
+        fail(f"{what}: {share:.4f} of the pixels differ from the CPU's")
+
+
+def check_cameras_on_card(device, card, demo_obs):
+    """Phase 15b: both cameras at 128 x 128 on RENDER_FRAMES demo frames,
+    the card's render against the port's CPU render of the same
+    observations by pixel share (block push RGB and masks, kitchen RGB);
+    then ms per RENDER_BATCH-frame batch on the card (CUDA events) and the
+    peak memory of one."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.envs.block_push.camera import render_obs_masks, render_obs_rgb
+    from beso_tpu_torch.envs.kitchen.camera import render_kitchen_obs_rgb
+
+    rng = np.random.RandomState(15)
+    cams = (("block_push", "rgb", render_obs_rgb), ("block_push", "masks", render_obs_masks),
+            ("kitchen", "rgb", render_kitchen_obs_rgb))
+    for env, what, render in cams:
+        flat = demo_obs[env].reshape(-1, demo_obs[env].shape[-1])
+        frames = torch.as_tensor(flat[rng.choice(len(flat), RENDER_BATCH, replace=False)])
+        with torch.no_grad():
+            got = render(frames[:RENDER_FRAMES].to(device), 128, 128).cpu()
+            ref = render(frames[:RENDER_FRAMES], 128, 128)
+            _pixel_share(f"{env} {what}, {RENDER_FRAMES} frames, card vs CPU", got, ref)
+            batch = frames.to(device)
+            ms = time_ms(lambda: render(batch, 128, 128), 5, device)
+            torch.cuda.reset_peak_memory_stats()
+            render(batch, 128, 128)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {env} {what}: {ms:.3f} ms per {RENDER_BATCH}-frame batch at 128 x 128, "
+              f"peak {peak:.2f} GiB ({card})")
+
+
+def _vision_models(kind, dtype, device, seed=0):
+    """A vision policy at the script's widths (128 px, embed 48, encoder
+    (24, 48, 64); block push 4 x 240 x 12 heads, kitchen 6 x 360 x 6), no
+    dropout and no goal masking, so that a train-mode loss draws nothing."""
+    import torch
+
+    from beso_tpu_torch.models.vision_policy import KitchenVisionPolicyGPT, VisionPolicyGPT
+
+    cls = VisionPolicyGPT if kind == "block_push" else KitchenVisionPolicyGPT
+    return cls(attn_pdrop=0.0, resid_pdrop=0.0, dtype=dtype,
+               generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def check_vision_grads_on_card(device, card, demo_obs):
+    """Phase 15c: both vision policies at full width, batch
+    VISION_GRAD_BATCH of demo windows: the f32 EDM loss and every gradient
+    on the card against the CPU with the same weights, sigma and noise,
+    within VISION_GRAD_FRACTION of max |ref| (both sides encode the CPU's
+    renders, so this holds the encoder and the GPT; 15b holds the renders);
+    then the bf16 policy's forward against the f32 one on the card
+    (ERR_FRACTION)."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.models.denoiser import GCDenoiser
+
+    B = VISION_GRAD_BATCH
+    rng = np.random.RandomState(16)
+    for kind, T, G, A in (("block_push", 5, 1, 2), ("kitchen", 4, 2, 9)):
+        obs = demo_obs[kind]
+        ep = rng.randint(0, obs.shape[0], B)
+        t0 = rng.randint(0, obs.shape[1] - T - G - 10, B)
+        states = np.stack([obs[e, s:s + T] for e, s in zip(ep, t0)])
+        goals = np.stack([obs[e, s + T + 10:s + T + 10 + G] for e, s in zip(ep, t0)])
+        if kind == "block_push":
+            goals[..., 6:] = 0.0
+        inputs = [torch.as_tensor(a, dtype=torch.float32) for a in (
+            states, rng.uniform(-1, 1, (B, T, A)), goals, rng.randn(B, T, A),
+            np.exp(rng.uniform(np.log(0.05), 0.0, B)))]
+        cpu = _vision_models(kind, torch.float32, "cpu")
+        dev = _vision_models(kind, torch.float32, device)
+        dev.load_state_dict(cpu.state_dict())
+        dev.render = lambda o, _cpu=cpu: _cpu.render(o.cpu()).to(device)
+        losses, grads = [], []
+        for model, d in ((cpu, "cpu"), (dev, device)):
+            x = [a.to(d) for a in inputs]
+            loss = GCDenoiser(model, 0.5).loss(x[0], x[1], x[2], x[3], x[4], train=True)
+            loss.backward()
+            losses.append(loss.detach().cpu())
+            grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        print(f"  {kind}: loss {losses[0].item():.6f} (CPU), {losses[1].item():.6f} (card)")
+        _rel_check(f"{kind} f32 loss, card vs CPU", losses[1], losses[0], VISION_GRAD_FRACTION)
+        worst = max(((grads[1][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+                    for n, g in grads[0].items())
+        print(f"  {kind}: {len(grads[0])} gradient tensors, worst max|diff| / max|ref| "
+              f"{worst[0]:.3g} ({worst[1]}; limit {VISION_GRAD_FRACTION:.3g})")
+        if not worst[0] <= VISION_GRAD_FRACTION:
+            fail(f"{kind} vision gradient {worst[1]} on the card disagrees with the CPU")
+        bf = _vision_models(kind, torch.bfloat16, device)
+        bf.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            x = [a.to(device) for a in inputs]
+            ref = dev(x[0], x[1], x[2], x[4])
+            got = bf(x[0], x[1], x[2], x[4])
+        _rel_check(f"{kind} bf16 forward vs f32, on the card", got, ref, ERR_FRACTION)
+
+
+def run_vision_cli(card):
+    """Phase 15d: `validate_vision_e2e` through its CLI at the script's widths
+    (128 px, batch 256, embed 48, 1024 episodes, bf16 policies), train steps
+    cut to VISION_TRAIN_STEPS and the evaluation (100 envs) to
+    VISION_EVAL_STEPS: block push with --pretrain-steps
+    VISION_PRETRAIN_STEPS, then kitchen. The JSON line parses and is finite;
+    prints train steps/s, peak memory, demo seconds and evaluation
+    env-steps/s. Returns {env: JSON}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from beso_tpu_torch.scripts import validate_vision_e2e as vcli
+
+    saved = vcli.EVAL_STEPS
+    vcli.EVAL_STEPS = {"block_push": VISION_EVAL_STEPS, "kitchen": VISION_EVAL_STEPS}
+    results = {}
+    try:
+        for env, extra in (("block_push", ["--pretrain-steps", str(VISION_PRETRAIN_STEPS)]),
+                           ("kitchen", [])):
+            timed = {}
+            undo = [_recording(vcli, name, timed) for name in (
+                "generate_demonstrations", "generate_kitchen_demonstrations",
+                "rollout_block_push", "rollout_kitchen", "pretrain_state_regression")]
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    vcli.main(["--env", env, "--train-steps", str(VISION_TRAIN_STEPS),
+                               *extra])
+            finally:
+                for u in undo:
+                    u()
+            secs = time.perf_counter() - t0
+            line = buf.getvalue().strip().splitlines()[-1]
+            print(f"  {line}")
+            out = json.loads(line)
+            bad = [k for k, v in out.items() if isinstance(v, float) and not math.isfinite(v)]
+            if bad:
+                fail(f"validate_vision_e2e --env {env}: not finite: {bad}")
+            demo_s = sum(s for name in ("generate_demonstrations",
+                                        "generate_kitchen_demonstrations")
+                         for _, s in timed.get(name, []))
+            eval_s = sum(s for name in ("rollout_block_push", "rollout_kitchen")
+                         for _, s in timed.get(name, []))
+            pre = "".join(f", pretraining {s:.3f} s" for _, s in
+                          timed.get("pretrain_state_regression", []))
+            print(f"  {env}: {secs:.3f} s of command time; demos {demo_s:.3f} s{pre}; "
+                  f"{out['train_steps_per_sec']} train steps/s (the CLI's, over "
+                  f"{VISION_TRAIN_STEPS} steps with its evaluations); evaluation 100 x "
+                  f"{VISION_EVAL_STEPS} in {eval_s:.3f} s ({100 * VISION_EVAL_STEPS / eval_s:,.1f}"
+                  f" env-steps/s); peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                  f"({card})")
+            results[env] = out
+    finally:
+        vcli.EVAL_STEPS = saved
+    return results
+
+
+def profile_vision_step(device, card):
+    """Phase 15e (information): where one block-push vision train step's
+    device time goes, torch.profiler over 3 steps of the script's model at
+    batch VISION_PROFILE_BATCH after 2 of warm-up: the render, the
+    convolutions, the GPT and the optimizer by kernel-name family."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from beso_tpu_torch.models.denoiser import GCDenoiser
+
+    B, T = VISION_PROFILE_BATCH, 5
+    model = _vision_models("block_push", torch.bfloat16, device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    rng = np.random.RandomState(17)
+    obs = torch.as_tensor(np.tile(np.asarray(
+        [0.4, -0.2, 0.3, 0.5, -0.1, 1.0, 0.3, -0.4, 0.3, -0.4, 0.28, 0.2, 3.1, 0.52, 0.2, 3.1],
+        np.float32), (B, T + 1, 1)) + rng.uniform(-0.05, 0.05, (B, T + 1, 16)).astype(
+        np.float32), device=device)
+    den = GCDenoiser(model, 0.5)
+
+    def step():
+        with record_function("vision_train_step"):
+            a = torch.randn(B, T, 2, device=device)
+            loss = den.loss(obs[:, :T], a, obs[:, T:], torch.randn_like(a),
+                            torch.rand(B, device=device) + 0.05, train=True)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    families = {"conv": ("conv", "cudnn", "implicit", "wgrad", "dgrad", "sm90_xmma", "nchw",
+                         "nhwc"),
+                "gemm": ("gemm", "cutlass", "cublas", "sm90_", "ampere_", "matmul"),
+                "optimizer": ("adam", "foreach", "multi_tensor")}
+    total, by = 0.0, {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+        if ev.key == "vision_train_step" or dev_us <= 0:
+            continue
+        name = ev.key.lower()
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
+                   "elementwise (render, GELU, LN, softmax, casts)")
+        by[fam] = by.get(fam, 0.0) + dev_us
+        total += dev_us
+    if total <= 0:
+        print(f"  torch.profiler saw no device time: not measured ({card})")
+        return
+    shares = ", ".join(f"{f} {us / 3e3:.2f} ms ({100 * us / total:.1f}%)"
+                       for f, us in sorted(by.items(), key=lambda kv: -kv[1]))
+    print(f"  block-push vision train step, batch {B} (bf16): {wall:.2f} ms of wall, "
+          f"{total / 3e3:.2f} ms of device time ({100 - 100 * total / 3e3 / wall:.1f}% idle); "
+          f"{shares} ({card})")
 
 
 def main() -> None:
@@ -2549,6 +2905,24 @@ def main() -> None:
 
     bench_picard.main(["--window", "4", "--batch", "4", "--nfe", "50", "--reps", "10"])
     print(f"  phase 14: {time.perf_counter() - t14:.3f} s; its f32 launches {seq_launches}")
+
+    # ---- 15. the vision path: oracle demos, cameras, vision policies -------
+    t15 = time.perf_counter()
+    print(f"[15a] ({since_start()}) generate_demos on the card: {DEMO_EPISODES} episodes of "
+          f"block push and of kitchen")
+    demo_obs = run_demo_generation(card)
+    print(f"[15b] ({since_start()}) both cameras at 128 x 128, card vs CPU, timed")
+    check_cameras_on_card(device, card, demo_obs)
+    print(f"[15c] ({since_start()}) both vision policies at full width: f32 loss and "
+          f"gradients, card vs CPU; bf16 forward vs f32")
+    check_vision_grads_on_card(device, card, demo_obs)
+    print(f"[15d] ({since_start()}) validate_vision_e2e through its CLI: block push with "
+          f"encoder pretraining, then kitchen")
+    run_vision_cli(card)
+    print(f"[15e] ({since_start()}) where a vision train step's device time goes "
+          f"(information)")
+    profile_vision_step(device, card)
+    print(f"  phase 15: {time.perf_counter() - t15:.3f} s")
 
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash

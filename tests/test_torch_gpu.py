@@ -12,7 +12,10 @@ clock; their erf GELU forms, and the engines of an erf model; the three
 fused engines of an f32 model against the plain f32 engines within 2^-10;
 every sampler and Picard through `policy_predict` on B4 against the plain
 forward, and the grid samplers on `fused_cached` against `cached`; the
-scripted kitchen steps of `kitchen_scenarios.py` against the CPU. Marked `gpu`:
+scripted kitchen steps of `kitchen_scenarios.py` against the CPU; the
+vision slice: both cameras by pixel share, a vision policy's loss and
+gradients and the kitchen oracle (its jacobian in inference mode too)
+against the CPU. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -699,3 +702,100 @@ def test_scripted_kitchen_steps_on_card_match_cpu():
     np.testing.assert_array_equal(card.grasped, cpu.grasped)
     bands = kitchen_scenarios.kitchen_bands(card)
     assert all(held for held, _ in bands.values()), bands
+
+
+def _demo_frames(n, rng):
+    """n block-push and kitchen observations from the port's oracles (CPU)."""
+    from beso_tpu_torch.envs.block_push.oracle import rollout_oracle
+    from beso_tpu_torch.envs.kitchen.oracle import rollout_kitchen_oracle
+
+    g = torch.Generator().manual_seed(int(rng.randint(1 << 30)))
+    bp = rollout_oracle(8, 60, 0.004, generator=g)[0].reshape(-1, 16)
+    k = rollout_kitchen_oracle(8, 60, 4, 0.02, generator=g)[0].reshape(-1, 30)
+    return (bp[rng.choice(len(bp), n, replace=False)],
+            k[rng.choice(len(k), n, replace=False)])
+
+
+@pytest.mark.gpu
+def test_cameras_on_card_match_cpu():
+    """chip_smoke.py phase 15b at 64 oracle frames and 64 x 64 and 128 x 128:
+    both cameras' renders on the card against the CPU's, all but 0.5% of
+    the pixels within 1e-5 in every channel."""
+    from beso_tpu_torch.envs.block_push.camera import render_obs_masks, render_obs_rgb
+    from beso_tpu_torch.envs.kitchen.camera import render_kitchen_obs_rgb
+
+    dev = _cuda()
+    bp, k = _demo_frames(64, np.random.RandomState(0))
+    for render, obs in ((render_obs_rgb, bp), (render_obs_masks, bp),
+                        (render_kitchen_obs_rgb, k)):
+        for side in (64, 128):
+            got = render(obs.to(dev), side, side).cpu()
+            ref = render(obs, side, side)
+            bad = ((got - ref).abs() > 1e-5).any(-1).float().mean().item()
+            assert bad <= 0.005, (render.__name__, side, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["block_push", "kitchen"])
+def test_vision_policy_step_on_card_matches_cpu(kind):
+    """chip_smoke.py phase 15c at 2 layers x 48 wide, 64 px, batch 4: the
+    f32 EDM loss and every gradient of a vision policy on the card against
+    the CPU with the same weights, sigma and noise (both encode the CPU's
+    renders), within 2^-10 of max |ref|; the bf16 forward within 2^-5 of
+    the f32 one."""
+    from beso_tpu_torch.models.denoiser import GCDenoiser
+    from beso_tpu_torch.models.vision_policy import KitchenVisionPolicyGPT, VisionPolicyGPT
+
+    dev = _cuda()
+    rng = np.random.RandomState(1)
+    bp, k = _demo_frames(24, rng)
+    cls, obs, T, G, A = ((VisionPolicyGPT, bp, 5, 1, 2) if kind == "block_push"
+                         else (KitchenVisionPolicyGPT, k, 4, 2, 9))
+    kw = dict(embed_dim=48, n_layers=2, n_heads=2, img_hw=(64, 64), embed_size=16,
+              enc_features=(8, 16, 16), attn_pdrop=0.0, resid_pdrop=0.0)
+
+    def model(dtype, device):
+        return cls(**kw, dtype=dtype, generator=torch.Generator().manual_seed(0)).to(device)
+
+    B = 4
+    x = [obs[:B * T].reshape(B, T, -1), torch.as_tensor(rng.uniform(-1, 1, (B, T, A))).float(),
+         obs[B * T:B * T + B * G].reshape(B, G, -1), torch.as_tensor(rng.randn(B, T, A)).float(),
+         torch.as_tensor(np.exp(rng.uniform(-3, 0, B))).float()]
+    cpu, card = model(torch.float32, "cpu"), model(torch.float32, dev)
+    card.render = lambda o: cpu.render(o.cpu()).to(dev)
+    losses = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        loss = GCDenoiser(m, 0.5).loss(*(a.to(d) for a in x), train=True)
+        loss.backward()
+        losses.append(loss.detach().cpu())
+    assert _close(losses[1], losses[0], 2 ** -10)
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        assert _close(q.grad.cpu(), p.grad, 2 ** -10), name
+    bf = model(torch.bfloat16, dev)
+    bf.load_state_dict(cpu.state_dict())
+    bf.render = card.render
+    with torch.no_grad():
+        xd = [a.to(dev) for a in x]
+        assert _close(bf(xd[0], xd[1], xd[2], xd[4]), card(xd[0], xd[1], xd[2], xd[4]),
+                      2 ** -5)
+
+
+@pytest.mark.gpu
+def test_kitchen_oracle_on_card():
+    """The fingertip jacobian on the card equals the CPU's, in inference
+    mode too (forward-mode AD is off there); the oracle's 16 episodes x 280
+    steps on the card complete >= 3.8 of the 4 assigned tasks
+    (tests/test_kitchen_oracle.py's band)."""
+    from beso_tpu_torch.envs.kitchen import oracle
+
+    dev = _cuda()
+    q = torch.as_tensor(np.random.RandomState(0).uniform(-2, 2, (16, 7)).astype(np.float32))
+    ref = oracle.fingertip_jacobian(q)
+    with torch.inference_mode():
+        got = oracle.fingertip_jacobian(q.to(dev)).cpu()
+    assert ref.abs().max() > 0.1 and _close(got, ref, 1e-5)
+    _, _, completed, _, seqs = oracle.rollout_kitchen_oracle(
+        16, 280, 4, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    completed, seqs = completed.cpu(), seqs.cpu()
+    assigned = [int(completed[i, s[s >= 0]].sum()) for i, s in enumerate(seqs)]
+    assert np.mean(assigned) >= 3.8
