@@ -109,11 +109,11 @@ class BesoAgent:
         self.state: Optional[TrainState] = None
 
     # -- lifecycle ---------------------------------------------------------
-    def init(self, generator: torch.Generator) -> TrainState:
-        """Build the model with weights drawn from `generator` (a CPU
-        generator), its optimizer and EMA."""
+    def build_model(self, generator: torch.Generator) -> DiffusionGPT:
+        """The config's DiffusionGPT with weights drawn from `generator` (a
+        CPU generator), on the agent's device."""
         cfg = self.cfg
-        model = DiffusionGPT(
+        return DiffusionGPT(
             state_dim=cfg.obs_dim, action_dim=cfg.action_dim, goal_dim=cfg.goal_dim,
             embed_dim=cfg.hidden_dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
             goal_seq_len=cfg.goal_seq_len, obs_seq_len=cfg.window_size,
@@ -122,6 +122,12 @@ class BesoAgent:
             cond_mask_prob=cfg.cond_mask_prob, linear_output=cfg.linear_output,
             attention=cfg.attention, dtype=_DTYPES[cfg.compute_dtype],
             generator=generator).to(self.device)
+
+    def init(self, generator: torch.Generator) -> TrainState:
+        """Build the model with weights drawn from `generator` (a CPU
+        generator), its optimizer and EMA."""
+        cfg = self.cfg
+        model = self.build_model(generator)
         self.denoiser = GCDenoiser(model, sigma_data=cfg.sigma_data)
         self.trainer = Trainer(
             denoiser=self.denoiser,

@@ -138,6 +138,25 @@ def default_kitchen_params(device=None) -> KitchenParams:
         micro_lo=t([-0.60, 0.80, 0.70]), micro_hi=t([-0.15, 1.30, 1.10]))
 
 
+def perturb_kitchen_params(params: Optional[KitchenParams] = None, gain_scale: float = 1.0,
+                           radius_scale: float = 1.0, kettle_scale: float = 1.0,
+                           device=None) -> KitchenParams:
+    """Scaled physics for the robustness evaluation: train at the nominal
+    constants, evaluate at +-20% drive efficiencies and contact radii and
+    report the retention (`beso_tpu/envs/kitchen/env.py:206-220`). `params`
+    defaults to the shipped calibration on `device`."""
+    if params is None:
+        params = default_kitchen_params(device)
+    return dataclasses.replace(
+        params,
+        drive_eff=params.drive_eff * gain_scale,
+        interact_radius=params.interact_radius * radius_scale,
+        grasp_radius=params.grasp_radius * radius_scale,
+        release_radius=params.release_radius * radius_scale,
+        kettle_gain=torch.clamp(params.kettle_gain * kettle_scale, 0.0, 1.0),
+        kettle_max_speed=params.kettle_max_speed * kettle_scale)
+
+
 class _Consts(NamedTuple):
     goal_vec: torch.Tensor
     task_masks: torch.Tensor

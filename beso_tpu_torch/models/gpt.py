@@ -25,7 +25,9 @@ drawn from an explicit `torch.Generator`: dropout on the embeddings
 (`attn_pdrop`) and after the projection and the MLP (`resid_pdrop`), each
 as flax's `nn.Dropout` (keep with 1 - p, scale by 1/(1 - p)); and the CFG
 goal mask, an elementwise Bernoulli(`cond_mask_prob`) zeroing of the goals.
-The whole forward is differentiable.
+`train_draws` alone states the draws' order and shapes: the forward makes
+them through it, or takes them given, as a forward under `torch.func.vmap`
+needs. The whole forward is differentiable.
 
 `attention` picks the attention form as the JAX package does (`gpt.py:78-94`):
 "broadcast" (plain PyTorch), "pallas" (the flash-attention kernels B5/B6 of
@@ -80,9 +82,13 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax `nn.Dropout` in training: keep with probability 1 - rate, scale
     the kept values by 1/(1 - rate) in x's dtype."""
+    return dropout_with(x, rate, torch.rand(x.shape, generator=generator, device=x.device))
+
+
+def dropout_with(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
+    """`dropout` on given uniform draws `u` (x's shape): keep where u < 1 - rate."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -334,29 +340,69 @@ class DiffusionGPT(nn.Module):
             raise ValueError("attention='pallas' does not support attn_pdrop")
         return impl
 
+    def train_draws(self, generator: Optional[torch.Generator], states: torch.Tensor,
+                    goals: torch.Tensor, uncond: bool = False) -> list:
+        """The uniform draws of one training forward on `states` [B, T, .]
+        and `goals` [B, G, .] from `generator`, in the order in which the
+        forward takes them: the CFG goal mask, the embedding dropouts of
+        goals, states and actions, then per block the attention-probability
+        dropout and the two residual dropouts. `forward(train=True)` makes
+        them here; a forward under `torch.func.vmap`, which refuses random
+        operations, is given them (`draws=`)."""
+        (B, T), G, D = states.shape[:2], self.eff_goal_len, self.embed_dim
+        n_tok = 1 + G + 2 * T
+        shapes = []
+        if self.goal_conditioned:
+            if self.cond_mask_prob > 0.0 and not uncond:
+                shapes.append((B, G, goals.shape[-1]))
+            if self.embed_pdrob > 0.0:
+                shapes.append((B, G, D))
+        if self.embed_pdrob > 0.0:
+            shapes += [(B, T, D)] * 2
+        attn_drop = (self.attn_pdrop > 0.0
+                     and self.attention_impl(n_tok, train=True) == "broadcast")
+        for _ in self.blocks:
+            if attn_drop:
+                shapes.append((B, n_tok, n_tok, self.n_heads))
+            if self.resid_pdrop > 0.0:
+                shapes += [(B, n_tok, D)] * 2
+        return [torch.rand(shape, generator=generator, device=states.device)
+                for shape in shapes]
+
     def forward(self, states: torch.Tensor, actions: torch.Tensor,
                 goals: torch.Tensor, sigma: torch.Tensor, *,
                 uncond: bool = False, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[list] = None) -> torch.Tensor:
         """[B,T,state], [B,T,action], [B,G,goal], [B] -> [B,T,action] f32.
 
-        `train=True` turns on dropout and CFG goal masking, drawn from
-        `generator` (None: the device's default generator)."""
+        `train=True` turns on dropout and CFG goal masking, on `draws`, the
+        list `train_draws` makes, or if None on the draws `train_draws` makes
+        from `generator` (None: the device's default generator)."""
         B, T, _ = states.shape
         G = self.eff_goal_len
+        if train and draws is None:
+            draws = self.train_draws(generator, states, goals, uncond)
+        given = iter(draws or ())
+
+        def rand(x: torch.Tensor) -> torch.Tensor:
+            u = next(given, None)
+            if u is None or u.shape != x.shape:
+                raise ValueError(f"draws do not match the forward: expected {tuple(x.shape)}, "
+                                 f"got {None if u is None else tuple(u.shape)}")
+            return u
 
         def drop(rate: float) -> Drop:
             if not train or rate == 0.0:
                 return None
-            return lambda x: dropout(x, rate, generator)
+            return lambda x: dropout_with(x, rate, rand(x))
 
         parts = [self.embed_sigma(sigma)]
         if self.goal_conditioned:
             if uncond:
                 goals = torch.zeros_like(goals)
             elif train and self.cond_mask_prob > 0.0:
-                mask = torch.rand(goals.shape, generator=generator,
-                                  device=goals.device) < self.cond_mask_prob
+                mask = rand(goals) < self.cond_mask_prob
                 goals = goals * (1.0 - mask.to(goals.dtype))
             parts.append(self.embed_goals(goals, drop(self.embed_pdrob)))
         parts.append(self.embed_suffix(states, actions, drop(self.embed_pdrob)))
@@ -365,6 +411,8 @@ class DiffusionGPT(nn.Module):
         for blk in self.blocks:
             x = blk(x, self.dtype, flash=flash, attn_drop=drop(self.attn_pdrop),
                     resid_drop=drop(self.resid_pdrop))
+        if next(given, None) is not None:
+            raise ValueError("more draws than the forward takes")
         x = layer_norm(x, self.ln_f.weight, self.ln_f.bias, self.dtype)
         x = x[:, G + 1:].reshape(B, T, 2, self.embed_dim)[:, :, 1]
         return self.head(x)

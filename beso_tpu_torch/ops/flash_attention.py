@@ -31,9 +31,11 @@ lo parts, three products).
 Each wrapper (`flash_forward`, `flash_backward_dq`, `flash_backward_dkv`)
 runs its plain PyTorch version for CPU tensors and, for CUDA tensors,
 launches its kernel or raises; its `launches` counter goes up by one per
-kernel launch. `flash_attention` is the differentiable entry point: a
-`torch.autograd.Function` that saves (q, k, v, o, lse) and runs the two
-backward wrappers.
+kernel launch. The three are also operators (`torch.ops.beso.*`) whose vmap
+rules fold a mapped axis (the seeds of `train/sweep.py`) into the batch
+axis. `flash_attention` is the differentiable entry point:
+`FlashAttention` saves (q, k, v, o, lse) and its backward is the two
+backward launches, also under `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -225,28 +227,104 @@ flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# operators: autograd and a leading seed axis
+# ---------------------------------------------------------------------------
+# The three wrappers are registered as operators (`beso::flash_forward`,
+# `beso::flash_backward_dq`, `beso::flash_backward_dkv`) so that
+# `torch.func.vmap` reaches them as it reaches a built-in operator. Each
+# operator's vmap rule folds the mapped axis into the batch axis: a call
+# mapped over S models at [S, B, H, T, hd] is one launch at [S*B, H, T, hd],
+# as `jax.vmap` of a `pallas_call` is one kernel over a larger grid. The
+# backward operators need rules of their own: under `torch.func` the
+# backward runs at the same map level as the forward. The autograd lives in
+# `FlashAttention`, since an operator's own autograd formula does not
+# compose with `torch.func.grad`.
+
+
+@torch.library.custom_op("beso::flash_forward", mutates_args=())
+def _flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_forward(q, k, v, causal)
+
+
+@torch.library.custom_op("beso::flash_backward_dq", mutates_args=())
+def _flash_backward_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                          causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_backward_dq(q, k, v, o, do, lse, causal)
+
+
+@torch.library.custom_op("beso::flash_backward_dkv", mutates_args=())
+def _flash_backward_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_backward_dkv(q, k, v, do, lse, delta, causal)
+
+
+def _fold(x: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """A mapped tensor with its mapped axis `dim` (None: not mapped, so
+    broadcast) folded into its batch axis: [size * B, ...], contiguous."""
+    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def _folded_rule(op):
+    """The vmap rule of `op`, whose tensor arguments and two outputs all lead
+    with the batch axis: one call on the folded tensors."""
+
+    def rule(info, in_dims, *args):
+        S = info.batch_size
+        args = [_fold(a, d, S) if isinstance(a, torch.Tensor) else a
+                for a, d in zip(args, in_dims)]
+        outs = op(*args)
+        return tuple(o.unflatten(0, (S, -1)) for o in outs), (0, 0)
+
+    return rule
+
+
+for _name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+    torch.library.register_vmap(f"beso::{_name}",
+                                _folded_rule(getattr(torch.ops.beso, _name)))
+
+
 class FlashAttention(torch.autograd.Function):
-    """o = softmax(q k^T / sqrt(hd)) v through kernels B5 and B6."""
+    """o = softmax(q k^T / sqrt(hd)) v through kernels B5 and B6, on the
+    operators above. Its vmap rule is generated: the forward and the
+    backward run under the map, where the operators' rules fold it."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(q, k, v, causal):
+        return torch.ops.beso.flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        ctx.save_for_backward(q, k, v, *output)
         ctx.causal = causal
-        return o
+        ctx.mark_non_differentiable(output[1])
+        # no zero-filled cotangent for lse: the backward is the two launches
+        ctx.set_materialize_grads(False)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
+        del dlse   # lse is the backward's statistics, not differentiated
+        if do is None:
+            return None, None, None, None
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        dq, delta = flash_backward_dq(q, k, v, o, do, lse, ctx.causal)
-        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.causal)
+        with torch.no_grad():   # the backward kernels have no derivative
+            dq, delta = torch.ops.beso.flash_backward_dq(q, k, v, o, do, lse, ctx.causal)
+            dk, dv = torch.ops.beso.flash_backward_dkv(q, k, v, do, lse, delta, ctx.causal)
         return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q, k, v [B, H, T, hd] -> softmax(q k^T / sqrt(hd)) v, differentiable
-    in q, k and v (`beso_tpu.ops.flash_attention.flash_attention`)."""
+    in q, k and v (`beso_tpu.ops.flash_attention.flash_attention`); under
+    `torch.func.vmap` one launch per kernel for all mapped slices."""
     return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal)
+                                causal)[0]

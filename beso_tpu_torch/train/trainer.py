@@ -17,8 +17,9 @@ Functional parity targets:
   sweep, best-test-MSE checkpointing.
 
 The JAX package fuses 200 steps into one `lax.scan` program; here a step is
-a Python call and the loop runs step after step. Nothing in a step reads
-the device from the host: the loss is read once per evaluation interval.
+a Python call and the loop runs step after step (`make_fused_train_steps`
+for a fixed count). Nothing in a step reads the device from the host: the
+loss is read once per evaluation interval.
 """
 
 from __future__ import annotations
@@ -89,6 +90,12 @@ def process_batch(batch: dict, scaler: Scaler):
     return state, action, goal
 
 
+def step_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Unit normal draws of a train step's action noise, its one draw besides
+    the batch, the sigma density and the model's own."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def make_train_step(denoiser: GCDenoiser, sample_density: Callable,
                     scaler: Scaler, ema_decay: float = 0.999,
                     update_ema_every_n_steps: int = 1,
@@ -106,7 +113,7 @@ def make_train_step(denoiser: GCDenoiser, sample_density: Callable,
         if sigma is None:
             sigma = sample_density(generator, (action_t.shape[0],), device=dev)
         if noise is None:
-            noise = torch.randn(action_t.shape, generator=generator, device=dev)
+            noise = step_noise(action_t.shape, generator, dev)
         loss = denoiser.loss(state_t, action_t, goal_t, noise, sigma,
                              pred_last_action_only=pred_last_action_only,
                              train=True, generator=generator)
@@ -122,18 +129,43 @@ def make_train_step(denoiser: GCDenoiser, sample_density: Callable,
     return train_step
 
 
+def make_fused_train_steps(denoiser: GCDenoiser, sample_density: Callable, scaler: Scaler,
+                           train_sampler, batch_size: int, n_steps: int, **kwargs):
+    """`fused(ts, generator) -> (ts, losses [n_steps])`: `n_steps` train
+    steps, each sampling its batch on the device and then running
+    `make_train_step` (`beso_tpu/train/trainer.py:130-160`), all drawing
+    from `generator` in the order `Trainer.train` draws. The JAX package
+    fuses them into one `lax.scan` program; here they are a Python loop
+    that reads nothing back to the host, so the device runs ahead of it.
+    `scripts/profile_train.py` runs it; the seed sweep (`train/sweep.py`)
+    steps its stacked seeds in the same draw order, so a sweep seed trains
+    as this function does on the seed's generator."""
+    step_fn = make_train_step(denoiser, sample_density, scaler, **kwargs)
+
+    def fused(ts: TrainState, generator: Optional[torch.Generator]):
+        losses = [step_fn(ts, train_sampler.sample_batch(generator, batch_size), generator)
+                  for _ in range(n_steps)]
+        return ts, torch.stack(losses)
+
+    return fused
+
+
 @torch.no_grad()
 def evaluate_mse(denoiser: GCDenoiser, params, batch: dict, scaler: Scaler,
                  generator: Optional[torch.Generator], num_sampling_steps: int = 3,
                  sigma_min: float = 0.005, sigma_max: float = 1.0,
                  sampler_type: str = "ddim",
-                 pred_last_action_only: bool = False) -> torch.Tensor:
+                 pred_last_action_only: bool = False,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Test-set generation MSE (beso_agent.py:250-289) as a device scalar;
-    pass the EMA params (None: the model's own)."""
+    pass the EMA params (None: the model's own). The start is `noise` (unit
+    normal, the action shape) times sigma_max, drawn from `generator` if
+    not given."""
     state_t, action_t, goal_t = process_batch(batch, scaler)
     sigmas = get_sigmas_exponential(num_sampling_steps, sigma_min, sigma_max)
-    x = torch.randn(action_t.shape, generator=generator,
-                    device=action_t.device) * sigma_max
+    if noise is None:
+        noise = torch.randn(action_t.shape, generator=generator, device=action_t.device)
+    x = noise * sigma_max
     inner = denoiser.inner(params)
 
     def denoise(actions, sigma):

@@ -206,10 +206,32 @@ exits non-zero on failure:
    at batch 256: device time by kernel family and the idle share
    (information).
 
+16. the training tools: (a) B5 and B6 under `torch.func.vmap` over a
+   leading seed axis (the seed sweep's rule), bf16 at [4, 256, 6, 131, 60]
+   and [2, 256, 3, 131, 120]: forward and backward bit-equal to one launch
+   on the folded [S*B, H, T, hd] tensors and exactly one launch of each
+   kernel per call (the backward outside the map and inside it), the
+   folded launches within 2^-5 of max |ref| of the plain versions; (b)
+   `scripts/sweep.py` on configs/franka_kitchen_chunked.yaml, seeds 1-4 at
+   batch 256 for 40 steps (40,000 cut) with an evaluation every 20: exactly
+   6 launches of each flash kernel per step for all seeds together plus 6 x
+   3 NFE B5 per evaluation, every loss finite, the seeds' losses different,
+   seed 1's per-step losses within 2^-8 of a run of its own on its draws,
+   train steps/s beside a 1-seed sweep's; (c) the sweep on
+   configs/franka_kitchen.yaml (f32, batch 1024, phase 11's files) with 1
+   and 8 seeds for 20 steps, per-seed steps/s, and one seed's run dir
+   through `scripts/evaluate.py` with configs/evaluate_kitchen.yaml as
+   shipped; (d) `scripts/validate_e2e.py`, kitchen with --robustness
+   --lambda-sweep, then block push with 80 demo steps (160 cut), 200 train
+   steps (10,000 cut), a 100 x 60 evaluation (280 / 300 cut): finite
+   summaries with their keys; (e) `scripts/profile_train.py`: the device
+   time of 50 fused train steps of the kitchen model at batch 1024 by
+   kernel category and the idle share, then a --scaling grid (information).
+
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
 of its work at the timed shape with what bounds it (f32 B1 and B4 with
-phase 14's launches added), the PyTorch library
+phase 14's launches added, the bf16 flash kernels with phase 16b's), the PyTorch library
 call's ms where one computes the same function, and for the fused layers
 the torch.matmul ms of their products in the same dtype; f32 forms as
 `*_f32`, the flash kernels' width-128 instantiations as `*_hd128`, B1's
@@ -265,6 +287,21 @@ VISION_TRAIN_STEPS = 200     # --train-steps: 20,000, cut to 200
 VISION_EVAL_STEPS = 60       # its evaluation: 300 (block push) and 280 (kitchen) steps, cut to 60
 VISION_PRETRAIN_STEPS = 50   # --pretrain-steps of the block-push run
 PIXEL_TOL, PIXEL_SHARE = 1e-5, 0.005   # images: all but 0.5% of pixels within 1e-5
+# phase 16, the training tools: B5/B6 under a seed axis [S, B, H, T, hd]
+# (the chunked shape at 4 seeds, the 3-head model's at 2); the sweeps'
+# seeds and step counts (max_train_steps: 40,000 in both kitchen configs,
+# eval_every_n_steps: 4,000, cut); validate_e2e's train steps (--train-steps:
+# 10,000, cut), evaluation steps (--eval-n-steps: 280 kitchen, 300 block
+# push, cut) and block-push demo steps (--demo-steps: 160, cut: its eager
+# physics takes ~0.3 s per step); profile_train's --scaling grid; the steps
+# of each profiled sweep call in 16b (information, no shipped value)
+SEED_AXIS_SHAPES = ((4, *CHUNKED_SHAPE), (2, *WIDE_MODEL_SHAPE))
+SEED_AXIS_REPS = 21
+SWEEP_SEEDS, SWEEP_STEPS, SWEEP_EVAL_EVERY = (1, 2, 3, 4), 40, 20
+KITCHEN_SWEEP_SEEDS, KITCHEN_SWEEP_STEPS = 8, 20
+E2E_TRAIN_STEPS, E2E_EVAL_STEPS, E2E_BP_DEMO_STEPS = 200, 60, 80
+PROFILE_SCALING = "1024:50,2048:25"
+SWEEP_PROFILE_STEPS = 10
 VISION_GRAD_FRACTION = 2.0 ** -10      # the f32 vision loss and gradients, card vs CPU
 # a serving layer's (D, heads, prefix tokens P, suffix tokens 2T)
 KITCHEN_LAYER = (360, 6, 3, 8)      # sigma + 2 goal tokens, window 4
@@ -2480,6 +2517,393 @@ def profile_vision_step(device, card):
           f"{shares} ({card})")
 
 
+
+# ---- phase 16: the training tools --------------------------------------------
+
+def _flash_fns():
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv
+
+
+def flash_launches() -> dict:
+    return {f.__name__: f.launches for f in _flash_fns()}
+
+
+def reset_flash_launches() -> None:
+    for f in _flash_fns():
+        f.launches = 0
+
+
+def check_flash_seed_axis(device, card):
+    """Phase 16a: B5 and B6 under `torch.func.vmap` over a leading seed axis
+    (the sweep's rule) at SEED_AXIS_SHAPES, bf16: the forward and the
+    backward (`.backward()` outside the map) bit-equal to one launch on the
+    folded [S*B, H, T, hd] tensors, and exactly one launch of each kernel
+    per call; a backward inside the map (`vmap(grad)`) also one launch each;
+    the folded launches within ERR_FRACTION of max |ref| of the plain
+    versions. Returns {(S, hd): vmapped ms, folded ms} of forward + backward,
+    each the median host wall of SEED_AXIS_REPS synced calls, alternating
+    (the map's cost is on the host)."""
+    import torch
+
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    times = {}
+    for shape in SEED_AXIS_SHAPES:
+        S, B, H, T, hd = shape
+        gen = torch.Generator(device).manual_seed(S)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                       for _ in range(4))
+        fold = [x.reshape(S * B, H, T, hd) for x in (q, k, v, do)]
+        o_ref, lse_ref = fa.flash_forward(*fold[:3])
+        dq_ref, delta = fa.flash_backward_dq(*fold[:3], o_ref, fold[3], lse_ref)
+        dk_ref, dv_ref = fa.flash_backward_dkv(*fold[:3], fold[3], lse_ref, delta)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_flash_launches()
+        o = torch.func.vmap(fa.flash_attention)(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        outer = flash_launches()
+        same = [torch.equal(o.reshape(S * B, H, T, hd), o_ref)] + [
+            torch.equal(x.grad.reshape(S * B, H, T, hd), ref)
+            for x, ref in zip(leaves, (dq_ref, dk_ref, dv_ref))]
+
+        def f(q, k, v, do):
+            return (fa.flash_attention(q, k, v).float() * do.float()).sum()
+
+        reset_flash_launches()
+        grads = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v, do)
+        torch.cuda.synchronize()
+        inner = flash_launches()
+        inner_err = max(((g.reshape(S * B, H, T, hd).float() - r.float()).abs().max()
+                         / r.float().abs().max()).item()
+                        for g, r in zip(grads, (dq_ref, dk_ref, dv_ref)))
+        p_o, p_lse = fa.flash_forward_reference(*fold[:3])
+        p_dq, p_delta = fa.flash_backward_dq_reference(*fold[:3], p_o, fold[3], p_lse)
+        p_dk, p_dv = fa.flash_backward_dkv_reference(*fold[:3], fold[3], p_lse, p_delta)
+        plain_err = max(((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+                        for got, ref in ((o_ref, p_o), (dq_ref, p_dq), (dk_ref, p_dk),
+                                         (dv_ref, p_dv)))
+
+        def vmapped():
+            x = [t.detach().requires_grad_() for t in (q, k, v)]
+            torch.func.vmap(fa.flash_attention)(*x).backward(do)
+
+        def folded():
+            x = [t.detach().requires_grad_() for t in fold[:3]]
+            fa.flash_attention(*x).backward(fold[3])
+
+        def wall_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        for _ in range(3):
+            vmapped(), folded()
+        walls = [(wall_ms(vmapped), wall_ms(folded)) for _ in range(SEED_AXIS_REPS)]
+        times[S, hd] = tuple(sorted(w)[len(w) // 2] for w in zip(*walls))
+        print(f"  seed axis {list(shape)} bf16: bit-equal to the folded launch "
+              f"{dict(zip(('o', 'dq', 'dk', 'dv'), same))}; launches per call, backward "
+              f"outside the map {outer}, inside it (vmap(grad)) {inner} (its gradients within "
+              f"{inner_err:.3g} of max |ref|); folded launches vs plain {plain_err:.3g} of max "
+              f"|ref| (bound {ERR_FRACTION:.3g}); forward + backward, median of "
+              f"{SEED_AXIS_REPS} synced calls alternating: {times[S, hd][0]:.4f} ms vmapped, "
+              f"{times[S, hd][1]:.4f} ms folded ({card})")
+        if not all(same):
+            fail(f"the vmapped flash kernels at {list(shape)} differ from the folded launch")
+        if outer != dict.fromkeys(outer, 1) or inner != dict.fromkeys(inner, 1):
+            fail(f"a vmapped flash call at {list(shape)} launched {outer} / {inner}, not one "
+                 f"launch of each kernel")
+        if not (plain_err <= ERR_FRACTION and inner_err <= ERR_FRACTION):
+            fail(f"the flash kernels at {list(shape)} disagree with their plain versions")
+    return times
+
+
+def _timed_sweep_steps(store):
+    """Wrap `train/sweep.py::make_sweep_train_steps` so that each fused call
+    is timed between two device syncs and its losses kept in `store`
+    (a list of (seconds, losses [S, n])); returns the undo."""
+    import torch
+
+    from beso_tpu_torch.train import sweep as tsweep
+
+    real = tsweep.make_sweep_train_steps
+
+    def make(*a, **kw):
+        fused = real(*a, **kw)
+
+        def timed(ss, generators):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ss, losses = fused(ss, generators)
+            torch.cuda.synchronize()
+            store.append((time.perf_counter() - t0, losses.detach().float().cpu()))
+            return ss, losses
+        return timed
+
+    tsweep.make_sweep_train_steps = make
+
+    def undo():
+        tsweep.make_sweep_train_steps = real
+    return undo
+
+
+def run_sweep_cli(config, seeds, run_dir, overrides):
+    """`beso_tpu_torch.scripts.sweep` through its `main`: (summary, flash
+    launches of the command, train steps/s over its timed fused calls, the
+    per-step losses [S, steps], the command's seconds)."""
+    import torch
+
+    from beso_tpu_torch.scripts import sweep
+
+    store = []
+    undo = _timed_sweep_steps(store)
+    torch.cuda.synchronize()
+    reset_flash_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = sweep.main(["--config", str(config), "--seeds", ",".join(map(str, seeds)),
+                              "--run-dir", str(run_dir), *overrides])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = flash_launches()
+    losses = torch.cat([l for _, l in store], dim=1)
+    rate = losses.shape[1] / sum(s for s, _ in store)
+    return summary, launches, rate, losses, secs
+
+
+def single_seed_losses(config, overrides, seed, device):
+    """The per-step losses of one run of its own on `seed`'s draws:
+    `make_fused_train_steps` on the model `BesoAgent.init` draws from
+    `seed`, the train stream seeded seed + 1 after its evaluation child, as
+    the sweep's seed `seed` trains."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.agents.beso_agent import BesoAgent
+    from beso_tpu_torch.scripts.training import build_agent_config, build_workspace
+    from beso_tpu_torch.train.trainer import _child_generator, make_fused_train_steps
+    from beso_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config, overrides)
+    np.random.seed(seed)
+    ws = build_workspace(cfg, device)
+    agent = BesoAgent(build_agent_config(cfg), ws.scaler, device=device)
+    agent.init(torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    _child_generator(gen)
+    fused = make_fused_train_steps(agent.denoiser, agent.sample_density, ws.scaler,
+                                   ws.train_set, cfg["train_batch_size"],
+                                   cfg["max_train_steps"], ema_decay=cfg["decay"])
+    _, losses = fused(agent.state, gen)
+    return losses.float().cpu()
+
+
+def profile_sweep_steps(config, overrides, device, card):
+    """Phase 16b, information: where a step of the chunked sweep spends its
+    time. SWEEP_PROFILE_STEPS steps of SWEEP_SEEDS stacked seeds, then of
+    one seed, each after a warm-up call, under `profile_train.profile_window`:
+    the device's busy time against the wall time of the same window."""
+    import torch
+
+    from beso_tpu_torch.agents.beso_agent import BesoAgent
+    from beso_tpu_torch.scripts.profile_train import profile_window
+    from beso_tpu_torch.scripts.training import build_agent_config, build_workspace
+    from beso_tpu_torch.train.sweep import (init_sweep_state, make_sweep_train_steps,
+                                            seed_generators)
+    from beso_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config, overrides)
+    ws = build_workspace(cfg, device)
+    agent = BesoAgent(build_agent_config(cfg), ws.scaler, device=device)
+    agent.init(torch.Generator().manual_seed(SWEEP_SEEDS[0]))
+    busy = {}
+    for seeds in (SWEEP_SEEDS, SWEEP_SEEDS[:1]):
+        ss = init_sweep_state(agent.build_model, agent.trainer.optimizer_factory, seeds,
+                              cfg["sigma_data"])
+        gens, _ = seed_generators(seeds, device)
+        fused = make_sweep_train_steps(agent.sample_density, ws.scaler, ws.train_set,
+                                       cfg["train_batch_size"], SWEEP_PROFILE_STEPS,
+                                       ema_decay=cfg["decay"])
+        fused(ss, gens)   # warm-up
+        (_, losses), st = profile_window(lambda: fused(ss, gens), SWEEP_PROFILE_STEPS, device)
+        if "categories" not in st or not torch.isfinite(losses).all():
+            fail(f"the profiled {len(seeds)}-seed sweep saw no device kernel or a loss "
+                 f"that is not finite")
+        busy[len(seeds)] = st["device_ms_per_step"]
+        print(f"  profiled {len(seeds)}-seed sweep step: {st['wall_ms_per_step']:.3f} ms of wall, "
+              f"{st['device_ms_per_step']:.3f} ms of device time "
+              f"({100 * st['idle_share']:.1f}% idle, the same window); " + ", ".join(
+                  f"{c} {v['ms_per_step']:.3f} ms ({100 * v['share']:.1f}%)"
+                  for c, v in st["categories"].items()) + f" ({card})")
+    print(f"  device time per step, {len(SWEEP_SEEDS)} seeds / 1 seed: "
+          f"{busy[len(SWEEP_SEEDS)] / busy[1]:.3f}x ({card})")
+
+
+def run_chunked_sweep(device, card):
+    """Phase 16b: `scripts/sweep.py` on configs/franka_kitchen_chunked.yaml,
+    SWEEP_SEEDS at batch 256 for SWEEP_STEPS steps with an evaluation every
+    SWEEP_EVAL_EVERY: exactly 6 B5 and 6 of each B6 kernel per step for all
+    seeds together, plus 6 x 3 NFE B5 per evaluation; every loss finite, the
+    seeds' losses different, seed 1's per-step losses within 2^-8 of a run
+    of its own on seed 1's draws; then the same sweep with one seed (train
+    steps/s beside the 4-seed sweep's); then `profile_sweep_steps`. Returns
+    the flash launches of both sweeps."""
+    import torch
+
+    repo = Path(__file__).resolve().parent
+    config = repo / "configs" / "franka_kitchen_chunked.yaml"
+    over = [f"max_train_steps={SWEEP_STEPS}", f"eval_every_n_steps={SWEEP_EVAL_EVERY}",
+            f"train_batch_size={TRAIN_BATCH}"]
+    n_evals = SWEEP_STEPS // SWEEP_EVAL_EVERY
+    expect = {"flash_forward": N_LAYERS * SWEEP_STEPS + N_LAYERS * NFE * n_evals,
+              "flash_backward_dq": N_LAYERS * SWEEP_STEPS,
+              "flash_backward_dkv": N_LAYERS * SWEEP_STEPS}
+    total = dict.fromkeys(expect, 0)
+    rates, per_step = {}, {}
+    for seeds in (SWEEP_SEEDS, SWEEP_SEEDS[:1]):
+        summary, launches, rate, losses, secs = run_sweep_cli(
+            config, seeds, repo / "build" / f"chip_smoke_sweep_{len(seeds)}", over)
+        rates[len(seeds)], per_step[len(seeds)] = rate, losses
+        mse = summary["base"]["history"][-1][2]
+        print(f"  {len(seeds)} seed(s) {list(seeds)} x {SWEEP_STEPS} steps: launches {launches} "
+              f"(expected {expect}); {rate:.2f} train steps/s ({rate * len(seeds):.2f} seed-steps/s, "
+              f"the timed fused calls), command {secs:.3f} s; last losses "
+              f"{[round(x, 4) for x in losses[:, -1].tolist()]}, test MSE "
+              f"{[round(x, 4) for x in mse]} ({card})")
+        if launches != expect:
+            fail(f"the {len(seeds)}-seed sweep launched the flash kernels {launches}")
+        if not (torch.isfinite(losses).all() and all(math.isfinite(x) for x in mse)):
+            fail("a sweep loss or test MSE is not finite")
+        for k in total:
+            total[k] += launches[k]
+        if len(seeds) > 1:
+            d = (losses[:, None] - losses[None]).abs().amax(-1)
+            if (d + torch.eye(len(seeds)) * 1e9).min() <= 1e-6:
+                fail("two seeds of the sweep have the same losses")
+    alone = single_seed_losses(config, over, SWEEP_SEEDS[0], device)
+    rel = ((per_step[len(SWEEP_SEEDS)][0] - alone).abs() / alone.abs()).max().item()
+    print(f"  seed {SWEEP_SEEDS[0]}'s per-step losses against a run of its own on its draws: "
+          f"max relative diff {rel:.3g} (bound {2.0 ** -8:.3g}); train steps/s, "
+          f"{len(SWEEP_SEEDS)} seeds {rates[len(SWEEP_SEEDS)]:.2f} vs 1 seed {rates[1]:.2f} "
+          f"({len(SWEEP_SEEDS) * rates[len(SWEEP_SEEDS)] / rates[1]:.2f}x the seed-steps/s) "
+          f"({card})")
+    if not rel <= 2.0 ** -8:
+        fail(f"seed {SWEEP_SEEDS[0]} of the sweep trains differently from a run of its own")
+    profile_sweep_steps(config, over, device, card)
+    return total
+
+
+def run_kitchen_sweep(device, card):
+    """Phase 16c: `scripts/sweep.py` on configs/franka_kitchen.yaml (11
+    tokens, f32, batch 1024) from phase 11's files, 1 and KITCHEN_SWEEP_SEEDS
+    seeds for KITCHEN_SWEEP_STEPS steps: train steps/s of each (information:
+    the JAX package's "within ~15% of a single run" is a TPU figure); then
+    one seed's run dir through `scripts/evaluate.py` with
+    configs/evaluate_kitchen.yaml as shipped (100 x 280): finite metrics."""
+    import torch
+
+    from beso_tpu_torch.scripts import evaluate
+
+    repo = Path(__file__).resolve().parent
+    over = [f"data_path={repo / 'build' / 'chip_smoke_relay_kitchen'}",
+            f"max_train_steps={KITCHEN_SWEEP_STEPS}",
+            f"eval_every_n_steps={KITCHEN_SWEEP_STEPS}"]
+    rates = {}
+    for n in (1, KITCHEN_SWEEP_SEEDS):
+        seeds = list(range(1, n + 1))
+        run_dir = repo / "build" / f"chip_smoke_kitchen_sweep_{n}"
+        summary, _, rate, losses, secs = run_sweep_cli(
+            repo / "configs" / "franka_kitchen.yaml", seeds, run_dir, over)
+        rates[n] = rate
+        print(f"  {n} seed(s) x {KITCHEN_SWEEP_STEPS} steps at batch 1024 (f32): {rate:.2f} "
+              f"train steps/s, {rate * n:.2f} seed-steps/s; command {secs:.3f} s ({card})")
+        if not torch.isfinite(losses).all():
+            fail(f"the {n}-seed kitchen sweep has a loss that is not finite")
+    print(f"  per-seed throughput at {KITCHEN_SWEEP_SEEDS} seeds: "
+          f"{KITCHEN_SWEEP_SEEDS * rates[KITCHEN_SWEEP_SEEDS] / rates[1]:.3f}x a single run's "
+          f"steps/s per seed ({card})")
+    t0 = time.perf_counter()
+    out = evaluate.main(["--config", str(repo / "configs" / "evaluate_kitchen.yaml"),
+                         f"model_store_path={run_dir / 'base' / 'seed_2'}"])
+    torch.cuda.synchronize()
+    vals = [out[k] for k in ("avrg_reward", "std_reward", "avrg_result", "std_result")]
+    print(f"  evaluate CLI, evaluate_kitchen.yaml on sweep seed 2's run dir: "
+          f"{time.perf_counter() - t0:.3f} s, {json.dumps(vals)} ({card})")
+    if not all(math.isfinite(v) for v in vals):
+        fail("the evaluation of a sweep seed's run dir is not finite")
+    return rates
+
+
+def run_validate_e2e(card):
+    """Phase 16d: `scripts/validate_e2e.py` through its `main`, kitchen with
+    --robustness --lambda-sweep, then block push with its demos cut
+    (E2E_BP_DEMO_STEPS), E2E_TRAIN_STEPS train steps and a 100 x
+    E2E_EVAL_STEPS evaluation: each summary printed, finite, the robustness
+    and sweep keys present. A trained result below the baseline is printed,
+    not failed: the steps are cut."""
+    import contextlib
+    import io
+
+    from beso_tpu_torch.scripts import validate_e2e
+
+    common = ["--train-steps", str(E2E_TRAIN_STEPS), "--eval-n-steps", str(E2E_EVAL_STEPS)]
+    for env, extra, keys in (
+            ("kitchen", ["--robustness", "--lambda-sweep"], ("robustness", "lambda_sweep")),
+            ("block_push", ["--demo-steps", str(E2E_BP_DEMO_STEPS)], ())):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = validate_e2e.main(["--env", env, *common, *extra])
+        secs = time.perf_counter() - t0
+        print(f"  {env} ({secs:.3f} s of command time; {card}): "
+              f"{buf.getvalue().strip().splitlines()[-1]}")
+        vals = [out[k] for k in ("baseline_result", "trained_result", "trained_reward",
+                                 "train_steps_per_sec", "improvement")]
+        vals += list(out["success_rates"].values())
+        for k in keys:
+            if k not in out:
+                fail(f"validate_e2e --env {env}: no {k} in its summary")
+            vals += [x for v in out[k].values()
+                     for x in (v.values() if isinstance(v, dict) else [v])]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"validate_e2e --env {env}: a summary value is not finite")
+        if out["improvement"] < 0:
+            print(f"  {env}: trained result {out['trained_result']} below the baseline "
+                  f"{out['baseline_result']} after {E2E_TRAIN_STEPS} steps")
+
+
+def run_profile_train(card):
+    """Phase 16e: `scripts/profile_train.py`, the default profile (50 steps
+    at batch 1024) and a --scaling grid of PROFILE_SCALING (information)."""
+    from beso_tpu_torch.scripts import profile_train
+
+    prof = profile_train.main([])
+    cats = prof.get("categories")
+    if cats is None:
+        print(f"  torch.profiler saw no device kernel: not measured ({card})")
+    else:
+        print(f"  kitchen train step at batch {prof['batch']} (bf16, {prof['chunk']} fused "
+              f"steps): {prof['wall_ms_per_step']:.3f} ms of wall, "
+              f"{prof['device_ms_per_step']:.3f} ms of device time "
+              f"({100 * prof['idle_share']:.1f}% idle, the same window); " + ", ".join(
+                  f"{c} {v['ms_per_step']:.3f} ms ({100 * v['share']:.1f}%)"
+                  for c, v in cats.items()) + f" ({card})")
+    rows = profile_train.main(["--scaling", "--configs", PROFILE_SCALING])
+    print("  scaling: " + "; ".join(
+        f"batch {r['batch']} x {r['chunk']}: {r['steps_per_sec']:.2f} steps/s, "
+        f"{r['samples_per_sec']:.0f} samples/s, MFU {r['mfu']:.4f}" for r in rows)
+        + f" ({card})")
+    if not all(r["loss_finite"] for r in rows) or not prof["loss_finite"]:
+        fail("profile_train's losses are not finite")
+
+
 def main() -> None:
     repo = Path(__file__).resolve().parent
     if not (repo / "beso_tpu_torch" / "csrc").is_dir():
@@ -2924,6 +3348,24 @@ def main() -> None:
     profile_vision_step(device, card)
     print(f"  phase 15: {time.perf_counter() - t15:.3f} s")
 
+    # ---- 16. the training tools: seed sweep, validate_e2e, profile_train --
+    t16 = time.perf_counter()
+    print(f"[16a] ({since_start()}) B5/B6 under a seed axis (vmap): one launch on the folded "
+          f"batch")
+    check_flash_seed_axis(device, card)
+    print(f"[16b] ({since_start()}) scripts/sweep.py on the chunked kitchen config: seeds "
+          f"{list(SWEEP_SEEDS)} x {SWEEP_STEPS} steps x batch {TRAIN_BATCH}, then 1 seed")
+    sweep_launches = run_chunked_sweep(device, card)
+    print(f"[16c] ({since_start()}) scripts/sweep.py on the 11-token kitchen config (f32): 1 "
+          f"and {KITCHEN_SWEEP_SEEDS} seeds; a seed's run dir through scripts/evaluate.py")
+    run_kitchen_sweep(device, card)
+    print(f"[16d] ({since_start()}) scripts/validate_e2e.py: kitchen with --robustness "
+          f"--lambda-sweep, then block push")
+    run_validate_e2e(card)
+    print(f"[16e] ({since_start()}) scripts/profile_train.py: the profile and a --scaling grid")
+    run_profile_train(card)
+    print(f"  phase 16: {time.perf_counter() - t16:.3f} s")
+
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash
     # kernels at the chunked shape and their width-128 instantiations at
@@ -2978,6 +3420,11 @@ def main() -> None:
                         *erf_ms[suffix]))
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
     wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
+    # the bf16 width-64 kernels: phase 7's training and phase 16b's sweeps,
+    # each path's own count printed beside the sum
+    by_path = {k: {"phase 7 training": n, "phase 16b sweeps": sweep_launches[k]}
+               for k, n in counts.items()}
+    counts = {k: n + sweep_launches[k] for k, n in counts.items()}
     flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],
                        "_hd128": counts_w,
                        "_hd128_f32": counts_by_dtype[WIDE_HEADS, torch.float32]}
@@ -2999,6 +3446,8 @@ def main() -> None:
                  "library_ms": library_ms.get(name)}
         if name in gemm_ms:
             entry["gemm_ms"] = gemm_ms[name]
+        if name in by_path:
+            entry["launches_by_path"] = by_path[name]
         kernels.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / k_ms:.1f}% of the roofline ({card})")

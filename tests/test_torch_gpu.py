@@ -15,7 +15,9 @@ forward, and the grid samplers on `fused_cached` against `cached`; the
 scripted kitchen steps of `kitchen_scenarios.py` against the CPU; the
 vision slice: both cameras by pixel share, a vision policy's loss and
 gradients and the kitchen oracle (its jacobian in inference mode too)
-against the CPU. Marked `gpu`:
+against the CPU; B5/B6 under a seed axis (`torch.func.vmap`, the seed
+sweep's rule): bit-equal to one launch on the folded batch, one launch per
+kernel and call. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -799,3 +801,60 @@ def test_kitchen_oracle_on_card():
     completed, seqs = completed.cpu(), seqs.cpu()
     assigned = [int(completed[i, s[s >= 0]].sum()) for i, s in enumerate(seqs)]
     assert np.mean(assigned) >= 3.8
+
+
+SEED_SHAPES = [((4, 256, 6, 131, 60), torch.bfloat16), ((2, 256, 3, 131, 120), torch.bfloat16),
+               ((3, 2, 2, 77, 60), torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", SEED_SHAPES,
+                         ids=[f"{s}-{str(d)[6:]}" for s, d in SEED_SHAPES])
+def test_flash_under_a_seed_axis(shape, dtype):
+    """B5/B6 under `torch.func.vmap` over a leading seed axis [S, B, H, T,
+    hd] (the sweep's rule): the forward and the backward, outside the map
+    (`.backward()`) and inside it (`vmap(grad)`), bit-equal to one launch on
+    the folded [S*B, H, T, hd] tensors, and exactly one launch of each
+    kernel per call whatever S is; within 2^-5 (bf16) / 2^-12 (f32) of max
+    |ref| of the plain versions on the folded tensors."""
+    dev = _cuda()
+    S, B, H, T, hd = shape
+    g = torch.Generator(dev).manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    fold = [x.reshape(S * B, H, T, hd) for x in (q, k, v, do)]
+    o_ref, lse_ref = fa.flash_forward(*fold[:3])
+    dq_ref, delta = fa.flash_backward_dq(*fold[:3], o_ref, fold[3], lse_ref)
+    dk_ref, dv_ref = fa.flash_backward_dkv(*fold[:3], fold[3], lse_ref, delta)
+
+    def counts():
+        return [f.launches for f in (fa.flash_forward, fa.flash_backward_dq,
+                                     fa.flash_backward_dkv)]
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = counts()
+    o = torch.func.vmap(fa.flash_attention)(*leaves)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1]
+    assert torch.equal(o.reshape(S * B, H, T, hd), o_ref)
+    for x, ref in zip(leaves, (dq_ref, dk_ref, dv_ref)):
+        assert torch.equal(x.grad.reshape(S * B, H, T, hd), ref)
+
+    def f(q, k, v, do):
+        return (fa.flash_attention(q, k, v).float() * do.float()).sum()
+
+    before = counts()
+    grads = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v, do)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1]
+    for got, ref in zip(grads, (dq_ref, dk_ref, dv_ref)):
+        assert _close(got.reshape(S * B, H, T, hd), ref, FRACTION[dtype])
+
+    plain_o, plain_lse = fa.flash_forward_reference(*fold[:3])
+    plain_dq, plain_delta = fa.flash_backward_dq_reference(*fold[:3], plain_o, fold[3],
+                                                           plain_lse)
+    plain_dk, plain_dv = fa.flash_backward_dkv_reference(*fold[:3], fold[3], plain_lse,
+                                                         plain_delta)
+    for got, ref in ((o_ref, plain_o), (dq_ref, plain_dq), (dk_ref, plain_dk),
+                     (dv_ref, plain_dv)):
+        assert _close(got, ref, FRACTION[dtype])
