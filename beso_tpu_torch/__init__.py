@@ -21,5 +21,10 @@ Push, the evaluation CLI with every study, and the vision slice: both
 scripted oracles with `scripts/generate_demos.py` and
 `scripts/demo_census.py`, both ray-cast cameras, the vision modules and
 policies on `VisionDiffusionGPT`, the encoder pretraining and graft,
-`agents/encoders.py` and `scripts/validate_vision_e2e.py`.
+`agents/encoders.py` and `scripts/validate_vision_e2e.py`; the training
+tools (the seed sweep, `validate_e2e`, `profile_train`); the multi-device
+layer on `torch.distributed` (`parallel/`: meshes, tensor parallelism,
+the mesh train steps, the dry run; `rollout/sharded.py`), the single-block
+envs, xArm, the env registry, env-state I/O, the host renderers and
+videos, and the native batch loader (`data/native/`).
 """

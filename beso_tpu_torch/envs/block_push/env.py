@@ -17,6 +17,10 @@ over an explicit leading batch dimension instead of `vmap`:
   the convention of `jnp.argmin` / `jnp.argmax` on ties;
 * finished envs stay frozen field by field.
 
+`_push_block`, the quasi-static point push of the single-block envs
+(`envs/block_push/single.py`), is ported beside the multimodal env's
+dynamics; `block_push_step` does not call it.
+
 Only the shipped laws are ported: the 2-point box-box manifold for the
 block-block contact (`BB_BOX_BOX = True` in the JAX module; the legacy
 box-vs-disk pair behind `BB_BOX_BOX = False` is not), and the face-slab
@@ -51,6 +55,9 @@ EFFECTOR_SPEED = 1.0
 CONTROL_DT = 0.1
 N_SUBSTEPS = 24
 FRICTION_K2 = (2.0 / 3.0) * BLOCK_HALF * BLOCK_HALF
+# pusher-block friction of the quasi-static push law's motion cone
+# (`_push_block`; beso_tpu/envs/block_push/env.py:78)
+PUSHER_MU = 0.5
 SUB_DT = CONTROL_DT / N_SUBSTEPS
 BLOCK_MASS = 0.01
 INV_I = 1.0 / (BLOCK_MASS * FRICTION_K2)   # inverse yaw inertia
@@ -352,6 +359,37 @@ def _box_box_manifold(pos_a, yaw_a, pos_b, yaw_b, half):
     pen = half - (rel[..., 0] * n_out[..., None, 0] + rel[..., 1] * n_out[..., None, 1])
     live = (overlap & (s_lo <= s_hi))[..., None] & (pen > 0)
     return pen, n, pts, live
+
+
+def _push_block(block_pos, block_yaw, point, radius, k2: float = FRICTION_K2,
+                mu: float = PUSHER_MU):
+    """Quasi-static point push of an oriented box with the sticking /
+    slipping motion cone (Mason/Lynch; `beso_tpu/envs/block_push/env.py:
+    444-524`, whose docstring derives it), over leading dims, without the
+    pusher's tangential drive (the single-block envs pass none). The
+    contact impulse moves the contact point by A f, A = (k^2 I + p p^T) /
+    (k^2 + |c|^2), p = perp(c); the sticking force (norm-capped at 4x the
+    penetration) applies if it lies in the friction cone, else the cone-edge
+    force at the penetration's magnitude. Returns (new_pos, new_yaw, contact)."""
+    pen, n_in, c, R = _box_point_geom(block_pos, block_yaw, point, radius)
+    # the per-substep penetration capped at the effector's substep advance
+    pen = torch.clamp(pen, 0.0, EFFECTOR_SPEED * CONTROL_DT / N_SUBSTEPS)
+    t_dir = _perp(n_in)
+    p = _perp(c)
+    D = k2 + _dot(c, c)
+    eye = torch.eye(2, dtype=c.dtype, device=c.device)
+    A = (k2 * eye + p[..., :, None] * p[..., None, :]) / D[..., None, None]
+    u = pen[..., None] * n_in
+    f_stick = torch.linalg.solve(A, u[..., None])[..., 0]
+    fn, ft = _dot(f_stick, n_in), _dot(f_stick, t_dir)
+    stick = torch.abs(ft) <= mu * torch.clamp(fn, min=0.0)
+    edge = (n_in + mu * torch.sign(ft)[..., None] * t_dir) / math.sqrt(1.0 + mu * mu)
+    fmax = 4.0 * torch.clamp(pen, min=1e-9)
+    f_st = f_stick * torch.clamp(fmax / torch.clamp(_norm(f_stick), min=1e-9), max=1.0)[..., None]
+    f = torch.where(stick[..., None], f_st, pen[..., None] * edge)
+    v_local = (k2 * f + _dot(c, f)[..., None] * c) / D[..., None]
+    dyaw = _dot(p, f) / D
+    return block_pos + _mv(R, v_local), block_yaw + dyaw, pen > 0
 
 
 # ---- dynamics ----------------------------------------------------------------

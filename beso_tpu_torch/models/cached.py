@@ -54,10 +54,15 @@ class PrefixKV(NamedTuple):
 def extract_gpt_params(model) -> RawGPTParams:
     """The model's weights as plain tensors. Raises NotImplementedError for a
     sigma embedding other than the shipped "Linear" one, whose token the
-    engines build with one product (`beso_tpu/models/cached.py:61`)."""
+    engines build with one product (`beso_tpu/models/cached.py:61`), and
+    ValueError for a tensor-parallel model, whose blocks hold shards (the
+    sharded rollouts serve whole models, one per data rank)."""
     if model.sigma_embedding != "Linear":
         raise NotImplementedError(
             "cached inference supports the shipped 'Linear' sigma embedding")
+    if any(blk.tp is not None for blk in model.blocks):
+        raise ValueError("the cached engines serve a whole model, not a tensor-parallel shard "
+                         "(parallel.mesh.gather_full gives the full weights)")
 
     def lin(m):
         return m.weight.detach(), m.bias.detach()

@@ -29,6 +29,14 @@ goal mask, an elementwise Bernoulli(`cond_mask_prob`) zeroing of the goals.
 them through it, or takes them given, as a forward under `torch.func.vmap`
 needs. The whole forward is differentiable.
 
+Tensor parallelism (`parallel/mesh.py::partition_params`): a block whose
+`tp` is set holds its heads' rows of q, k and v and its block of the MLP's
+hidden units, attends over its own heads, and sums the row-parallel
+products proj and fc_proj over its "tp" group (Megatron's pairing, one sum
+per product pair, autograd-aware: `parallel/comm.py`). Draws keep the
+global shapes; a tensor-parallel block takes its heads of the attention
+dropout's draws.
+
 `attention` picks the attention form as the JAX package does (`gpt.py:78-94`):
 "broadcast" (plain PyTorch), "pallas" (the flash-attention kernels B5/B6 of
 `ops/flash_attention.py`, CUDA on the card; the config keeps the JAX name)
@@ -45,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from beso_tpu_torch.ops.flash_attention import flash_attention
+from beso_tpu_torch.parallel.comm import copy_to_tp, reduce_from_tp
 
 # token count at/above which "auto" attention takes the flash kernels
 # (`beso_tpu/models/gpt.py:40`)
@@ -110,37 +119,61 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(dtype).reshape(B, Tq, H * hd)
 
 
+def dense_row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                       dtype: torch.dtype, group) -> torch.Tensor:
+    """`dense` of a row-parallel product: this rank's partial f32 product
+    over its input features, summed over `group`, plus the f32 bias,
+    rounded to `dtype` once."""
+    y = reduce_from_tp(F.linear(x.to(dtype).float(), weight.to(dtype).float()), group)
+    return (y + bias.float()).to(dtype)
+
+
 def block_forward(lp: dict, x: torch.Tensor, n_heads: int, dtype: torch.dtype,
                   mask: Optional[torch.Tensor], kv_prefix=None, *,
                   flash: bool = False, attn_drop: Drop = None,
-                  resid_drop: Drop = None, approximate_gelu: bool = True):
+                  resid_drop: Drop = None, approximate_gelu: bool = True, tp=None):
     """One pre-LN block (score_gpts.py:83-115) over tokens x [B, T, D] with
     weights `lp` (`Block.weights()` names, Linear weights [out, in]).
     Queries attend to [kv_prefix ++ own K/V] under mask [T, P+T], or, with
     `flash`, causally to their own K/V through the flash kernels. The
     optional dropouts act on the attention probabilities and after the
-    projection and the MLP; `approximate_gelu` picks the MLP's GELU.
-    Returns (x_out, (k, v)) with the block's own k, v as [B, T, H, hd]."""
+    projection and the MLP; `approximate_gelu` picks the MLP's GELU. With
+    `tp` (a `parallel.mesh.TPShard`) `lp` holds this rank's shards: the
+    block attends over its n_heads / tp.size heads and sums proj and
+    fc_proj over the group. Returns (x_out, (k, v)) with the block's own
+    k, v as [B, T, H, hd] (its own heads under `tp`)."""
     B, T, D = x.shape
+    hd = D // n_heads
     h = layer_norm(x, lp["ln1_s"], lp["ln1_b"], dtype)
-    q, k, v = dense(h, lp["wqkv"], lp["bqkv"], dtype).split(D, dim=-1)
-    q, k, v = (a.reshape(B, T, n_heads, D // n_heads) for a in (q, k, v))
+    if tp is not None:
+        h = copy_to_tp(h, tp.group)
+    qkv = dense(h, lp["wqkv"], lp["bqkv"], dtype)
+    width = qkv.shape[-1] // 3
+    q, k, v = (a.reshape(B, T, width // hd, hd) for a in qkv.split(width, dim=-1))
     if flash:
         # kernel layout [B, H, T, hd]
         y = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True)
-        y = y.transpose(1, 2).reshape(B, T, D)
+        y = y.transpose(1, 2).reshape(B, T, width)
     else:
         k_all, v_all = k, v
         if kv_prefix is not None:
             k_all = torch.cat([kv_prefix[0].to(k.dtype), k], dim=1)
             v_all = torch.cat([kv_prefix[1].to(v.dtype), v], dim=1)
         y = attend(q, k_all, v_all, mask, attn_drop)
-    y = dense(y, lp["wproj"], lp["bproj"], dtype)
+    if tp is None:
+        y = dense(y, lp["wproj"], lp["bproj"], dtype)
+    else:
+        y = dense_row_parallel(y, lp["wproj"], lp["bproj"], dtype, tp.group)
     x = x + (y if resid_drop is None else resid_drop(y))
     h = layer_norm(x, lp["ln2_s"], lp["ln2_b"], dtype)
+    if tp is not None:
+        h = copy_to_tp(h, tp.group)
     h = gelu(dense(h, lp["wfc"], lp["bfc"], dtype), approximate_gelu)
-    h = dense(h, lp["wfc2"], lp["bfc2"], dtype)
+    if tp is None:
+        h = dense(h, lp["wfc2"], lp["bfc2"], dtype)
+    else:
+        h = dense_row_parallel(h, lp["wfc2"], lp["bfc2"], dtype, tp.group)
     return x + (h if resid_drop is None else resid_drop(h)), (k, v)
 
 
@@ -179,12 +212,14 @@ class CausalSelfAttention(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block with a 4x GELU MLP (score_gpts.py:83-115):
-    tanh GELU, or erf with `approximate_gelu=False`."""
+    tanh GELU, or erf with `approximate_gelu=False`. `tp` is None, or the
+    block's `TPShard` once `partition_params` has cut its weights."""
 
     def __init__(self, n_embd: int, n_heads: int, generator=None, device=None,
                  approximate_gelu: bool = True):
         super().__init__()
         self.approximate_gelu = approximate_gelu
+        self.tp = None
         self.ln1 = nn.LayerNorm(n_embd, eps=1e-5, device=device)
         self.attn = CausalSelfAttention(n_embd, n_heads, generator, device)
         self.ln2 = nn.LayerNorm(n_embd, eps=1e-5, device=device)
@@ -209,7 +244,14 @@ class Block(nn.Module):
         return block_forward(self.weights(), x, self.attn.n_heads, dtype, causal,
                              flash=flash, attn_drop=attn_drop,
                              resid_drop=resid_drop,
-                             approximate_gelu=self.approximate_gelu)[0]
+                             approximate_gelu=self.approximate_gelu, tp=self.tp)[0]
+
+    def local_heads(self) -> Optional[slice]:
+        """The heads a tensor-parallel block attends over; None without `tp`."""
+        if self.tp is None:
+            return None
+        n = self.attn.n_heads // self.tp.size
+        return slice(self.tp.rank * n, (self.tp.rank + 1) * n)
 
 
 class DiffusionGPT(nn.Module):
@@ -385,17 +427,19 @@ class DiffusionGPT(nn.Module):
             draws = self.train_draws(generator, states, goals, uncond)
         given = iter(draws or ())
 
-        def rand(x: torch.Tensor) -> torch.Tensor:
+        def rand(x: torch.Tensor, heads: Optional[slice] = None) -> torch.Tensor:
             u = next(given, None)
+            if u is not None and heads is not None:
+                u = u[..., heads]   # a tensor-parallel block's heads
             if u is None or u.shape != x.shape:
                 raise ValueError(f"draws do not match the forward: expected {tuple(x.shape)}, "
                                  f"got {None if u is None else tuple(u.shape)}")
             return u
 
-        def drop(rate: float) -> Drop:
+        def drop(rate: float, heads: Optional[slice] = None) -> Drop:
             if not train or rate == 0.0:
                 return None
-            return lambda x: dropout_with(x, rate, rand(x))
+            return lambda x: dropout_with(x, rate, rand(x, heads))
 
         parts = [self.embed_sigma(sigma)]
         if self.goal_conditioned:
@@ -409,7 +453,8 @@ class DiffusionGPT(nn.Module):
         x = torch.cat([p.to(self.dtype) for p in parts], dim=1)
         flash = self.attention_impl(x.shape[1], train) == "pallas"
         for blk in self.blocks:
-            x = blk(x, self.dtype, flash=flash, attn_drop=drop(self.attn_pdrop),
+            x = blk(x, self.dtype, flash=flash,
+                    attn_drop=drop(self.attn_pdrop, blk.local_heads()),
                     resid_drop=drop(self.resid_pdrop))
         if next(given, None) is not None:
             raise ValueError("more draws than the forward takes")

@@ -25,7 +25,8 @@ training CLI seeds a run.
 
 Non-seed grids (lr, sampler, ...) change the program; `scripts/sweep.py`
 loops over those cells and maps the seeds inside each. `shard_sweep_state`
-(the seed axis over a device mesh) comes with `parallel/mesh.py`.
+puts the seed axis over a mesh's "dp" ranks: each rank then trains its
+seeds on their own generators, with no communication.
 """
 
 from __future__ import annotations
@@ -184,6 +185,34 @@ def seed_state(ss: SweepState, i: int) -> TrainState:
     scheduler.load_state_dict(ss.scheduler.state_dict())
     ema = EmaState({n: t[i].clone() for n, t in ss.ema.params.items()}, ss.ema.num_updates)
     return TrainState(model, optimizer, scheduler, ema, ss.step)
+
+
+def shard_sweep_state(ss: SweepState, mesh, axis: str = "dp") -> SweepState:
+    """This rank's part of the seed axis over the mesh axis `axis`
+    (`beso_tpu/train/sweep.py:96-109`): rank i of n keeps seeds [i S/n,
+    (i+1) S/n) with their parameters, AdamW moments, EMA shadow, schedule
+    and step, in a state with an optimizer of its own. Each seed then draws
+    from its own generators (`seed_generators(state.seeds, device)`), as in
+    the unsharded sweep; the per-seed programs are independent, so the
+    ranks never communicate. Raises unless n divides S."""
+    S = len(ss.seeds)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if S % n:
+        raise ValueError(f"{S} seeds not divisible over {n} '{axis}' devices")
+    i = mesh.get_local_rank(axis)
+    rows = slice(i * S // n, (i + 1) * S // n)
+    params = {k: v.detach()[rows].clone().requires_grad_(v.requires_grad)
+              for k, v in ss.params.items()}
+    optimizer, scheduler = ss.optimizer_factory(params.values())
+    state = ss.optimizer.state_dict()
+    state["state"] = {k: {m: t[rows].clone() if m in ("exp_avg", "exp_avg_sq") else t.clone()
+                          for m, t in st.items()}
+                      for k, st in state["state"].items()}
+    optimizer.load_state_dict(state)
+    scheduler.load_state_dict(ss.scheduler.state_dict())
+    ema = EmaState({k: t[rows].clone() for k, t in ss.ema.params.items()}, ss.ema.num_updates)
+    return SweepState(ss.denoiser, params, ss.optimizer_factory, optimizer, scheduler, ema,
+                      ss.seeds[rows], ss.step)
 
 
 def run_sweep(model_factory: Callable, optimizer_factory: Callable, sample_density: Callable,

@@ -99,11 +99,23 @@ def step_noise(shape, generator: Optional[torch.Generator], device) -> torch.Ten
 def make_train_step(denoiser: GCDenoiser, sample_density: Callable,
                     scaler: Scaler, ema_decay: float = 0.999,
                     update_ema_every_n_steps: int = 1,
-                    pred_last_action_only: bool = False):
+                    pred_last_action_only: bool = False, mesh=None):
     """Build `train_step(ts, batch, generator, sigma=None, noise=None) -> loss`
     (beso_agent.py:215-248). Sigma, noise, dropout and the CFG goal mask
     draw from `generator`; `sigma` [B] and `noise` (the action shape) may be
-    given instead of drawn. Returns the loss as a detached device scalar."""
+    given instead of drawn. Returns the loss as a detached device scalar.
+
+    Under a `mesh` (`parallel/mesh.py`; the model placed by
+    `partition_params`) `batch` is the global batch and `generator` the
+    same on every rank: each rank makes the step's draws over the global
+    batch in the single process's order (sigma, noise, then the model's
+    `train_draws`), computes the loss on its data rows, and the gradients
+    are summed over the data axes and divided by their size, so they are
+    the global batch's; the optimizer, schedule and EMA then step alike on
+    every rank. The returned loss is the global batch's."""
+    if mesh is not None:
+        from beso_tpu_torch.parallel.mesh import (all_reduce_data_, all_reduce_grads,
+                                                  data_index, data_rows)
 
     def train_step(ts: TrainState, batch: dict, generator: Optional[torch.Generator],
                    sigma: Optional[torch.Tensor] = None,
@@ -114,11 +126,21 @@ def make_train_step(denoiser: GCDenoiser, sample_density: Callable,
             sigma = sample_density(generator, (action_t.shape[0],), device=dev)
         if noise is None:
             noise = step_noise(action_t.shape, generator, dev)
+        given = {}   # the model's draws, made here under a mesh
+        if mesh is not None:
+            draws = ts.model.train_draws(generator, state_t, goal_t)
+            rows = data_rows(mesh, action_t.shape[0])
+            state_t, action_t, goal_t, noise, sigma = (
+                a[rows] for a in (state_t, action_t, goal_t, noise, sigma))
+            given["draws"] = [u[rows] for u in draws]
         loss = denoiser.loss(state_t, action_t, goal_t, noise, sigma,
                              pred_last_action_only=pred_last_action_only,
-                             train=True, generator=generator)
+                             train=True, generator=generator, **given)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(ts.model, mesh)
+            loss = all_reduce_data_(loss.detach().clone(), mesh) / data_index(mesh)[1]
         ts.optimizer.step()
         ts.scheduler.step()
         ts.step += 1

@@ -149,8 +149,8 @@ exits non-zero on failure:
    `beso_tpu_torch.scripts.evaluate` with `configs/evaluate_kitchen.yaml` as
    shipped (100 runs x 280 steps) and its CFG study at 5 lambdas x 40 steps;
    the same for `configs/block_push.yaml` (phase 12's files) and
-   `configs/evaluate_blocks.yaml` (100 runs, 300 steps cut to 100; its CFG
-   study at 20 steps): the agent's "auto" engine,
+   `configs/evaluate_blocks.yaml` (100 runs, 300 steps cut to 50; its CFG
+   study at 10 steps): the agent's "auto" engine,
    the plain cached one, so no fused-layer launch; env-steps/s over each
    command's wall time and finite metrics printed;
 14. every sampler, the mean and KDE action selection and the sequential
@@ -222,16 +222,41 @@ exits non-zero on failure:
    and 8 seeds for 20 steps, per-seed steps/s, and one seed's run dir
    through `scripts/evaluate.py` with configs/evaluate_kitchen.yaml as
    shipped; (d) `scripts/validate_e2e.py`, kitchen with --robustness
-   --lambda-sweep, then block push with 80 demo steps (160 cut), 200 train
+   --lambda-sweep, then block push with 40 demo steps (160 cut), 200 train
    steps (10,000 cut), a 100 x 60 evaluation (280 / 300 cut): finite
    summaries with their keys; (e) `scripts/profile_train.py`: the device
    time of 50 fused train steps of the kitchen model at batch 1024 by
    kernel category and the idle share, then a --scaling grid (information).
+17. the multi-device layer on `torch.distributed`, in spawned ranks (each
+   with a time limit on its rendezvous, its collectives and the whole; a
+   failed or hung rank fails the phase): one NCCL rank (W=1; one card,
+   and NCCL refuses two ranks on one device), then two gloo ranks that
+   share the card (W=2; their sums and gathers go through the host). (a)
+   `rollout_kitchen_sharded` at the shipped kitchen width, 1024 envs x 40
+   steps (280 cut) on `fused_cached`, bf16 and f32: the gathered metrics
+   bit-equal to one process's rollouts of each shard on its generator,
+   each rank's B1 launches exactly 40 x 3 NFE x 6 layers, env-steps/s at
+   W=1 and W=2 (information; the two ranks share one card); (b)
+   `rollout_block_push_sharded` at the shipped block-push width (f32 B1 at
+   its shape), 1024 envs x 10 steps (300 cut) over W=2: bit-equal to the
+   shards' single-process rollouts, 10 x 3 x 4 B1 launches per rank; (c)
+   one train step of the chunked config (bf16, batch 256) at dp=2 and at
+   dp=1 x tp=2 (3 heads per rank) against one process's: loss within 2^-8,
+   every gradient within 2^-5 of its max |ref|, exactly 6 launches of each
+   flash kernel per rank; then `dryrun_body` on the NCCL rank (cuda); (d)
+   `shard_sweep_state`, seeds 1-4 of the chunked config over the 2 ranks,
+   4 steps at batch 64, each seed's losses within 2^-8 of the one-process
+   sweep's (bit-equality printed); (e) every registry id stepped on the
+   card against the CPU (1e-5 (1 + |cpu|); the single-block ids placed for
+   contact, each step from the CPU's state), xArm FK on the card against the CPU and IK
+   on the card to under 1e-3, a CUDA env state saved and loaded, and the
+   native loader's batches streamed to the card equal to its host batches.
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
 of its work at the timed shape with what bounds it (f32 B1 and B4 with
-phase 14's launches added, the bf16 flash kernels with phase 16b's), the PyTorch library
+phase 14's launches added, B1 with phase 17a/b's and the bf16 flash kernels
+with phase 16b's and 17c's, each path apart in `launches_by_path`), the PyTorch library
 call's ms where one computes the same function, and for the fused layers
 the torch.matmul ms of their products in the same dtype; f32 forms as
 `*_f32`, the flash kernels' width-128 instantiations as `*_hd128`, B1's
@@ -271,10 +296,11 @@ ERF_ROLLOUT_STEPS = 40  # phase 13b's rollout of the erf model (280 cut to 40)
 # cut to 100 since phase 13 came, to hold the run near half its time limit), layers
 BP_STEPS, BP_LAYERS = 100, 4
 BP_PHYSICS_STEPS = 30   # phase 12's second, instrumented evaluation (300 cut to 30)
-# phase 13c's block-push evaluation CLI, cut since phase 15 came (to hold the
-# cold run near 900 s): evaluate_blocks.yaml's num_steps_per_run 300 cut to
-# 100, and its CFG study's 40 steps to 20; the kitchen one stays as shipped
-CLI_BP_STEPS, CLI_CFG_STEPS = 100, {"kitchen": 40, "block_push": 20}
+# phase 13c's block-push evaluation CLI, cut to hold the cold run near
+# 1,000 s: evaluate_blocks.yaml's num_steps_per_run 300 cut to 100 and its
+# CFG study's 40 steps to 20 when phase 15 came, to 50 and 10 when phase 17
+# came; the kitchen one stays as shipped
+CLI_BP_STEPS, CLI_CFG_STEPS = 50, {"kitchen": 40, "block_push": 10}
 # phase 15, the vision path: generate_demos at validate_vision_e2e's 1024
 # episodes (--episodes; each env's default --steps, 160 and 280), the
 # cameras held on RENDER_FRAMES frames and timed on one batch-256 train
@@ -292,14 +318,15 @@ PIXEL_TOL, PIXEL_SHARE = 1e-5, 0.005   # images: all but 0.5% of pixels within 1
 # seeds and step counts (max_train_steps: 40,000 in both kitchen configs,
 # eval_every_n_steps: 4,000, cut); validate_e2e's train steps (--train-steps:
 # 10,000, cut), evaluation steps (--eval-n-steps: 280 kitchen, 300 block
-# push, cut) and block-push demo steps (--demo-steps: 160, cut: its eager
-# physics takes ~0.3 s per step); profile_train's --scaling grid; the steps
+# push, cut) and block-push demo steps (--demo-steps: 160, cut to 80, and to
+# 40 when phase 17 came: its eager physics takes ~0.3 s per step);
+# profile_train's --scaling grid; the steps
 # of each profiled sweep call in 16b (information, no shipped value)
 SEED_AXIS_SHAPES = ((4, *CHUNKED_SHAPE), (2, *WIDE_MODEL_SHAPE))
 SEED_AXIS_REPS = 21
 SWEEP_SEEDS, SWEEP_STEPS, SWEEP_EVAL_EVERY = (1, 2, 3, 4), 40, 20
 KITCHEN_SWEEP_SEEDS, KITCHEN_SWEEP_STEPS = 8, 20
-E2E_TRAIN_STEPS, E2E_EVAL_STEPS, E2E_BP_DEMO_STEPS = 200, 60, 80
+E2E_TRAIN_STEPS, E2E_EVAL_STEPS, E2E_BP_DEMO_STEPS = 200, 60, 40
 PROFILE_SCALING = "1024:50,2048:25"
 SWEEP_PROFILE_STEPS = 10
 VISION_GRAD_FRACTION = 2.0 ** -10      # the f32 vision loss and gradients, card vs CPU
@@ -322,6 +349,14 @@ FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), 
                 ((2, 2, 50, 15), False), ((2, 4, 131, 128), True), ((2, 2, 77, 96), False),
                 ((2, 3, 131, 120), True), ((2, 2, 65, 100), True), ((2, 2, 16, 72), False),
                 (WIDE_MODEL_SHAPE, True), (WIDE_SHAPE, True))
+# phase 17, the multi-device layer: 17a's kitchen rollouts (280 steps cut
+# to 40) and 17b's block-push rollout (300 cut to 10) at N_ENVS envs over
+# all ranks; 17c's one train step of the chunked config at TRAIN_BATCH;
+# 17d's sweep (40,000 steps cut to 4, batch 256 cut to 64); the seed of
+# every weight, batch and shard generator; each spawned group's time limit
+P17_STEPS, P17_BP_STEPS, P17_SEED = 40, 10, 17
+P17_SWEEP_SEEDS, P17_SWEEP_STEPS, P17_SWEEP_BATCH = (1, 2, 3, 4), 4, 64
+P17_TIMEOUT = 600
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
 # bf16 tensor-core operations and HBM3 bytes per second. The flash kernels'
 # f32 instantiations run each f32 product on the tensor cores as three bf16
@@ -2904,6 +2939,522 @@ def run_profile_train(card):
         fail("profile_train's losses are not finite")
 
 
+# ---- phase 17: the multi-device layer (torch.distributed) -------------------
+
+def _p17_dir() -> Path:
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_phase17"
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def p17_kitchen_setup(dtype, device):
+    """The shipped kitchen serving width (`kitchen_config`) in `dtype`, seeded
+    weights (the same in every process), its scaler, policy config,
+    `fused_cached` factory and N_ENVS goals: what phase 4 serves."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
+    from beso_tpu_torch.models import fit_scaler, make_rollout_denoise_factory
+
+    model_kw, policy_kw, scale_data = kitchen_config()
+    den = build_model(model_kw, device, seed=P17_SEED + (dtype == torch.float32), dtype=dtype)
+    data = synthetic_kitchen_data(n_traj=32, t_max=60)
+    scaler = fit_scaler(data.all_observations(), data.all_actions(), scale_data=scale_data,
+                        device=device)
+    goals, expected = multigoal_kitchen_goals(data, 2, N_ENVS, seed=42)
+    cfg = PolicyConfig(**policy_kw)
+    return (scaler, cfg, make_rollout_denoise_factory(den, scaler, cfg, engine="fused_cached"),
+            torch.as_tensor(goals, device=device), torch.as_tensor(expected, device=device))
+
+
+def p17_block_push_setup(device):
+    """The shipped block-push config's model (f32, 4 x 240 x 12 heads),
+    scaler, policy config, `fused_cached` factory and N_ENVS goal frames."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.data.trajectories import synthetic_push_data
+    from beso_tpu_torch.envs.block_push.goals import block_push_goal_frames
+    from beso_tpu_torch.models import fit_minmax_scaler, make_rollout_denoise_factory
+
+    c = block_push_agent_config()
+    model_kw = dict(state_dim=c["obs_dim"], action_dim=c["action_dim"],
+                    embed_dim=c["hidden_dim"], n_layers=c["n_layers"], n_heads=c["n_heads"],
+                    goal_seq_len=c["goal_seq_len"], obs_seq_len=c["window_size"],
+                    linear_output=c["linear_output"])
+    den = build_model(model_kw, device, seed=P17_SEED + 2, dtype=torch.float32)
+    data = synthetic_push_data(n_traj=64, t_max=100, seed=21)
+    scaler = fit_minmax_scaler(data.all_observations()[:, :10], data.all_actions(),
+                               device=device)
+    frames, expected = block_push_goal_frames(data, N_ENVS, seed=6)
+    cfg = PolicyConfig(window_size=5, obs_dim=10, action_dim=2, sampler_type="ddim",
+                       num_sampling_steps=NFE, sigma_min=c["sigma_min"], sigma_max=1.0,
+                       cond_lambda=c["cond_lambda"])
+    return (scaler, cfg, make_rollout_denoise_factory(den, scaler, cfg, engine="fused_cached"),
+            torch.as_tensor(frames, device=device), torch.as_tensor(expected, device=device))
+
+
+def p17_rollout(env, setup, mesh, n_steps, shard=0, n_shards=1):
+    """A sharded rollout under `mesh` (each rank its shard of the N_ENVS
+    envs), or with `mesh` None one process's rollout of shard `shard` of
+    `n_shards` on that shard's generator (`shard_generator`)."""
+    from beso_tpu_torch.rollout import (rollout_block_push, rollout_block_push_sharded,
+                                        rollout_kitchen, rollout_kitchen_sharded)
+    from beso_tpu_torch.rollout.sharded import shard_generator
+
+    scaler, cfg, factory, goals, expected = setup
+    if mesh is not None:
+        fn = rollout_kitchen_sharded if env == "kitchen" else rollout_block_push_sharded
+        return fn(None, scaler, cfg, goals, expected, P17_SEED, mesh, n_steps=n_steps,
+                  denoise_factory=factory)
+    b = goals.shape[0] // n_shards
+    rows = slice(shard * b, (shard + 1) * b)
+    fn = rollout_kitchen if env == "kitchen" else rollout_block_push
+    return fn(None, scaler, cfg, goals[rows], expected[rows],
+              shard_generator(P17_SEED, shard, goals.device), n_steps=n_steps,
+              denoise_factory=factory)
+
+
+def p17_timed_rollout(env, setup, mesh, n_steps):
+    """A 2-step warm-up, every fused-layer counter set to 0, the sharded
+    rollout, a sync: (metrics on the host, {wrapper: launches}, wall s)."""
+    import torch
+
+    p17_rollout(env, setup, mesh, 2)
+    torch.cuda.synchronize()
+    reset_fused_counts()
+    t0 = time.perf_counter()
+    m = p17_rollout(env, setup, mesh, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v[0] for k, v in fused_counts().items()}
+    return {k: (v.cpu() if hasattr(v, "cpu") else v) for k, v in m._asdict().items()}, counts, wall
+
+
+def p17_train_setup(device):
+    """The chunked config's model (bf16, 131 tokens, B5/B6 in every layer),
+    its data, scaler and density, and one global batch of TRAIN_BATCH."""
+    import torch
+
+    from beso_tpu_torch.core.densities import make_sample_density
+    from beso_tpu_torch.data.slicer import SlicedDataset
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.models import fit_scaler
+
+    data = synthetic_kitchen_data(n_traj=96, t_max=200, seed=P17_SEED)
+    ds = SlicedDataset(data, window=64, future_seq_len=2, device=device)
+    scaler = fit_scaler(data.all_observations(), data.all_actions(), scale_data=False,
+                        device=device)
+    density = make_sample_density("loglogistic", 0.5, 0.005, 1.0)
+    batch = ds.sample_batch(torch.Generator(device).manual_seed(P17_SEED), TRAIN_BATCH)
+    return ds, scaler, density, batch
+
+
+def p17_chunked_model(device, gen):
+    import torch
+
+    from beso_tpu_torch.models import DiffusionGPT
+
+    c = chunked_config()
+    return DiffusionGPT(
+        state_dim=c["obs_dim"], action_dim=c["action_dim"], embed_dim=c["hidden_dim"],
+        n_layers=c["n_layers"], n_heads=c["n_heads"], goal_seq_len=c["goal_seq_len"],
+        obs_seq_len=c["window_size"], cond_mask_prob=c["cond_mask_prob"], attention="pallas",
+        dtype=torch.bfloat16, generator=gen).to(device)
+
+
+def p17_train_step(device, mesh):
+    """One `make_train_step` of the chunked config from seeded weights, on
+    the global batch and generator (under `mesh` each rank its rows, or its
+    heads under tp): (loss, full gradients, this rank's flash launches)."""
+    import torch
+
+    from beso_tpu_torch.models import GCDenoiser
+    from beso_tpu_torch.models.ema import ema_init
+    from beso_tpu_torch.parallel import gather_full, partition_params
+    from beso_tpu_torch.train.trainer import TrainState, make_optimizer, make_train_step
+
+    _, scaler, density, batch = p17_train_setup(device)
+    model = p17_chunked_model(device, torch.Generator().manual_seed(P17_SEED))
+    if mesh is not None:
+        partition_params(model, mesh)
+    opt, sched = make_optimizer(model.parameters(), "adamw", 1e-4)
+    ts = TrainState(model, opt, sched, ema_init(model.named_parameters()))
+    step = make_train_step(GCDenoiser(model, 0.5), density, scaler, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_flash_launches()
+    loss = step(ts, batch, torch.Generator(device).manual_seed(P17_SEED + 1))
+    torch.cuda.synchronize()
+    launches = flash_launches()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    grads = gather_full(grads, mesh) if mesh is not None else {
+        n: g.detach().clone() for n, g in grads.items()}
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}, launches
+
+
+def p17_sweep(device, mesh):
+    """The seed sweep of the chunked config, P17_SWEEP_SEEDS at batch
+    P17_SWEEP_BATCH for P17_SWEEP_STEPS steps; under `mesh` each "dp" rank
+    trains its seeds (`shard_sweep_state`). (seeds, losses [S, steps])."""
+    from functools import partial
+
+    import torch
+
+    from beso_tpu_torch.train.sweep import (init_sweep_state, make_sweep_train_steps,
+                                            seed_generators, shard_sweep_state)
+    from beso_tpu_torch.train.trainer import make_optimizer
+
+    ds, scaler, density, _ = p17_train_setup(device)
+    ss = init_sweep_state(lambda g: p17_chunked_model(device, g),
+                          partial(make_optimizer, name="adamw", lr=1e-4), P17_SWEEP_SEEDS)
+    if mesh is not None:
+        ss = shard_sweep_state(ss, mesh, "dp")
+    fused = make_sweep_train_steps(density, scaler, ds, P17_SWEEP_BATCH, P17_SWEEP_STEPS)
+    _, losses = fused(ss, seed_generators(ss.seeds, device)[0])
+    return ss.seeds, losses.float().cpu()
+
+
+def p17_nccl_rank(rank, world_size, device_type):
+    """The NCCL rank (W=1, the one card): an all-reduce through NCCL, 17a's
+    kitchen rollouts in bf16 and f32 under a ("dp", "tp") mesh of 1, and
+    17c's dry-run body, on `device_type` (the caller's)."""
+    import torch
+
+    from beso_tpu_torch.parallel import make_mesh
+    from beso_tpu_torch.parallel.comm import all_reduce_
+    from beso_tpu_torch.parallel.dryrun import dryrun_body
+
+    device = torch.device(device_type)   # init_distributed set the rank's card
+    mesh = make_mesh(world_size, tp=1, backend="nccl")
+    x = all_reduce_(torch.full((4,), 3.0, device=device), mesh.get_group("dp"))
+    if not bool((x == 3.0 * world_size).all()):
+        raise RuntimeError(f"NCCL all-reduce gave {x}")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        out[str(dtype)] = p17_timed_rollout("kitchen", p17_kitchen_setup(dtype, device), mesh,
+                                            P17_STEPS)
+    d = dryrun_body(rank, world_size, backend="nccl", device=device)
+    out["dryrun_loss"] = float(d["loss"])
+    torch.save(out, _p17_dir() / f"nccl_rank{rank}.pt")
+
+
+def p17_gloo_rank(rank, world_size, device_type):
+    """A gloo rank of W=2 sharing the card (gathers and sums through the
+    host): 17a's kitchen rollouts, 17b's block-push rollout, 17c's train
+    step at dp=2 and at dp=1 x tp=2, 17d's sweep over "dp", on
+    `device_type` (the caller's)."""
+    import torch
+
+    from beso_tpu_torch.parallel import make_mesh
+
+    device = torch.device(device_type)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    dp = make_mesh(world_size, tp=1, backend="gloo")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        out[str(dtype)] = p17_timed_rollout("kitchen", p17_kitchen_setup(dtype, device), dp,
+                                            P17_STEPS)
+    out["block_push"] = p17_timed_rollout("block_push", p17_block_push_setup(device), dp,
+                                          P17_BP_STEPS)
+    out["train_dp"] = p17_train_step(device, dp)
+    out["train_tp"] = p17_train_step(device, make_mesh(world_size, tp=world_size,
+                                                       backend="gloo"))
+    out["sweep"] = p17_sweep(device, dp)
+    torch.save(out, _p17_dir() / f"gloo_rank{rank}.pt")
+
+
+def _p17_same(what, got, ref):
+    """Fail unless the metrics dicts are equal bit for bit."""
+    bad = [k for k in ("rewards", "results", "completed", "completion_order")
+           if not got[k].equal(ref[k])]
+    print(f"  {what}: {'bit-equal' if not bad else f'NOT bit-equal in {bad}: FAIL'}")
+    if bad:
+        fail(f"{what} differs from the single-process rollouts of its shards")
+
+
+def _p17_launches(what, counts, want_b1):
+    want = {k: (want_b1 if k == "fused_layer_prefix" else 0) for k in counts}
+    print(f"  {what}: launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"{what} launched {counts}, not {want}")
+
+
+def single_contact_placement(state, reach):
+    """8 single-block envs of `state` (CPU) placed for contact, as the CPU
+    tests place JAX's: envs 0-3 with the effector just behind the block,
+    pushing it toward the target; envs 4-7 with the block 4.5 cm from the
+    target at bearings 0, 0.3, 1.2 and 2.5 rad off the slot opening, the
+    effector behind it pushing inward (INSERT's gate holds env 6 at the
+    rim); env 7 at its goal with the effector still. Returns (state, the
+    action [8, 2] of every step)."""
+    import torch
+
+    block, target = state.block_pos.clone(), state.target_pos
+    ang = state.target_yaw[4:8] + torch.tensor([0.0, 0.3, 1.2, 2.5])
+    block[4:8] = target[4:8] + 0.045 * torch.stack([ang.cos(), ang.sin()], -1)
+    block[7] = target[7]
+    d = target - block
+    d[7] = torch.tensor([0.0, 1.0])
+    d = d / d.norm(dim=-1, keepdim=True)
+    eff = block - 0.035 * d
+    eff[7] = state.reach_target[7] if reach else target[7] + torch.tensor([0.0, -0.2])
+    action = 0.02 * d
+    action[7] = 0.0
+    return state._replace(effector=eff, effector_target=eff.clone(), block_pos=block), action
+
+
+def check_registry_on_card(device):
+    """17e: every registry id's step on the card against the CPU (obs and
+    reward within 1e-5 (1 + |cpu|), done equal). The single-block ids
+    (PUSH, REACH, INSERT, normalized and Rgb) step 4 times from
+    `single_contact_placement`, so the push law and INSERT's slot gate act;
+    each card step starts from the CPU's state, since contact is chaotic
+    (f32 against f64 grows ~4x per step on the CPU), and the blocks must
+    have moved. The multimodal and kitchen ids step 3 times, free running,
+    with the block ids' actions scaled to 0.005 and away from the blocks
+    (the multimodal env's dither hash decorrelates at an ulp). Then every
+    id is reset on the card from a card generator (finite, its shapes).
+    Prints each id's largest gap."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.envs import registry
+    from beso_tpu_torch.envs.block_push.single import (ACTION_MAX, ACTION_MIN,
+                                                       SingleBlockPushState)
+
+    def card(x):
+        return type(x)(*(v.to(device) for v in x))
+
+    def gap(got, want):
+        return ((got.cpu() - want).abs() / (1 + want.abs())).max().item()
+
+    lo, hi = torch.tensor(ACTION_MIN), torch.tensor(ACTION_MAX)
+    rng = np.random.RandomState(4)
+    worst = {}
+    for env_id in registry.registered_ids():
+        spec = registry.make(env_id)
+        kitchen = env_id.startswith("kitchen")
+        cpu = spec.reset_fn(8, torch.Generator().manual_seed(0))
+        single = isinstance(cpu, SingleBlockPushState)
+        if single:
+            cpu, a = single_contact_placement(cpu, "Reach" in env_id)
+            if "Normalized" in env_id:   # the action that denormalizes to `a`
+                a = (a - (hi + lo) * 0.5) / ((hi - lo) * 0.5)
+            start, actions = cpu.block_pos.clone(), [a] * 4
+        else:
+            actions = [rng.uniform(-1, 1, (8, 9 if kitchen else 2)).astype(np.float32)
+                       for _ in range(3)]
+            if not kitchen:
+                for a in actions:
+                    a *= 0.005
+                    a[:, 1] = -abs(a[:, 1])   # away from the blocks
+            actions = [torch.as_tensor(a) for a in actions]
+        on_card = card(cpu)
+        worst[env_id] = 0.0
+        for a in actions:
+            if single:
+                on_card = card(cpu)
+            on_card, oc, rc, dc = spec.step_fn(on_card, a.to(device))
+            cpu, o, r, d = spec.step_fn(cpu, a)
+            err = max(gap(oc, o), gap(rc, r))
+            worst[env_id] = max(worst[env_id], err)
+            if not (err <= 1e-5 and dc.cpu().equal(d)):
+                fail(f"{env_id} on the card differs from the CPU by {err}")
+        if single and not bool(((cpu.block_pos - start).norm(dim=-1)[:7] > 1e-3).all()):
+            fail(f"{env_id}: the contact placement pushed no block")
+        fresh = spec.reset_fn(8, torch.Generator(device).manual_seed(0), device)
+        obs = spec.obs_fn(fresh)
+        if obs.device.type != device.type or obs.shape[0] != 8 or not bool(
+                torch.isfinite(obs).all()):
+            fail(f"{env_id}: a reset on the card gave obs {tuple(obs.shape)} on {obs.device}")
+    print(f"  {len(worst)} registry ids on the card vs the CPU, max |diff| / (1 + |cpu|) of obs "
+          f"and reward (limit 1e-5; single-block ids over 4 contact steps, each from the CPU's "
+          f"state): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    print("  resets on the card finite")
+
+
+def check_xarm_state_loader_on_card(device):
+    """17e: xArm FK on the card against the CPU, IK on the card to under
+    1e-3 of two targets; a CUDA env state saved and loaded; the native
+    loader's batches streamed to the card equal to its host batches."""
+    import numpy as np
+    import torch
+
+    from beso_tpu_torch.data.native import NativeSlicedLoader
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.envs.block_push.env import block_push_reset, block_push_step
+    from beso_tpu_torch.envs.block_push.xarm import xarm_fk, xarm_fk_pose, xarm_ik
+    from beso_tpu_torch.envs.pose3d import (Pose3d, quat_conj, quat_from_rotvec, quat_mul,
+                                            quat_to_rotvec)
+    from beso_tpu_torch.envs.state_io import load_env_state, save_env_state
+
+    q = torch.as_tensor(np.random.RandomState(0).uniform(-1, 1, (64, 6)).astype(np.float32))
+    err = (xarm_fk(q.to(device))[0].cpu() - xarm_fk(q)[0]).abs().max().item()
+    if not err <= 1e-5:
+        fail(f"xArm FK on the card differs from the CPU by {err}")
+    rv = torch.tensor([[0.0, math.pi / 2, 0.0], [0.0, math.pi / 2, 0.2]], device=device)
+    t = torch.tensor([[0.5, 0.0, 0.1], [0.45, 0.1, 0.15]], device=device)
+    target = Pose3d(quat_from_rotvec(rv), t)
+    with torch.inference_mode():
+        qi = xarm_ik(target)
+        pose = xarm_fk_pose(qi)
+    pos_err = (pose.translation - t).abs().max().item()
+    rot_err = quat_to_rotvec(quat_mul(target.rotation, quat_conj(pose.rotation))).norm(
+        dim=-1).max().item()
+    print(f"  xArm: FK card vs CPU max |diff| {err:.3g} (limit 1e-5); IK on the card in "
+          f"inference mode: position error {pos_err:.3g}, rotation {rot_err:.3g} rad "
+          f"(limit 1e-3)")
+    if not (pos_err < 1e-3 and rot_err < 1e-3):
+        fail("xArm IK on the card missed its targets")
+
+    state = block_push_reset(16, torch.Generator(device).manual_seed(1), device)
+    state, *_ = block_push_step(state, torch.full((16, 2), 0.01, device=device))
+    path = _p17_dir() / "state.npz"
+    save_env_state(state, path)
+    back = load_env_state(block_push_reset(16, None, device), path)
+    if not all(a.device.type == device.type and a.equal(b) for a, b in zip(back, state)):
+        fail("a CUDA env state did not load back equal")
+
+    data = synthetic_kitchen_data(n_traj=32, t_max=80, seed=3)
+    nl = NativeSlicedLoader(data.observations, data.actions, data.lengths, window=4,
+                            future_seq_len=2)
+    n = 0
+    for k, batch in enumerate(nl.batches(seed=5, batch_size=256, n_batches=6, device=device)):
+        host = nl.sample_batch_host(5, k, 256)
+        if not all(batch[x].device.type == device.type and batch[x].cpu().equal(host[x])
+                   for x in host):
+            fail(f"native loader batch {k} on the card differs from its host batch")
+        n += 1
+    print(f"  env state on the card saved and loaded equal; native loader: {n} batches of "
+          f"256 streamed to the card through pinned memory, each equal to its host batch")
+
+
+def run_phase17(device, card):
+    """Phase 17 (see the module docstring). Returns {path: launches} per
+    kernel for the kernels line."""
+    import torch
+
+    from beso_tpu_torch.parallel.launch import spawn
+
+    out = _p17_dir()
+    for old in out.glob("*_rank*.pt"):
+        old.unlink()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        spawn(p17_nccl_rank, 1, "nccl", args=(device.type,), timeout_s=P17_TIMEOUT,
+              init_timeout_s=120)
+        t_nccl = time.perf_counter() - t0
+        spawn(p17_gloo_rank, 2, "gloo", args=(device.type,), timeout_s=P17_TIMEOUT,
+              init_timeout_s=120)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 17's ranks: {e}")
+    t_ranks = time.perf_counter() - t0
+    nccl = torch.load(out / "nccl_rank0.pt", weights_only=False)
+    gloo = [torch.load(out / f"gloo_rank{r}.pt", weights_only=False) for r in range(2)]
+    print(f"  ranks: NCCL W=1 {t_nccl:.1f} s, gloo W=2 {t_ranks - t_nccl:.1f} s "
+          f"(process start, set-up and warm-ups included)")
+    paths = {"fused_layer_prefix": {}, "fused_layer_prefix_f32": {}, "flash": {}}
+
+    print(f"[17a] ({since_start()}) kitchen rollouts sharded over W=1 (NCCL) and W=2 "
+          f"(gloo, one card), {N_ENVS} envs x {P17_STEPS} steps, fused_cached")
+    for dtype, key in ((torch.bfloat16, "fused_layer_prefix"),
+                       (torch.float32, "fused_layer_prefix_f32")):
+        setup = p17_kitchen_setup(dtype, device)
+        whole = p17_rollout("kitchen", setup, None, P17_STEPS)
+        halves = [p17_rollout("kitchen", setup, None, P17_STEPS, s, 2) for s in range(2)]
+        halves = {k: torch.cat([getattr(h, k) for h in halves]).cpu()
+                  for k in ("rewards", "results", "completed", "completion_order")}
+        m1, c1, w1 = nccl[str(dtype)]
+        tag = str(dtype)[6:]
+        _p17_same(f"{tag} W=1 (NCCL) vs one process, shard 0 of 1", m1,
+                  {k: getattr(whole, k).cpu() for k in halves})
+        check_rollout_metrics(whole, N_ENVS, P17_STEPS)
+        _p17_launches(f"{tag} W=1 rank 0", c1, P17_STEPS * NFE * N_LAYERS)
+        paths[key]["phase 17a W=1"] = c1["fused_layer_prefix"]
+        walls = []
+        for r, g in enumerate(gloo):
+            m2, c2, w2 = g[str(dtype)]
+            _p17_same(f"{tag} W=2 (gloo) rank {r}'s gathered metrics vs one process per shard",
+                      m2, halves)
+            _p17_launches(f"{tag} W=2 rank {r}", c2, P17_STEPS * NFE * N_LAYERS)
+            paths[key][f"phase 17a W=2 rank {r}"] = c2["fused_layer_prefix"]
+            walls.append(w2)
+        print(f"  {tag}: W=1 {N_ENVS * P17_STEPS / w1:.1f} env-steps/s; W=2 on one card "
+              f"{N_ENVS * P17_STEPS / max(walls):.1f} env-steps/s (information; the ranks "
+              f"share the card; {card})")
+
+    print(f"[17b] ({since_start()}) block-push rollout sharded over W=2 (gloo), f32 B1 at "
+          f"its shape, {N_ENVS} envs x {P17_BP_STEPS} steps")
+    setup = p17_block_push_setup(device)
+    halves = [p17_rollout("block_push", setup, None, P17_BP_STEPS, s, 2) for s in range(2)]
+    halves = {k: torch.cat([getattr(h, k) for h in halves]).cpu()
+              for k in ("rewards", "results", "completed", "completion_order")}
+    walls = []
+    for r, g in enumerate(gloo):
+        m, c, w = g["block_push"]
+        _p17_same(f"W=2 rank {r}'s gathered metrics vs one process per shard", m, halves)
+        _p17_launches(f"W=2 rank {r}", c, P17_BP_STEPS * NFE * BP_LAYERS)
+        paths["fused_layer_prefix_f32"][f"phase 17b W=2 rank {r}"] = c["fused_layer_prefix"]
+        walls.append(w)
+    print(f"  W=2 {N_ENVS * P17_BP_STEPS / max(walls):.1f} env-steps/s (information; {card})")
+
+    print(f"[17c] ({since_start()}) the chunked config's train step at dp=2 and at dp=1 x "
+          f"tp=2 (3 heads per rank) vs one process, batch {TRAIN_BATCH}, bf16")
+    ref_loss, ref_grads, _ = p17_train_step(device, None)
+    for form in ("train_dp", "train_tp"):
+        loss, grads, _ = gloo[0][form]
+        lerr = abs(loss - ref_loss)
+        ok = math.isfinite(loss) and lerr <= MODEL_LOSS_FRACTION * abs(ref_loss)
+        worst = 0.0
+        for n, g in ref_grads.items():
+            err, top = (grads[n] - g).abs().max().item(), g.abs().max().item()
+            ok &= math.isfinite(err) and err <= MODEL_GRAD_FRACTION * top
+            worst = max(worst, err / max(top, 1e-30))
+        print(f"  {form[6:]}: loss {loss:.6f} vs {ref_loss:.6f} (|diff| {lerr:.3g}, limit "
+              f"{MODEL_LOSS_FRACTION * abs(ref_loss):.3g}); worst gradient |diff| / max|ref| "
+              f"{worst:.3g} (limit {MODEL_GRAD_FRACTION:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the {form[6:]} train step disagrees with one process's")
+        for r, g in enumerate(gloo):
+            counts = g[form][2]
+            want = dict.fromkeys(counts, N_LAYERS)
+            print(f"  {form[6:]} rank {r}: flash launches {counts} (expected {want})")
+            if counts != want:
+                fail(f"the {form[6:]} step launched {counts}, not {want}")
+            paths["flash"][f"phase 17c {form[6:]} rank {r}"] = counts
+    if not math.isfinite(nccl["dryrun_loss"]):
+        fail("the NCCL dry run's loss is not finite")
+    print(f"  dryrun_body on NCCL at W=1 (cuda): loss {nccl['dryrun_loss']:.6f}, sharded "
+          f"fused rollout ok")
+
+    print(f"[17d] ({since_start()}) shard_sweep_state: seeds {list(P17_SWEEP_SEEDS)} over 2 "
+          f"ranks vs one process, {P17_SWEEP_STEPS} steps at batch {P17_SWEEP_BATCH}")
+    seeds, losses = p17_sweep(device, None)
+    worst, same = 0.0, True
+    for g in gloo:
+        part_seeds, part = g["sweep"]
+        for j, s in enumerate(part_seeds):
+            ref = losses[seeds.index(s)]
+            same &= bool(part[j].equal(ref))
+            worst = max(worst, ((part[j] - ref).abs() / ref.abs()).max().item())
+    covered = sorted(s for g in gloo for s in g["sweep"][0]) == sorted(seeds)
+    print(f"  each seed's loss trace: {'bit-equal' if same else 'not bit-equal'}, max relative "
+          f"|diff| {worst:.3g} (limit {MODEL_LOSS_FRACTION:.3g}); every seed on one rank: "
+          f"{covered}")
+    if not (covered and worst <= MODEL_LOSS_FRACTION):
+        fail("the sharded sweep's seeds differ from the one-process sweep's")
+
+    print(f"[17e] ({since_start()}) the single-device modules on the card: registry ids, "
+          f"xArm, env state I/O, the native loader")
+    check_registry_on_card(device)
+    check_xarm_state_loader_on_card(device)
+    return paths
+
+
 def main() -> None:
     repo = Path(__file__).resolve().parent
     if not (repo / "beso_tpu_torch" / "csrc").is_dir():
@@ -3366,6 +3917,13 @@ def main() -> None:
     run_profile_train(card)
     print(f"  phase 16: {time.perf_counter() - t16:.3f} s")
 
+    # ---- 17. the multi-device layer: sharded rollouts, dp / tp steps -------
+    t17 = time.perf_counter()
+    print(f"[17] ({since_start()}) the multi-device layer on torch.distributed: an NCCL "
+          f"rank (W=1) and two gloo ranks sharing the card (W=2)")
+    p17_paths = run_phase17(device, card)
+    print(f"  phase 17: {time.perf_counter() - t17:.3f} s")
+
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash
     # kernels at the chunked shape and their width-128 instantiations at
@@ -3395,11 +3953,18 @@ def main() -> None:
                                "flash_backward_dkv" + width + suffix: bwd_l})
     layer_src = "beso_tpu_torch/csrc/fused_layer_prefix.cu"
     f32_src = "beso_tpu_torch/csrc/fused_layer_f32.cu"
-    entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618", launches,
-                err, ms, plain_ms),
+    # B1: each path's launches (phase 17's per rank) beside their sum
+    by_path = {"fused_layer_prefix": {"phase 4 rollout": launches,
+                                      **p17_paths["fused_layer_prefix"]},
+               "fused_layer_prefix_f32": {
+                   "phase 11 evaluation": f32_counts["fused_layer_prefix"],
+                   "phase 14": seq_launches["fused_layer_prefix"],
+                   **p17_paths["fused_layer_prefix_f32"]}}
+    entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618",
+                sum(by_path["fused_layer_prefix"].values()), err, ms, plain_ms),
                ("fused_layer_prefix_f32", f32_src, "beso_tpu/ops/fused_layer.py:618",
-                f32_counts["fused_layer_prefix"] + seq_launches["fused_layer_prefix"], err_f32,
-                ms_f32, plain_ms_f32)]
+                sum(by_path["fused_layer_prefix_f32"].values()), err_f32, ms_f32,
+                plain_ms_f32)]
     form_counts["fused_layer_f32"] += seq_launches["fused_layer"]
     for name, line in (("fused_layers_prefix_group", 488), ("fused_layer_with_prefix", 258),
                        ("fused_layer", 298)):
@@ -3420,11 +3985,13 @@ def main() -> None:
                         *erf_ms[suffix]))
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
     wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
-    # the bf16 width-64 kernels: phase 7's training and phase 16b's sweeps,
-    # each path's own count printed beside the sum
-    by_path = {k: {"phase 7 training": n, "phase 16b sweeps": sweep_launches[k]}
-               for k, n in counts.items()}
-    counts = {k: n + sweep_launches[k] for k, n in counts.items()}
+    # the bf16 width-64 kernels: phase 7's training, phase 16b's sweeps and
+    # phase 17c's dp and tp steps (per rank), each path's own count printed
+    # beside the sum
+    by_path.update({k: {"phase 7 training": n, "phase 16b sweeps": sweep_launches[k],
+                        **{path: c[k] for path, c in p17_paths["flash"].items()}}
+                    for k, n in counts.items()})
+    counts = {k: sum(by_path[k].values()) for k in counts}
     flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],
                        "_hd128": counts_w,
                        "_hd128_f32": counts_by_dtype[WIDE_HEADS, torch.float32]}

@@ -17,7 +17,10 @@ vision slice: both cameras by pixel share, a vision policy's loss and
 gradients and the kitchen oracle (its jacobian in inference mode too)
 against the CPU; B5/B6 under a seed axis (`torch.func.vmap`, the seed
 sweep's rule): bit-equal to one launch on the folded batch, one launch per
-kernel and call. Marked `gpu`:
+kernel and call; the multi-device layer: a sharded `fused_cached` rollout on
+an NCCL rank against one process's rollout of the shard (bit-equal, exact
+B1 launches), and the single-device modules (registry ids, xArm IK, env
+state I/O, the native loader's stream) on the card. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -858,3 +861,137 @@ def test_flash_under_a_seed_axis(shape, dtype):
     for got, ref in ((o_ref, plain_o), (dq_ref, plain_dq), (dk_ref, plain_dk),
                      (dv_ref, plain_dv)):
         assert _close(got, ref, FRACTION[dtype])
+
+
+@pytest.mark.gpu
+def test_sharded_rollout_on_an_nccl_rank(tmp_path):
+    """`rollout_kitchen_sharded` on one NCCL rank (W=1) with `fused_cached`
+    in bf16: the metrics bit-equal to one process's rollout on the shard's
+    generator, and exactly steps x 3 NFE x layers B1 launches."""
+    import torch_dist_workers as workers
+
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
+    from beso_tpu_torch.models import DiffusionGPT, GCDenoiser, fit_scaler
+    from beso_tpu_torch.models.cached import make_rollout_denoise_factory
+    from beso_tpu_torch.parallel.launch import spawn
+    from beso_tpu_torch.rollout import rollout_kitchen
+    from beso_tpu_torch.rollout.sharded import shard_generator
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
+    kw = dict(state_dim=30, action_dim=9, embed_dim=96, n_layers=2, n_heads=2, goal_seq_len=2,
+              obs_seq_len=4, dtype=torch.bfloat16)
+    model = DiffusionGPT(**kw, generator=torch.Generator().manual_seed(3))
+    data = synthetic_kitchen_data(n_traj=16, t_max=40, seed=0)
+    goals, expected = multigoal_kitchen_goals(data, 2, 64, seed=42)
+    cfg = dict(window_size=4, obs_dim=30, action_dim=9, cond_lambda=1.5)
+    spec = dict(model_kw=kw, state=model.state_dict(), cfg=cfg, obs=data.all_observations(),
+                act=data.all_actions(), goals=goals, expected=expected, seed=5, n_steps=4)
+    torch.save(spec, tmp_path / "spec.pt")
+    spawn(workers.nccl_rollout_worker, 1, "nccl", args=(str(tmp_path),), timeout_s=300)
+    got = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    dev = torch.device("cuda")
+    scaler = fit_scaler(spec["obs"], spec["act"], False, device=dev)
+    factory = make_rollout_denoise_factory(GCDenoiser(model.to(dev), 0.5), scaler,
+                                           PolicyConfig(**cfg), engine="fused_cached")
+    ref = rollout_kitchen(None, scaler, PolicyConfig(**cfg), torch.as_tensor(goals, device=dev),
+                          torch.as_tensor(expected, device=dev), shard_generator(5, 0, dev),
+                          n_steps=4, denoise_factory=factory)
+    for k in ("rewards", "results", "completed", "completion_order"):
+        assert got["metrics"][k].equal(getattr(ref, k).cpu()), k
+    assert got["launches"] == 4 * 3 * 2
+
+
+def _single_contact_placement(state, reach):
+    """8 single-block envs of a CPU `state` placed for contact, as
+    `tests/test_torch_env_extras.py` places JAX's (and chip_smoke.py 17e):
+    the effector behind the block pushing toward the target (envs 0-3), the
+    block at the INSERT slot's bearings 0-2.5 rad (envs 4-7), env 7 at its
+    goal. Returns (state, the action [8, 2] of every step)."""
+    block, target = state.block_pos.clone(), state.target_pos
+    ang = state.target_yaw[4:8] + torch.tensor([0.0, 0.3, 1.2, 2.5])
+    block[4:8] = target[4:8] + 0.045 * torch.stack([ang.cos(), ang.sin()], -1)
+    block[7] = target[7]
+    d = target - block
+    d[7] = torch.tensor([0.0, 1.0])
+    d = d / d.norm(dim=-1, keepdim=True)
+    eff = block - 0.035 * d
+    eff[7] = state.reach_target[7] if reach else target[7] + torch.tensor([0.0, -0.2])
+    action = 0.02 * d
+    action[7] = 0.0
+    return state._replace(effector=eff, effector_target=eff.clone(), block_pos=block), action
+
+
+@pytest.mark.gpu
+def test_single_device_modules_on_card(tmp_path):
+    """Every registry id stepped on the card against the CPU (obs and reward
+    within 1e-5 absolute and relative, done equal; the single-block ids
+    placed for contact, each card step from the CPU's state, since contact
+    is chaotic; the multimodal ids free running without contact), xArm IK
+    on the card in inference mode to under 1e-3, a CUDA env state saved and
+    loaded, the native loader's batches streamed to the card equal to its
+    host batches."""
+    import math
+
+    from beso_tpu_torch.data.native import NativeSlicedLoader
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.envs import registry
+    from beso_tpu_torch.envs.block_push.env import block_push_reset, block_push_step
+    from beso_tpu_torch.envs.block_push.single import (ACTION_MAX, ACTION_MIN,
+                                                       SingleBlockPushState)
+    from beso_tpu_torch.envs.block_push.xarm import xarm_fk_pose, xarm_ik
+    from beso_tpu_torch.envs.pose3d import Pose3d, quat_from_rotvec
+    from beso_tpu_torch.envs.state_io import load_env_state, save_env_state
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this on the H100")
+    dev = torch.device("cuda")
+    lo, hi = torch.tensor(ACTION_MIN), torch.tensor(ACTION_MAX)
+    rng = np.random.RandomState(0)
+    for env_id in registry.registered_ids():
+        spec = registry.make(env_id)
+        kitchen = env_id.startswith("kitchen")
+        cpu = spec.reset_fn(8, torch.Generator().manual_seed(0))
+        single = isinstance(cpu, SingleBlockPushState)
+        if single:
+            cpu, a = _single_contact_placement(cpu, "Reach" in env_id)
+            if "Normalized" in env_id:
+                a = (a - (hi + lo) * 0.5) / ((hi - lo) * 0.5)
+            start, actions = cpu.block_pos.clone(), [a] * 3
+        else:
+            actions = []
+            for _ in range(2):
+                a = rng.uniform(-1, 1, (8, 9 if kitchen else 2)).astype(np.float32)
+                if not kitchen:
+                    a = a * 0.005
+                    a[:, 1] = -abs(a[:, 1])
+                actions.append(torch.as_tensor(a))
+        card = type(cpu)(*(x.to(dev) for x in cpu))
+        for a in actions:
+            if single:
+                card = type(cpu)(*(x.to(dev) for x in cpu))
+            card, oc, rc, dc = spec.step_fn(card, a.to(dev))
+            cpu, o, r, d = spec.step_fn(cpu, a)
+            torch.testing.assert_close(oc.cpu(), o, atol=1e-5, rtol=1e-5, msg=env_id)
+            torch.testing.assert_close(rc.cpu(), r, atol=1e-5, rtol=1e-5, msg=env_id)
+            assert dc.cpu().equal(d), env_id
+        if single:
+            assert ((cpu.block_pos - start).norm(dim=-1)[:7] > 1e-3).all(), env_id
+    target = Pose3d(quat_from_rotvec(torch.tensor([0.0, math.pi / 2, 0.0], device=dev)),
+                    torch.tensor([0.5, 0.0, 0.1], device=dev))
+    with torch.inference_mode():
+        pose = xarm_fk_pose(xarm_ik(target))
+    assert (pose.translation - target.translation).abs().max() < 1e-3
+    state = block_push_reset(8, torch.Generator(dev).manual_seed(1), dev)
+    state, *_ = block_push_step(state, torch.full((8, 2), 0.01, device=dev))
+    save_env_state(state, tmp_path / "s.npz")
+    back = load_env_state(block_push_reset(8, None, dev), tmp_path / "s.npz")
+    assert all(a.is_cuda and a.equal(b) for a, b in zip(back, state))
+    data = synthetic_kitchen_data(n_traj=8, t_max=40, seed=3)
+    nl = NativeSlicedLoader(data.observations, data.actions, data.lengths, window=4,
+                            future_seq_len=2)
+    for k, batch in enumerate(nl.batches(seed=5, batch_size=32, n_batches=4, device=dev)):
+        host = nl.sample_batch_host(5, k, 32)
+        assert all(batch[n].is_cuda and batch[n].cpu().equal(host[n]) for n in host)
