@@ -38,8 +38,10 @@ import numpy as np
 import torch
 
 # scene constants (block_pushing.py:46-49, block_pushing_multimodal.py:45-52)
+EFFECTOR_HEIGHT = 0.06
 WORKSPACE_BOUNDS = ((0.15, -0.5), (0.7, 0.5))
 MIN_BLOCK_DIST = 0.1
+MIN_TARGET_DIST = 0.12
 RANDOM_X_SHIFT = 0.1
 RANDOM_Y_SHIFT = 0.15
 GOAL_DIST_TOLERANCE = 0.05
@@ -60,7 +62,7 @@ FRICTION_K2 = (2.0 / 3.0) * BLOCK_HALF * BLOCK_HALF
 PUSHER_MU = 0.5
 SUB_DT = CONTROL_DT / N_SUBSTEPS
 BLOCK_MASS = 0.01
-INV_I = 1.0 / (BLOCK_MASS * FRICTION_K2)   # inverse yaw inertia
+INV_I = 1.0 / (BLOCK_MASS * FRICTION_K2)   # inverse yaw inertia at the shipped k2
 GRAVITY = 9.81
 GROUND_MU = 1.0
 CONTACT_MU = 0.05
@@ -394,13 +396,14 @@ def _push_block(block_pos, block_yaw, point, radius, k2: float = FRICTION_K2,
 
 # ---- dynamics ----------------------------------------------------------------
 
-def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push):
+def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push, inv_i: float = INV_I):
     """One substep's contact-force integration: pusher-block spring-damper
     with the tipping plateau, the 2-point box-box block contact, then
     4-point ground friction by sequential impulses (3 passes).
 
     bpos [B, 2, 2], byaw [B, 2], bvel [B, 2, 2], byr [B, 2], eff and
-    v_push [B, 2]. Returns (bvel, byr) after force integration."""
+    v_push [B, 2]; `inv_i` the blocks' inverse yaw inertia (a Python
+    float). Returns (bvel, byr) after force integration."""
     inv_m = 1.0 / BLOCK_MASS
 
     # block-block adjacency (the backed-block plateau exemption)
@@ -465,7 +468,7 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push):
     tq0 = torques[:, 0] + _cross2(r_i[:, 0], f[:, 0]) + _cross2(r_i[:, 1], f[:, 1])
     tq1 = torques[:, 1] + _cross2(r_j[:, 0], -f[:, 0]) + _cross2(r_j[:, 1], -f[:, 1])
     bvel = bvel + torch.stack([f0, f1], 1) * (SUB_DT * inv_m)
-    byr = byr + torch.stack([tq0, tq1], 1) * (SUB_DT * INV_I)
+    byr = byr + torch.stack([tq0, tq1], 1) * (SUB_DT * inv_i)
 
     # ground friction: sequential impulses at the 4 corner points, 3 passes,
     # each point's accumulated impulse clamped to mu (m g / 4) h
@@ -476,9 +479,9 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push):
     for gx, gy in _GROUND_PTS.tolist():
         rx, ry = gx * c + gy * -s, gx * s + gy * c      # R @ point, world arm
         px, py = -ry, rx                                  # perp(arm)
-        k00 = inv_m + INV_I * px * px
-        k11 = inv_m + INV_I * py * py
-        k01 = INV_I * px * py
+        k00 = inv_m + inv_i * px * px
+        k11 = inv_m + inv_i * py * py
+        k01 = inv_i * px * py
         points.append((rx, ry, px, py, k00, k11, k01, k00 * k11 - k01 * k01))
     lam = [(torch.zeros_like(vx), torch.zeros_like(vx)) for _ in points]
     for _ in range(3):
@@ -493,17 +496,23 @@ def _solve_contact_velocities(bpos, byaw, bvel, byr, eff, v_push):
             nx, ny = nx * scale, ny * scale
             dx, dy = nx - lx, ny - ly
             vx, vy = vx + dx * inv_m, vy + dy * inv_m
-            wb = wb + (rx * dy - ry * dx) * INV_I
+            wb = wb + (rx * dy - ry * dx) * inv_i
             lam[i] = (nx, ny)
     return torch.stack([vx, vy], -1), wb
 
 
 def block_push_step(state: BlockPushState, action: torch.Tensor,
+                    friction_k2: Optional[float] = None,
                     ) -> Tuple[BlockPushState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One 10 Hz control step of B envs, action [B, 2]. Returns (state,
     obs [B, 16], reward [B], done [B]).
 
-    Envs already done keep their state and get reward 0."""
+    Envs already done keep their state and get reward 0. `friction_k2`
+    overrides FRICTION_K2, the squared radius of gyration of the blocks'
+    yaw inertia (the calibration tool's sweep; larger k2, a stiffer
+    rotation response)."""
+    k2 = FRICTION_K2 if friction_k2 is None else float(friction_k2)
+    inv_i = 1.0 / (BLOCK_MASS * k2)
     c = _consts(action.device)
     tgt = torch.minimum(torch.maximum(state.effector_target + action, c.lo), c.hi)
 
@@ -516,7 +525,7 @@ def block_push_step(state: BlockPushState, action: torch.Tensor,
         step_len = torch.clamp(d, max=EFFECTOR_SPEED * SUB_DT)
         de = to_tgt / torch.clamp(d, min=1e-9)[:, None] * step_len[:, None]
         eff = eff + de
-        bvel, byr = _solve_contact_velocities(bpos, byaw, bvel, byr, eff, de / SUB_DT)
+        bvel, byr = _solve_contact_velocities(bpos, byaw, bvel, byr, eff, de / SUB_DT, inv_i)
         bpos = bpos + bvel * SUB_DT
         byaw = byaw + byr * SUB_DT
 

@@ -64,6 +64,9 @@ INIT_QPOS = np.asarray([
     3.50383255e-01, 1.61944683e+00, 1.00618764e+00, 4.06395120e-03,
     -6.62095997e-03, -2.68278933e-04,
 ], np.float32)
+# adept_envs resets deterministically: `kitchen_reset` adds no noise (the
+# JAX module scales a normal draw by this 0)
+RESET_NOISE = 0.0
 
 # Panda joint limits (public spec)
 JOINT_LO = np.asarray([-2.8973, -1.7628, -2.8973, -3.0718, -2.8973, -0.0175,

@@ -19,6 +19,10 @@ import numpy as np
 
 from beso_tpu_torch.data.trajectories import TrajectoryData, get_split_idx
 
+ALL_TASKS = np.array(
+    ["bottom burner", "top burner", "light switch", "slide cabinet",
+     "hinge cabinet", "microwave", "kettle"], dtype="<U13")
+
 
 def _wrap_goal_idx(goal_idx: int) -> int:
     """Workspace-loop wrap (kitchen_workspace_manager.py:252-253)."""

@@ -60,16 +60,22 @@ class KitchenOracleStyle(NamedTuple):
     pause_prob: torch.Tensor   # [B]
 
 
+# one episode's clean style (the JAX module's field defaults); a batch of B
+# clean rows is this expanded
+CLEAN_STYLE = KitchenOracleStyle(
+    speed_mult=torch.ones(()), detour_task=torch.zeros((), dtype=torch.long),
+    detour_gate=torch.zeros(()), wander_steps=torch.zeros((), dtype=torch.long),
+    wander_dir=torch.zeros(3), pause_prob=torch.zeros(()))
+
+
 def sample_kitchen_style(batch_size: int, generator: Optional[torch.Generator] = None,
                          device=None, play_style: bool = False) -> KitchenOracleStyle:
     """The clean style, or with `play_style` per-episode draws from the JAX
     module's distributions."""
     B, g = batch_size, generator
     if not play_style:
-        zeros = torch.zeros(B, device=device)
-        izeros = torch.zeros(B, dtype=torch.long, device=device)
-        return KitchenOracleStyle(torch.ones(B, device=device), izeros, zeros, izeros.clone(),
-                                  torch.zeros(B, 3, device=device), zeros.clone())
+        return KitchenOracleStyle(*(f.to(device).expand(B, *f.shape).clone()
+                                    for f in CLEAN_STYLE))
 
     def u():
         return torch.rand(B, generator=g, device=device)

@@ -42,6 +42,11 @@ def average_success_metric(results) -> float:
     return float((np.asarray(results) >= 1.0).mean())
 
 
+def average_final_goal_distance(goal_distances) -> float:
+    """Mean final goal distance (metrics.py:63-95)."""
+    return float(np.asarray(goal_distances).mean())
+
+
 def success_rate_histogram(n_completed, max_k: int = 5) -> dict:
     """success_rate_k = fraction of episodes with >= k completions
     (kitchen_workspace_manager.py:553-563,455-471)."""

@@ -15,8 +15,11 @@ beso/agents/base_agent.py:70-116 at batch 1024):
   is the H100's dense bf16 tensor-core rate, an f32 product counted as
   three bf16 ones.
 
+--mu-bf16 keeps AdamW's first moment in bf16, as optax's `mu_dtype`
+(`make_optimizer(mu_dtype=torch.bfloat16)`).
+
 Usage: python -m beso_tpu_torch.scripts.profile_train [--scaling]
-       [--configs 1024:50,2048:50] [--trace-dir DIR] [--device cpu]
+       [--configs 1024:50,2048:50] [--mu-bf16] [--trace-dir DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ def train_step_flops(model, batch_size: int) -> int:
     return 3 * body + 2 * embed
 
 
-def _setup(batch: int, chunk: int, device):
+def _setup(batch: int, chunk: int, device, mu_bf16: bool = False):
     from beso_tpu_torch.core.densities import make_sample_density
     from beso_tpu_torch.data.slicer import SlicedDataset
     from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
@@ -97,8 +100,10 @@ def _setup(batch: int, chunk: int, device):
     scaler = fit_scaler(data.all_observations(), data.all_actions(), device=device)
     train_set = SlicedDataset(data, window=4, future_conditional=True, future_seq_len=2,
                               device=device)
-    # optax.adamw(1e-4) of the JAX script: weight decay 1e-4
-    trainer = Trainer(den, partial(make_optimizer, name="adamw", lr=1e-4, weight_decay=1e-4),
+    # optax.adamw(1e-4) of the JAX script: weight decay 1e-4; with mu_bf16 its
+    # mu_dtype=jnp.bfloat16
+    trainer = Trainer(den, partial(make_optimizer, name="adamw", lr=1e-4, weight_decay=1e-4,
+                                   mu_dtype=torch.bfloat16 if mu_bf16 else None),
                       make_sample_density("loglogistic", sigma_data=0.5, sigma_min=0.005,
                                           sigma_max=1.0), scaler)
     ts = trainer.init_state()
@@ -155,11 +160,12 @@ def profile_window(run, n_steps: int, device, trace_path=None):
     return out, device_time(kernels, wall_ms, n_steps)
 
 
-def profile(device, trace_dir=None, batch: int = 1024, chunk: int = 50) -> dict:
+def profile(device, trace_dir=None, batch: int = 1024, chunk: int = 50,
+            mu_bf16: bool = False) -> dict:
     """Device time of one fused call by kernel category and the device's
     idle share, both from one profiled window (`profile_window`), after a
     warm-up call (information)."""
-    _, ts, fused = _setup(batch, chunk, device)
+    _, ts, fused = _setup(batch, chunk, device, mu_bf16)
     gen = torch.Generator(device).manual_seed(1)
     ts, _ = fused(ts, gen)   # warm-up
     (ts, losses), stats = profile_window(
@@ -171,12 +177,19 @@ def profile(device, trace_dir=None, batch: int = 1024, chunk: int = 50) -> dict:
     return out
 
 
-def scaling(configs, device) -> list:
+def first_moment_dtype(optimizer) -> str:
+    """The dtype of the optimizer's stored first moments ("none" before
+    its first step)."""
+    dtypes = {str(st["exp_avg"].dtype) for st in optimizer.state.values()}
+    return ",".join(sorted(dtypes)) or "none"
+
+
+def scaling(configs, device, mu_bf16: bool = False) -> list:
     """steps/s, samples/s and MFU of each (batch, chunk): the best of three
     fused calls after a first one (information)."""
     rows = []
     for batch, chunk in configs:
-        model, ts, fused = _setup(batch, chunk, device)
+        model, ts, fused = _setup(batch, chunk, device, mu_bf16)
         gen = torch.Generator(device).manual_seed(1)
         t0 = time.perf_counter()
         ts, _ = fused(ts, gen)
@@ -194,6 +207,7 @@ def scaling(configs, device) -> list:
         row = {"batch": batch, "chunk": chunk, "steps_per_sec": sps,
                "samples_per_sec": sps * batch, "flops_per_step": flops,
                "mfu": flops * sps / peak, "first_call_s": first_s,
+               "mu_dtype": first_moment_dtype(ts.optimizer),
                "loss_finite": bool(torch.isfinite(losses).all())}
         rows.append(row)
         print(json.dumps(row), flush=True)
@@ -204,6 +218,8 @@ def scaling(configs, device) -> list:
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--scaling", action="store_true")
+    parser.add_argument("--mu-bf16", action="store_true",
+                        help="first-moment optimizer state in bf16")
     parser.add_argument("--configs", default=None,
                         help="comma-separated batch:chunk pairs, e.g. 1024:200,2048:50")
     parser.add_argument("--trace-dir", default=None,
@@ -217,8 +233,8 @@ def main(argv=None):
             cfgs = [tuple(int(x) for x in c.split(":")) for c in args.configs.split(",")]
         else:
             cfgs = [(1024, 50), (1024, 200), (2048, 50), (4096, 50), (8192, 25)]
-        return scaling(cfgs, device)
-    return profile(device, args.trace_dir)
+        return scaling(cfgs, device, args.mu_bf16)
+    return profile(device, args.trace_dir, mu_bf16=args.mu_bf16)
 
 
 if __name__ == "__main__":

@@ -107,7 +107,7 @@ def main(argv=None):
                         format="%(asctime)s [%(levelname)s] %(message)s")
     from beso_tpu_torch.agents.beso_agent import BesoAgent
     from beso_tpu_torch.utils.config import load_config, save_config
-    from beso_tpu_torch.utils.metrics import MetricsWriter
+    from beso_tpu_torch.utils.metrics import make_metrics_writer
 
     cfg = load_config(args.config, args.overrides)
     device = torch.device(args.device)
@@ -118,10 +118,10 @@ def main(argv=None):
 
     np.random.seed(cfg["seed"])
     torch.manual_seed(cfg["seed"])
-    if cfg.get("wandb", {}).get("enabled", False):
-        raise NotImplementedError("wandb logging is not ported; metrics go to "
-                                  "metrics.jsonl in the run dir")
-    writer = MetricsWriter(run_dir)
+    writer = make_metrics_writer(
+        log_dir=str(run_dir),
+        use_wandb=cfg.get("wandb", {}).get("enabled", False),
+        project=cfg.get("wandb", {}).get("project"))
 
     workspace = build_workspace(cfg, device, writer)
     agent = BesoAgent(build_agent_config(cfg), workspace.scaler,

@@ -63,14 +63,93 @@ def step_lr_schedule(base_lr: float, step_size: int = 100, gamma: float = 0.99):
     return schedule
 
 
+class AdamLowPrecisionMoment(torch.optim.Optimizer):
+    """Adam(W) whose first moment is stored in `mu_dtype` (bf16), in the
+    order of optax 0.2.6's `scale_by_adam(mu_dtype=...)` followed by
+    `add_decayed_weights` and the rate, as `optax.adamw` chains them. Per
+    step, with m the stored moment and g the gradient:
+
+        mu = (1 - b1) g + b1 m          in f32; b1 m is a `mu_dtype` product
+                                        (b1 rounded to `mu_dtype`, as
+                                        optax's Python b1 times a bf16 m)
+        nu = (1 - b2) g^2 + b2 nu       f32
+        u = mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd p
+        p = p + u * -lr
+
+    and m = mu rounded to `mu_dtype` after the update: this step's update
+    uses the unrounded f32 mu. (torch.optim.AdamW with a bf16 `exp_avg`
+    rounds the moment before its update.) The state keys are AdamW's:
+    `step`, `exp_avg` (`mu_dtype`) and `exp_avg_sq` (f32)."""
+
+    def __init__(self, params, lr: float = 1e-4, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype=torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st.update(step=torch.zeros(()),
+                              exp_avg=torch.zeros_like(p, dtype=self.mu_dtype),
+                              exp_avg_sq=torch.zeros_like(p, dtype=torch.float32))
+                elif st["exp_avg"].dtype != self.mu_dtype:
+                    # load_state_dict casts the moments to the parameter's dtype
+                    st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+            states = [self.state[p] for p in params]
+            grads = [p.grad for p in params]
+            ms = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            for st in states:
+                st["step"] += 1
+            t = int(states[0]["step"])
+            b1, b2 = group["betas"]
+            b1_m = float(torch.tensor(b1, dtype=self.mu_dtype))
+            mu = torch._foreach_mul(grads, 1 - b1)
+            torch._foreach_add_(mu, torch._foreach_mul(ms, b1_m))
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, g2)
+            den = torch._foreach_div(nus, 1 - b2 ** t)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(mu, 1 - b1 ** t)
+            torch._foreach_div_(upd, den)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, params, alpha=group["weight_decay"])
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+            torch._foreach_copy_(ms, mu)
+        return loss
+
+
 def make_optimizer(params, name: str = "adamw", lr: float = 1e-4,
                    betas: tuple = (0.9, 0.999), weight_decay: float = 0.01,
-                   lr_step_size: int = 100, lr_gamma: float = 0.99):
+                   lr_step_size: int = 100, lr_gamma: float = 0.99, mu_dtype=None):
     """(optimizer, scheduler) over `params` in one group. Calling
     `scheduler.step()` after each optimizer step gives the step-t update
-    the rate lr * gamma^(t // lr_step_size), at the same counts as optax."""
+    the rate lr * gamma^(t // lr_step_size), at the same counts as optax.
+    `mu_dtype` (e.g. torch.bfloat16) stores the first moment in that dtype,
+    as optax's `mu_dtype` does (`AdamLowPrecisionMoment`)."""
     params = list(params)
-    if name == "adamw":
+    if mu_dtype is not None:
+        if name not in ("adamw", "adam"):
+            raise ValueError(f"unknown optimizer {name!r}")
+        opt = AdamLowPrecisionMoment(params, lr=lr, betas=betas, eps=1e-8,
+                                     weight_decay=weight_decay if name == "adamw" else 0.0,
+                                     mu_dtype=mu_dtype)
+    elif name == "adamw":
         opt = torch.optim.AdamW(params, lr=lr, betas=tuple(betas), eps=1e-8,
                                 weight_decay=weight_decay)
     elif name == "adam":

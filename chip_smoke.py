@@ -198,9 +198,10 @@ exits non-zero on failure:
    CPU with the same weights, sigma and noise (both encode the CPU's
    renders), within 2^-10 of max |ref|; the bf16 forward against the f32
    one (2^-5); (d) `validate_vision_e2e` through its CLI (128 px, batch
-   256, embed 48, 1024 episodes, bf16), block push with 50 pretraining
-   steps, then kitchen, train steps cut from 20,000 to 200 and the 100-env
-   evaluation from 300 / 280 steps to 60: the JSON line parses and is
+   256, embed 48, 1024 episodes, bf16), block push (demos of 80 steps, 160
+   cut) with 50 pretraining steps, then kitchen, train steps cut from
+   20,000 to 200 and the 100-env evaluation from 300 / 280 steps to 30:
+   the JSON line parses and is
    finite; train steps/s, peak memory, demo seconds, evaluation
    env-steps/s; (e) torch.profiler over three block-push vision train steps
    at batch 256: device time by kernel family and the idle share
@@ -223,7 +224,7 @@ exits non-zero on failure:
    through `scripts/evaluate.py` with configs/evaluate_kitchen.yaml as
    shipped; (d) `scripts/validate_e2e.py`, kitchen with --robustness
    --lambda-sweep, then block push with 40 demo steps (160 cut), 200 train
-   steps (10,000 cut), a 100 x 60 evaluation (280 / 300 cut): finite
+   steps (10,000 cut), a 100 x 30 evaluation (280 / 300 cut): finite
    summaries with their keys; (e) `scripts/profile_train.py`: the device
    time of 50 fused train steps of the kitchen model at batch 1024 by
    kernel category and the idle share, then a --scaling grid (information).
@@ -251,12 +252,33 @@ exits non-zero on failure:
    contact, each step from the CPU's state), xArm FK on the card against the CPU and IK
    on the card to under 1e-3, a CUDA env state saved and loaded, and the
    native loader's batches streamed to the card equal to its host batches.
+18. the last ported pieces: (a) `classifier_guided_denoise_fn` (a seeded
+   two-layer tanh guide, lambda 2) around the f32 kitchen model's
+   `fused_cached` engine (B1) against the same guide around the plain
+   `cached` engine, a W+1-step policy window of 1024 envs (lambda 1.5 CFG)
+   inside `torch.inference_mode`, within 2^-10 of max |ref| with exactly 6
+   B1 launches per denoiser call, then a guided 1024-env x 20-step rollout
+   (280 cut): exactly 20 x 3 x 6 f32 B1 launches, finite metrics,
+   env-steps/s; (b) `utils.metrics.profile_trace` around 5 fused train steps
+   of phase 7's chunked model at batch 256 inside a `step_timer` writing to
+   a `MetricsWriter`: the exported Chrome trace names the B5 and both B6
+   kernels, exactly 6 launches of each per step, the timer's record read
+   back; (c) `scripts/profile_train.py --scaling --configs 1024:20` without
+   and with --mu-bf16: f32, then bf16 first moments, finite losses, both
+   runs' steps/s (information); (d) `scripts/calibrate_block_push.py`'s
+   rot-sweep scoring of the shipped (mu 0.05, arm 1.0, leak 0) and one
+   other combination on the card against tests/golden/: the shipped one's
+   stable-5 mean position and yaw RMSE within 1 mm and 1 degree of the
+   CPU's, every swept constant restored (a fixed `block_push_step`
+   bit-equal before and after), `friction_k2=FRICTION_K2` bit-equal to the
+   default step.
 
 The second-to-last line is the kernels' JSON record (per kernel its
 launches on its main path, max |diff|, ms, plain ms, the roofline bound
 of its work at the timed shape with what bounds it (f32 B1 and B4 with
-phase 14's launches added, B1 with phase 17a/b's and the bf16 flash kernels
-with phase 16b's and 17c's, each path apart in `launches_by_path`), the PyTorch library
+phase 14's launches added, B1 with phase 17a/b's, f32 B1 with phase 18a's and
+the bf16 flash kernels with phase 16b's, 17c's and 18b's, each path apart in
+`launches_by_path`), the PyTorch library
 call's ms where one computes the same function, and for the fused layers
 the torch.matmul ms of their products in the same dtype; f32 forms as
 `*_f32`, the flash kernels' width-128 instantiations as `*_hd128`, B1's
@@ -310,7 +332,8 @@ DEMO_EPISODES = 1024
 RENDER_FRAMES, RENDER_BATCH, VISION_GRAD_BATCH = 1024, 1536, 64
 VISION_PROFILE_BATCH = 256   # 15e: the script's --batch-size
 VISION_TRAIN_STEPS = 200     # --train-steps: 20,000, cut to 200
-VISION_EVAL_STEPS = 60       # its evaluation: 300 (block push) and 280 (kitchen) steps, cut to 60
+VISION_EVAL_STEPS = 30       # its evaluation: 300 (block push) and 280 (kitchen) steps, cut to 30
+VISION_BP_DEMO_STEPS = 80    # its block-push demos: 160 steps, cut to 80 (eager physics)
 VISION_PRETRAIN_STEPS = 50   # --pretrain-steps of the block-push run
 PIXEL_TOL, PIXEL_SHARE = 1e-5, 0.005   # images: all but 0.5% of pixels within 1e-5
 # phase 16, the training tools: B5/B6 under a seed axis [S, B, H, T, hd]
@@ -319,14 +342,16 @@ PIXEL_TOL, PIXEL_SHARE = 1e-5, 0.005   # images: all but 0.5% of pixels within 1
 # eval_every_n_steps: 4,000, cut); validate_e2e's train steps (--train-steps:
 # 10,000, cut), evaluation steps (--eval-n-steps: 280 kitchen, 300 block
 # push, cut) and block-push demo steps (--demo-steps: 160, cut to 80, and to
-# 40 when phase 17 came: its eager physics takes ~0.3 s per step);
+# 40 when phase 17 came: its eager physics takes ~0.3 s per step; the
+# evaluation steps of 15d and 16d from 60 to 30, and 15d's block-push demo
+# steps from 160 to 80, when phase 18 came);
 # profile_train's --scaling grid; the steps
 # of each profiled sweep call in 16b (information, no shipped value)
 SEED_AXIS_SHAPES = ((4, *CHUNKED_SHAPE), (2, *WIDE_MODEL_SHAPE))
 SEED_AXIS_REPS = 21
 SWEEP_SEEDS, SWEEP_STEPS, SWEEP_EVAL_EVERY = (1, 2, 3, 4), 40, 20
 KITCHEN_SWEEP_SEEDS, KITCHEN_SWEEP_STEPS = 8, 20
-E2E_TRAIN_STEPS, E2E_EVAL_STEPS, E2E_BP_DEMO_STEPS = 200, 60, 40
+E2E_TRAIN_STEPS, E2E_EVAL_STEPS, E2E_BP_DEMO_STEPS = 200, 30, 40
 PROFILE_SCALING = "1024:50,2048:25"
 SWEEP_PROFILE_STEPS = 10
 VISION_GRAD_FRACTION = 2.0 ** -10      # the f32 vision loss and gradients, card vs CPU
@@ -357,6 +382,16 @@ FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), 
 P17_STEPS, P17_BP_STEPS, P17_SEED = 40, 10, 17
 P17_SWEEP_SEEDS, P17_SWEEP_STEPS, P17_SWEEP_BATCH = (1, 2, 3, 4), 4, 64
 P17_TIMEOUT = 600
+# phase 18: the guided rollout's steps (280 cut to 20), the traced chunked
+# train steps, profile_train's --scaling point, and the calibration sweep's
+# combinations (CONTACT_MU, ground arm scale, TIP_TORQUE_LEAK): the shipped
+# one first. CAL_CPU_*: the shipped combination's stable-5 mean RMSE from
+# `calibrate_block_push.run_rot_sweep` with device "cpu" (the port, torch
+# 2.13 CPU build), which the card's must match within 1 mm and 1 degree
+P18_GUIDED_STEPS, P18_TRACE_STEPS, P18_SCALING = 20, 5, "1024:20"
+P18_GUIDE_LAMBDA = 2.0
+CAL_COMBOS = ((0.05, 1.0, 0.0), (0.1, 1.25, 0.1))
+CAL_CPU_POS_MM, CAL_CPU_YAW_DEG = 4.125739753996931, 9.273126677111044
 # roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense
 # bf16 tensor-core operations and HBM3 bytes per second. The flash kernels'
 # f32 instantiations run each f32 product on the tensor cores as three bf16
@@ -1030,10 +1065,11 @@ def token_lanes_false_factory(den, scaler, cfg):
 
 
 def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed,
-                engine="fused_cached"):
+                engine="fused_cached", guide=None):
     """A kitchen rollout. `engine`: "fused_cached" (the serving main path,
     B1, or B2 under BESO_LAYER_GROUP), "token_lanes_false" (B3) or
-    "uncached" (`make_fused_denoise_fn`, B4, no factory)."""
+    "uncached" (`make_fused_denoise_fn`, B4, no factory). With `guide`, each
+    episode's engine is wrapped by `classifier_guided_denoise_fn`."""
     import torch
 
     from beso_tpu_torch.agents.policy import PolicyConfig
@@ -1055,6 +1091,13 @@ def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed,
         factory = token_lanes_false_factory(den, scaler, cfg)
     else:
         denoise_fn = make_fused_denoise_fn(den)
+    if guide is not None:
+        from beso_tpu_torch.models.cfg import classifier_guided_denoise_fn
+
+        engine_of = factory
+
+        def factory(goals):
+            return classifier_guided_denoise_fn(engine_of(goals), guide, P18_GUIDE_LAMBDA)
     gen = torch.Generator(device=device).manual_seed(seed)
     return rollout_kitchen(denoise_fn, scaler, cfg, torch.as_tensor(goals, device=device),
                            torch.as_tensor(expected, device=device), gen,
@@ -2430,8 +2473,9 @@ def check_vision_grads_on_card(device, card, demo_obs):
 
 def run_vision_cli(card):
     """Phase 15d: `validate_vision_e2e` through its CLI at the script's widths
-    (128 px, batch 256, embed 48, 1024 episodes, bf16 policies), train steps
-    cut to VISION_TRAIN_STEPS and the evaluation (100 envs) to
+    (128 px, batch 256, embed 48, 1024 episodes, bf16 policies), the
+    block-push demos cut to VISION_BP_DEMO_STEPS steps, train steps cut to
+    VISION_TRAIN_STEPS and the evaluation (100 envs) to
     VISION_EVAL_STEPS: block push with --pretrain-steps
     VISION_PRETRAIN_STEPS, then kitchen. The JSON line parses and is finite;
     prints train steps/s, peak memory, demo seconds and evaluation
@@ -2443,8 +2487,9 @@ def run_vision_cli(card):
 
     from beso_tpu_torch.scripts import validate_vision_e2e as vcli
 
-    saved = vcli.EVAL_STEPS
+    saved = vcli.EVAL_STEPS, vcli.DEMO_STEPS
     vcli.EVAL_STEPS = {"block_push": VISION_EVAL_STEPS, "kitchen": VISION_EVAL_STEPS}
+    vcli.DEMO_STEPS = {**vcli.DEMO_STEPS, "block_push": VISION_BP_DEMO_STEPS}
     results = {}
     try:
         for env, extra in (("block_push", ["--pretrain-steps", str(VISION_PRETRAIN_STEPS)]),
@@ -2485,7 +2530,7 @@ def run_vision_cli(card):
                   f"({card})")
             results[env] = out
     finally:
-        vcli.EVAL_STEPS = saved
+        vcli.EVAL_STEPS, vcli.DEMO_STEPS = saved
     return results
 
 
@@ -3455,6 +3500,235 @@ def run_phase17(device, card):
     return paths
 
 
+# ---- phase 18: guidance on B1, the profiler trace, bf16 moments, calibration --
+
+def tanh_guide(device, seed=5, hidden=64):
+    """A seeded two-layer tanh guide Q(s, a, g) = w2 . tanh(W1 x + b1) over
+    the last (scaled) state, every action of the window and the last goal."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    n_in = 30 + 4 * 9 + 30
+    W1 = torch.as_tensor((rng.randn(n_in, hidden) / np.sqrt(n_in)).astype(np.float32)).to(device)
+    b1 = torch.as_tensor((0.1 * rng.randn(hidden)).astype(np.float32)).to(device)
+    w2 = torch.as_tensor(rng.randn(hidden).astype(np.float32)).to(device)
+
+    def guide(s, a, g):
+        x = torch.cat([s[:, -1], a.reshape(a.shape[0], -1), g[:, -1]], -1)
+        return torch.tanh(x @ W1 + b1) @ w2
+
+    return guide
+
+
+def run_guided_policy(den32, policy_kw, scale_data, device, card):
+    """Phase 18a: `classifier_guided_denoise_fn` around the f32 kitchen
+    model's `fused_cached` engine (B1) against the same guide around the
+    plain `cached` engine: a W+1-step policy window of N_ENVS envs (lambda
+    1.5 CFG) inside `torch.inference_mode`, within F32_ENGINE_FRACTION of
+    max |ref|, exactly N_LAYERS B1 launches per denoiser call; then a
+    guided N_ENVS x P18_GUIDED_STEPS rollout with every counter set to 0
+    just before it. Returns the rollout's B1 launches."""
+    import torch
+
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.envs.kitchen.env import INIT_QPOS
+    from beso_tpu_torch.envs.kitchen.goals import multigoal_kitchen_goals
+    from beso_tpu_torch.models import fit_scaler, make_rollout_denoise_factory
+    from beso_tpu_torch.models.cfg import classifier_guided_denoise_fn
+
+    guide = tanh_guide(device)
+    data = synthetic_kitchen_data(n_traj=32, t_max=60)
+    scaler = fit_scaler(data.all_observations(), data.all_actions(), scale_data=scale_data,
+                        device=device)
+    goals = torch.as_tensor(multigoal_kitchen_goals(data, 2, N_ENVS, seed=42)[0], device=device)
+    cfg = PolicyConfig(**policy_kw)
+    gen = torch.Generator().manual_seed(181)
+    obs_seq = [(torch.as_tensor(INIT_QPOS) + 0.05 * torch.randn(N_ENVS, 30, generator=gen))
+               .to(device) for _ in range(cfg.window_size + 1)]
+    with torch.inference_mode():
+        fused, plain = (classifier_guided_denoise_fn(
+            make_rollout_denoise_factory(den32, scaler, cfg, engine=e)(goals), guide,
+            P18_GUIDE_LAMBDA) for e in ("fused_cached", "cached"))
+        calls = [0]
+        reset_fused_counts()
+        got = policy_window(counted(fused, calls), scaler, cfg, goals, obs_seq, 182, device)
+        torch.cuda.synchronize()
+        expect_launches("the guided window on fused_cached", "fused_layer_prefix", calls[0])
+        ref = policy_window(plain, scaler, cfg, goals, obs_seq, 182, device)
+        unguided = policy_window(make_rollout_denoise_factory(den32, scaler, cfg,
+                                                              engine="cached")(goals),
+                                 scaler, cfg, goals, obs_seq, 182, device)
+    _rel_check(f"guided window, {cfg.window_size + 1} steps x {N_ENVS} envs, {calls[0]} "
+               f"denoiser calls: B1 vs cached (f32)", got, ref, F32_ENGINE_FRACTION)
+    moved = (ref - unguided).abs().max().item()
+    print(f"  the guide moved the plain engine's actions by up to {moved:.6g}")
+    if not moved > 0:
+        fail("the guide did not move the actions")
+    run_rollout(den32, policy_kw, scale_data, N_ENVS, 2, device, seed=1, guide=guide)
+    torch.cuda.synchronize()
+    reset_fused_counts()
+    t0 = time.perf_counter()
+    metrics = run_rollout(den32, policy_kw, scale_data, N_ENVS, P18_GUIDED_STEPS, device,
+                          seed=2, guide=guide)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = expect_launches("the guided rollout", "fused_layer_prefix",
+                               P18_GUIDED_STEPS * NFE)
+    check_rollout_metrics(metrics, N_ENVS, P18_GUIDED_STEPS)
+    print(f"  guided rollout (lambda {P18_GUIDE_LAMBDA}), {N_ENVS} envs x {P18_GUIDED_STEPS} "
+          f"steps on f32 B1: launches {launches}, avrg reward "
+          f"{metrics.rewards.mean().item():.4f}; wall {wall:.3f} s, "
+          f"{N_ENVS * P18_GUIDED_STEPS / wall:.1f} env-steps/s (informational; random "
+          f"weights; {card})")
+    return launches
+
+
+def run_profile_trace(ws, agent, device, card):
+    """Phase 18b: `utils.metrics.profile_trace` around P18_TRACE_STEPS fused
+    train steps of phase 7's chunked model (bf16, batch TRAIN_BATCH) inside
+    a `step_timer` writing to a `MetricsWriter`: the Chrome trace names the
+    B5 and both B6 kernels, each launched exactly N_LAYERS per step (the
+    counters set to 0 just before); the timer's record read back. Returns
+    the flash launches."""
+    import torch
+
+    from beso_tpu_torch.ops import flash_attention as fa
+    from beso_tpu_torch.train.trainer import make_fused_train_steps
+    from beso_tpu_torch.utils.metrics import MetricsWriter, profile_trace, step_timer
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+    for f in ("trace.json", "metrics.jsonl"):
+        (out / f).unlink(missing_ok=True)
+    fused = make_fused_train_steps(agent.denoiser, agent.trainer.sample_density, ws.scaler,
+                                   ws.train_set, TRAIN_BATCH, P18_TRACE_STEPS)
+    gen = torch.Generator(device).manual_seed(183)
+    fused(agent.state, gen)    # warm-up
+    torch.cuda.synchronize()
+    counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    for f in counters:
+        f.launches = 0
+    writer = MetricsWriter(str(out))
+    t0 = time.perf_counter()
+    with profile_trace(str(out)), step_timer(writer, "chunked_train", step=agent.state.step):
+        _, losses = fused(agent.state, gen)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    writer.close()
+    launches = {f.__name__: f.launches for f in counters}
+    want = dict.fromkeys(launches, N_LAYERS * P18_TRACE_STEPS)
+    print(f"  launches: {launches} (expected {want}); losses {losses.tolist()}")
+    if launches != want or not bool(torch.isfinite(losses).all()):
+        fail("the traced train steps launched the flash kernels otherwise or lost finiteness")
+    trace = out / "trace.json"
+    if not trace.exists():
+        fail("profile_trace wrote no trace")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernel_us = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+                if k in ev.get("name", ""):
+                    n, us = kernel_us.get(k, (0, 0.0))
+                    kernel_us[k] = (n + 1, us + float(ev.get("dur", 0.0)))
+    print(f"  {trace.name}: {trace.stat().st_size / 2 ** 20:.1f} MiB, {len(events)} events; "
+          f"flash kernels named (count, device us): {kernel_us}")
+    if set(kernel_us) != {"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"}:
+        fail("the trace does not name the B5 and both B6 kernels")
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    timed = [r["time/chunked_train_s"] for r in rows if "time/chunked_train_s" in r]
+    if len(timed) != 1 or not 0 < timed[0] <= wall:
+        fail(f"step_timer's record is missing or wrong: {rows}")
+    print(f"  step_timer: {timed[0]:.3f} s for {P18_TRACE_STEPS} traced steps (profiler on; "
+          f"{card})")
+    return launches
+
+
+def run_mu_bf16(card):
+    """Phase 18c: `profile_train --scaling --configs P18_SCALING`, without
+    and with --mu-bf16, in this process: the first moments f32, then bf16,
+    the losses finite; both runs' steps/s (information)."""
+    from beso_tpu_torch.scripts import profile_train
+
+    rows = {}
+    for flag in ((), ("--mu-bf16",)):
+        (row,) = profile_train.main(["--scaling", "--configs", P18_SCALING, *flag])
+        rows[bool(flag)] = row
+    print(f"  first moments: {rows[False]['mu_dtype']} / --mu-bf16 {rows[True]['mu_dtype']}; "
+          f"steps/s {rows[False]['steps_per_sec']:.3f} / --mu-bf16 "
+          f"{rows[True]['steps_per_sec']:.3f} (information only; {card})")
+    if rows[False]["mu_dtype"] != "torch.float32" or rows[True]["mu_dtype"] != "torch.bfloat16":
+        fail("--mu-bf16 did not keep the first moments in bf16")
+    if not (rows[False]["loss_finite"] and rows[True]["loss_finite"]):
+        fail("profile_train's losses are not finite")
+
+
+def run_calibration_surrogate(device, card):
+    """Phase 18d: `calibrate_block_push`'s rot-sweep scoring of CAL_COMBOS
+    on the card against the stored goldens: the shipped combination's
+    stable-5 mean RMSE within 1 mm and 1 degree of the CPU's; every swept
+    constant restored (a `block_push_step` from a fixed state bit-equal
+    before and after); `friction_k2=FRICTION_K2` bit-equal to the default."""
+    import numpy as np
+    import torch
+
+    import beso_tpu_torch.envs.block_push.env as bpe
+    from beso_tpu_torch.scripts import calibrate_block_push as cal
+
+    stable = [s for s in cal._scenarios() if s[0] in cal.STABLE_SCENARIOS]
+
+    def fixed_step():
+        state = cal._states(stable, device)
+        with torch.inference_mode():
+            for _ in range(4):
+                state = bpe.block_push_step(
+                    state, torch.tensor([[0.0, 0.035]] * len(stable), device=device))[0]
+        return state
+
+    swept = ("CONTACT_MU", "TIP_TORQUE_LEAK", "_GROUND_PTS")
+    before, step0 = {k: np.array(getattr(bpe, k), copy=True) for k in swept}, fixed_step()
+    t0 = time.perf_counter()
+    rows = cal.run_rot_sweep(cal.GOLDEN_DIR, CAL_COMBOS, device)
+    sweep_s = time.perf_counter() - t0
+    restored = (all(np.array_equal(getattr(bpe, k), v) for k, v in before.items())
+                and all(torch.equal(a, b) for a, b in zip(fixed_step(), step0)))
+    shipped = rows[0]
+    d_pos = abs(shipped["stable_pos_mm"] - CAL_CPU_POS_MM)
+    d_yaw = abs(shipped["stable_yaw_deg"] - CAL_CPU_YAW_DEG)
+    print(f"  shipped combination on the card: stable-5 pos {shipped['stable_pos_mm']:.6f} mm, "
+          f"yaw {shipped['stable_yaw_deg']:.6f} deg (CPU {CAL_CPU_POS_MM:.6f} mm, "
+          f"{CAL_CPU_YAW_DEG:.6f} deg: |diff| {d_pos:.6f} mm, {d_yaw:.6f} deg; limits 1 mm, "
+          f"1 deg); {len(rows)} combinations in {sweep_s:.3f} s ({card})")
+    if not (d_pos <= 1.0 and d_yaw <= 1.0):
+        fail("the calibration surrogate on the card is off the CPU's numbers")
+    print(f"  swept constants restored, a fixed step bit-equal before and after: {restored}")
+    if not restored:
+        fail("the rot sweep left a constant changed")
+    k2_same = np.array_equal(cal.run_surrogate(stable, device, bpe.FRICTION_K2),
+                             cal.run_surrogate(stable, device))
+    print(f"  friction_k2=FRICTION_K2 bit-equal to the default on the card: {k2_same}")
+    if not k2_same:
+        fail("friction_k2=FRICTION_K2 differs from the default step on the card")
+
+
+def run_phase18(device, card, den32, policy_kw, scale_data, ws, agent):
+    """Phase 18; returns {"fused_layer_prefix_f32": 18a's rollout launches,
+    "flash": 18b's launches}."""
+    print(f"[18a] ({since_start()}) classifier guidance around f32 fused_cached (B1) vs "
+          f"cached, then a guided {N_ENVS} x {P18_GUIDED_STEPS} rollout")
+    b1 = run_guided_policy(den32, policy_kw, scale_data, device, card)
+    print(f"[18b] ({since_start()}) profile_trace around {P18_TRACE_STEPS} chunked train "
+          f"steps at batch {TRAIN_BATCH}")
+    flash = run_profile_trace(ws, agent, device, card)
+    print(f"[18c] ({since_start()}) profile_train --scaling --configs {P18_SCALING}, with and "
+          f"without --mu-bf16")
+    run_mu_bf16(card)
+    print(f"[18d] ({since_start()}) calibrate_block_push's rot-sweep scoring on the card")
+    run_calibration_surrogate(device, card)
+    return {"fused_layer_prefix_f32": b1, "flash": flash}
+
+
 def main() -> None:
     repo = Path(__file__).resolve().parent
     if not (repo / "beso_tpu_torch" / "csrc").is_dir():
@@ -3924,6 +4198,11 @@ def main() -> None:
     p17_paths = run_phase17(device, card)
     print(f"  phase 17: {time.perf_counter() - t17:.3f} s")
 
+    # ---- 18. guidance on B1, the profiler trace, bf16 moments, calibration -
+    t18 = time.perf_counter()
+    p18 = run_phase18(device, card, den32, policy_kw, scale_data, ws, agent)
+    print(f"  phase 18: {time.perf_counter() - t18:.3f} s")
+
     # one launch each at the timed shapes: B1, B3 2048 envs x 8 tokens, P=3;
     # B2 a group of 2; B4 2048 x 11 tokens, P=0, in bf16 and f32; the flash
     # kernels at the chunked shape and their width-128 instantiations at
@@ -3959,7 +4238,8 @@ def main() -> None:
                "fused_layer_prefix_f32": {
                    "phase 11 evaluation": f32_counts["fused_layer_prefix"],
                    "phase 14": seq_launches["fused_layer_prefix"],
-                   **p17_paths["fused_layer_prefix_f32"]}}
+                   **p17_paths["fused_layer_prefix_f32"],
+                   "phase 18a guided rollout": p18["fused_layer_prefix_f32"]}}
     entries = [("fused_layer_prefix", layer_src, "beso_tpu/ops/fused_layer.py:618",
                 sum(by_path["fused_layer_prefix"].values()), err, ms, plain_ms),
                ("fused_layer_prefix_f32", f32_src, "beso_tpu/ops/fused_layer.py:618",
@@ -3989,7 +4269,8 @@ def main() -> None:
     # phase 17c's dp and tp steps (per rank), each path's own count printed
     # beside the sum
     by_path.update({k: {"phase 7 training": n, "phase 16b sweeps": sweep_launches[k],
-                        **{path: c[k] for path, c in p17_paths["flash"].items()}}
+                        **{path: c[k] for path, c in p17_paths["flash"].items()},
+                        "phase 18b trace": p18["flash"][k]}
                     for k, n in counts.items()})
     counts = {k: sum(by_path[k].values()) for k in counts}
     flash_counts_of = {"": counts, "_f32": counts_by_dtype[None, torch.float32],

@@ -20,7 +20,9 @@ sweep's rule): bit-equal to one launch on the folded batch, one launch per
 kernel and call; the multi-device layer: a sharded `fused_cached` rollout on
 an NCCL rank against one process's rollout of the shard (bit-equal, exact
 B1 launches), and the single-device modules (registry ids, xArm IK, env
-state I/O, the native loader's stream) on the card. Marked `gpu`:
+state I/O, the native loader's stream) on the card; classifier guidance
+around `fused_cached` against `cached`, and a `profile_trace` of train
+steps that names the three flash kernels. Marked `gpu`:
 without a card they skip. The dtype rules of the flash wrappers and the
 fused engines are also checked on the CPU. The plain f32 references run
 with TF32 off (as it is by default).
@@ -995,3 +997,102 @@ def test_single_device_modules_on_card(tmp_path):
     for k, batch in enumerate(nl.batches(seed=5, batch_size=32, n_batches=4, device=dev)):
         host = nl.sample_batch_host(5, k, 32)
         assert all(batch[n].is_cuda and batch[n].cpu().equal(host[n]) for n in host)
+
+
+def _tanh_guide(dev, seed=5, hidden=32):
+    """A seeded two-layer tanh guide over the last state, every action and
+    the last goal (chip_smoke.py phase 18a's)."""
+    rng = np.random.RandomState(seed)
+    n_in = 30 + 4 * 9 + 30
+    W1 = torch.as_tensor((rng.randn(n_in, hidden) / np.sqrt(n_in)).astype(np.float32)).to(dev)
+    b1 = torch.as_tensor((0.1 * rng.randn(hidden)).astype(np.float32)).to(dev)
+    w2 = torch.as_tensor(rng.randn(hidden).astype(np.float32)).to(dev)
+
+    def guide(s, a, g):
+        x = torch.cat([s[:, -1], a.reshape(a.shape[0], -1), g[:, -1]], -1)
+        return torch.tanh(x @ W1 + b1) @ w2
+
+    return guide
+
+
+@pytest.mark.gpu
+def test_guided_policy_on_fused_cached_matches_cached():
+    """chip_smoke.py phase 18a at 6 envs: `classifier_guided_denoise_fn`
+    around the `fused_cached` engine (B1) against the same guide around the
+    plain `cached` engine, a W+1-step policy window (lambda=1.5 CFG) inside
+    `torch.inference_mode`, within 2^-10 of max |ref|, exactly 2 B1
+    launches per denoiser call."""
+    from beso_tpu_torch.agents.policy import PolicyConfig
+    from beso_tpu_torch.models import make_rollout_denoise_factory
+    from beso_tpu_torch.models.cfg import classifier_guided_denoise_fn
+
+    dev = _cuda()
+    den, scaler, goals, obs_seq = _policy_setup(dev)
+    guide = _tanh_guide(dev)
+    cfg = PolicyConfig(window_size=4, obs_dim=30, action_dim=9, cond_lambda=1.5)
+    with torch.inference_mode():
+        fused, plain = (classifier_guided_denoise_fn(
+            make_rollout_denoise_factory(den, scaler, cfg, engine=e)(goals), guide)
+            for e in ("fused_cached", "cached"))
+        calls = [0]
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return fused(*a, **kw)
+
+        before = fl.fused_layer_prefix.launches
+        got = _window(counted, scaler, cfg, goals, obs_seq, dev)
+        ref = _window(plain, scaler, cfg, goals, obs_seq, dev)
+        unguided = _window(make_rollout_denoise_factory(den, scaler, cfg, engine="cached")(
+            goals), scaler, cfg, goals, obs_seq, dev)
+    torch.cuda.synchronize()
+    assert fl.fused_layer_prefix.launches - before == 2 * calls[0]
+    assert _close(got, ref, 2 ** -10)
+    assert not torch.equal(got, unguided)
+
+
+@pytest.mark.gpu
+def test_profile_trace_names_the_flash_kernels(tmp_path):
+    """chip_smoke.py phase 18b at a small width: `profile_trace` around
+    fused train steps of a 2-layer bf16 model on the flash path: the Chrome
+    trace names B5 and both B6 kernels, exactly layers x steps launches of
+    each; `step_timer` writes its record to a `MetricsWriter`."""
+    import json
+
+    from beso_tpu_torch.core.densities import make_sample_density
+    from beso_tpu_torch.data.slicer import SlicedDataset
+    from beso_tpu_torch.data.trajectories import synthetic_kitchen_data
+    from beso_tpu_torch.models import DiffusionGPT, GCDenoiser, fit_scaler
+    from beso_tpu_torch.train.trainer import Trainer, make_fused_train_steps, make_optimizer
+    from beso_tpu_torch.utils.metrics import MetricsWriter, profile_trace, step_timer
+
+    dev = _cuda()
+    model = DiffusionGPT(state_dim=30, action_dim=9, embed_dim=96, n_layers=2, n_heads=2,
+                         goal_seq_len=2, obs_seq_len=8, attention="pallas",
+                         dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).to(dev)
+    den = GCDenoiser(model, sigma_data=0.5)
+    data = synthetic_kitchen_data(n_traj=16, t_max=40)
+    scaler = fit_scaler(data.all_observations(), data.all_actions(), device=dev)
+    train_set = SlicedDataset(data, window=8, future_conditional=True, future_seq_len=2,
+                              device=dev)
+    density = make_sample_density("loglogistic", sigma_data=0.5, sigma_min=0.005,
+                                  sigma_max=1.0)
+    ts = Trainer(den, make_optimizer, density, scaler).init_state()
+    fused = make_fused_train_steps(den, density, scaler, train_set, 16, 3)
+    gen = torch.Generator(dev).manual_seed(1)
+    ts, _ = fused(ts, gen)     # warm-up
+    counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    before = [f.launches for f in counters]
+    writer = MetricsWriter(str(tmp_path))
+    with profile_trace(str(tmp_path / "trace")), step_timer(writer, "train", step=3):
+        ts, losses = fused(ts, gen)
+        torch.cuda.synchronize()
+    writer.close()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2 * 3] * 3
+    assert bool(torch.isfinite(losses).all())
+    names = {ev.get("name", "") for ev in json.loads(
+        (tmp_path / "trace" / "trace.json").read_text())["traceEvents"]}
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        assert any(kernel in n for n in names), kernel
+    (row,) = [json.loads(x) for x in open(tmp_path / "metrics.jsonl")]
+    assert row["_step"] == 3 and row["time/train_s"] > 0
