@@ -50,13 +50,9 @@
 // - Occupancy: with no f32 staging a block holds two stages and what it
 //   keeps (forward 36,864 bytes, dQ 46,080, dK/dV 56,320), four 128-thread
 //   blocks per SM at <= 128 registers.
-// - Head dims up to 128 (the JAX kernels' working range): each kernel is
-//   instantiated at tile width 64 (hdp <= 64: the chunked training path's
-//   hd 60); above, the launchers call flash_attention_wide.cu's `wgmma`
-//   kernels for the forward and the f32 backward, and the bf16 backward
-//   runs this template at tile width 128, which holds twice the fragments,
-//   accumulators and tiles per block, so its launch bounds ask for half the
-//   blocks per SM; register spills are allowed there only.
+// - Head dims up to 128 (the JAX kernels' working range): these kernels
+//   take tile width 64 (hdp <= 64: the chunked training path's hd 60);
+//   above, the launchers call flash_attention_wide.cu's `wgmma` kernels.
 // Padded rows get lse = 0 and zero q/k, so their p is finite; the dK/dV
 // kernel masks p (not s) for query columns >= T, as the JAX kernel does.
 //
@@ -85,26 +81,22 @@ namespace {
 constexpr int TILE = 64;            // query (or key) rows per block and per streamed tile
 constexpr int WARPS = 4;            // each warp owns 16 rows of the block's tile
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_HDP = 128;        // padded head dim, multiple of 16
-// Per tile width HDP (64 for hdp <= 64, 128 for hdp up to 128): head-dim
+constexpr int MAX_HDP = 128;        // the largest padded head dim of either source
+// The tile width HDP (these kernels' padded head dims, up to 64): head-dim
 // column tiles (k16 steps) and n8 tiles at most, the bf16 row stride of
-// [TILE, hdp] tiles (144 or 272 bytes, an odd number of 16-byte units, so
-// ldmatrix is free of bank conflicts) and the bf16 elements of a
-// [TILE, LDH] tile, which is where an f32 tile's lo part starts.
-template <int HDP>
+// [TILE, hdp] tiles (144 bytes, an odd number of 16-byte units, so ldmatrix
+// is free of bank conflicts) and the bf16 elements of a [TILE, LDH] tile,
+// which is where an f32 tile's lo part starts.
+constexpr int HDP = 64;
 constexpr int NT_D = HDP / 16;
-template <int HDP>
 constexpr int NT_D8 = HDP / 8;
-template <int HDP>
 constexpr int LDH = HDP + 8;
-template <int HDP>
-constexpr int SPLIT = TILE * LDH<HDP>;
+constexpr int SPLIT = TILE * LDH;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Per element type: bf16 tiles per logical tile (f32: hi and lo) and the
-// resident blocks per SM the launch bounds ask for at tile width 64; at 128
-// twice the registers and shared memory per block take half the blocks.
+// resident blocks per SM the launch bounds ask for.
 template <typename E>
 struct Parts {
   static constexpr int N = 1;
@@ -115,9 +107,6 @@ struct Parts<float> {
   static constexpr int N = 2;
   static constexpr int MIN_BLOCKS = 2;
 };
-template <typename E, int HDP>
-constexpr int MIN_BLOCKS = HDP <= 64 ? Parts<E>::MIN_BLOCKS : Parts<E>::MIN_BLOCKS / 2;
-
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 
 __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
@@ -135,7 +124,6 @@ __device__ __forceinline__ void split_bf2(float x0, float x1, uint32_t& hi, uint
 
 // Copy `nrows` rows of `hd` bf16 (contiguous, row stride hd) into a
 // [TILE, LDH] shared tile; rows >= nrows and columns [hd, hdp) are zero.
-template <int HDP>
 __device__ void load_tile(bf16* dst, const bf16* src, int nrows, int hd, int hdp,
                           int tid) {
   if ((hd & 3) == 0) {  // 8-byte copies: row offsets stay 8-byte aligned
@@ -145,13 +133,13 @@ __device__ void load_tile(bf16* dst, const bf16* src, int nrows, int hd, int hdp
       uint2 val = make_uint2(0u, 0u);
       if (r < nrows && c < vpr)
         val = *reinterpret_cast<const uint2*>(src + static_cast<size_t>(r) * hd + c * 4);
-      *reinterpret_cast<uint2*>(dst + r * LDH<HDP> + c * 4) = val;
+      *reinterpret_cast<uint2*>(dst + r * LDH + c * 4) = val;
     }
     return;
   }
   for (int i = tid; i < TILE * hdp; i += THREADS) {
     const int r = i / hdp, c = i - r * hdp;
-    dst[r * LDH<HDP> + c] =
+    dst[r * LDH + c] =
         (r < nrows && c < hd) ? src[static_cast<size_t>(r) * hd + c] : f2bf(0.f);
   }
 }
@@ -159,7 +147,7 @@ __device__ void load_tile(bf16* dst, const bf16* src, int nrows, int hd, int hdp
 // load_tile as kBytes asynchronous copies (completing in the caller's
 // commit group), the source size zero-filling rows >= nrows and columns
 // [hd, hdp).
-template <int HDP, int kBytes>
+template <int kBytes>
 __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, int nrows, int hd,
                                                 int hdp, int tid) {
   constexpr int E = kBytes / 2;  // bf16 per copy
@@ -167,27 +155,27 @@ __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, int 
   for (int i = tid; i < TILE * per_row; i += THREADS) {
     const int r = i / per_row, c = i - r * per_row;
     const bool ok = r < nrows && c < real;
-    hopper::cp_async<kBytes>(dst + r * LDH<HDP> + c * E,
+    hopper::cp_async<kBytes>(dst + r * LDH + c * E,
                              ok ? src + static_cast<size_t>(r) * hd + c * E : src,
                              ok ? kBytes : 0);
   }
 }
 
-template <int HDP, class A>
+template <class A>
 __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nrows, const A& a,
                                           int tid) {
   if (a.vec == 8)
-    copy_tile_async<HDP, 8>(dst, src, nrows, a.hd, a.hdp, tid);
+    copy_tile_async<8>(dst, src, nrows, a.hd, a.hdp, tid);
   else if (a.vec == 4)
-    copy_tile_async<HDP, 4>(dst, src, nrows, a.hd, a.hdp, tid);
+    copy_tile_async<4>(dst, src, nrows, a.hd, a.hdp, tid);
   else
-    load_tile<HDP>(dst, src, nrows, a.hd, a.hdp, tid);  // odd hd: no aligned copy size
+    load_tile(dst, src, nrows, a.hd, a.hdp, tid);  // odd hd: no aligned copy size
 }
 
 // The f32 tile as its hi part at dst and its lo part at dst + SPLIT, by
 // plain loads (the conversion needs the values in registers); rows >= nrows
 // and columns [hd, hdp) are zero.
-template <int HDP, class A>
+template <class A>
 __device__ __forceinline__ void copy_tile(bf16* dst, const float* src, int nrows, const A& a,
                                           int tid) {
   const int hd = a.hd, half = a.hdp >> 1;
@@ -198,8 +186,8 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const float* src, int nrows
     const float x1 = r < nrows && c + 1 < hd ? s[1] : 0.f;
     uint32_t hi, lo;
     split_bf2(x0, x1, hi, lo);
-    *reinterpret_cast<uint32_t*>(dst + r * LDH<HDP> + c) = hi;
-    *reinterpret_cast<uint32_t*>(dst + SPLIT<HDP> + r * LDH<HDP> + c) = lo;
+    *reinterpret_cast<uint32_t*>(dst + r * LDH + c) = hi;
+    *reinterpret_cast<uint32_t*>(dst + SPLIT + r * LDH + c) = lo;
   }
 }
 
@@ -215,13 +203,13 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const float* src, int nrows
 // c[0:2][0:4] += A . B^T over the head dim, for 16 rows (A: the warp's A
 // fragments, one per k16 step) against the 16 rows of `b` (a [*, LDH]
 // shared tile at the chunk's first row).
-template <int HDP, int NS>
+template <int NS>
 __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
-                                                   uint32_t (&af)[NS][NT_D<HDP>][4],
+                                                   uint32_t (&af)[NS][NT_D][4],
                                                    const bf16* b, int nks, int lane) {
-  const bf16* row = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH<HDP> + ((lane >> 3) & 1) * 8;
+  const bf16* row = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int kk = 0; kk < NT_D<HDP>; ++kk) {
+  for (int kk = 0; kk < NT_D; ++kk) {
     if (kk < nks) {
       uint32_t bf[4];   // columns 0-7 of the chunk, then 8-15
       hopper::ldmatrix_x4<false>(bf, row + kk * 16);
@@ -229,7 +217,7 @@ __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
       hopper::mma_16816(c[1], af[0][kk], bf + 2);
       if constexpr (NS == 2) {
         uint32_t bl[4];
-        hopper::ldmatrix_x4<false>(bl, row + SPLIT<HDP> + kk * 16);
+        hopper::ldmatrix_x4<false>(bl, row + SPLIT + kk * 16);
         hopper::mma_16816(c[0], af[1][kk], bf);
         hopper::mma_16816(c[1], af[1][kk], bf + 2);
         hopper::mma_16816(c[0], af[0][kk], bl);
@@ -241,13 +229,13 @@ __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
 
 // c[0:2][0:4] += A . B^T as above, with A the warp's 16 rows of the shared
 // tile `a` (at its first row), one k16 step at a time.
-template <int HDP, int NS>
+template <int NS>
 __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const bf16* a,
                                                         const bf16* b, int nks, int lane) {
-  const bf16* arow = a + (lane & 15) * LDH<HDP> + (lane >> 4) * 8;
-  const bf16* brow = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH<HDP> + ((lane >> 3) & 1) * 8;
+  const bf16* arow = a + (lane & 15) * LDH + (lane >> 4) * 8;
+  const bf16* brow = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int kk = 0; kk < NT_D<HDP>; ++kk) {
+  for (int kk = 0; kk < NT_D; ++kk) {
     if (kk < nks) {
       uint32_t af[4], bf[4];
       hopper::ldmatrix_x4<false>(af, arow + kk * 16);
@@ -256,8 +244,8 @@ __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const 
       hopper::mma_16816(c[1], af, bf + 2);
       if constexpr (NS == 2) {
         uint32_t al[4], bl[4];
-        hopper::ldmatrix_x4<false>(al, arow + SPLIT<HDP> + kk * 16);
-        hopper::ldmatrix_x4<false>(bl, brow + SPLIT<HDP> + kk * 16);
+        hopper::ldmatrix_x4<false>(al, arow + SPLIT + kk * 16);
+        hopper::ldmatrix_x4<false>(bl, brow + SPLIT + kk * 16);
         hopper::mma_16816(c[0], al, bf);
         hopper::mma_16816(c[1], al, bf + 2);
         hopper::mma_16816(c[0], af, bl);
@@ -270,12 +258,12 @@ __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const 
 // acc[0 : hdp / 8] += P . B, with P the 16 x 16 A fragment `pf` and B the
 // chunk's 16 rows of `b` (a [*, LDH] shared tile at the chunk's first row),
 // through ldmatrix.trans.
-template <int HDP, int NS>
-__device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8<HDP>][4], uint32_t (&pf)[NS][4],
+template <int NS>
+__device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t (&pf)[NS][4],
                                                 const bf16* b, int nks, int lane) {
-  const bf16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDH<HDP> + (lane >> 4) * 8;
+  const bf16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
 #pragma unroll
-  for (int t = 0; t < NT_D8<HDP>; t += 2) {
+  for (int t = 0; t < NT_D8; t += 2) {
     if (t < 2 * nks) {
       uint32_t bf[4];   // head-dim columns 8 t .. 8 t + 7, then 8 t + 8 ..
       hopper::ldmatrix_x4<true>(bf, row + 8 * t);
@@ -283,7 +271,7 @@ __device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8<HDP>][4], uin
       hopper::mma_16816(acc[t + 1], pf[0], bf + 2);
       if constexpr (NS == 2) {
         uint32_t bl[4];
-        hopper::ldmatrix_x4<true>(bl, row + SPLIT<HDP> + 8 * t);
+        hopper::ldmatrix_x4<true>(bl, row + SPLIT + 8 * t);
         hopper::mma_16816(acc[t], pf[1], bf);
         hopper::mma_16816(acc[t + 1], pf[1], bf + 2);
         hopper::mma_16816(acc[t], pf[0], bl);
@@ -309,25 +297,25 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[NS][4], const float (&c)[2]
 
 // The warp's 16 rows of a [*, LDH] shared tile as A fragments over the
 // head dim.
-template <int HDP, int NS>
-__device__ __forceinline__ void load_rows(uint32_t (&af)[NS][NT_D<HDP>][4], const bf16* rows,
+template <int NS>
+__device__ __forceinline__ void load_rows(uint32_t (&af)[NS][NT_D][4], const bf16* rows,
                                           int nks,
                                           int lane) {
-  const bf16* row = rows + (lane & 15) * LDH<HDP> + (lane >> 4) * 8;
+  const bf16* row = rows + (lane & 15) * LDH + (lane >> 4) * 8;
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
-    for (int kk = 0; kk < NT_D<HDP>; ++kk)
-      if (kk < nks) hopper::ldmatrix_x4<false>(af[s][kk], row + s * SPLIT<HDP> + kk * 16);
+    for (int kk = 0; kk < NT_D; ++kk)
+      if (kk < nks) hopper::ldmatrix_x4<false>(af[s][kk], row + s * SPLIT + kk * 16);
 }
 
 // Eight values of a shared tile row from a 16-byte aligned column, in f32
 // (NS = 2: hi + lo).
-template <int HDP, int NS>
+template <int NS>
 __device__ __forceinline__ void row8(float (&x)[8], const bf16* p) {
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p + s * SPLIT<HDP>);
+    const uint4 v = *reinterpret_cast<const uint4*>(p + s * SPLIT);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -349,13 +337,13 @@ __device__ __forceinline__ void store2(float* p, float x0, float x1) {
 
 // Rows r0 + g (times mul0) and r0 + g + 8 (times mul1), those < T, of a
 // [*, hd] output <- acc.
-template <int HDP, typename E, class A>
-__device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8<HDP>][4], float mul0,
+template <typename E, class A>
+__device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8][4], float mul0,
                                            float mul1,
                                            int r0, const A& a, int lane) {
   const int g = lane >> 2, q4 = lane & 3;
 #pragma unroll
-  for (int t = 0; t < NT_D8<HDP>; ++t) {
+  for (int t = 0; t < NT_D8; ++t) {
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int row = r0 + g + 8 * u, col = 8 * t + 2 * q4;
@@ -380,10 +368,10 @@ __device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8<HDP>][4], 
 // to the diagonal with the online softmax. o = (sum_k P V) / l,
 // lse = m + log(l) in natural-log units.
 // ---------------------------------------------------------------------------
-template <typename E, int HDP>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
+template <typename E>
+__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
     flash_fwd_kernel(const FwdArgs<E> a) {
-  constexpr int NS = Parts<E>::N, TS = NS * SPLIT<HDP>;   // bf16 elements per logical tile
+  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;   // bf16 elements per logical tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q; then stage 1 (K, V)
   auto stage = [&](int i) { return i ? qs : qs + 2 * TS; };
@@ -396,19 +384,19 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
   const size_t rbase = static_cast<size_t>(blockIdx.x / n_all) * T, base = rbase * hd;
   const int nkt = a.causal ? qt + 1 : n_all;
 
-  copy_tile<HDP>(qs, a.q + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
+  copy_tile(qs, a.q + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
   hopper::cp_async_commit();
-  copy_tile<HDP>(stage(0), a.k + base, T, a, tid);
-  copy_tile<HDP>(stage(0) + TS, a.v + base, T, a, tid);
+  copy_tile(stage(0), a.k + base, T, a, tid);
+  copy_tile(stage(0) + TS, a.v + base, T, a, tid);
   hopper::cp_async_commit();
   hopper::cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[NS][NT_D<HDP>][4];
-  if (active) load_rows<HDP, NS>(qf, qs + 16 * warp * LDH<HDP>, nks, lane);
+  uint32_t qf[NS][NT_D][4];
+  if (active) load_rows<NS>(qf, qs + 16 * warp * LDH, nks, lane);
   __syncthreads();   // q is in registers: stage 1 may overwrite it
 
   const float scale2 = a.scale * LOG2E;
-  float acc[NT_D8<HDP>][4] = {};
+  float acc[NT_D8][4] = {};
   // rows g, g + 8: running max of the scores in log2 units, and this
   // thread's share of the running sum (its four lanes' shares add up to l)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -416,8 +404,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
     if (kt + 1 < nkt) {
       const int k1 = (kt + 1) * TILE;
       bf16* st = stage((kt + 1) & 1);
-      copy_tile<HDP>(st, a.k + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
-      copy_tile<HDP>(st + TS, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+      copy_tile(st, a.k + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+      copy_tile(st + TS, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
     }
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();   // tile kt has landed
@@ -429,7 +417,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
         const int kc = kt * TILE + 16 * c;   // the chunk's first key
         if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
         float s[2][4] = {};
-        rows_times_chunk_t<HDP, NS>(s, qf, ks + 16 * c * LDH<HDP>, nks, lane);
+        rows_times_chunk_t<NS>(s, qf, ks + 16 * c * LDH, nks, lane);
         // every row keeps key kc (kc < T, and kc <= r0 when causal), so m stays finite
         const bool edge = kc + 16 > T || (a.causal && kc == r0);
         float mx[2] = {-INFINITY, -INFINITY};
@@ -453,7 +441,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
           l[u] *= alpha[u];
         }
 #pragma unroll
-        for (int t = 0; t < NT_D8<HDP>; ++t)
+        for (int t = 0; t < NT_D8; ++t)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[t][i] *= alpha[i >> 1];
 #pragma unroll
@@ -465,7 +453,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
           }
         uint32_t pf[NS][4];
         pack_a<NS>(pf, s);
-        acc_chunk_times<HDP, NS>(acc, pf, vs + 16 * c * LDH<HDP>, nks, lane);   // O += P V
+        acc_chunk_times<NS>(acc, pf, vs + 16 * c * LDH, nks, lane);   // O += P V
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
@@ -481,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
       const int row = r0 + g + 8 * u;
       if (q4 == 0 && row < T) a.lse[rbase + row] = m[u] * LN2 + logf(lc);
     }
-    store_rows<HDP>(a.o + base, acc, inv[0], inv[1], r0, a, lane);
+    store_rows(a.o + base, acc, inv[0], inv[1], r0, a, lane);
   }
 }
 
@@ -491,10 +479,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
 // tiles up to the diagonal. delta = rowsum(dO * O),
 // dq = (sum_k dS K) * scale.
 // ---------------------------------------------------------------------------
-template <typename E, int HDP>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
+template <typename E>
+__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
     flash_bwd_dq_kernel(const BwdArgs<E> a) {
-  constexpr int NS = Parts<E>::N, TS = NS * SPLIT<HDP>;
+  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q, dO, o; then stage 1
   bf16* dos = qs + TS;
@@ -510,28 +498,28 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
   const int nkt = a.causal ? qt + 1 : n_all;
 
   const size_t qoff = base + static_cast<size_t>(q0) * hd;
-  copy_tile<HDP>(qs, a.q + qoff, T - q0, a, tid);
-  copy_tile<HDP>(dos, a.dout + qoff, T - q0, a, tid);
-  copy_tile<HDP>(os, a.o + qoff, T - q0, a, tid);
+  copy_tile(qs, a.q + qoff, T - q0, a, tid);
+  copy_tile(dos, a.dout + qoff, T - q0, a, tid);
+  copy_tile(os, a.o + qoff, T - q0, a, tid);
   hopper::cp_async_commit();
-  copy_tile<HDP>(stage(0), a.k + base, T, a, tid);
-  copy_tile<HDP>(stage(0) + TS, a.v + base, T, a, tid);
+  copy_tile(stage(0), a.k + base, T, a, tid);
+  copy_tile(stage(0) + TS, a.v + base, T, a, tid);
   hopper::cp_async_commit();
   hopper::cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qf[NS][NT_D<HDP>][4], dof[NS][NT_D<HDP>][4];
+  uint32_t qf[NS][NT_D][4], dof[NS][NT_D][4];
   float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};   // rows g, g + 8; lse2 = lse * log2(e)
   if (active) {
-    load_rows<HDP, NS>(qf, qs + 16 * warp * LDH<HDP>, nks, lane);
-    load_rows<HDP, NS>(dof, dos + 16 * warp * LDH<HDP>, nks, lane);
+    load_rows<NS>(qf, qs + 16 * warp * LDH, nks, lane);
+    load_rows<NS>(dof, dos + 16 * warp * LDH, nks, lane);
     // delta in f32: lanes 2 i and 2 i + 1 sum halves of row 16 warp + i
     const int rr = 16 * warp + (lane >> 1), c0 = (lane & 1) * (HDP / 2);
     float d = 0.f;
     for (int c = c0; c < min(c0 + HDP / 2, a.hdp); c += 8) {
       float x[8], y[8];
-      row8<HDP, NS>(x, dos + rr * LDH<HDP> + c);
-      row8<HDP, NS>(y, os + rr * LDH<HDP> + c);
+      row8<NS>(x, dos + rr * LDH + c);
+      row8<NS>(y, os + rr * LDH + c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) d = fmaf(x[j], y[j], d);
     }
@@ -548,13 +536,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
   __syncthreads();   // q, dO and o are in registers: stage 1 may overwrite them
 
   const float scale2 = a.scale * LOG2E;
-  float acc[NT_D8<HDP>][4] = {};
+  float acc[NT_D8][4] = {};
   for (int kt = 0; kt < nkt; ++kt) {
     if (kt + 1 < nkt) {
       const int k1 = (kt + 1) * TILE;
       bf16* st = stage((kt + 1) & 1);
-      copy_tile<HDP>(st, a.k + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
-      copy_tile<HDP>(st + TS, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+      copy_tile(st, a.k + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
+      copy_tile(st + TS, a.v + base + static_cast<size_t>(k1) * hd, T - k1, a, tid);
     }
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();   // tile kt has landed
@@ -566,8 +554,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
         const int kc = kt * TILE + 16 * c;   // the chunk's first key
         if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
         float s[2][4] = {}, dp[2][4] = {};
-        rows_times_chunk_t<HDP, NS>(s, qf, ks + 16 * c * LDH<HDP>, nks, lane);
-        rows_times_chunk_t<HDP, NS>(dp, dof, vs + 16 * c * LDH<HDP>, nks, lane);
+        rows_times_chunk_t<NS>(s, qf, ks + 16 * c * LDH, nks, lane);
+        rows_times_chunk_t<NS>(dp, dof, vs + 16 * c * LDH, nks, lane);
         const bool edge = kc + 16 > T || (a.causal && kc == r0);
         float ds[2][4];
 #pragma unroll
@@ -581,12 +569,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
           }
         uint32_t dsf[NS][4];
         pack_a<NS>(dsf, ds);
-        acc_chunk_times<HDP, NS>(acc, dsf, ks + 16 * c * LDH<HDP>, nks, lane);
+        acc_chunk_times<NS>(acc, dsf, ks + 16 * c * LDH, nks, lane);
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
   }
-  if (active) store_rows<HDP>(a.dq + base, acc, a.scale, a.scale, r0, a, lane);
+  if (active) store_rows(a.dq + base, acc, a.scale, a.scale, r0, a, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -595,10 +583,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
 // dv = sum_q P^T dO; dk = (sum_q dS^T Q) * scale, which equals the JAX
 // kernel's sum against the scaled q (:144,152).
 // ---------------------------------------------------------------------------
-template <typename E, int HDP>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
+template <typename E>
+__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
     flash_bwd_dkv_kernel(const BwdArgs<E> a) {
-  constexpr int NS = Parts<E>::N, TS = NS * SPLIT<HDP>;
+  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);        // [TS]
   bf16* vs = ks + TS;                              // [TS]
@@ -614,14 +602,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
   const size_t rbase = static_cast<size_t>(blockIdx.x / nqt) * T, base = rbase * hd;
   const int qt0 = a.causal ? kt : 0;  // causal: from the diagonal on
 
-  copy_tile<HDP>(ks, a.k + base + static_cast<size_t>(k0) * hd, T - k0, a, tid);
-  copy_tile<HDP>(vs, a.v + base + static_cast<size_t>(k0) * hd, T - k0, a, tid);
+  copy_tile(ks, a.k + base + static_cast<size_t>(k0) * hd, T - k0, a, tid);
+  copy_tile(vs, a.v + base + static_cast<size_t>(k0) * hd, T - k0, a, tid);
   hopper::cp_async_commit();
   auto copy_stage = [&](int qt) {
     const int q0 = qt * TILE;
     bf16* st = stage((qt - qt0) & 1);
-    copy_tile<HDP>(st, a.q + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
-    copy_tile<HDP>(st + TS, a.dout + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
+    copy_tile(st, a.q + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
+    copy_tile(st + TS, a.dout + base + static_cast<size_t>(q0) * hd, T - q0, a, tid);
     // lse (threads 0-63) and delta (64-127) of the tile's rows, 0 past T
     float* stat = reinterpret_cast<float*>(st + 2 * TS);
     const int i = tid & (TILE - 1), ok = q0 + i < T;
@@ -632,7 +620,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
   hopper::cp_async_commit();
 
   const float scale2 = a.scale * LOG2E;
-  float dk[NT_D8<HDP>][4] = {}, dv[NT_D8<HDP>][4] = {};
+  float dk[NT_D8][4] = {}, dv[NT_D8][4] = {};
   for (int qt = qt0; qt < nqt; ++qt) {
     if (qt + 1 < nqt) copy_stage(qt + 1);
     hopper::cp_async_commit();
@@ -648,10 +636,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
         const int qc = qt * TILE + 16 * c;   // the chunk's first query
         if (qc >= T) break;
         float s[2][4] = {}, dp[2][4] = {};
-        smem_rows_times_chunk_t<HDP, NS>(s, ks + 16 * warp * LDH<HDP>, qs + 16 * c * LDH<HDP>,
+        smem_rows_times_chunk_t<NS>(s, ks + 16 * warp * LDH, qs + 16 * c * LDH,
                                          nks, lane);
-        smem_rows_times_chunk_t<HDP, NS>(dp, vs + 16 * warp * LDH<HDP>,
-                                         dos + 16 * c * LDH<HDP>, nks, lane);
+        smem_rows_times_chunk_t<NS>(dp, vs + 16 * warp * LDH,
+                                         dos + 16 * c * LDH, nks, lane);
         const bool edge = qc + 16 > T || (a.causal && qc == r0);
         float p[2][4], ds[2][4];
 #pragma unroll
@@ -671,31 +659,30 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<E, HDP>)
         uint32_t pf[NS][4], dsf[NS][4];
         pack_a<NS>(pf, p);
         pack_a<NS>(dsf, ds);
-        acc_chunk_times<HDP, NS>(dv, pf, dos + 16 * c * LDH<HDP>, nks, lane);   // dV += P^T dO
-        acc_chunk_times<HDP, NS>(dk, dsf, qs + 16 * c * LDH<HDP>, nks, lane);   // dK += dS^T Q
+        acc_chunk_times<NS>(dv, pf, dos + 16 * c * LDH, nks, lane);   // dV += P^T dO
+        acc_chunk_times<NS>(dk, dsf, qs + 16 * c * LDH, nks, lane);   // dK += dS^T Q
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
   }
   if (active) {
-    store_rows<HDP>(a.dk + base, dk, a.scale, a.scale, r0, a, lane);
-    store_rows<HDP>(a.dv + base, dv, 1.f, 1.f, r0, a, lane);
+    store_rows(a.dk + base, dk, a.scale, a.scale, r0, a, lane);
+    store_rows(a.dv + base, dv, 1.f, 1.f, r0, a, lane);
   }
 }
 
-template <int HDP>
-constexpr size_t kTileBytes = sizeof(bf16) * TILE * LDH<HDP>;
+constexpr size_t kTileBytes = sizeof(bf16) * TILE * LDH;
 // q (then half of stage 1), its second tile of stage 1, and stage 0 of K/V
-template <typename E, int HDP>
-constexpr size_t fwd_smem() { return 4 * Parts<E>::N * kTileBytes<HDP>; }
+template <typename E>
+constexpr size_t fwd_smem() { return 4 * Parts<E>::N * kTileBytes; }
 // q, dO, o (then stage 1 of K/V), and stage 0 of K/V
-template <typename E, int HDP>
-constexpr size_t dq_smem() { return 5 * Parts<E>::N * kTileBytes<HDP>; }
+template <typename E>
+constexpr size_t dq_smem() { return 5 * Parts<E>::N * kTileBytes; }
 // K, V, and two stages of q, dO, lse and delta
-template <typename E, int HDP>
+template <typename E>
 constexpr size_t dkv_smem() {
-  return 2 * Parts<E>::N * kTileBytes<HDP> +
-         2 * (2 * Parts<E>::N * kTileBytes<HDP> + 2 * sizeof(float) * TILE);
+  return 2 * Parts<E>::N * kTileBytes +
+         2 * (2 * Parts<E>::N * kTileBytes + 2 * sizeof(float) * TILE);
 }
 
 // Launches `kernel` on one block of THREADS per query (or key) tile.
@@ -722,10 +709,8 @@ void set_inputs(A& a, const void* q, const void* k, const void* v, int T, int hd
   a.scale = 1.0f / sqrtf(static_cast<float>(hd));
 }
 
-// Each launcher takes the tile width 64 for hd <= 64 (the instantiations
-// the chunked training path runs); above, flash_attention_wide.cu's kernels
-// (the forward, the f32 backward) or this template at width 128 (the bf16
-// backward).
+// Each launcher takes these kernels for hd <= 64 (the chunked training
+// path's); above, flash_attention_wide.cu's.
 template <typename E>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T, int hd,
         int causal, void* stream) {
@@ -734,7 +719,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
   a.o = static_cast<E*>(o);
   a.lse = static_cast<float*>(lse);
   if (a.hdp <= 64)
-    return launch(flash_fwd_kernel<E, 64>, fwd_smem<E, 64>(), a, BH, stream);
+    return launch(flash_fwd_kernel<E>, fwd_smem<E>(), a, BH, stream);
   return flash_wide_fwd(a, BH, stream);
 }
 
@@ -750,11 +735,8 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   a.dq = static_cast<E*>(dq);
   a.delta = static_cast<float*>(delta);
   if (a.hdp <= 64)
-    return launch(flash_bwd_dq_kernel<E, 64>, dq_smem<E, 64>(), a, BH, stream);
-  if constexpr (sizeof(E) == 4)
-    return flash_wide_bwd_dq(a, BH, stream);
-  else
-    return launch(flash_bwd_dq_kernel<E, 128>, dq_smem<E, 128>(), a, BH, stream);
+    return launch(flash_bwd_dq_kernel<E>, dq_smem<E>(), a, BH, stream);
+  return flash_wide_bwd_dq(a, BH, stream);
 }
 
 template <typename E>
@@ -769,18 +751,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.dk = static_cast<E*>(dk);
   a.dv = static_cast<E*>(dv);
   if (a.hdp <= 64)
-    return launch(flash_bwd_dkv_kernel<E, 64>, dkv_smem<E, 64>(), a, BH, stream);
-  if constexpr (sizeof(E) == 4)
-    return flash_wide_bwd_dkv(a, BH, stream);
-  else
-    return launch(flash_bwd_dkv_kernel<E, 128>, dkv_smem<E, 128>(), a, BH, stream);
+    return launch(flash_bwd_dkv_kernel<E>, dkv_smem<E>(), a, BH, stream);
+  return flash_wide_bwd_dkv(a, BH, stream);
 }
 
-template <typename E, int HDP>
+template <typename E>
 int kernel_blocks_per_sm(int which) {
-  if (which == 0) return blocks_per_sm(flash_fwd_kernel<E, HDP>, fwd_smem<E, HDP>());
-  if (which == 1) return blocks_per_sm(flash_bwd_dq_kernel<E, HDP>, dq_smem<E, HDP>());
-  return blocks_per_sm(flash_bwd_dkv_kernel<E, HDP>, dkv_smem<E, HDP>());
+  if (which == 0) return blocks_per_sm(flash_fwd_kernel<E>, fwd_smem<E>());
+  if (which == 1) return blocks_per_sm(flash_bwd_dq_kernel<E>, dq_smem<E>());
+  return blocks_per_sm(flash_bwd_dkv_kernel<E>, dkv_smem<E>());
 }
 
 }  // namespace
@@ -817,14 +796,11 @@ int beso_flash_max_head_dim(void) { return MAX_HDP; }
 
 // Resident blocks per SM of the forward (which = 0), the dQ (1) and the
 // dK/dV kernel (2) as launched, bf16 or (f32) f32 instantiation, for head
-// dim hd (tile width 64 or 128), from the CUDA runtime's occupancy
-// calculator; -1 on an error.
+// dim hd (these kernels up to 64, flash_attention_wide.cu's above), from
+// the CUDA runtime's occupancy calculator; -1 on an error.
 int beso_flash_blocks_per_sm(int which, int f32, int hd) {
-  if (hd <= 64)
-    return f32 ? kernel_blocks_per_sm<float, 64>(which) : kernel_blocks_per_sm<bf16, 64>(which);
-  if (which == 0 || f32) return flash_wide_blocks_per_sm(which, f32);
-  return which == 1 ? blocks_per_sm(flash_bwd_dq_kernel<bf16, 128>, dq_smem<bf16, 128>())
-                    : blocks_per_sm(flash_bwd_dkv_kernel<bf16, 128>, dkv_smem<bf16, 128>());
+  if (hd <= 64) return f32 ? kernel_blocks_per_sm<float>(which) : kernel_blocks_per_sm<bf16>(which);
+  return flash_wide_blocks_per_sm(which, f32);
 }
 
 }  // extern "C"

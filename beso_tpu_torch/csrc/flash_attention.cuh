@@ -1,7 +1,7 @@
 // What the two flash-attention sources share: the kernels' arguments, which
 // flash_attention.cu's launchers fill, and the entries of
 // flash_attention_wide.cu that those launchers call at tile width 128 (the
-// forward in both dtypes, the f32 backward).
+// forward and the backward, in both dtypes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,8 +40,10 @@ struct BwdArgs {
 // launched). `vec` is the mma.sync kernels' alone; these ignore it.
 int flash_wide_fwd(const FwdArgs<__nv_bfloat16>& a, int BH, void* stream);
 int flash_wide_fwd(const FwdArgs<float>& a, int BH, void* stream);
+int flash_wide_bwd_dq(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream);
 int flash_wide_bwd_dq(const BwdArgs<float>& a, int BH, void* stream);
+int flash_wide_bwd_dkv(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream);
 int flash_wide_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream);
-// Resident blocks per SM of the forward (which = 0; bf16 or f32), the f32 dQ
-// (1) and the f32 dK/dV kernel (2); -1 on an error.
+// Resident blocks per SM of the forward (which = 0), the dQ (1) and the
+// dK/dV kernel (2), bf16 or (f32) f32; -1 on an error.
 int flash_wide_blocks_per_sm(int which, int f32);

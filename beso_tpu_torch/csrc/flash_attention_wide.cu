@@ -1,10 +1,10 @@
 // Flash attention at tile width 128 (padded head dims 80-128) on Hopper
 // `wgmma`: the forward (TPU kernel B5, `_flash_forward` / `_flash_kernel`,
-// beso_tpu/ops/flash_attention.py:34-75, 269-308) in bf16 and f32, and the
-// f32 backward (TPU kernel B6, `_flash_attention_bwd` :182-259: the dQ kernel
-// with delta, call :221, and the dK/dV kernel, call :240). The width-64
-// kernels and the bf16 width-128 backward stay in flash_attention.cu, whose
-// launchers call these for the rest.
+// beso_tpu/ops/flash_attention.py:34-75, 269-308) and the backward (TPU
+// kernel B6, `_flash_attention_bwd` :182-259: the dQ kernel `_bwd_dq_kernel`
+// :78-109 with delta (:212-214), call :221, and the dK/dV kernel
+// `_bwd_dkv_kernel` :112-153, call :240), each in bf16 and f32. The width-64
+// kernels stay in flash_attention.cu, whose launchers call these above it.
 //
 // Layout and numerics as in flash_attention.cu: q, k, v, o, dO, dq, dk, dv
 // [B*H, T, hd] contiguous, lse and delta [B*H, T] f32, lse of the scaled
@@ -36,6 +36,20 @@
 //   reads, out-of-bounds rows and columns zero-filled) on mbarriers; else
 //   all threads copy into the same layout with `cp.async`. Two blocks per
 //   SM.
+// - bf16 backward, the same copies: the bound at [256, 3, 131, 128] is
+//   bytes, ~155 MB per launch of either kernel (q, k, v, o, dO in and dq
+//   out, or q, k, v, dO in and dk, dv out, with lse and delta: 0.0464 ms at
+//   3.35 TB/s), for 5.1 GFLOP (dQ) or 6.8 (dK/dV) of causal products, 33-44
+//   operations per byte. The dQ kernel keeps a query tile's Q and dO
+//   and streams K/V two stages deep on two warpgroups, each taking half of
+//   every key tile, two blocks per SM; delta comes from O and dO read once
+//   from global memory while the first tiles land. The dK/dV kernel keeps a
+//   key tile's K and V and streams Q, dO, lse and delta two stages deep on
+//   one warpgroup (dK and dV, 128 accumulator registers, in one warpgroup:
+//   no exchange of sums), two blocks per SM. One product per step where
+//   the `mma.sync` template ran 16-key chains per warp; whole 64-row tiles
+//   at the ragged edge (at T = 131 the last tile's 3 rows cost a full
+//   tile's products, which the tensor cores have to spare).
 // - f32: the f32 tiles land by 16-byte `cp.async` in an f32 staging buffer
 //   (rows padded to 132 floats: conflict-free reads) while the previous
 //   tile computes, and all threads split them into hi/lo tiles of 8 x 8
@@ -263,7 +277,8 @@ __device__ __forceinline__ void issue_xb(float (&acc)[64], uint32_t (&f)[NS][KS]
 // bf16: through `buf` (this warpgroup's shared memory, 64 (hd + 8)
 // elements), rows padded by 16 bytes where hd % 8 == 0 so that the
 // fragment writes are free of bank conflicts, then out with 16-byte stores
-// (scalar stores for other hd, where the rows are not 16-byte aligned).
+// (scalar stores for other hd, where the rows are not 16-byte aligned); only
+// columns [c0, c1) (multiples of 8), where a warpgroup stores part of a tile.
 __device__ __forceinline__ void store_tile(float* dst, const float (&acc)[64],
                                            const float (&mul)[2], int nrows, int hd, int t) {
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
@@ -287,16 +302,17 @@ __device__ __forceinline__ void store_tile(float* dst, const float (&acc)[64],
 
 __device__ __forceinline__ void store_tile(bf16* dst, const float (&acc)[64],
                                            const float (&mul)[2], bf16* buf, int nrows, int hd,
-                                           int t, int wg) {
+                                           int t, int wg, int c0 = 0, int c1 = MAX_HDP) {
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
   const bool vec = (hd & 7) == 0;
   const int pitch = vec ? hd + 8 : hd;
+  c1 = min(c1, hd);
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int r = 16 * warp + g + 8 * u, c = 8 * j + 2 * q4;
-      if (r < nrows && c < hd) {
+      if (r < nrows && c >= c0 && c < c1) {
         bf16* p = buf + r * pitch + c;
         const float x0 = acc[4 * j + 2 * u] * mul[u], x1 = acc[4 * j + 2 * u + 1] * mul[u];
         if ((hd & 1) == 0) {
@@ -311,12 +327,15 @@ __device__ __forceinline__ void store_tile(bf16* dst, const float (&acc)[64],
   if (vec) {   // 16-byte chunk c8 of row r; rows 16-byte aligned
     for (int i = t; i < ROWS * (MAX_HDP / 8); i += WG) {
       const int r = i >> 4, c = 8 * (i & 15);
-      if (r < nrows && c < hd)
+      if (r < nrows && c >= c0 && c < c1)
         *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * hd + c) =
             *reinterpret_cast<const uint4*>(buf + r * pitch + c);
     }
   } else {
-    for (int i = t; i < nrows * hd; i += WG) dst[i] = buf[i];
+    for (int i = t; i < nrows * hd; i += WG) {
+      const int c = i % hd;
+      if (c >= c0 && c < c1) dst[i] = buf[i];
+    }
   }
 }
 
@@ -822,6 +841,322 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_wide_kernel(const Bwd
   }
 }
 
+// ---------------------------------------------------------------------------
+// B6, bf16: the tiles a block keeps and the tiles it streams arrive as the
+// bf16 forward's do: kTma (hd % 8 == 0), thread 0 issues bulk tensor copies
+// of 64 x 64 boxes in the 128-byte swizzle (rows past T and columns past hd
+// zero-filled) on the stage's mbarrier; else all threads copy with
+// `cp.async` into the same layout, rows past T zero, one commit group per
+// stage. The zeros matter in K and V of the dQ kernel and in Q and dO of
+// the dK/dV kernel: B operands of dS K, P^T dO and dS^T Q, where 0 times
+// garbage could be NaN.
+// The dK/dV kernel's lse and delta come by 4-byte `cp.async` in the same
+// groups (their rows are not 16-byte aligned), 0 past T.
+// ---------------------------------------------------------------------------
+struct BwdMaps {   // the tensor maps of the two kept and the two streamed tensors
+  CUtensorMap kept[2], strm[2];
+};
+
+// Rows of tile `tile` of the (b, h) at row rbase of x0 and x1 into the two
+// swizzled tiles at dst and dst + TILE, rows past T zero (TMA: by thread 0
+// from the maps m, counted on `bar`).
+template <bool kTma>
+__device__ __forceinline__ void load_pair(bf16* dst, const CUtensorMap* m, const bf16* x0,
+                                          const bf16* x1, int tile, int bh, size_t rbase,
+                                          const BwdArgs<bf16>& a, uint64_t* bar, int tid,
+                                          int nt) {
+  if constexpr (kTma) {
+    if (tid == 0) {
+      hopper::mbar_arrive_expect_tx(bar, 4 * sizeof(bf16) * ROWS * 64);
+      for (int b = 0; b < 2; ++b) {
+        hopper::tma_load_3d(dst + b * ROWS * 64, &m[0], 64 * b, tile * ROWS, bh, bar);
+        hopper::tma_load_3d(dst + TILE + b * ROWS * 64, &m[1], 64 * b, tile * ROWS, bh, bar);
+      }
+    }
+  } else {
+    const size_t off = (rbase + static_cast<size_t>(tile) * ROWS) * a.hd;
+    copy_rows(dst, x0 + off, a.T - tile * ROWS, a.hd, a.hdp, true, tid, nt);
+    copy_rows(dst + TILE, x1 + off, a.T - tile * ROWS, a.hd, a.hdp, true, tid, nt);
+  }
+}
+
+// The dQ kernel: grid B*H * n, the query tiles of a (b, h) adjacent and the
+// last (most key tiles) first; block = two warpgroups on query tile qt,
+// keeping Q and dO and streaming K/V through DQ_STAGES stages, warpgroup w
+// on keys 32 w .. 32 w + 31 of each (S = Q K^T and dP = dO V^T as m64n32
+// products from shared memory, dQ += dS K with dS in registers and K read
+// MN-major). delta = rowsum(dO * O) in f32 from O and dO in global memory
+// (16-byte loads where rows are aligned) while the first tiles land. The
+// warpgroups' sums meet once: each gives the other the 64-column half it
+// stores (a + b == b + a bit for bit, so both halves are fixed-order sums).
+// Two stages, not the forward's three: 96 KB of tiles and 128 registers let
+// two blocks (16 warps) share an SM, so one block's copies overlap the
+// other's products; three stages (128 KB) would leave one. The cp.async
+// form (hd % 8 != 0) asks for one block per SM: its copy loops spill at 128
+// registers.
+constexpr int DQ_STAGES = 2;
+constexpr size_t DQ_TILES = sizeof(bf16) * (2 + 2 * DQ_STAGES) * TILE;   // Q, dO, K/V stages
+constexpr size_t DQ_SMEM = DQ_TILES + sizeof(float) * 2 * ROWS + sizeof(uint64_t) * (DQ_STAGES + 1);
+constexpr int STORE_BUF = ROWS * (MAX_HDP + 8);   // bf16 elements of one store_tile buffer
+
+template <bool kTma>
+__global__ void __launch_bounds__(2 * WG, kTma ? 2 : 1) flash_bwd_dq_wide_bf16_kernel(
+    const __grid_constant__ BwdMaps maps, const BwdArgs<bf16> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* kept = reinterpret_cast<bf16*>(smem);   // Q, dO
+  bf16* ring = kept + 2 * TILE;                 // stage s: K at ring + 2 s TILE, V TILE further
+  float* stats = reinterpret_cast<float*>(smem + DQ_TILES);   // lse2 [64], delta [64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * ROWS);   // the stages', then Q/dO's
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & (WG - 1);
+  const int warp = t >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int T = a.T, hd = a.hd, nks = a.hdp >> 4;
+  const int n = n_tiles(T), qt = n - 1 - blockIdx.x % n, bh = blockIdx.x / n, q0 = qt * ROWS;
+  const int nkt = a.causal ? qt + 1 : n;
+  const size_t rbase = static_cast<size_t>(bh) * T, qoff = (rbase + q0) * hd;
+  if (hopper::smem_u32(smem) & 1023) __trap();   // the swizzle atoms need 1024-byte alignment
+
+  if constexpr (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i <= DQ_STAGES; ++i) hopper::mbar_init(&full[i], 1);
+      hopper::fence_mbar_init();
+    }
+    __syncthreads();
+  }
+  auto fill = [&](int kt) {   // key tile kt into its stage
+    if (kt < nkt)
+      load_pair<kTma>(ring + (kt % DQ_STAGES) * 2 * TILE, maps.strm, a.k, a.v, kt, bh, rbase, a,
+                      &full[kt % DQ_STAGES], tid, 2 * WG);
+    if constexpr (!kTma) hopper::cp_async_commit();   // one group per stage, empty past the last
+  };
+  load_pair<kTma>(kept, maps.kept, a.q, a.dout, qt, bh, rbase, a, &full[DQ_STAGES], tid,
+                  2 * WG);   // cp.async: joins the first stage's group
+  for (int s = 0; s < DQ_STAGES; ++s) fill(s);
+
+  {   // delta in f32, four threads per row, while the copies fly; lse in log2 units
+    const int r = tid >> 2, j = tid & 3;
+    float d = 0.f;
+    if (q0 + r < T) {
+      const bf16* x = a.dout + qoff + static_cast<size_t>(r) * hd;
+      const bf16* y = a.o + qoff + static_cast<size_t>(r) * hd;
+      if ((hd & 7) == 0) {
+        for (int c = 8 * j; c < hd; c += 32) {
+          const uint4 u = *reinterpret_cast<const uint4*>(x + c);
+          const uint4 w = *reinterpret_cast<const uint4*>(y + c);
+          const uint32_t uu[4] = {u.x, u.y, u.z, u.w}, ww[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 fu = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&uu[e]));
+            const float2 fw = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ww[e]));
+            d = fmaf(fu.x, fw.x, d);
+            d = fmaf(fu.y, fw.y, d);
+          }
+        }
+      } else {
+        for (int c = j; c < hd; c += 4) d = fmaf(__bfloat162float(x[c]), __bfloat162float(y[c]), d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (j == 0) {
+      stats[ROWS + r] = d;
+      if (q0 + r < T) a.delta[rbase + q0 + r] = d;
+    }
+    if (tid < ROWS) stats[tid] = q0 + tid < T ? a.lse[rbase + q0 + tid] * LOG2E : 0.f;
+  }
+  if constexpr (!kTma) {
+    hopper::cp_async_wait<DQ_STAGES - 1>();   // Q, dO and key tile 0 have landed
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();   // the rows' statistics (and the cp.async tiles) are visible
+  float lse2[2], delta[2];   // rows g, g + 8 of this warp's 16
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    lse2[u] = stats[16 * warp + g + 8 * u];
+    delta[u] = stats[ROWS + 16 * warp + g + 8 * u];
+  }
+
+  const float scale2 = a.scale * LOG2E;
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if constexpr (kTma) {
+      if (kt == 0) hopper::mbar_wait(&full[DQ_STAGES], 0);
+      hopper::mbar_wait(&full[kt % DQ_STAGES], (kt / DQ_STAGES) & 1);
+    }
+    const bf16* kh = ring + (kt % DQ_STAGES) * 2 * TILE + 32 * 64 * wg;   // this warpgroup's keys
+    const bf16* vh = kh + TILE;
+    float s[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    hopper::wgmma_fence();
+    issue_abt<1, 32, true>(s, kept, kh, nks);          // S = Q K^T
+    issue_abt<1, 32, true>(dp, kept + TILE, vh, nks);  // dP = dO V^T
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<16>(s);
+    hopper::fence_regs<16>(dp);
+    const bool edge = (kt + 1) * ROWS > T || (a.causal && kt == qt);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int u = (i >> 1) & 1;
+      const int key = kt * ROWS + 32 * wg + 8 * (i >> 2) + 2 * q4 + (i & 1);
+      const int row = q0 + 16 * warp + g + 8 * u;
+      const bool ok = !edge || (key < T && (!a.causal || key <= row));
+      const float p = ok ? exp2f(s[i] * scale2 - lse2[u]) : 0.f;
+      s[i] = p * (dp[i] - delta[u]);   // dS
+    }
+    uint32_t f[1][2][4];
+    pack_frags<1, 2>(f, s);
+    hopper::fence_regs<64>(dq);
+    hopper::wgmma_fence();
+    issue_xb<1, 2, true>(dq, f, kh);   // dQ += dS K
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<64>(dq);
+    if constexpr (!kTma) {
+      hopper::cp_async_wait<DQ_STAGES - 2>();   // key tile kt + 1 has landed
+      hopper::fence_proxy_async();
+    }
+    __syncthreads();   // everyone is done with this stage before it is refilled
+    fill(kt + DQ_STAGES);
+  }
+  // warpgroup w stores columns 64 w .. 64 w + 63: it gives the other half
+  // away through the ring (32 x WG floats per warpgroup) and adds the other's
+  float* xbuf = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) xbuf[(32 * wg + i) * WG + t] = wg ? dq[i] : dq[32 + i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = xbuf[(32 * (1 - wg) + i) * WG + t];
+    if (wg)
+      dq[32 + i] += x;
+    else
+      dq[i] += x;
+  }
+  __syncthreads();   // the exchange is read: the store buffers may overwrite it
+  const float mul[2] = {a.scale, a.scale};
+  store_tile(a.dq + qoff, dq, mul, ring + wg * STORE_BUF, min(ROWS, T - q0), hd, t, wg, 64 * wg,
+             64 * wg + 64);
+}
+
+// The dK/dV kernel: grid B*H * n; block = one warpgroup on key tile kt of a
+// (b, h), keeping K and V and streaming the query tiles from the diagonal on
+// (Q, dO, lse, delta) through DKV_STAGES stages, each in two halves of 32
+// queries: S^T = K Q^T and dP^T = V dO^T as m64n32 products from shared
+// memory, then dV += P^T dO and dK += dS^T Q with P and dS in registers and
+// Q, dO read MN-major (a half wholly past T is skipped). dv = sum_q P^T dO,
+// dk = (sum_q dS^T Q) * scale. One warpgroup holds dK and dV (128
+// registers), so no sums are exchanged; at up to 255 registers two blocks
+// (97.5 KB each with two stages) share an SM, and one block's copies
+// overlap the other's products. Two warpgroups splitting each tile would
+// hold the same 8 warps per SM in one block (256 threads at > 128
+// registers), idle while it waits for its copies; three stages would leave
+// one block per SM.
+constexpr int DKV_STAGES = 2;
+constexpr size_t DKV_TILES = sizeof(bf16) * (2 + 2 * DKV_STAGES) * TILE;   // K, V, Q/dO stages
+constexpr size_t DKV_SMEM =
+    DKV_TILES + sizeof(float) * 2 * ROWS * DKV_STAGES + sizeof(uint64_t) * (DKV_STAGES + 1);
+
+template <bool kTma>
+__global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wide_bf16_kernel(
+    const __grid_constant__ BwdMaps maps, const BwdArgs<bf16> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* kept = reinterpret_cast<bf16*>(smem);   // K, V
+  bf16* ring = kept + 2 * TILE;                 // stage s: Q at ring + 2 s TILE, dO TILE further
+  float* stats = reinterpret_cast<float*>(smem + DKV_TILES);   // stage s: lse [64], delta [64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * ROWS * DKV_STAGES);   // stages, K/V
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
+  const int T = a.T, hd = a.hd, nks = a.hdp >> 4;
+  const int n = n_tiles(T), kt = blockIdx.x % n, bh = blockIdx.x / n, k0 = kt * ROWS;
+  const int qt0 = a.causal ? kt : 0, nq = n - qt0;   // causal: from the diagonal on
+  const size_t rbase = static_cast<size_t>(bh) * T, koff = (rbase + k0) * hd;
+  if (hopper::smem_u32(smem) & 1023) __trap();
+
+  if constexpr (kTma) {
+    if (t == 0) {
+      for (int i = 0; i <= DKV_STAGES; ++i) hopper::mbar_init(&full[i], 1);
+      hopper::fence_mbar_init();
+    }
+    __syncthreads();
+  }
+  auto fill = [&](int j) {   // query tile qt0 + j into stage j % DKV_STAGES
+    if (j < nq) {
+      const int slot = j % DKV_STAGES, q0 = (qt0 + j) * ROWS;
+      load_pair<kTma>(ring + slot * 2 * TILE, maps.strm, a.q, a.dout, qt0 + j, bh, rbase, a,
+                      &full[slot], t, WG);
+      // lse (threads 0-63) and delta (64-127), 0 past T
+      const int i = t & (ROWS - 1), ok = q0 + i < T;
+      const float* src = (t < ROWS ? a.lse : a.delta) + rbase + (ok ? q0 + i : 0);
+      hopper::cp_async<4>(stats + slot * 2 * ROWS + t, src, ok ? 4 : 0);
+    }
+    hopper::cp_async_commit();   // one group per stage, empty past the last
+  };
+  load_pair<kTma>(kept, maps.kept, a.k, a.v, kt, bh, rbase, a, &full[DKV_STAGES], t,
+                  WG);   // cp.async: joins the first stage's group
+  for (int s = 0; s < DKV_STAGES; ++s) fill(s);
+  hopper::cp_async_wait<DKV_STAGES - 1>();   // the first tile's lse and delta (cp.async: K, V, Q, dO)
+  if constexpr (!kTma) hopper::fence_proxy_async();
+  __syncthreads();
+
+  const float scale2 = a.scale * LOG2E;
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  for (int j = 0; j < nq; ++j) {
+    const int qt = qt0 + j, slot = j % DKV_STAGES;
+    if constexpr (kTma) {
+      if (j == 0) hopper::mbar_wait(&full[DKV_STAGES], 0);
+      hopper::mbar_wait(&full[slot], (j / DKV_STAGES) & 1);
+    }
+    const float* st = stats + slot * 2 * ROWS;
+    const bool edge = (qt + 1) * ROWS > T || (a.causal && qt == kt);
+    for (int h = 0; h < 2; ++h) {
+      if (qt * ROWS + 32 * h >= T) break;   // a half wholly past T
+      const bf16* qh = ring + slot * 2 * TILE + 32 * 64 * h;   // its 32 queries
+      const bf16* doh = qh + TILE;
+      float s[16], dp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+      hopper::wgmma_fence();
+      issue_abt<1, 32, true>(s, kept, qh, nks);           // S^T = K Q^T
+      issue_abt<1, 32, true>(dp, kept + TILE, doh, nks);  // dP^T = V dO^T
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<16>(s);
+      hopper::fence_regs<16>(dp);
+      float ds[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int qc = 32 * h + 8 * (i >> 2) + 2 * q4 + (i & 1);   // query column in the tile
+        const int qi = qt * ROWS + qc, key = k0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+        // mask p, not s: padded query columns would give exp(s - 0) != 0
+        const bool ok = !edge || (qi < T && (!a.causal || qi >= key));
+        const float p = ok ? exp2f(s[i] * scale2 - st[qc] * LOG2E) : 0.f;
+        ds[i] = p * (dp[i] - st[ROWS + qc]);
+        s[i] = p;
+      }
+      uint32_t fp[1][2][4], fd[1][2][4];
+      pack_frags<1, 2>(fp, s);
+      pack_frags<1, 2>(fd, ds);
+      hopper::fence_regs<64>(dv);
+      hopper::fence_regs<64>(dk);
+      hopper::wgmma_fence();
+      issue_xb<1, 2, true>(dv, fp, doh);   // dV += P^T dO
+      issue_xb<1, 2, true>(dk, fd, qh);    // dK += dS^T Q
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<64>(dv);
+      hopper::fence_regs<64>(dk);
+    }
+    hopper::cp_async_wait<DKV_STAGES - 2>();   // tile j + 1's lse and delta (cp.async: and tiles)
+    if constexpr (!kTma) hopper::fence_proxy_async();
+    __syncthreads();   // everyone is done with this stage before it is refilled
+    fill(j + DKV_STAGES);
+  }
+  const float mk[2] = {a.scale, a.scale}, mv[2] = {1.f, 1.f};
+  const int nrows = min(ROWS, T - k0);
+  store_tile(a.dk + koff, dk, mk, ring, nrows, hd, t, 0);
+  store_tile(a.dv + koff, dv, mv, ring + STORE_BUF, nrows, hd, t, 0);
+}
+
 // cuTensorMapEncodeTiled from the driver, through the runtime (no link
 // against the driver library).
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -882,10 +1217,46 @@ int flash_wide_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream) {
                         a);
 }
 
+// The bf16 backward: the tensor maps of the kept and the streamed tensors
+// where rows are 16-byte aligned (a failed encode returns an error, no
+// other path), else the cp.async form.
+int flash_wide_bwd_dq(const BwdArgs<bf16>& a, int BH, void* stream) {
+  BwdMaps maps = {};
+  const int blocks = BH * n_tiles(a.T);
+  if (a.hd % 8)
+    return hopper::launch(flash_bwd_dq_wide_bf16_kernel<false>, DQ_SMEM, blocks, 2 * WG, stream,
+                          maps, a);
+  if (!bf16_map(&maps.kept[0], a.q, BH, a.T, a.hd) ||
+      !bf16_map(&maps.kept[1], a.dout, BH, a.T, a.hd) ||
+      !bf16_map(&maps.strm[0], a.k, BH, a.T, a.hd) || !bf16_map(&maps.strm[1], a.v, BH, a.T, a.hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hopper::launch(flash_bwd_dq_wide_bf16_kernel<true>, DQ_SMEM, blocks, 2 * WG, stream, maps,
+                        a);
+}
+
+int flash_wide_bwd_dkv(const BwdArgs<bf16>& a, int BH, void* stream) {
+  BwdMaps maps = {};
+  const int blocks = BH * n_tiles(a.T);
+  if (a.hd % 8)
+    return hopper::launch(flash_bwd_dkv_wide_bf16_kernel<false>, DKV_SMEM, blocks, WG, stream,
+                          maps, a);
+  if (!bf16_map(&maps.kept[0], a.k, BH, a.T, a.hd) ||
+      !bf16_map(&maps.kept[1], a.v, BH, a.T, a.hd) ||
+      !bf16_map(&maps.strm[0], a.q, BH, a.T, a.hd) ||
+      !bf16_map(&maps.strm[1], a.dout, BH, a.T, a.hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hopper::launch(flash_bwd_dkv_wide_bf16_kernel<true>, DKV_SMEM, blocks, WG, stream, maps,
+                        a);
+}
+
 int flash_wide_blocks_per_sm(int which, int f32) {
   if (which == 0)
     return f32 ? hopper::blocks_per_sm(flash_fwd_wide_f32_kernel, FWD_F32_SMEM, 2 * WG)
                : hopper::blocks_per_sm(flash_fwd_wide_bf16_kernel<true>, FWD_BF16_SMEM, WG);
-  return hopper::blocks_per_sm(which == 1 ? flash_bwd_dq_wide_kernel : flash_bwd_dkv_wide_kernel,
-                               BWD_SMEM, 2 * WG);
+  if (f32)
+    return hopper::blocks_per_sm(
+        which == 1 ? flash_bwd_dq_wide_kernel : flash_bwd_dkv_wide_kernel, BWD_SMEM, 2 * WG);
+  return which == 1
+             ? hopper::blocks_per_sm(flash_bwd_dq_wide_bf16_kernel<true>, DQ_SMEM, 2 * WG)
+             : hopper::blocks_per_sm(flash_bwd_dkv_wide_bf16_kernel<true>, DKV_SMEM, WG);
 }

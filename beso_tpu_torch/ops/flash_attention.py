@@ -18,10 +18,9 @@ is bound by bytes and latency. Up to hd 64 each warp keeps its 16 rows'
 score, P and dS tiles in `mma.sync` fragments (the forward runs its online
 softmax on them), the streamed tiles come in by `cp.async` two stages deep,
 and warps skip the 16-row chunks past T and above the diagonal. Above hd 64
-the forward (both dtypes) and the f32 backward run 64-row tiles on `wgmma`
-(the bf16 forward's tiles by bulk tensor copies where rows are 16-byte
-aligned); the bf16 backward keeps the `mma.sync` kernels at tile width
-128. The head dim is zero-padded to a multiple of 16 in shared memory and
+all three kernels, in both dtypes, run 64-row tiles on `wgmma` (the bf16
+kernels' tiles by bulk tensor copies where rows are 16-byte aligned). The
+head dim is zero-padded to a multiple of 16 in shared memory and
 the ragged edge is masked in the kernels, with no padded copies.
 
 The kernels take q, k, v (and o, dO) all bf16 or all f32, as the JAX

@@ -11,10 +11,11 @@ exits non-zero on failure:
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
 1. build: compile the kernel library for sm_90a, print seconds, ptxas's
    registers, stack and spill bytes per kernel (each flash kernel in its
-   bf16 and f32 instantiation at tile width 64, the bf16 backward at 128,
-   and the five width-128 `wgmma` kernels of flash_attention_wide.cu, all
-   of which must be there; no bf16 width-64 flash kernel may spill) and,
-   from cuobjdump -sass, the HGMMA (wgmma)
+   bf16 and f32 instantiation at tile width 64, and the nine width-128
+   `wgmma` instantiations of flash_attention_wide.cu, all of which must be
+   there; no bf16 flash kernel may spill, and the bf16 width-128 dQ and
+   dK/dV kernels must have HGMMA instructions) and, from cuobjdump -sass,
+   the HGMMA (wgmma)
    instructions of each of the five instantiations of the bf16 and of the
    f32 fused-layer kernel (tanh: B2's group, the single layer, the timed
    one; erf: the group, the single layer), none of which may have none,
@@ -55,8 +56,9 @@ exits non-zero on failure:
    kernel must be bit-equal to
    the first; prints the three kernels' resident blocks per SM in both
    instantiations at both widths; the autograd backward must run exactly
-   two device kernels, the dQ and the dK/dV kernel (torch.profiler; "not
-   measured" if it sees no kernel). Times each kernel, the backward total
+   two device kernels, the dQ and the dK/dV kernel, at the chunked shape
+   and at the 3-head model's hd 120 (torch.profiler; "not measured" if it
+   sees no kernel). Times each kernel, the backward total
    (dQ with delta + dK/dV) and forward + backward against the plain
    versions at the chunked shape, and each kernel at [256, 3, 131, 128]
    (width 128) and at the 3-head model's [256, 3, 131, 120], with CUDA
@@ -1167,19 +1169,19 @@ def check_flash(B, H, T, hd, causal, device, gen, dtype, frac):
     }
 
 
-def backward_kernels(device, gen):
+def backward_kernels(device, gen, shape=CHUNKED_SHAPE):
     """The device kernels that one autograd backward through
-    `flash_attention` runs at the chunked shape (torch.profiler; bf16,
-    contiguous cotangent, leaves without a gradient yet), or None where
-    the profiler saw no device kernel."""
+    `flash_attention` runs at `shape` (torch.profiler; bf16, contiguous
+    cotangent, leaves without a gradient yet), or None where the profiler
+    saw no device kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from beso_tpu_torch.ops import flash_attention as fa
 
-    leaves = [_rand(gen, *CHUNKED_SHAPE, device=device).requires_grad_() for _ in range(3)]
-    do = _rand(gen, *CHUNKED_SHAPE, device=device)
+    leaves = [_rand(gen, *shape, device=device).requires_grad_() for _ in range(3)]
+    do = _rand(gen, *shape, device=device)
     fa.flash_attention(*leaves).backward(do)   # warm-up
     for t in leaves:
         t.grad = None
@@ -3762,10 +3764,9 @@ def main() -> None:
     report = ptxas_report(log.read_text()) if log.exists() else {}
     for name, props in report.items():
         print(f"  ptxas {name}: {props}")
-    # the width-64 bf16 instantiations (template argument 64: "Li64E") may
-    # not spill; the width-128 and f32 ones may
+    # no bf16 flash kernel may spill, at either tile width; the f32 ones may
     flash_bf16 = {n: p for n, p in report.items()
-                  if n.startswith("flash_") and "bfloat16" in n and "Li64E" in n}
+                  if n.startswith("flash_") and "bfloat16" in n}
     if not any(n.startswith("flash_fwd") for n in flash_bf16):
         fail("ptxas reported no bf16 flash forward")
     spilled = [n for n, p in flash_bf16.items() if spill_bytes(p)]
@@ -3785,11 +3786,19 @@ def main() -> None:
     for name, props in report.items():
         if name.startswith("fused_layer_f32_kernel"):
             print(f"  f32 fused layer {name}: {spill_bytes(props)} spill bytes; {props}")
+    # seven kernels: the bf16 forward, dQ and dK/dV, each with its TMA and
+    # its cp.async instantiation, and the f32 forward, dQ and dK/dV
     wide = {n: p for n, p in report.items() if n.startswith("flash_") and "_wide_" in n}
-    if len(wide) != 5:
-        fail(f"ptxas reported {len(wide)} width-128 wgmma flash kernels, not 5")
+    if len(wide) != 9:
+        fail(f"ptxas reported {len(wide)} width-128 wgmma flash instantiations, not 9")
     for name, props in wide.items():
         print(f"  width-128 flash {name}: {spill_bytes(props)} spill bytes; {props}")
+    hgmma_bwd = sass_counts(so, "flash_bwd_", "HGMMA")
+    hgmma_bwd = {n: c for n, c in hgmma_bwd.items() if "_wide_bf16_" in n}
+    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the bf16 width-128 backward: "
+          f"{hgmma_bwd}")
+    if len(hgmma_bwd) != 4 or not all(hgmma_bwd.values()):
+        fail("the bf16 width-128 dQ and dK/dV kernels do not all run their products on wgmma")
 
     # ---- 2. kernel against its plain version -----------------------------
     print(f"[2] ({since_start()}) kernel vs plain version (bf16, then f32)")
@@ -3880,13 +3889,18 @@ def main() -> None:
         for hd in (64, 128):
             print(f"  resident blocks per SM, {dtype}, tile width {hd} (occupancy "
                   f"calculator): {fa.blocks_per_sm(dtype, hd)}")
-    bwd_kernels = backward_kernels(device, gen)
-    print(f"  device kernels of one autograd backward: "
-          f"{bwd_kernels if bwd_kernels is not None else 'not measured'}")
-    if bwd_kernels is not None and (len(bwd_kernels) != 2 or not all(
-            any(k in n for n in bwd_kernels) for k in ("flash_bwd_dq_kernel",
-                                                       "flash_bwd_dkv_kernel"))):
-        fail("the autograd backward is not exactly the dQ and the dK/dV kernel launches")
+    # at hd 60 the width-64 kernels, at the 3-head model's hd 120 the bf16
+    # wgmma kernels of flash_attention_wide.cu
+    for shape, names in ((CHUNKED_SHAPE, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+                         (WIDE_MODEL_SHAPE, ("flash_bwd_dq_wide_bf16_kernel",
+                                             "flash_bwd_dkv_wide_bf16_kernel"))):
+        bwd_kernels = backward_kernels(device, gen, shape)
+        print(f"  device kernels of one autograd backward at {list(shape)}: "
+              f"{bwd_kernels if bwd_kernels is not None else 'not measured'}")
+        if bwd_kernels is not None and (len(bwd_kernels) != 2 or not all(
+                any(k in n for n in bwd_kernels) for k in names)):
+            fail(f"the autograd backward at {list(shape)} is not exactly the launches of "
+                 f"{' and '.join(names)}")
     flash_ms, sdpa_ms = {}, {}
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         tag = str(dtype).split(".")[-1]
@@ -4279,9 +4293,8 @@ def main() -> None:
     for key, n_of in flash_counts_of.items():
         for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
                            ("flash_backward_dkv", 112)):
-            # width 128: the forward and the f32 backward in the wgmma source
-            wide = key.startswith("_hd128") and (name == "flash_forward" or key.endswith("_f32"))
-            entries.append((name + key, wide_src if wide else flash_src,
+            # width 128: every kernel in the wgmma source
+            entries.append((name + key, wide_src if key.startswith("_hd128") else flash_src,
                             f"beso_tpu/ops/flash_attention.py:{line}",
                             n_of[name], flash_err[name + key], *flash_ms[name + key]))
     kernels = []

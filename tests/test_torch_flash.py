@@ -91,16 +91,22 @@ def test_backward_kernels_plain_match_jax(T, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [72, 96, 100, 120, 128])
-def test_wide_heads_plain_match_jax(hd, causal):
+@pytest.mark.parametrize("hd,T", [
+    *(pytest.param(hd, 77, id=str(hd)) for hd in (72, 96, 100, 120, 128)),
+    *(pytest.param(hd, T, id=f"{hd}-T{T}") for hd, T in ((80, 65), (66, 65), (120, 131),
+                                                         (100, 131)))])
+def test_wide_heads_plain_match_jax(hd, T, causal):
     """Head dims above 64 (the kernels' tile width 128): the plain forward
     (o, lse) against `_flash_forward`, and the plain dQ (with delta) and
-    dK/dV against `_flash_attention_bwd` (Pallas, interpret mode) on the
-    same forward output, lse and cotangent, at TOL. hd 72 is the smallest
-    width-128 head dim, 100 one whose rows are not 16-byte aligned (the
-    kernels' `cp.async` path and a padded tile), 120 the 3-head chunked
-    model's."""
-    q, k, v, g = _qkv(1, 2, 77, hd, seed=hd + causal, n=4)
+    dK/dV against `_flash_attention_bwd` (Pallas, interpret mode) and its
+    delta formula (:212-214) on the same forward output, lse and cotangent,
+    at TOL. hd 72 is the smallest width-128 head dim, 80 the smallest whose
+    rows are 16-byte aligned (the bf16 kernels' bulk tensor copies), 100
+    and 66 ones whose rows are not (their `cp.async` path and a padded
+    tile), 120 the 3-head chunked model's. T 77 leaves a ragged second
+    tile, T 65 one row past a tile and T 131 a 3-row last tile: the edges
+    the bf16 backward kernels mask on 64-row tiles."""
+    q, k, v, g = _qkv(1, 2, T, hd, seed=hd + causal + (T != 77) * T, n=4)
     jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
     jo, jlse = jfa._flash_forward(jq, jk, jv, causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
                                   True)
@@ -109,12 +115,14 @@ def test_wide_heads_plain_match_jax(hd, causal):
     o, lse = fa.flash_forward(t(q), t(k), t(v), causal)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+    jdelta = jnp.sum(jg.astype(jnp.float32) * jo.astype(jnp.float32), axis=-1, keepdims=True)
     o, lse = t(np.asarray(jo)), t(np.asarray(jlse))
     dq, delta = fa.flash_backward_dq(t(q), t(k), t(v), o, t(g), lse, causal)
     dk, dv = fa.flash_backward_dkv(t(q), t(k), t(v), t(g), lse, delta, causal)
-    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
+    for name, got, want in (("delta", delta, jdelta), ("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
-                                   err_msg=f"{name} (hd={hd}, causal={causal})")
+                                   err_msg=f"{name} (hd={hd}, T={T}, causal={causal})")
 
 
 def test_head_dim_above_128_raises_before_the_library_loads():

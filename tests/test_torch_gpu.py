@@ -103,16 +103,17 @@ WIDE_TS = (2, 16, 63, 64, 65, 131, 144)
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", **DTYPES)
-@pytest.mark.parametrize("hd", [72, 100, 120, 128])
+@pytest.mark.parametrize("hd", [72, 100, 120, 128, 80, 66])
 def test_wide_flash_kernels_match_plain(hd, dtype, causal):
-    """The tile-width-128 kernels (flash_attention_wide.cu: the forward in
-    both dtypes, the f32 dQ and dK/dV; the bf16 backward's width-128
-    template) against the plain versions at T of 2 up to 144: one tile and
-    its ragged edge (2, 16, 63), whole tiles (64), one row past a tile (65),
-    the 3-row last tile (131) and a 16-row one (144). Odd tile counts leave
-    the f32 forward's last block without its second query tile; hd 100
-    (rows not 16-byte aligned) takes the bf16 forward's `cp.async` path, the
-    others its bulk tensor copies."""
+    """The tile-width-128 kernels (flash_attention_wide.cu: the forward, dQ
+    and dK/dV, each in bf16 and f32) against the plain versions at T of 2
+    up to 144: one tile and its ragged edge (2, 16, 63), whole tiles (64),
+    one row past a tile (65), the 3-row last tile (131) and a 16-row one
+    (144). Odd tile counts leave the f32 forward's last block without its
+    second query tile. In bf16, hd 72, 80 (the smallest head dim with
+    16-byte rows), 120 and 128 take the three kernels' bulk tensor copies
+    (`flash_*_wide_bf16_kernel<true>`), hd 100 and 66 (hdp 80; rows not
+    16-byte aligned) their `cp.async` form (`<false>`)."""
     dev = _cuda()
     for T in WIDE_TS:
         rng = np.random.RandomState(hd + T)
@@ -144,7 +145,11 @@ def test_wide_flash_kernels_match_plain(hd, dtype, causal):
          "65-100-full-f32"])
 def test_flash_kernels_deterministic(shape, causal, dtype, kernels):
     """Two launches of the forward, or of each backward kernel, on the same
-    inputs give bit-equal o and lse, or dq, delta, dk and dv (no atomics)."""
+    inputs give bit-equal o and lse, or dq, delta, dk and dv (no atomics).
+    hd 20 and 60 reach flash_attention.cu's `mma.sync` kernels; hd 96 and
+    above flash_attention_wide.cu's `wgmma` ones (bf16 hd 100: the
+    `cp.async` form; bf16 hd 96, 120, 128: bulk tensor copies; the bf16
+    backward's two warpgroups add their dQ halves in a fixed order)."""
     dev = _cuda()
     rng = np.random.RandomState(len(shape) + shape[2])
     q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
@@ -160,6 +165,24 @@ def test_flash_kernels_deterministic(shape, causal, dtype, kernels):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# Resident blocks per SM of the bf16 width-128 backward as designed
+# (flash_attention_wide.cu): dQ two 256-thread blocks (128 registers, two
+# stages), dK/dV two 128-thread blocks (two stages, 97.5 KB each).
+WIDE_BF16_BWD_BLOCKS = {"flash_backward_dq": 2, "flash_backward_dkv": 2}
+
+
+@pytest.mark.gpu
+def test_wide_bf16_backward_blocks_per_sm():
+    """The occupancy calculator gives the bf16 width-128 dQ and dK/dV
+    kernels at least one resident block per SM, and the count their design
+    states."""
+    _cuda()
+    blocks = fa.blocks_per_sm(torch.bfloat16, 128)
+    for name, want in WIDE_BF16_BWD_BLOCKS.items():
+        assert blocks[name] >= 1, blocks
+        assert blocks[name] == want, blocks
 
 
 @pytest.mark.gpu
