@@ -52,19 +52,20 @@
 //   blocks per SM at <= 128 registers.
 // - Head dims up to 128 (the JAX kernels' working range): these kernels
 //   take tile width 64 (hdp <= 64: the chunked training path's hd 60);
-//   above, the launchers call flash_attention_wide.cu's `wgmma` kernels.
+//   above, the launchers call flash_attention_wide.cu's `wgmma` kernels,
+//   and for the f32 backward at hdp <= 64 flash_attention_f32.cu's.
 // Padded rows get lse = 0 and zero q/k, so their p is finite; the dK/dV
 // kernel masks p (not s) for query columns >= T, as the JAX kernel does.
 //
 // f32 inputs (the model's dtype, as in the JAX kernels, which compute in
-// f32): the same kernels, instantiated on the element type. Each f32 tile is
-// held in shared memory as two bf16 tiles, hi = bf16(x) and lo = bf16(x -
+// f32): the forward is the same kernel, instantiated on the element type
+// (the backward's f32 kernels are flash_attention_f32.cu's). Each f32 tile
+// is held in shared memory as two bf16 tiles, hi = bf16(x) and lo = bf16(x -
 // hi) (x = hi + lo to ~2^-17 relative), converted on load with plain loads,
-// and every product is hi.hi + hi.lo + lo.hi with f32 accumulation; P and dS
-// are split the same way at their repack. That is f32 accuracy (~2^-16
-// relative per product, not TF32's 2^-11) on the tensor cores, at three
-// times the products and twice the shared memory, with up to 255 registers:
-// two blocks per SM (the forward three) at tile width 64.
+// and every product is hi.hi + hi.lo + lo.hi with f32 accumulation; P is
+// split the same way at its repack. That is f32 accuracy (~2^-16 relative
+// per product, not TF32's 2^-11) on the tensor cores, at three times the
+// products and twice the shared memory: three blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -227,9 +228,8 @@ __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
   }
 }
 
-// c[0:2][0:4] += A . B^T as above, with A the warp's 16 rows of the shared
-// tile `a` (at its first row), one k16 step at a time.
-template <int NS>
+// c[0:2][0:4] += A . B^T as above (bf16), with A the warp's 16 rows of the
+// shared tile `a` (at its first row), one k16 step at a time.
 __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const bf16* a,
                                                         const bf16* b, int nks, int lane) {
   const bf16* arow = a + (lane & 15) * LDH + (lane >> 4) * 8;
@@ -242,15 +242,6 @@ __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const 
       hopper::ldmatrix_x4<false>(bf, brow + kk * 16);
       hopper::mma_16816(c[0], af, bf);
       hopper::mma_16816(c[1], af, bf + 2);
-      if constexpr (NS == 2) {
-        uint32_t al[4], bl[4];
-        hopper::ldmatrix_x4<false>(al, arow + SPLIT + kk * 16);
-        hopper::ldmatrix_x4<false>(bl, brow + SPLIT + kk * 16);
-        hopper::mma_16816(c[0], al, bf);
-        hopper::mma_16816(c[1], al, bf + 2);
-        hopper::mma_16816(c[0], af, bl);
-        hopper::mma_16816(c[1], af, bl + 2);
-      }
     }
   }
 }
@@ -309,20 +300,16 @@ __device__ __forceinline__ void load_rows(uint32_t (&af)[NS][NT_D][4], const bf1
       if (kk < nks) hopper::ldmatrix_x4<false>(af[s][kk], row + s * SPLIT + kk * 16);
 }
 
-// Eight values of a shared tile row from a 16-byte aligned column, in f32
-// (NS = 2: hi + lo).
-template <int NS>
+// Eight values of a bf16 shared tile row from a 16-byte aligned column, in
+// f32.
 __device__ __forceinline__ void row8(float (&x)[8], const bf16* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p + s * SPLIT);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      x[2 * j] = s ? x[2 * j] + f.x : f.x;
-      x[2 * j + 1] = s ? x[2 * j + 1] + f.y : f.y;
-    }
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
   }
 }
 
@@ -477,12 +464,12 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
 // B6, dQ (and delta): grid B*H * ceil(T / TILE), a (b, h)'s tiles adjacent
 // (they share its K/V in L2); block = one query tile, looping over key
 // tiles up to the diagonal. delta = rowsum(dO * O),
-// dq = (sum_k dS K) * scale.
+// dq = (sum_k dS K) * scale. bf16 (the f32 backward is
+// flash_attention_f32.cu's).
 // ---------------------------------------------------------------------------
-template <typename E>
-__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
-    flash_bwd_dq_kernel(const BwdArgs<E> a) {
-  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;
+__global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
+    flash_bwd_dq_kernel(const BwdArgs<bf16> a) {
+  constexpr int NS = 1, TS = SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q, dO, o; then stage 1
   bf16* dos = qs + TS;
@@ -518,8 +505,8 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
     float d = 0.f;
     for (int c = c0; c < min(c0 + HDP / 2, a.hdp); c += 8) {
       float x[8], y[8];
-      row8<NS>(x, dos + rr * LDH + c);
-      row8<NS>(y, os + rr * LDH + c);
+      row8(x, dos + rr * LDH + c);
+      row8(y, os + rr * LDH + c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) d = fmaf(x[j], y[j], d);
     }
@@ -581,12 +568,11 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
 // B6, dK/dV: grid B*H * ceil(T / TILE), a (b, h)'s tiles adjacent; block =
 // one key tile, looping over query tiles from the diagonal on.
 // dv = sum_q P^T dO; dk = (sum_q dS^T Q) * scale, which equals the JAX
-// kernel's sum against the scaled q (:144,152).
+// kernel's sum against the scaled q (:144,152). bf16, as the dQ kernel.
 // ---------------------------------------------------------------------------
-template <typename E>
-__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
-    flash_bwd_dkv_kernel(const BwdArgs<E> a) {
-  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;
+__global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
+    flash_bwd_dkv_kernel(const BwdArgs<bf16> a) {
+  constexpr int NS = 1, TS = SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);        // [TS]
   bf16* vs = ks + TS;                              // [TS]
@@ -636,10 +622,8 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
         const int qc = qt * TILE + 16 * c;   // the chunk's first query
         if (qc >= T) break;
         float s[2][4] = {}, dp[2][4] = {};
-        smem_rows_times_chunk_t<NS>(s, ks + 16 * warp * LDH, qs + 16 * c * LDH,
-                                         nks, lane);
-        smem_rows_times_chunk_t<NS>(dp, vs + 16 * warp * LDH,
-                                         dos + 16 * c * LDH, nks, lane);
+        smem_rows_times_chunk_t(s, ks + 16 * warp * LDH, qs + 16 * c * LDH, nks, lane);
+        smem_rows_times_chunk_t(dp, vs + 16 * warp * LDH, dos + 16 * c * LDH, nks, lane);
         const bool edge = qc + 16 > T || (a.causal && qc == r0);
         float p[2][4], ds[2][4];
 #pragma unroll
@@ -675,14 +659,11 @@ constexpr size_t kTileBytes = sizeof(bf16) * TILE * LDH;
 // q (then half of stage 1), its second tile of stage 1, and stage 0 of K/V
 template <typename E>
 constexpr size_t fwd_smem() { return 4 * Parts<E>::N * kTileBytes; }
-// q, dO, o (then stage 1 of K/V), and stage 0 of K/V
-template <typename E>
-constexpr size_t dq_smem() { return 5 * Parts<E>::N * kTileBytes; }
-// K, V, and two stages of q, dO, lse and delta
-template <typename E>
+// bf16 dQ: q, dO, o (then stage 1 of K/V), and stage 0 of K/V
+constexpr size_t dq_smem() { return 5 * kTileBytes; }
+// bf16 dK/dV: K, V, and two stages of q, dO, lse and delta
 constexpr size_t dkv_smem() {
-  return 2 * Parts<E>::N * kTileBytes +
-         2 * (2 * Parts<E>::N * kTileBytes + 2 * sizeof(float) * TILE);
+  return 2 * kTileBytes + 2 * (2 * kTileBytes + 2 * sizeof(float) * TILE);
 }
 
 // Launches `kernel` on one block of THREADS per query (or key) tile.
@@ -734,9 +715,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   a.lse = static_cast<const float*>(lse);
   a.dq = static_cast<E*>(dq);
   a.delta = static_cast<float*>(delta);
-  if (a.hdp <= 64)
-    return launch(flash_bwd_dq_kernel<E>, dq_smem<E>(), a, BH, stream);
-  return flash_wide_bwd_dq(a, BH, stream);
+  if (a.hdp > 64) return flash_wide_bwd_dq(a, BH, stream);
+  if constexpr (sizeof(E) == 4)
+    return flash_f32_bwd_dq(a, BH, stream);
+  else
+    return launch(flash_bwd_dq_kernel, dq_smem(), a, BH, stream);
 }
 
 template <typename E>
@@ -750,16 +733,22 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.delta = const_cast<float*>(static_cast<const float*>(delta));
   a.dk = static_cast<E*>(dk);
   a.dv = static_cast<E*>(dv);
-  if (a.hdp <= 64)
-    return launch(flash_bwd_dkv_kernel<E>, dkv_smem<E>(), a, BH, stream);
-  return flash_wide_bwd_dkv(a, BH, stream);
+  if (a.hdp > 64) return flash_wide_bwd_dkv(a, BH, stream);
+  if constexpr (sizeof(E) == 4)
+    return flash_f32_bwd_dkv(a, BH, stream);
+  else
+    return launch(flash_bwd_dkv_kernel, dkv_smem(), a, BH, stream);
 }
 
 template <typename E>
 int kernel_blocks_per_sm(int which) {
   if (which == 0) return blocks_per_sm(flash_fwd_kernel<E>, fwd_smem<E>());
-  if (which == 1) return blocks_per_sm(flash_bwd_dq_kernel<E>, dq_smem<E>());
-  return blocks_per_sm(flash_bwd_dkv_kernel<E>, dkv_smem<E>());
+  if constexpr (sizeof(E) == 4) {
+    return flash_f32_blocks_per_sm(which);
+  } else {
+    if (which == 1) return blocks_per_sm(flash_bwd_dq_kernel, dq_smem());
+    return blocks_per_sm(flash_bwd_dkv_kernel, dkv_smem());
+  }
 }
 
 }  // namespace

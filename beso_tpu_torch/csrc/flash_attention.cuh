@@ -1,7 +1,8 @@
-// What the two flash-attention sources share: the kernels' arguments, which
-// flash_attention.cu's launchers fill, and the entries of
-// flash_attention_wide.cu that those launchers call at tile width 128 (the
-// forward and the backward, in both dtypes).
+// What the flash-attention sources share: the kernels' arguments, which
+// flash_attention.cu's launchers fill, and the entries those launchers call:
+// flash_attention_wide.cu's at tile width 128 (the forward and the backward,
+// in both dtypes) and flash_attention_f32.cu's, the f32 backward at tile
+// width 64.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,3 +48,10 @@ int flash_wide_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream);
 // Resident blocks per SM of the forward (which = 0), the dQ (1) and the
 // dK/dV kernel (2), bf16 or (f32) f32; -1 on an error.
 int flash_wide_blocks_per_sm(int which, int f32);
+
+// flash_attention_f32.cu, the f32 backward for hdp <= 64: as above; and the
+// resident blocks per SM of the dQ (which = 1) or the dK/dV kernel (2), -1
+// on an error.
+int flash_f32_bwd_dq(const BwdArgs<float>& a, int BH, void* stream);
+int flash_f32_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream);
+int flash_f32_blocks_per_sm(int which);

@@ -4,7 +4,9 @@
 // kernel B6, `_flash_attention_bwd` :182-259: the dQ kernel `_bwd_dq_kernel`
 // :78-109 with delta (:212-214), call :221, and the dK/dV kernel
 // `_bwd_dkv_kernel` :112-153, call :240), each in bf16 and f32. The width-64
-// kernels stay in flash_attention.cu, whose launchers call these above it.
+// kernels are in flash_attention.cu (and the f32 backward's in
+// flash_attention_f32.cu), whose launchers call these above it; what both
+// `wgmma` sources share is flash_wgmma.cuh.
 //
 // Layout and numerics as in flash_attention.cu: q, k, v, o, dO, dq, dk, dv
 // [B*H, T, hd] contiguous, lse and delta [B*H, T] f32, lse of the scaled
@@ -71,33 +73,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cudaTypedefs.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_attention.cuh"
+#include "flash_wgmma.cuh"
 #include "hopper.cuh"
-
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int ROWS = 64;             // rows of a tile: one wgmma M, one key tile
-constexpr int WG = 128;              // threads of a warpgroup
 constexpr int MAX_HDP = 128;
 constexpr int TILE = ROWS * MAX_HDP; // bf16 elements of a [64, 128] core-matrix tile
 constexpr int MAX_PITCH = MAX_HDP + 4;   // f32 staging row, in floats (conflict-free reads)
 constexpr int STAGE_F32 = ROWS * MAX_PITCH;   // floats of one staged f32 tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// Element (r, c) of a core-matrix tile: the 8-column chunk c / 8 holds the
-// 64 rows' 16-byte pieces one after another, so a core matrix (8 rows of one
-// chunk) is 128 contiguous bytes; K-major operands (Q, K as B of Q K^T) have
-// LBO 1024 and SBO 128 bytes, a k16 step starting 1024 elements further, and
-// the MN-major B of P V (V [key, hd]) has LBO 128 and SBO 1024, a k16 step
-// (16 keys) starting 128 elements further.
-__device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * (ROWS * 8) + r * 8 + (c & 7); }
 
 // Element (r, c) of a 128-byte-swizzle tile (the bf16 forward's layout, as
 // a bulk tensor copy writes it): two boxes of 64 columns, 8 KB each, rows
@@ -107,24 +95,6 @@ __device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * (ROWS * 8) +
 // a k16 step (16 keys) 2048 bytes further.
 __device__ __forceinline__ int sw(int r, int c) {
   return (c >> 6) * (ROWS * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
-
-__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// (x0, x1) as the bf16 pairs hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void split_bf2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf2(x0 - hf.x, x1 - hf.y);
-}
-
-// Named barrier of one warpgroup (ids 1 and up; 0 is __syncthreads).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG) : "memory");
 }
 
 // ---- copies into shared memory ------------------------------------------
@@ -210,96 +180,14 @@ __device__ __forceinline__ void split_staged(bf16* dst, const float* src, int hd
   }
 }
 
-// ---- products -------------------------------------------------------------
-// acc[0:N/2] = A[64, hdp] . B[N, hdp]^T, both core-matrix tiles at their
-// first row (NS = 2: hi at the pointer, lo TILE further; hi.hi + lo.hi +
-// hi.lo; kSw: the swizzled layout). Issued and committed, not waited for.
-template <int NS, int N, bool kSw = false>
-__device__ __forceinline__ void issue_abt(float (&acc)[N / 2], const bf16* A, const bf16* B,
-                                          int nks) {
-#pragma unroll
-  for (int k = 0; k < MAX_HDP / 16; ++k) {
-    if (k < nks) {
-      const int at = (k >> 2) * (ROWS * 64) + (k & 3) * 16;
-      const uint64_t da = kSw ? hopper::smem_desc_sw128(A + at, 16, 1024)
-                              : hopper::smem_desc(A + k * 1024, 1024, 128);
-      const uint64_t db = kSw ? hopper::smem_desc_sw128(B + at, 16, 1024)
-                              : hopper::smem_desc(B + k * 1024, 1024, 128);
-      hopper::wgmma<N>(acc, da, db, k > 0);
-      if constexpr (NS == 2) {
-        hopper::wgmma<N>(acc, hopper::smem_desc(A + TILE + k * 1024, 1024, 128), db, 1);
-        hopper::wgmma<N>(acc, da, hopper::smem_desc(B + TILE + k * 1024, 1024, 128), 1);
-      }
-    }
-  }
-  hopper::wgmma_commit();
-}
-
-// The k16 A fragments (NS parts) of the 64 x 16 KS accumulator x (P or
-// dS), rounded to bf16 as operands: fragment kk covers columns 16 kk .. + 15.
-template <int NS, int KS>
-__device__ __forceinline__ void pack_frags(uint32_t (&f)[NS][KS][4], const float (&x)[8 * KS]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = 8 * kk + 4 * (i >> 1) + 2 * (i & 1);   // d[4 j + 2 u], j = 2 kk + i / 2
-      if constexpr (NS == 1)
-        f[0][kk][i] = pack_bf2(x[e], x[e + 1]);
-      else
-        split_bf2(x[e], x[e + 1], f[0][kk][i], f[1][kk][i]);
-    }
-}
-
-// acc[0:64] += X[64, 16 KS] . B[16 KS, 128] with X in registers (fragments
-// f) and B the core-matrix tile rows at B (the product's K) read MN-major.
-template <int NS, int KS, bool kSw = false>
-__device__ __forceinline__ void issue_xb(float (&acc)[64], uint32_t (&f)[NS][KS][4],
-                                         const bf16* B) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint64_t db = kSw ? hopper::smem_desc_sw128(B + kk * 1024, 8192, 1024)
-                            : hopper::smem_desc(B + kk * 128, 128, 1024);
-    hopper::wgmma_rs<128, 1>(acc, f[0][kk], db, 1);
-    if constexpr (NS == 2) {
-      hopper::wgmma_rs<128, 1>(acc, f[1][kk], db, 1);
-      hopper::wgmma_rs<128, 1>(acc, f[0][kk], hopper::smem_desc(B + TILE + kk * 128, 128, 1024),
-                               1);
-    }
-  }
-  hopper::wgmma_commit();
-}
-
 // ---- output ---------------------------------------------------------------
-// Rows [0, nrows) of this warpgroup's 64 x 128 accumulator (times mul[u] on
-// rows g + 8 u) to the [nrows, hd] rows at dst. f32: straight from the
-// fragments (a warp's store covers eight rows of 32 bytes, whole sectors).
-// bf16: through `buf` (this warpgroup's shared memory, 64 (hd + 8)
+// bf16 rows [0, nrows) of this warpgroup's 64 x 128 accumulator (times
+// mul[u] on rows g + 8 u) to the [nrows, hd] rows at dst (the f32 form is
+// flash_wgmma.cuh's): through `buf` (this warpgroup's shared memory, 64 (hd + 8)
 // elements), rows padded by 16 bytes where hd % 8 == 0 so that the
 // fragment writes are free of bank conflicts, then out with 16-byte stores
 // (scalar stores for other hd, where the rows are not 16-byte aligned); only
 // columns [c0, c1) (multiples of 8), where a warpgroup stores part of a tile.
-__device__ __forceinline__ void store_tile(float* dst, const float (&acc)[64],
-                                           const float (&mul)[2], int nrows, int hd, int t) {
-  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int r = 16 * warp + g + 8 * u, c = 8 * j + 2 * q4;
-      if (r < nrows && c < hd) {
-        float* p = dst + static_cast<size_t>(r) * hd + c;
-        const float x0 = acc[4 * j + 2 * u] * mul[u], x1 = acc[4 * j + 2 * u + 1] * mul[u];
-        if ((hd & 1) == 0) {
-          *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-        } else {
-          p[0] = x0;
-          if (c + 1 < hd) p[1] = x1;
-        }
-      }
-    }
-}
-
 __device__ __forceinline__ void store_tile(bf16* dst, const float (&acc)[64],
                                            const float (&mul)[2], bf16* buf, int nrows, int hd,
                                            int t, int wg, int c0 = 0, int c1 = MAX_HDP) {
@@ -339,8 +227,6 @@ __device__ __forceinline__ void store_tile(bf16* dst, const float (&acc)[64],
   }
 }
 
-__host__ __device__ constexpr int n_tiles(int T) { return (T + ROWS - 1) / ROWS; }
-
 // ---- the forward's step and end ---------------------------------------------
 // One 64-key tile kt of the online softmax for this warpgroup's query tile
 // qt (q: its core-matrix tile, NS parts; k, v: the key tile's): S = Q K^T on
@@ -356,7 +242,7 @@ __device__ __forceinline__ void fwd_step(float (&o)[64], float (&m)[2], float (&
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   hopper::wgmma_fence();
-  issue_abt<NS, 64, kSw>(s, q, k, nks);
+  issue_abt<MAX_HDP, NS, 64, kSw>(s, q, k, nks);
   hopper::wgmma_wait<0>();
   hopper::fence_regs<32>(s);
   // every row keeps key kt * 64 (< T; and <= the row when causal, since kt <= qt)
@@ -393,7 +279,7 @@ __device__ __forceinline__ void fwd_step(float (&o)[64], float (&m)[2], float (&
   pack_frags<NS, 4>(pf, s);
   hopper::fence_regs<64>(o);
   hopper::wgmma_fence();
-  issue_xb<NS, 4, kSw>(o, pf, v);
+  issue_xb<MAX_HDP, NS, 4, kSw>(o, pf, v);
   hopper::wgmma_wait<0>();
   hopper::fence_regs<64>(o);
 }
@@ -704,8 +590,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_wide_kernel(const BwdA
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
     hopper::wgmma_fence();
-    issue_abt<2, 32>(s, kept, kh, nks);
-    issue_abt<2, 32>(dp, kept + 2 * TILE, kh + 2 * TILE, nks);
+    issue_abt<MAX_HDP, 2, 32>(s, kept, kh, nks);
+    issue_abt<MAX_HDP, 2, 32>(dp, kept + 2 * TILE, kh + 2 * TILE, nks);
     hopper::wgmma_wait<0>();
     hopper::fence_regs<16>(s);
     hopper::fence_regs<16>(dp);
@@ -723,7 +609,7 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dq_wide_kernel(const BwdA
     pack_frags<2, 2>(dsf, s);
     hopper::fence_regs<64>(dq);
     hopper::wgmma_fence();
-    issue_xb<2, 2>(dq, dsf, kh);   // dQ += dS K
+    issue_xb<MAX_HDP, 2, 2>(dq, dsf, kh);   // dQ += dS K
     hopper::wgmma_wait<0>();
     hopper::fence_regs<64>(dq);
   }
@@ -799,8 +685,8 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_wide_kernel(const Bwd
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
     hopper::wgmma_fence();
-    issue_abt<2, 32>(s, kept, qh, nks);                      // S^T = K Q^T
-    issue_abt<2, 32>(dp, kept + 2 * TILE, qh + 2 * TILE, nks);   // dP^T = V dO^T
+    issue_abt<MAX_HDP, 2, 32>(s, kept, qh, nks);                      // S^T = K Q^T
+    issue_abt<MAX_HDP, 2, 32>(dp, kept + 2 * TILE, qh + 2 * TILE, nks);   // dP^T = V dO^T
     hopper::wgmma_wait<0>();
     hopper::fence_regs<16>(s);
     hopper::fence_regs<16>(dp);
@@ -820,13 +706,13 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_wide_kernel(const Bwd
     pack_frags<2, 2>(f, s);
     hopper::fence_regs<64>(dv);
     hopper::wgmma_fence();
-    issue_xb<2, 2>(dv, f, qh + 2 * TILE);   // dV += P^T dO
+    issue_xb<MAX_HDP, 2, 2>(dv, f, qh + 2 * TILE);   // dV += P^T dO
     hopper::wgmma_wait<0>();
     hopper::fence_regs<64>(dv);
     pack_frags<2, 2>(f, ds);
     hopper::fence_regs<64>(dk);
     hopper::wgmma_fence();
-    issue_xb<2, 2>(dk, f, qh);              // dK += dS^T Q
+    issue_xb<MAX_HDP, 2, 2>(dk, f, qh);              // dK += dS^T Q
     hopper::wgmma_wait<0>();
     hopper::fence_regs<64>(dk);
   }
@@ -990,8 +876,8 @@ __global__ void __launch_bounds__(2 * WG, kTma ? 2 : 1) flash_bwd_dq_wide_bf16_k
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
     hopper::wgmma_fence();
-    issue_abt<1, 32, true>(s, kept, kh, nks);          // S = Q K^T
-    issue_abt<1, 32, true>(dp, kept + TILE, vh, nks);  // dP = dO V^T
+    issue_abt<MAX_HDP, 1, 32, true>(s, kept, kh, nks);          // S = Q K^T
+    issue_abt<MAX_HDP, 1, 32, true>(dp, kept + TILE, vh, nks);  // dP = dO V^T
     hopper::wgmma_wait<0>();
     hopper::fence_regs<16>(s);
     hopper::fence_regs<16>(dp);
@@ -1009,7 +895,7 @@ __global__ void __launch_bounds__(2 * WG, kTma ? 2 : 1) flash_bwd_dq_wide_bf16_k
     pack_frags<1, 2>(f, s);
     hopper::fence_regs<64>(dq);
     hopper::wgmma_fence();
-    issue_xb<1, 2, true>(dq, f, kh);   // dQ += dS K
+    issue_xb<MAX_HDP, 1, 2, true>(dq, f, kh);   // dQ += dS K
     hopper::wgmma_wait<0>();
     hopper::fence_regs<64>(dq);
     if constexpr (!kTma) {
@@ -1118,8 +1004,8 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wide_bf16_kernel(
 #pragma unroll
       for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
       hopper::wgmma_fence();
-      issue_abt<1, 32, true>(s, kept, qh, nks);           // S^T = K Q^T
-      issue_abt<1, 32, true>(dp, kept + TILE, doh, nks);  // dP^T = V dO^T
+      issue_abt<MAX_HDP, 1, 32, true>(s, kept, qh, nks);           // S^T = K Q^T
+      issue_abt<MAX_HDP, 1, 32, true>(dp, kept + TILE, doh, nks);  // dP^T = V dO^T
       hopper::wgmma_wait<0>();
       hopper::fence_regs<16>(s);
       hopper::fence_regs<16>(dp);
@@ -1140,8 +1026,8 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wide_bf16_kernel(
       hopper::fence_regs<64>(dv);
       hopper::fence_regs<64>(dk);
       hopper::wgmma_fence();
-      issue_xb<1, 2, true>(dv, fp, doh);   // dV += P^T dO
-      issue_xb<1, 2, true>(dk, fd, qh);    // dK += dS^T Q
+      issue_xb<MAX_HDP, 1, 2, true>(dv, fp, doh);   // dV += P^T dO
+      issue_xb<MAX_HDP, 1, 2, true>(dk, fd, qh);    // dK += dS^T Q
       hopper::wgmma_wait<0>();
       hopper::fence_regs<64>(dv);
       hopper::fence_regs<64>(dk);
@@ -1155,36 +1041,6 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wide_bf16_kernel(
   const int nrows = min(ROWS, T - k0);
   store_tile(a.dk + koff, dk, mk, ring, nrows, hd, t, 0);
   store_tile(a.dv + koff, dv, mv, ring + STORE_BUF, nrows, hd, t, 0);
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link
-// against the driver library).
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static void* fn = nullptr;
-  if (!fn) {
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &res) !=
-            cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-  }
-  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-}
-
-// The tensor map of a bf16 [BH, T, hd] tensor (hd % 8 == 0) in 64 x 64
-// boxes with the 128-byte swizzle; false on an error.
-bool bf16_map(CUtensorMap* m, const void* p, int BH, int T, int hd) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(T) * hd * 2};
-  const cuuint32_t box[3] = {64, ROWS, 1}, steps[3] = {1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
-                steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -10,11 +10,14 @@ exits non-zero on failure:
 
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
 1. build: compile the kernel library for sm_90a, print seconds, ptxas's
-   registers, stack and spill bytes per kernel (each flash kernel in its
-   bf16 and f32 instantiation at tile width 64, and the nine width-128
+   registers, stack and spill bytes per kernel (each flash kernel at tile
+   width 64 in bf16 and in f32, and the nine width-128
    `wgmma` instantiations of flash_attention_wide.cu, all of which must be
    there; no bf16 flash kernel may spill, and the bf16 width-128 dQ and
-   dK/dV kernels must have HGMMA instructions) and, from cuobjdump -sass,
+   dK/dV kernels must have HGMMA instructions; the f32 width-64 dQ and
+   dK/dV kernels of flash_attention_f32.cu, each in its bulk-copy and its
+   `cp.async` form, must all be there, none may spill and each must have
+   HGMMA instructions) and, from cuobjdump -sass,
    the HGMMA (wgmma)
    instructions of each of the five instantiations of the bf16 and of the
    f32 fused-layer kernel (tanh: B2's group, the single layer, the timed
@@ -57,8 +60,9 @@ exits non-zero on failure:
    the first; prints the three kernels' resident blocks per SM in both
    instantiations at both widths; the autograd backward must run exactly
    two device kernels, the dQ and the dK/dV kernel, at the chunked shape
-   and at the 3-head model's hd 120 (torch.profiler; "not measured" if it
-   sees no kernel). Times each kernel, the backward total
+   in bf16 and in f32 (flash_attention_f32.cu's `wgmma` kernels) and at
+   the 3-head model's hd 120 (torch.profiler; "not measured" if it sees no
+   kernel). Times each kernel, the backward total
    (dQ with delta + dK/dV) and forward + backward against the plain
    versions at the chunked shape, and each kernel at [256, 3, 131, 128]
    (width 128) and at the 3-head model's [256, 3, 131, 120], with CUDA
@@ -1169,19 +1173,19 @@ def check_flash(B, H, T, hd, causal, device, gen, dtype, frac):
     }
 
 
-def backward_kernels(device, gen, shape=CHUNKED_SHAPE):
+def backward_kernels(device, gen, shape=CHUNKED_SHAPE, dtype=None):
     """The device kernels that one autograd backward through
-    `flash_attention` runs at `shape` (torch.profiler; bf16, contiguous
-    cotangent, leaves without a gradient yet), or None where the profiler
-    saw no device kernel."""
+    `flash_attention` runs at `shape` (torch.profiler; in `dtype`, bf16
+    unless given, contiguous cotangent, leaves without a gradient yet), or
+    None where the profiler saw no device kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from beso_tpu_torch.ops import flash_attention as fa
 
-    leaves = [_rand(gen, *shape, device=device).requires_grad_() for _ in range(3)]
-    do = _rand(gen, *shape, device=device)
+    leaves = [_rand(gen, *shape, device=device, dtype=dtype).requires_grad_() for _ in range(3)]
+    do = _rand(gen, *shape, device=device, dtype=dtype)
     fa.flash_attention(*leaves).backward(do)   # warm-up
     for t in leaves:
         t.grad = None
@@ -3793,12 +3797,27 @@ def main() -> None:
         fail(f"ptxas reported {len(wide)} width-128 wgmma flash instantiations, not 9")
     for name, props in wide.items():
         print(f"  width-128 flash {name}: {spill_bytes(props)} spill bytes; {props}")
-    hgmma_bwd = sass_counts(so, "flash_bwd_", "HGMMA")
-    hgmma_bwd = {n: c for n, c in hgmma_bwd.items() if "_wide_bf16_" in n}
+    hgmma_flash_bwd = sass_counts(so, "flash_bwd_", "HGMMA")
+    hgmma_bwd = {n: c for n, c in hgmma_flash_bwd.items() if "_wide_bf16_" in n}
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the bf16 width-128 backward: "
           f"{hgmma_bwd}")
     if len(hgmma_bwd) != 4 or not all(hgmma_bwd.values()):
         fail("the bf16 width-128 dQ and dK/dV kernels do not all run their products on wgmma")
+    # the f32 width-64 backward: dQ and dK/dV, each <true> (bulk tensor
+    # copies) and <false> (cp.async)
+    narrow = {n: p for n, p in report.items()
+              if n.startswith(("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel"))}
+    for name, props in narrow.items():
+        print(f"  f32 width-64 backward {name}: {spill_bytes(props)} spill bytes; {props}")
+    if len(narrow) != 4:
+        fail(f"ptxas reported {len(narrow)} f32 width-64 backward instantiations, not 4")
+    if any(spill_bytes(p) for p in narrow.values()):
+        fail("the f32 width-64 backward kernels spill")
+    hgmma_f32_bwd = {n: c for n, c in hgmma_flash_bwd.items() if "_f32_kernel" in n}
+    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the f32 width-64 backward: "
+          f"{hgmma_f32_bwd}")
+    if len(hgmma_f32_bwd) != 4 or not all(hgmma_f32_bwd.values()):
+        fail("the f32 width-64 dQ and dK/dV kernels do not all run their products on wgmma")
 
     # ---- 2. kernel against its plain version -----------------------------
     print(f"[2] ({since_start()}) kernel vs plain version (bf16, then f32)")
@@ -3889,18 +3908,22 @@ def main() -> None:
         for hd in (64, 128):
             print(f"  resident blocks per SM, {dtype}, tile width {hd} (occupancy "
                   f"calculator): {fa.blocks_per_sm(dtype, hd)}")
-    # at hd 60 the width-64 kernels, at the 3-head model's hd 120 the bf16
-    # wgmma kernels of flash_attention_wide.cu
-    for shape, names in ((CHUNKED_SHAPE, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
-                         (WIDE_MODEL_SHAPE, ("flash_bwd_dq_wide_bf16_kernel",
-                                             "flash_bwd_dkv_wide_bf16_kernel"))):
-        bwd_kernels = backward_kernels(device, gen, shape)
-        print(f"  device kernels of one autograd backward at {list(shape)}: "
+    # at hd 60 the width-64 kernels (bf16: the mma.sync template; f32: the
+    # wgmma kernels of flash_attention_f32.cu), at the 3-head model's hd 120
+    # the bf16 wgmma kernels of flash_attention_wide.cu
+    for shape, dtype, names in (
+            (CHUNKED_SHAPE, torch.bfloat16, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+            (CHUNKED_SHAPE, torch.float32, ("flash_bwd_dq_f32_kernel",
+                                            "flash_bwd_dkv_f32_kernel")),
+            (WIDE_MODEL_SHAPE, torch.bfloat16, ("flash_bwd_dq_wide_bf16_kernel",
+                                                "flash_bwd_dkv_wide_bf16_kernel"))):
+        bwd_kernels = backward_kernels(device, gen, shape, dtype)
+        print(f"  device kernels of one autograd backward at {list(shape)} {dtype}: "
               f"{bwd_kernels if bwd_kernels is not None else 'not measured'}")
         if bwd_kernels is not None and (len(bwd_kernels) != 2 or not all(
                 any(k in n for n in bwd_kernels) for k in names)):
-            fail(f"the autograd backward at {list(shape)} is not exactly the launches of "
-                 f"{' and '.join(names)}")
+            fail(f"the autograd backward at {list(shape)} {dtype} is not exactly the launches "
+                 f"of {' and '.join(names)}")
     flash_ms, sdpa_ms = {}, {}
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         tag = str(dtype).split(".")[-1]
@@ -4279,6 +4302,7 @@ def main() -> None:
                         *erf_ms[suffix]))
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
     wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
+    f32_bwd_src = "beso_tpu_torch/csrc/flash_attention_f32.cu"
     # the bf16 width-64 kernels: phase 7's training, phase 16b's sweeps and
     # phase 17c's dp and tp steps (per rank), each path's own count printed
     # beside the sum
@@ -4293,9 +4317,11 @@ def main() -> None:
     for key, n_of in flash_counts_of.items():
         for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
                            ("flash_backward_dkv", 112)):
-            # width 128: every kernel in the wgmma source
-            entries.append((name + key, wide_src if key.startswith("_hd128") else flash_src,
-                            f"beso_tpu/ops/flash_attention.py:{line}",
+            # width 128: every kernel in the wgmma source; width 64: the f32
+            # backward in its own
+            src = (wide_src if key.startswith("_hd128") else
+                   f32_bwd_src if key == "_f32" and "backward" in name else flash_src)
+            entries.append((name + key, src, f"beso_tpu/ops/flash_attention.py:{line}",
                             n_of[name], flash_err[name + key], *flash_ms[name + key]))
     kernels = []
     for name, source, replaces, n, e, k_ms, p_ms in entries:

@@ -68,12 +68,15 @@ def test_gradients_match_jax(T, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [16, 131])
-def test_backward_kernels_plain_match_jax(T, causal):
+@pytest.mark.parametrize("hd", [60, 15, 20])
+def test_backward_kernels_plain_match_jax(hd, T, causal):
     """The plain versions of the two backward kernels, as the autograd
     Function chains them (dQ returns delta, dK/dV takes it), against
     `_flash_attention_bwd` (Pallas, interpret mode) and its delta formula
-    (:212-214) on the same forward output, lse and cotangent."""
-    q, k, v, g = _qkv(2, 3, T, 60, seed=11 * T + causal, n=4)
+    (:212-214) on the same forward output, lse and cotangent. hd 15 and 20
+    are the small head dims that the f32 width-64 kernels take (hd 15 their
+    `cp.async` form) and that the card compares them against."""
+    q, k, v, g = _qkv(2, 3, T, hd, seed=11 * T + causal, n=4)
     jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
     jo, jlse = jfa._flash_forward(jq, jk, jv, causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
                                   True)
@@ -87,7 +90,7 @@ def test_backward_kernels_plain_match_jax(T, causal):
     for name, got, want in (("delta", delta, jdelta), ("dq", dq, jdq), ("dk", dk, jdk),
                             ("dv", dv, jdv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
-                                   err_msg=f"{name} (T={T}, causal={causal})")
+                                   err_msg=f"{name} (hd={hd}, T={T}, causal={causal})")
 
 
 @pytest.mark.parametrize("causal", [True, False])

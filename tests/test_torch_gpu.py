@@ -139,17 +139,21 @@ def test_wide_flash_kernels_match_plain(hd, dtype, causal):
     ((2, 4, 131, 128), True, torch.bfloat16), ((2, 2, 77, 96), False, torch.bfloat16),
     ((2, 4, 131, 128), True, torch.float32), ((2, 2, 77, 96), False, torch.float32),
     ((2, 3, 131, 120), True, torch.bfloat16), ((2, 3, 131, 120), True, torch.float32),
-    ((2, 2, 65, 100), True, torch.bfloat16), ((2, 2, 65, 100), False, torch.float32)],
+    ((2, 2, 65, 100), True, torch.bfloat16), ((2, 2, 65, 100), False, torch.float32),
+    ((2, 3, 131, 60), True, torch.float32), ((3, 2, 77, 20), False, torch.float32),
+    ((2, 2, 50, 15), False, torch.float32)],
     ids=["131-60-causal", "77-20-full", "131-128-causal", "77-96-full", "131-128-causal-f32",
          "77-96-full-f32", "131-120-causal", "131-120-causal-f32", "65-100-causal",
-         "65-100-full-f32"])
+         "65-100-full-f32", "131-60-causal-f32", "77-20-full-f32", "50-15-full-f32"])
 def test_flash_kernels_deterministic(shape, causal, dtype, kernels):
     """Two launches of the forward, or of each backward kernel, on the same
     inputs give bit-equal o and lse, or dq, delta, dk and dv (no atomics).
-    hd 20 and 60 reach flash_attention.cu's `mma.sync` kernels; hd 96 and
-    above flash_attention_wide.cu's `wgmma` ones (bf16 hd 100: the
-    `cp.async` form; bf16 hd 96, 120, 128: bulk tensor copies; the bf16
-    backward's two warpgroups add their dQ halves in a fixed order)."""
+    hd 20 and 60 reach flash_attention.cu's `mma.sync` kernels (in f32 the
+    forward; the f32 backward there is flash_attention_f32.cu's `wgmma`
+    kernels: hd 60 and 20 their bulk tensor copies, hd 15 the `cp.async`
+    form); hd 96 and above flash_attention_wide.cu's `wgmma` ones (bf16 hd
+    100: the `cp.async` form; bf16 hd 96, 120, 128: bulk tensor copies; the
+    bf16 backward's two warpgroups add their dQ halves in a fixed order)."""
     dev = _cuda()
     rng = np.random.RandomState(len(shape) + shape[2])
     q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
@@ -183,6 +187,25 @@ def test_wide_bf16_backward_blocks_per_sm():
     for name, want in WIDE_BF16_BWD_BLOCKS.items():
         assert blocks[name] >= 1, blocks
         assert blocks[name] == want, blocks
+
+
+# Resident blocks per SM of the f32 width-64 backward as designed
+# (flash_attention_f32.cu): dQ and dK/dV each two 128-thread blocks (one
+# warpgroup, a kept pair and two stages, 97 KB each), 8 warps per SM.
+F32_NARROW_BWD_BLOCKS = {"flash_backward_dq": 2, "flash_backward_dkv": 2}
+WARPS_PER_BLOCK = 4
+
+
+@pytest.mark.gpu
+def test_f32_narrow_backward_blocks_per_sm():
+    """The occupancy calculator gives the f32 width-64 dQ and dK/dV kernels
+    the resident blocks their design states, and at least 8 warps per SM
+    (the `mma.sync` template's two blocks of four)."""
+    _cuda()
+    blocks = fa.blocks_per_sm(torch.float32, 64)
+    for name, want in F32_NARROW_BWD_BLOCKS.items():
+        assert blocks[name] == want, blocks
+        assert blocks[name] * WARPS_PER_BLOCK >= 8, blocks
 
 
 @pytest.mark.gpu
