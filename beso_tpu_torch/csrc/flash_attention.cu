@@ -7,7 +7,9 @@
 // written twice and the result is deterministic (no atomics).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv [B*H, T, hd], contiguous (the JAX
-// layout [B, H, T, hd]), all bf16 or all f32; lse and delta [B*H, T] f32.
+// layout [B, H, T, hd]), all bf16 (the entries below also take all f32, for
+// flash_attention_f32.cu's and flash_attention_wide.cu's kernels); lse and
+// delta [B*H, T] f32.
 // lse is the logsumexp of the SCALED scores s = (q . k) / sqrt(hd). delta =
 // rowsum(dO * O) (the JAX package computes it outside Pallas, :212-214) is
 // computed by the dQ kernel, which uses it and writes it for the dK/dV
@@ -47,25 +49,17 @@
 //   above the diagonal; only chunks that straddle T or the diagonal are
 //   masked. At T = 131 each kernel computes 11,520 (query, key) pairs per
 //   (b, h) instead of the 24,576 of whole 64 x 64 tiles.
-// - Occupancy: with no f32 staging a block holds two stages and what it
-//   keeps (forward 36,864 bytes, dQ 46,080, dK/dV 56,320), four 128-thread
-//   blocks per SM at <= 128 registers.
+// - Occupancy: a block holds two stages and what it keeps (forward 36,864
+//   bytes, dQ 46,080, dK/dV 56,320), four 128-thread blocks per SM at <= 128
+//   registers.
 // - Head dims up to 128 (the JAX kernels' working range): these kernels
-//   take tile width 64 (hdp <= 64: the chunked training path's hd 60);
-//   above, the launchers call flash_attention_wide.cu's `wgmma` kernels,
-//   and for the f32 backward at hdp <= 64 flash_attention_f32.cu's.
+//   take tile width 64 (hdp <= 64: the chunked training path's hd 60) in
+//   bf16. The launchers call flash_attention_f32.cu's `wgmma` kernels for
+//   f32 inputs (the model's dtype, as in the JAX kernels, which compute in
+//   f32) at that width, and flash_attention_wide.cu's above it in both
+//   dtypes: this source's kernels are bf16 only.
 // Padded rows get lse = 0 and zero q/k, so their p is finite; the dK/dV
 // kernel masks p (not s) for query columns >= T, as the JAX kernel does.
-//
-// f32 inputs (the model's dtype, as in the JAX kernels, which compute in
-// f32): the forward is the same kernel, instantiated on the element type
-// (the backward's f32 kernels are flash_attention_f32.cu's). Each f32 tile
-// is held in shared memory as two bf16 tiles, hi = bf16(x) and lo = bf16(x -
-// hi) (x = hi + lo to ~2^-17 relative), converted on load with plain loads,
-// and every product is hi.hi + hi.lo + lo.hi with f32 accumulation; P is
-// split the same way at its repack. That is f32 accuracy (~2^-16 relative
-// per product, not TF32's 2^-11) on the tensor cores, at three times the
-// products and twice the shared memory: three blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,45 +76,25 @@ namespace {
 constexpr int TILE = 64;            // query (or key) rows per block and per streamed tile
 constexpr int WARPS = 4;            // each warp owns 16 rows of the block's tile
 constexpr int THREADS = WARPS * 32;
+constexpr int MIN_BLOCKS = 4;       // resident blocks per SM the launch bounds ask for
 constexpr int MAX_HDP = 128;        // the largest padded head dim of either source
 // The tile width HDP (these kernels' padded head dims, up to 64): head-dim
 // column tiles (k16 steps) and n8 tiles at most, the bf16 row stride of
 // [TILE, hdp] tiles (144 bytes, an odd number of 16-byte units, so ldmatrix
-// is free of bank conflicts) and the bf16 elements of a [TILE, LDH] tile,
-// which is where an f32 tile's lo part starts.
+// is free of bank conflicts) and the bf16 elements TS of a [TILE, LDH] tile.
 constexpr int HDP = 64;
 constexpr int NT_D = HDP / 16;
 constexpr int NT_D8 = HDP / 8;
 constexpr int LDH = HDP + 8;
-constexpr int SPLIT = TILE * LDH;
+constexpr int TS = TILE * LDH;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Per element type: bf16 tiles per logical tile (f32: hi and lo) and the
-// resident blocks per SM the launch bounds ask for.
-template <typename E>
-struct Parts {
-  static constexpr int N = 1;
-  static constexpr int MIN_BLOCKS = 4;
-};
-template <>
-struct Parts<float> {
-  static constexpr int N = 2;
-  static constexpr int MIN_BLOCKS = 2;
-};
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 
 __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// (x0, x1) as the bf16 pairs hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void split_bf2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf2(x0 - hf.x, x1 - hf.y);
 }
 
 // Copy `nrows` rows of `hd` bf16 (contiguous, row stride hd) into a
@@ -173,40 +147,16 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nrows,
     load_tile(dst, src, nrows, a.hd, a.hdp, tid);  // odd hd: no aligned copy size
 }
 
-// The f32 tile as its hi part at dst and its lo part at dst + SPLIT, by
-// plain loads (the conversion needs the values in registers); rows >= nrows
-// and columns [hd, hdp) are zero.
-template <class A>
-__device__ __forceinline__ void copy_tile(bf16* dst, const float* src, int nrows, const A& a,
-                                          int tid) {
-  const int hd = a.hd, half = a.hdp >> 1;
-  for (int i = tid; i < TILE * half; i += THREADS) {
-    const int r = i / half, c = 2 * (i - r * half);
-    const float* s = src + static_cast<size_t>(r) * hd + c;
-    const float x0 = r < nrows && c < hd ? s[0] : 0.f;
-    const float x1 = r < nrows && c + 1 < hd ? s[1] : 0.f;
-    uint32_t hi, lo;
-    split_bf2(x0, x1, hi, lo);
-    *reinterpret_cast<uint32_t*>(dst + r * LDH + c) = hi;
-    *reinterpret_cast<uint32_t*>(dst + SPLIT + r * LDH + c) = lo;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Helpers on m16n8k16 fragments (hopper.cuh): with g = lane / 4 and
 // q4 = lane % 4, an accumulator pair c[j][0:4] over 16 rows x 16 columns
 // holds rows g (i < 2) and g + 8 (i >= 2) at columns 8 j + 2 q4 + i % 2.
-// NS is the number of bf16 parts per value (1: bf16, 2: f32 as hi + lo);
-// with NS = 2 an operand's lo tile lies SPLIT elements past its hi tile and
-// every product is hi.hi + lo.hi + hi.lo.
 // ---------------------------------------------------------------------------
 
 // c[0:2][0:4] += A . B^T over the head dim, for 16 rows (A: the warp's A
 // fragments, one per k16 step) against the 16 rows of `b` (a [*, LDH]
 // shared tile at the chunk's first row).
-template <int NS>
-__device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
-                                                   uint32_t (&af)[NS][NT_D][4],
+__device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4], uint32_t (&af)[NT_D][4],
                                                    const bf16* b, int nks, int lane) {
   const bf16* row = b + ((lane & 7) + ((lane >> 4) << 3)) * LDH + ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -214,16 +164,8 @@ __device__ __forceinline__ void rows_times_chunk_t(float (&c)[2][4],
     if (kk < nks) {
       uint32_t bf[4];   // columns 0-7 of the chunk, then 8-15
       hopper::ldmatrix_x4<false>(bf, row + kk * 16);
-      hopper::mma_16816(c[0], af[0][kk], bf);
-      hopper::mma_16816(c[1], af[0][kk], bf + 2);
-      if constexpr (NS == 2) {
-        uint32_t bl[4];
-        hopper::ldmatrix_x4<false>(bl, row + SPLIT + kk * 16);
-        hopper::mma_16816(c[0], af[1][kk], bf);
-        hopper::mma_16816(c[1], af[1][kk], bf + 2);
-        hopper::mma_16816(c[0], af[0][kk], bl);
-        hopper::mma_16816(c[1], af[0][kk], bl + 2);
-      }
+      hopper::mma_16816(c[0], af[kk], bf);
+      hopper::mma_16816(c[1], af[kk], bf + 2);
     }
   }
 }
@@ -249,8 +191,7 @@ __device__ __forceinline__ void smem_rows_times_chunk_t(float (&c)[2][4], const 
 // acc[0 : hdp / 8] += P . B, with P the 16 x 16 A fragment `pf` and B the
 // chunk's 16 rows of `b` (a [*, LDH] shared tile at the chunk's first row),
 // through ldmatrix.trans.
-template <int NS>
-__device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t (&pf)[NS][4],
+__device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t (&pf)[4],
                                                 const bf16* b, int nks, int lane) {
   const bf16* row = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
 #pragma unroll
@@ -258,46 +199,28 @@ __device__ __forceinline__ void acc_chunk_times(float (&acc)[NT_D8][4], uint32_t
     if (t < 2 * nks) {
       uint32_t bf[4];   // head-dim columns 8 t .. 8 t + 7, then 8 t + 8 ..
       hopper::ldmatrix_x4<true>(bf, row + 8 * t);
-      hopper::mma_16816(acc[t], pf[0], bf);
-      hopper::mma_16816(acc[t + 1], pf[0], bf + 2);
-      if constexpr (NS == 2) {
-        uint32_t bl[4];
-        hopper::ldmatrix_x4<true>(bl, row + SPLIT + 8 * t);
-        hopper::mma_16816(acc[t], pf[1], bf);
-        hopper::mma_16816(acc[t + 1], pf[1], bf + 2);
-        hopper::mma_16816(acc[t], pf[0], bl);
-        hopper::mma_16816(acc[t + 1], pf[0], bl + 2);
-      }
+      hopper::mma_16816(acc[t], pf, bf);
+      hopper::mma_16816(acc[t + 1], pf, bf + 2);
     }
   }
 }
 
 // The 16 x 16 A fragment of a chunk's two n8 accumulator tiles c (P or
-// dS), rounded to bf16 as an operand; NS = 2: its hi and lo parts.
-template <int NS>
-__device__ __forceinline__ void pack_a(uint32_t (&f)[NS][4], const float (&c)[2][4]) {
+// dS), rounded to bf16 as an operand.
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&c)[2][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x0 = c[i >> 1][2 * (i & 1)], x1 = c[i >> 1][2 * (i & 1) + 1];
-    if constexpr (NS == 1)
-      f[0][i] = pack_bf2(x0, x1);
-    else
-      split_bf2(x0, x1, f[0][i], f[1][i]);
-  }
+  for (int i = 0; i < 4; ++i)
+    f[i] = pack_bf2(c[i >> 1][2 * (i & 1)], c[i >> 1][2 * (i & 1) + 1]);
 }
 
 // The warp's 16 rows of a [*, LDH] shared tile as A fragments over the
 // head dim.
-template <int NS>
-__device__ __forceinline__ void load_rows(uint32_t (&af)[NS][NT_D][4], const bf16* rows,
-                                          int nks,
+__device__ __forceinline__ void load_rows(uint32_t (&af)[NT_D][4], const bf16* rows, int nks,
                                           int lane) {
   const bf16* row = rows + (lane & 15) * LDH + (lane >> 4) * 8;
 #pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int kk = 0; kk < NT_D; ++kk)
-      if (kk < nks) hopper::ldmatrix_x4<false>(af[s][kk], row + s * SPLIT + kk * 16);
+  for (int kk = 0; kk < NT_D; ++kk)
+    if (kk < nks) hopper::ldmatrix_x4<false>(af[kk], row + kk * 16);
 }
 
 // Eight values of a bf16 shared tile row from a 16-byte aligned column, in
@@ -313,21 +236,11 @@ __device__ __forceinline__ void row8(float (&x)[8], const bf16* p) {
   }
 }
 
-__device__ __forceinline__ void store1(bf16* p, float x) { *p = f2bf(x); }
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf2(x0, x1);
-}
-__device__ __forceinline__ void store2(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-
 // Rows r0 + g (times mul0) and r0 + g + 8 (times mul1), those < T, of a
-// [*, hd] output <- acc.
-template <typename E, class A>
-__device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8][4], float mul0,
-                                           float mul1,
-                                           int r0, const A& a, int lane) {
+// bf16 [*, hd] output <- acc.
+template <class A>
+__device__ __forceinline__ void store_rows(bf16* out, float (&acc)[NT_D8][4], float mul0,
+                                           float mul1, int r0, const A& a, int lane) {
   const int g = lane >> 2, q4 = lane & 3;
 #pragma unroll
   for (int t = 0; t < NT_D8; ++t) {
@@ -335,14 +248,14 @@ __device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8][4], float
     for (int u = 0; u < 2; ++u) {
       const int row = r0 + g + 8 * u, col = 8 * t + 2 * q4;
       if (t < 2 * (a.hdp >> 4) && row < a.T && col < a.hd) {
-        E* p = out + static_cast<size_t>(row) * a.hd + col;
+        bf16* p = out + static_cast<size_t>(row) * a.hd + col;
         const float mul = u ? mul1 : mul0;
         const float x0 = acc[t][2 * u] * mul, x1 = acc[t][2 * u + 1] * mul;
         if ((a.hd & 1) == 0) {
-          store2(p, x0, x1);
+          *reinterpret_cast<uint32_t*>(p) = pack_bf2(x0, x1);
         } else {
-          store1(p, x0);
-          if (col + 1 < a.hd) store1(p + 1, x1);
+          p[0] = f2bf(x0);
+          if (col + 1 < a.hd) p[1] = f2bf(x1);
         }
       }
     }
@@ -353,12 +266,10 @@ __device__ __forceinline__ void store_rows(E* out, float (&acc)[NT_D8][4], float
 // B5, forward: grid B*H * ceil(T / TILE), a (b, h)'s tiles adjacent (they
 // share its K/V in L2); block = one query tile, looping over key tiles up
 // to the diagonal with the online softmax. o = (sum_k P V) / l,
-// lse = m + log(l) in natural-log units.
+// lse = m + log(l) in natural-log units. bf16 (the f32 forward is
+// flash_attention_f32.cu's).
 // ---------------------------------------------------------------------------
-template <typename E>
-__global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
-    flash_fwd_kernel(const FwdArgs<E> a) {
-  constexpr int NS = Parts<E>::N, TS = NS * SPLIT;   // bf16 elements per logical tile
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_fwd_kernel(const FwdArgs<bf16> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q; then stage 1 (K, V)
   auto stage = [&](int i) { return i ? qs : qs + 2 * TS; };
@@ -378,8 +289,8 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
   hopper::cp_async_commit();
   hopper::cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[NS][NT_D][4];
-  if (active) load_rows<NS>(qf, qs + 16 * warp * LDH, nks, lane);
+  uint32_t qf[NT_D][4];
+  if (active) load_rows(qf, qs + 16 * warp * LDH, nks, lane);
   __syncthreads();   // q is in registers: stage 1 may overwrite it
 
   const float scale2 = a.scale * LOG2E;
@@ -404,7 +315,7 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
         const int kc = kt * TILE + 16 * c;   // the chunk's first key
         if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
         float s[2][4] = {};
-        rows_times_chunk_t<NS>(s, qf, ks + 16 * c * LDH, nks, lane);
+        rows_times_chunk_t(s, qf, ks + 16 * c * LDH, nks, lane);
         // every row keeps key kc (kc < T, and kc <= r0 when causal), so m stays finite
         const bool edge = kc + 16 > T || (a.causal && kc == r0);
         float mx[2] = {-INFINITY, -INFINITY};
@@ -438,9 +349,9 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
             s[j][i] = exp2f(s[j][i] - m[i >> 1]);   // P; masked scores give 0
             l[i >> 1] += s[j][i];
           }
-        uint32_t pf[NS][4];
-        pack_a<NS>(pf, s);
-        acc_chunk_times<NS>(acc, pf, vs + 16 * c * LDH, nks, lane);   // O += P V
+        uint32_t pf[4];
+        pack_a(pf, s);
+        acc_chunk_times(acc, pf, vs + 16 * c * LDH, nks, lane);   // O += P V
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
@@ -467,9 +378,8 @@ __global__ void __launch_bounds__(THREADS, Parts<E>::MIN_BLOCKS)
 // dq = (sum_k dS K) * scale. bf16 (the f32 backward is
 // flash_attention_f32.cu's).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     flash_bwd_dq_kernel(const BwdArgs<bf16> a) {
-  constexpr int NS = 1, TS = SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);        // [TS] q, dO, o; then stage 1
   bf16* dos = qs + TS;
@@ -495,11 +405,11 @@ __global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
   hopper::cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qf[NS][NT_D][4], dof[NS][NT_D][4];
+  uint32_t qf[NT_D][4], dof[NT_D][4];
   float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};   // rows g, g + 8; lse2 = lse * log2(e)
   if (active) {
-    load_rows<NS>(qf, qs + 16 * warp * LDH, nks, lane);
-    load_rows<NS>(dof, dos + 16 * warp * LDH, nks, lane);
+    load_rows(qf, qs + 16 * warp * LDH, nks, lane);
+    load_rows(dof, dos + 16 * warp * LDH, nks, lane);
     // delta in f32: lanes 2 i and 2 i + 1 sum halves of row 16 warp + i
     const int rr = 16 * warp + (lane >> 1), c0 = (lane & 1) * (HDP / 2);
     float d = 0.f;
@@ -541,8 +451,8 @@ __global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
         const int kc = kt * TILE + 16 * c;   // the chunk's first key
         if (kc >= T || (a.causal && kc > r0)) break;   // past T, or above the diagonal
         float s[2][4] = {}, dp[2][4] = {};
-        rows_times_chunk_t<NS>(s, qf, ks + 16 * c * LDH, nks, lane);
-        rows_times_chunk_t<NS>(dp, dof, vs + 16 * c * LDH, nks, lane);
+        rows_times_chunk_t(s, qf, ks + 16 * c * LDH, nks, lane);
+        rows_times_chunk_t(dp, dof, vs + 16 * c * LDH, nks, lane);
         const bool edge = kc + 16 > T || (a.causal && kc == r0);
         float ds[2][4];
 #pragma unroll
@@ -554,9 +464,9 @@ __global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
             const float p = ok ? exp2f(s[j][i] * scale2 - lse2[u]) : 0.f;
             ds[j][i] = p * (dp[j][i] - delta[u]);
           }
-        uint32_t dsf[NS][4];
-        pack_a<NS>(dsf, ds);
-        acc_chunk_times<NS>(acc, dsf, ks + 16 * c * LDH, nks, lane);
+        uint32_t dsf[4];
+        pack_a(dsf, ds);
+        acc_chunk_times(acc, dsf, ks + 16 * c * LDH, nks, lane);
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
@@ -570,9 +480,8 @@ __global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
 // dv = sum_q P^T dO; dk = (sum_q dS^T Q) * scale, which equals the JAX
 // kernel's sum against the scaled q (:144,152). bf16, as the dQ kernel.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     flash_bwd_dkv_kernel(const BwdArgs<bf16> a) {
-  constexpr int NS = 1, TS = SPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);        // [TS]
   bf16* vs = ks + TS;                              // [TS]
@@ -640,11 +549,11 @@ __global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
             ds[j][i] = p[j][i] * (dp[j][i] - (e ? d2.y : d2.x));
           }
         }
-        uint32_t pf[NS][4], dsf[NS][4];
-        pack_a<NS>(pf, p);
-        pack_a<NS>(dsf, ds);
-        acc_chunk_times<NS>(dv, pf, dos + 16 * c * LDH, nks, lane);   // dV += P^T dO
-        acc_chunk_times<NS>(dk, dsf, qs + 16 * c * LDH, nks, lane);   // dK += dS^T Q
+        uint32_t pf[4], dsf[4];
+        pack_a(pf, p);
+        pack_a(dsf, ds);
+        acc_chunk_times(dv, pf, dos + 16 * c * LDH, nks, lane);   // dV += P^T dO
+        acc_chunk_times(dk, dsf, qs + 16 * c * LDH, nks, lane);   // dK += dS^T Q
       }
     }
     __syncthreads();   // everyone is done with this stage before it is refilled
@@ -655,10 +564,9 @@ __global__ void __launch_bounds__(THREADS, Parts<bf16>::MIN_BLOCKS)
   }
 }
 
-constexpr size_t kTileBytes = sizeof(bf16) * TILE * LDH;
-// q (then half of stage 1), its second tile of stage 1, and stage 0 of K/V
-template <typename E>
-constexpr size_t fwd_smem() { return 4 * Parts<E>::N * kTileBytes; }
+constexpr size_t kTileBytes = sizeof(bf16) * TS;
+// forward: q (then half of stage 1), the second tile of stage 1, and stage 0 of K/V
+constexpr size_t fwd_smem() { return 4 * kTileBytes; }
 // bf16 dQ: q, dO, o (then stage 1 of K/V), and stage 0 of K/V
 constexpr size_t dq_smem() { return 5 * kTileBytes; }
 // bf16 dK/dV: K, V, and two stages of q, dO, lse and delta
@@ -690,8 +598,9 @@ void set_inputs(A& a, const void* q, const void* k, const void* v, int T, int hd
   a.scale = 1.0f / sqrtf(static_cast<float>(hd));
 }
 
-// Each launcher takes these kernels for hd <= 64 (the chunked training
-// path's); above, flash_attention_wide.cu's.
+// Each launcher takes these kernels for bf16 at hd <= 64 (the chunked
+// training path's), flash_attention_f32.cu's for f32 there, and
+// flash_attention_wide.cu's above.
 template <typename E>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int T, int hd,
         int causal, void* stream) {
@@ -699,9 +608,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
   set_inputs(a, q, k, v, T, hd, causal);
   a.o = static_cast<E*>(o);
   a.lse = static_cast<float*>(lse);
-  if (a.hdp <= 64)
-    return launch(flash_fwd_kernel<E>, fwd_smem<E>(), a, BH, stream);
-  return flash_wide_fwd(a, BH, stream);
+  if (a.hdp > 64) return flash_wide_fwd(a, BH, stream);
+  if constexpr (sizeof(E) == 4)
+    return flash_f32_fwd(a, BH, stream);
+  else
+    return launch(flash_fwd_kernel, fwd_smem(), a, BH, stream);
 }
 
 template <typename E>
@@ -742,10 +653,10 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 
 template <typename E>
 int kernel_blocks_per_sm(int which) {
-  if (which == 0) return blocks_per_sm(flash_fwd_kernel<E>, fwd_smem<E>());
   if constexpr (sizeof(E) == 4) {
     return flash_f32_blocks_per_sm(which);
   } else {
+    if (which == 0) return blocks_per_sm(flash_fwd_kernel, fwd_smem());
     if (which == 1) return blocks_per_sm(flash_bwd_dq_kernel, dq_smem());
     return blocks_per_sm(flash_bwd_dkv_kernel, dkv_smem());
   }

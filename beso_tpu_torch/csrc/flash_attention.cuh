@@ -1,8 +1,8 @@
 // What the flash-attention sources share: the kernels' arguments, which
 // flash_attention.cu's launchers fill, and the entries those launchers call:
 // flash_attention_wide.cu's at tile width 128 (the forward and the backward,
-// in both dtypes) and flash_attention_f32.cu's, the f32 backward at tile
-// width 64.
+// in both dtypes) and flash_attention_f32.cu's, the f32 forward and backward
+// at tile width 64.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,7 +38,7 @@ struct BwdArgs {
 
 // flash_attention_wide.cu, for hdp 80-128: each launches on `stream` the
 // kernel for BH heads' worth of `a` and returns cudaGetLastError() (0 =
-// launched). `vec` is the mma.sync kernels' alone; these ignore it.
+// launched). `vec` is the bf16 mma.sync kernels' alone; these ignore it.
 int flash_wide_fwd(const FwdArgs<__nv_bfloat16>& a, int BH, void* stream);
 int flash_wide_fwd(const FwdArgs<float>& a, int BH, void* stream);
 int flash_wide_bwd_dq(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream);
@@ -49,9 +49,10 @@ int flash_wide_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream);
 // dK/dV kernel (2), bf16 or (f32) f32; -1 on an error.
 int flash_wide_blocks_per_sm(int which, int f32);
 
-// flash_attention_f32.cu, the f32 backward for hdp <= 64: as above; and the
-// resident blocks per SM of the dQ (which = 1) or the dK/dV kernel (2), -1
-// on an error.
+// flash_attention_f32.cu, the f32 kernels for hdp <= 64: as above; and the
+// resident blocks per SM of the forward (which = 0), the dQ (1) or the dK/dV
+// kernel (2), -1 on an error.
+int flash_f32_fwd(const FwdArgs<float>& a, int BH, void* stream);
 int flash_f32_bwd_dq(const BwdArgs<float>& a, int BH, void* stream);
 int flash_f32_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream);
 int flash_f32_blocks_per_sm(int which);

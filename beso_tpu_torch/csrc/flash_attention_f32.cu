@@ -1,10 +1,12 @@
-// The f32 flash backward at tile width 64 (padded head dims 16-64) on Hopper
-// `wgmma` with bulk tensor copies: TPU kernel B6, `_flash_attention_bwd`
-// (beso_tpu/ops/flash_attention.py:182-259), the dQ kernel `_bwd_dq_kernel`
-// (:78-109, call :221) with delta (:212-214) and the dK/dV kernel
-// `_bwd_dkv_kernel` (:112-153, call :240). flash_attention.cu's launchers
-// call these for f32 at hdp <= 64; its `mma.sync` template keeps the bf16
-// kernels and the f32 forward, flash_attention_wide.cu the width-128 ones.
+// The f32 flash kernels at tile width 64 (padded head dims 16-64) on Hopper
+// `wgmma` with bulk tensor copies: the forward (TPU kernel B5,
+// `_flash_forward` / `_flash_kernel`, beso_tpu/ops/flash_attention.py:34-75,
+// 269-308) and the backward (TPU kernel B6, `_flash_attention_bwd` :182-259:
+// the dQ kernel `_bwd_dq_kernel` (:78-109, call :221) with delta (:212-214)
+// and the dK/dV kernel `_bwd_dkv_kernel` (:112-153, call :240)).
+// flash_attention.cu's launchers call these for f32 at hdp <= 64; that
+// source keeps the bf16 kernels at this width, flash_attention_wide.cu both
+// dtypes' above it.
 //
 // Layout and numerics as in flash_attention.cu: q, k, v, o, dO, dq, dk, dv
 // [B*H, T, hd] f32 contiguous, lse and delta [B*H, T] f32, lse the natural
@@ -14,14 +16,16 @@
 // is bit-equal to the first. The dQ kernel computes delta = rowsum(dO * O)
 // and writes it for the dK/dV kernel, so a backward is two launches.
 //
-// What bounds them on the H100: at [256, 6, 131, 60] a launch moves ~290 MB
-// (dQ: q, k, v, o, dO in and dq out; dK/dV: q, k, v, dO in and dk, dv out;
-// with lse and delta), 0.0870 ms at 3.35 TB/s. Their products on whole
-// 64 x 64 tiles, three per pair, come to ~43 GFLOP per launch of either
-// kernel (dQ: 24,576 (query, key) pairs per (b, h); dK/dV: 18,432 with the
-// halves past T skipped), 0.044 ms at the 989 TFLOP/s bf16 peak: half the
-// byte bound, so the products need `wgmma`'s rate and the copies must not
-// wait for them. What the design does about it:
+// What bounds them on the H100: at [256, 6, 131, 60] the forward moves
+// ~194 MB (q, k, v in, o and lse out), 0.0579 ms at 3.35 TB/s, and a
+// backward launch ~290 MB (dQ: q, k, v, o, dO in and dq out; dK/dV: q, k,
+// v, dO in and dk, dv out; with lse and delta), 0.0870 ms. Their products on
+// whole 64 x 64 tiles, three per pair, come to ~29 GFLOP (forward) and ~43
+// GFLOP per launch of either backward kernel (24,576 (query, key) pairs per
+// (b, h); dK/dV 18,432 with the halves past T skipped), 0.029 and 0.044 ms
+// at the 989 TFLOP/s bf16 peak: half the byte bound, so the products need
+// `wgmma`'s rate and the copies must not wait for them. What the design
+// does about it:
 // - Copies that cost the compute threads nothing: where hd % 4 == 0 (f32
 //   rows a multiple of 16 bytes), thread 0 issues bulk tensor copies of the
 //   f32 tiles (tensor maps over [B*H, T, hd], rows past T and columns past
@@ -31,32 +35,36 @@
 //   column conflict-free. Other hd (odd, or 2 mod 4) take the `<false>` form:
 //   all threads copy into the same layout with zero-filling `cp.async`
 //   (8-byte where hd is even, else 4-byte), one commit group per stage.
-// - The split in place: a landed f32 tile pair (32 KB) is read by all
-//   threads, split into bf16 hi/lo core-matrix tiles (the layout `wgmma`
-//   reads) and written back over the same 32 KB; the copies of the next
-//   stage fly meanwhile. A fence.proxy.async and a barrier hand the tiles
+// - The split in place: a landed f32 tile (16 KB) or pair (32 KB) is read by
+//   all threads, split into bf16 hi/lo core-matrix tiles (the layout `wgmma`
+//   reads) and written back over the same bytes; the copies of the next
+//   stages fly meanwhile. A fence.proxy.async and a barrier hand the tiles
 //   to `wgmma`.
 // - The products on `wgmma`: S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T,
 //   dP^T = V dO^T) from shared memory, K-major, three products each; P and
-//   dS split in registers as the A operand of dQ += dS K, dV += P^T dO and
-//   dK += dS^T Q, whose B is read MN-major (`wgmma_rs<64, 1>`). The dK/dV
-//   kernel takes each streamed tile in halves of 32 queries and skips a half
-//   wholly past T; both skip key tiles above the diagonal.
-// - Warps per SM: one warpgroup per block, two blocks per SM (8 warps, as
-//   the `mma.sync` template held). A block keeps a pair (32 KB: Q and dO, or
-//   K and V) and streams K/V (or Q and dO with their lse and delta) through
-//   STAGES = 2 stages of 32 KB: 97 KB, so two blocks share an SM and one
-//   block's copies overlap the other's products. A third stage (every tile
-//   in flight at T <= 192) would leave one block of 4 warps per SM: with the
-//   in-place split a stage costs its f32 bytes only, and two resident
-//   blocks hide more of the load latency than a deeper ring in one.
+//   dS split in registers as the A operand of O += P V, dQ += dS K,
+//   dV += P^T dO and dK += dS^T Q, whose B is read MN-major
+//   (`wgmma_rs<64, 1>`). The forward's online softmax updates the row max
+//   and rescales O once per 64-key tile (flash_wgmma.cuh's `fwd_step`, the
+//   width-128 forwards' too). The dK/dV kernel takes each streamed tile in
+//   halves of 32 queries and skips a half wholly past T; all three skip key
+//   tiles above the diagonal.
+// - Warps per SM: one warpgroup per block, two blocks per SM (8 warps). The
+//   forward keeps Q (16 KB) and streams K/V through FWD_STAGES = 3 stages of
+//   32 KB: 113 KB, two blocks per SM, and at T <= 192 every key tile of a
+//   block in flight at once. A backward block keeps a pair (32 KB: Q and
+//   dO, or K and V) and streams K/V (or Q and dO with their lse and delta)
+//   through STAGES = 2 stages: 97 KB, two blocks per SM; a third stage
+//   there would leave one block of 4 warps per SM, and two resident blocks
+//   hide more of the load latency than a deeper ring in one.
 // - delta comes from O and dO in global memory while the first tiles land:
 //   two threads per row, each issuing all of its 16-byte loads before it
 //   sums (a loop that waits for each load in turn left that latency
 //   exposed; PERF.md has the times).
-// - The ragged edge: K and V rows (dQ) and Q and dO rows (dK/dV) past T are
-//   zero, since P = 0 or dS = 0 times garbage could be NaN (the copies
-//   zero-fill them); the dK/dV kernel masks p (not s) for query columns >= T.
+// - The ragged edge: K and V rows (forward, dQ) and Q and dO rows (dK/dV)
+//   past T are zero, since P = 0 or dS = 0 times garbage could be NaN (the
+//   copies zero-fill them); the dK/dV kernel masks p (not s) for query
+//   columns >= T.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,22 +107,24 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src, int nr
   }
 }
 
-// Tile `tile` of the (b, h) at row rbase of x0 and x1 into the two staged
-// f32 tiles at dst and dst + TILE, rows past T and columns past hd zero.
-// kTma: thread 0 issues the boxes of the maps m, counted on `bar`; else
-// every thread's `cp.async` copies, in the caller's commit group.
-template <bool kTma>
-__device__ __forceinline__ void load_pair(float* dst, const CUtensorMap* m, const float* x0,
-                                          const float* x1, int tile, int bh, size_t rbase,
-                                          const BwdArgs<float>& a, uint64_t* bar, int t) {
+// Tile `tile` of the (b, h) at row rbase of x0 (and, NT = 2, of x1) into
+// the staged f32 tiles at dst (and dst + TILE), rows past T and columns past
+// hd zero; `a` gives T, hd and hdp (forward or backward arguments). kTma:
+// thread 0 issues the boxes of the maps m, counted on `bar`; else every
+// thread's `cp.async` copies, in the caller's commit group.
+template <int NT, bool kTma, class A>
+__device__ __forceinline__ void load_tiles(float* dst, const CUtensorMap* m, const float* x0,
+                                           const float* x1, int tile, int bh, size_t rbase,
+                                           const A& a, uint64_t* bar, int t) {
   if constexpr (kTma) {
     if (t == 0) {
       const int nbox = a.hdp > 32 ? 2 : 1;
       hopper::fence_proxy_async();   // the split's writes to a refilled stage come first
-      hopper::mbar_arrive_expect_tx(bar, 2 * nbox * BOX_BYTES);
+      hopper::mbar_arrive_expect_tx(bar, NT * nbox * BOX_BYTES);
       for (int b = 0; b < nbox; ++b) {
         hopper::tma_load_3d(dst + b * ROWS * 32, &m[0], 32 * b, tile * ROWS, bh, bar);
-        hopper::tma_load_3d(dst + TILE + b * ROWS * 32, &m[1], 32 * b, tile * ROWS, bh, bar);
+        if constexpr (NT == 2)
+          hopper::tma_load_3d(dst + TILE + b * ROWS * 32, &m[1], 32 * b, tile * ROWS, bh, bar);
       }
     }
   } else {
@@ -122,10 +132,10 @@ __device__ __forceinline__ void load_pair(float* dst, const CUtensorMap* m, cons
     const int nrows = a.T - tile * ROWS;
     if (a.hd & 1) {
       stage_async<4>(dst, x0 + off, nrows, a.hd, a.hdp, t);
-      stage_async<4>(dst + TILE, x1 + off, nrows, a.hd, a.hdp, t);
+      if constexpr (NT == 2) stage_async<4>(dst + TILE, x1 + off, nrows, a.hd, a.hdp, t);
     } else {
       stage_async<8>(dst, x0 + off, nrows, a.hd, a.hdp, t);
-      stage_async<8>(dst + TILE, x1 + off, nrows, a.hd, a.hdp, t);
+      if constexpr (NT == 2) stage_async<8>(dst + TILE, x1 + off, nrows, a.hd, a.hdp, t);
     }
   }
 }
@@ -164,24 +174,102 @@ __device__ __forceinline__ void split_write(bf16* dst, const Split& s, int hdp, 
   }
 }
 
-// The landed f32 tile pair at p, split in place: hi/lo core-matrix tiles of
+// The NT landed f32 tiles at p, split in place: hi/lo core-matrix tiles of
 // the first at p (bf16 elements [0, 2 TILE)), of the second TILE floats
 // further; columns >= hdp are left as they were (no product reads them into
 // a stored column). Every thread of the block calls it.
-__device__ __forceinline__ void split_pair(float* p, int hdp, int t) {
+template <int NT>
+__device__ __forceinline__ void split_tiles(float* p, int hdp, int t) {
   Split x, y;
   split_read(x, p, hdp, t);
-  split_read(y, p + TILE, hdp, t);
-  __syncthreads();   // the pair is read before any thread writes over it
+  if constexpr (NT == 2) split_read(y, p + TILE, hdp, t);
+  __syncthreads();   // the tiles are read before any thread writes over them
   split_write(reinterpret_cast<bf16*>(p), x, hdp, t);
-  split_write(reinterpret_cast<bf16*>(p + TILE), y, hdp, t);
+  if constexpr (NT == 2) split_write(reinterpret_cast<bf16*>(p + TILE), y, hdp, t);
   hopper::fence_proxy_async();   // the hi/lo tiles are visible to wgmma
   __syncthreads();
 }
 
-struct F32Maps {   // the tensor maps of the kept and the streamed pair
+struct F32Maps {   // the tensor maps of the kept tile or pair and the streamed pair
   CUtensorMap kept[2], strm[2];
 };
+
+// ---------------------------------------------------------------------------
+// The forward: grid B*H * n, the query tiles of a (b, h) adjacent (they
+// share its K/V in L2) and the last (most key tiles) first; block = one
+// warpgroup on query tile qt, keeping Q (split in place into hi/lo) and
+// streaming the K/V tiles up to the diagonal (all n when not causal)
+// through FWD_STAGES stages. Each key tile is one `fwd_step`: S = Q K^T as
+// one m64n64 product chain over the head dim, the mask on the ragged or
+// diagonal tile only, one row-max update and one rescale of O, P split in
+// registers, O += P V. o = (sum_k P V) / l straight from the fragments,
+// lse = m + log(l) in natural-log units.
+// ---------------------------------------------------------------------------
+constexpr int FWD_STAGES = 3;
+constexpr size_t FWD_RING = sizeof(float) * TILE + FWD_STAGES * PAIR_BYTES;   // Q, the stages
+constexpr size_t FWD_SMEM = FWD_RING + sizeof(uint64_t) * (FWD_STAGES + 1);
+
+template <bool kTma>
+__global__ void __launch_bounds__(WG, 2) flash_fwd_f32_kernel(
+    const __grid_constant__ F32Maps maps, const FwdArgs<float> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* kept = reinterpret_cast<float*>(smem);   // Q
+  float* ring = kept + TILE;                       // stage s: K at ring + 2 s TILE, V TILE further
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + FWD_RING);   // the stages', then Q's
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
+  const int T = a.T, hdp = a.hdp;
+  const int n = n_tiles(T), qt = n - 1 - blockIdx.x % n, bh = blockIdx.x / n;
+  const int nkt = a.causal ? qt + 1 : n;
+  const size_t rbase = static_cast<size_t>(bh) * T;
+  if (hopper::smem_u32(smem) & 1023) __trap();   // the swizzle atoms need 1024-byte alignment
+
+  if constexpr (kTma) {
+    if (t == 0) {
+      for (int i = 0; i <= FWD_STAGES; ++i) hopper::mbar_init(&full[i], 1);
+      hopper::fence_mbar_init();
+    }
+    __syncthreads();
+  }
+  auto fill = [&](int kt) {   // key tile kt into its stage
+    if (kt < nkt)
+      load_tiles<2, kTma>(ring + (kt % FWD_STAGES) * 2 * TILE, maps.strm, a.k, a.v, kt, bh,
+                          rbase, a, &full[kt % FWD_STAGES], t);
+    if constexpr (!kTma) hopper::cp_async_commit();   // one group per stage, empty past the last
+  };
+  load_tiles<1, kTma>(kept, maps.kept, a.q, nullptr, qt, bh, rbase, a, &full[FWD_STAGES],
+                      t);   // cp.async: joins the first stage's group
+  for (int s = 0; s < FWD_STAGES; ++s) fill(s);
+  if constexpr (kTma) {
+    hopper::mbar_wait(&full[FWD_STAGES], 0);
+  } else {
+    hopper::cp_async_wait<FWD_STAGES - 1>();   // Q and key tile 0 have landed
+    __syncthreads();
+  }
+  split_tiles<1>(kept, hdp, t);
+  const bf16* qs = reinterpret_cast<const bf16*>(kept);   // Q hi, lo
+
+  const float scale2 = a.scale * LOG2E;
+  float o[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nkt; ++kt) {
+    float* st = ring + (kt % FWD_STAGES) * 2 * TILE;
+    if constexpr (kTma) {
+      hopper::mbar_wait(&full[kt % FWD_STAGES], (kt / FWD_STAGES) & 1);
+    } else {
+      hopper::cp_async_wait<FWD_STAGES - 1>();   // key tile kt has landed
+      __syncthreads();
+    }
+    split_tiles<2>(st, hdp, t);
+    const bf16* ks = reinterpret_cast<const bf16*>(st);   // K hi, lo; V hi, lo
+    fwd_step<HDP, 2, false>(o, m, l, qs, ks, ks + 2 * TILE, hdp >> 4, kt, qt, T, a.causal,
+                            scale2, warp, g, q4);
+    __syncthreads();   // everyone is done with this stage before it is refilled
+    fill(kt + FWD_STAGES);
+  }
+  fwd_end<HDP>(a, o, m, l, qt, rbase, t);
+}
 
 // ---------------------------------------------------------------------------
 // The dQ kernel: grid B*H * n, the query tiles of a (b, h) adjacent (they
@@ -217,12 +305,12 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dq_f32_kernel(
   }
   auto fill = [&](int kt) {   // key tile kt into its stage
     if (kt < nkt)
-      load_pair<kTma>(ring + (kt % STAGES) * 2 * TILE, maps.strm, a.k, a.v, kt, bh, rbase, a,
-                      &full[kt % STAGES], t);
+      load_tiles<2, kTma>(ring + (kt % STAGES) * 2 * TILE, maps.strm, a.k, a.v, kt, bh, rbase,
+                          a, &full[kt % STAGES], t);
     if constexpr (!kTma) hopper::cp_async_commit();   // one group per stage, empty past the last
   };
-  load_pair<kTma>(kept, maps.kept, a.q, a.dout, qt, bh, rbase, a, &full[STAGES],
-                  t);   // cp.async: joins the first stage's group
+  load_tiles<2, kTma>(kept, maps.kept, a.q, a.dout, qt, bh, rbase, a, &full[STAGES],
+                      t);   // cp.async: joins the first stage's group
   for (int s = 0; s < STAGES; ++s) fill(s);
 
   {   // delta in f32, two threads per row, while the copies fly; lse in log2 units
@@ -271,7 +359,7 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dq_f32_kernel(
     lse2[u] = stats[16 * warp + g + 8 * u];
     delta[u] = stats[ROWS + 16 * warp + g + 8 * u];
   }
-  split_pair(kept, hdp, t);
+  split_tiles<2>(kept, hdp, t);
   const bf16* qs = reinterpret_cast<const bf16*>(kept);   // Q hi, lo; dO hi, lo
   const bf16* dos = qs + 2 * TILE;
 
@@ -287,7 +375,7 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dq_f32_kernel(
       hopper::cp_async_wait<STAGES - 1>();   // key tile kt has landed
       __syncthreads();
     }
-    split_pair(st, hdp, t);
+    split_tiles<2>(st, hdp, t);
     const bf16* ks = reinterpret_cast<const bf16*>(st);   // K hi, lo; V hi, lo
     const bf16* vs = ks + 2 * TILE;
     float s[32], dp[32];
@@ -362,8 +450,8 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_f32_kernel(
   auto fill = [&](int j) {   // query tile qt0 + j into stage j % STAGES
     if (j < nq) {
       const int slot = j % STAGES, q0 = (qt0 + j) * ROWS;
-      load_pair<kTma>(ring + slot * 2 * TILE, maps.strm, a.q, a.dout, qt0 + j, bh, rbase, a,
-                      &full[slot], t);
+      load_tiles<2, kTma>(ring + slot * 2 * TILE, maps.strm, a.q, a.dout, qt0 + j, bh, rbase,
+                          a, &full[slot], t);
       // lse (threads 0-63) and delta (64-127), 0 past T
       const int i = t & (ROWS - 1), ok = q0 + i < T;
       const float* src = (t < ROWS ? a.lse : a.delta) + rbase + (ok ? q0 + i : 0);
@@ -371,13 +459,13 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_f32_kernel(
     }
     hopper::cp_async_commit();   // one group per stage, empty past the last
   };
-  load_pair<kTma>(kept, maps.kept, a.k, a.v, kt, bh, rbase, a, &full[STAGES],
-                  t);   // cp.async: joins the first stage's group
+  load_tiles<2, kTma>(kept, maps.kept, a.k, a.v, kt, bh, rbase, a, &full[STAGES],
+                      t);   // cp.async: joins the first stage's group
   for (int s = 0; s < STAGES; ++s) fill(s);
   if constexpr (kTma) hopper::mbar_wait(&full[STAGES], 0);
   hopper::cp_async_wait<STAGES - 1>();   // (cp.async) K and V have landed
   __syncthreads();
-  split_pair(kept, hdp, t);
+  split_tiles<2>(kept, hdp, t);
   const bf16* ks = reinterpret_cast<const bf16*>(kept);   // K hi, lo; V hi, lo
   const bf16* vs = ks + 2 * TILE;
 
@@ -391,7 +479,7 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_f32_kernel(
     if constexpr (kTma) hopper::mbar_wait(&full[slot], (j / STAGES) & 1);
     hopper::cp_async_wait<STAGES - 1>();   // tile j's lse and delta (cp.async: and tiles)
     __syncthreads();
-    split_pair(st, hdp, t);
+    split_tiles<2>(st, hdp, t);
     const float* lse_s = stats + slot * 2 * ROWS;
     const float* delta_s = lse_s + ROWS;
     const bool edge = (qt + 1) * ROWS > T || (a.causal && qt == kt);
@@ -440,12 +528,13 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_f32_kernel(
   store_tile(a.dv + koff, dv, mv, nrows, a.hd, t);
 }
 
-// The maps of the kept pair (x0, x1) and the streamed pair (y0, y1); false
-// on an error.
-bool pair_maps(F32Maps& maps, const BwdArgs<float>& a, int BH, const float* x0, const float* x1,
-               const float* y0, const float* y1) {
-  return f32_map(&maps.kept[0], x0, BH, a.T, a.hd) && f32_map(&maps.kept[1], x1, BH, a.T, a.hd) &&
-         f32_map(&maps.strm[0], y0, BH, a.T, a.hd) && f32_map(&maps.strm[1], y1, BH, a.T, a.hd);
+// The maps of the kept tile x0 (and x1, unless null) and the streamed pair
+// (y0, y1) of the [BH, T, hd] tensors; false on an error.
+bool f32_maps(F32Maps& maps, int BH, int T, int hd, const float* x0, const float* x1,
+              const float* y0, const float* y1) {
+  return f32_map(&maps.kept[0], x0, BH, T, hd) &&
+         (!x1 || f32_map(&maps.kept[1], x1, BH, T, hd)) &&
+         f32_map(&maps.strm[0], y0, BH, T, hd) && f32_map(&maps.strm[1], y1, BH, T, hd);
 }
 
 }  // namespace
@@ -453,12 +542,22 @@ bool pair_maps(F32Maps& maps, const BwdArgs<float>& a, int BH, const float* x0, 
 // Entries for flash_attention.cu's launchers (flash_attention.cuh): the
 // tensor maps where f32 rows are 16-byte multiples (a failed encode returns
 // an error, no other path), else the cp.async form.
+int flash_f32_fwd(const FwdArgs<float>& a, int BH, void* stream) {
+  F32Maps maps = {};
+  const int blocks = BH * n_tiles(a.T);
+  if (a.hd % 4)
+    return hopper::launch(flash_fwd_f32_kernel<false>, FWD_SMEM, blocks, WG, stream, maps, a);
+  if (!f32_maps(maps, BH, a.T, a.hd, a.q, nullptr, a.k, a.v))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hopper::launch(flash_fwd_f32_kernel<true>, FWD_SMEM, blocks, WG, stream, maps, a);
+}
+
 int flash_f32_bwd_dq(const BwdArgs<float>& a, int BH, void* stream) {
   F32Maps maps = {};
   const int blocks = BH * n_tiles(a.T);
   if (a.hd % 4)
     return hopper::launch(flash_bwd_dq_f32_kernel<false>, DQ_SMEM, blocks, WG, stream, maps, a);
-  if (!pair_maps(maps, a, BH, a.q, a.dout, a.k, a.v))
+  if (!f32_maps(maps, BH, a.T, a.hd, a.q, a.dout, a.k, a.v))
     return static_cast<int>(cudaErrorInvalidValue);
   return hopper::launch(flash_bwd_dq_f32_kernel<true>, DQ_SMEM, blocks, WG, stream, maps, a);
 }
@@ -468,12 +567,13 @@ int flash_f32_bwd_dkv(const BwdArgs<float>& a, int BH, void* stream) {
   const int blocks = BH * n_tiles(a.T);
   if (a.hd % 4)
     return hopper::launch(flash_bwd_dkv_f32_kernel<false>, DKV_SMEM, blocks, WG, stream, maps, a);
-  if (!pair_maps(maps, a, BH, a.k, a.v, a.q, a.dout))
+  if (!f32_maps(maps, BH, a.T, a.hd, a.k, a.v, a.q, a.dout))
     return static_cast<int>(cudaErrorInvalidValue);
   return hopper::launch(flash_bwd_dkv_f32_kernel<true>, DKV_SMEM, blocks, WG, stream, maps, a);
 }
 
 int flash_f32_blocks_per_sm(int which) {
+  if (which == 0) return hopper::blocks_per_sm(flash_fwd_f32_kernel<true>, FWD_SMEM, WG);
   return which == 1 ? hopper::blocks_per_sm(flash_bwd_dq_f32_kernel<true>, DQ_SMEM, WG)
                     : hopper::blocks_per_sm(flash_bwd_dkv_f32_kernel<true>, DKV_SMEM, WG);
 }

@@ -4,9 +4,10 @@
 // kernel B6, `_flash_attention_bwd` :182-259: the dQ kernel `_bwd_dq_kernel`
 // :78-109 with delta (:212-214), call :221, and the dK/dV kernel
 // `_bwd_dkv_kernel` :112-153, call :240), each in bf16 and f32. The width-64
-// kernels are in flash_attention.cu (and the f32 backward's in
-// flash_attention_f32.cu), whose launchers call these above it; what both
-// `wgmma` sources share is flash_wgmma.cuh.
+// kernels are in flash_attention.cu (bf16) and flash_attention_f32.cu (f32);
+// flash_attention.cu's launchers call these above it. What both `wgmma`
+// sources share, the forward's online-softmax step and end among it, is
+// flash_wgmma.cuh.
 //
 // Layout and numerics as in flash_attention.cu: q, k, v, o, dO, dq, dk, dv
 // [B*H, T, hd] contiguous, lse and delta [B*H, T] f32, lse of the scaled
@@ -227,91 +228,6 @@ __device__ __forceinline__ void store_tile(bf16* dst, const float (&acc)[64],
   }
 }
 
-// ---- the forward's step and end ---------------------------------------------
-// One 64-key tile kt of the online softmax for this warpgroup's query tile
-// qt (q: its core-matrix tile, NS parts; k, v: the key tile's): S = Q K^T on
-// wgmma, the mask (only on the ragged or diagonal tile), one row-max update
-// and one rescale of O, P into registers, O += P V. Thread rows g and
-// g + 8 of its warp's 16; m in log2 units, l this thread's share of the sum.
-template <int NS, bool kSw>
-__device__ __forceinline__ void fwd_step(float (&o)[64], float (&m)[2], float (&l)[2],
-                                         const bf16* q, const bf16* k, const bf16* v, int nks,
-                                         int kt, int qt, int T, bool causal, float scale2,
-                                         int warp, int g, int q4) {
-  float s[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-  hopper::wgmma_fence();
-  issue_abt<MAX_HDP, NS, 64, kSw>(s, q, k, nks);
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs<32>(s);
-  // every row keeps key kt * 64 (< T; and <= the row when causal, since kt <= qt)
-  const bool edge = (kt + 1) * ROWS > T || (causal && kt == qt);
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int u = (i >> 1) & 1;
-    const int key = kt * ROWS + 8 * (i >> 2) + 2 * q4 + (i & 1);
-    const int row = qt * ROWS + 16 * warp + g + 8 * u;
-    const bool ok = !edge || (key < T && (!causal || key <= row));
-    s[i] = ok ? s[i] * scale2 : -INFINITY;
-    mx[u] = fmaxf(mx[u], s[i]);
-  }
-  float alpha[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
-    mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
-    const float m_new = fmaxf(m[u], mx[u]);
-    alpha[u] = exp2f(m[u] - m_new);   // 0 on the first tile (m = -inf)
-    m[u] = m_new;
-    l[u] *= alpha[u];
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int u = (i >> 1) & 1;
-    s[i] = exp2f(s[i] - m[u]);   // P; masked scores give 0
-    l[u] += s[i];
-  }
-  uint32_t pf[NS][4][4];
-  pack_frags<NS, 4>(pf, s);
-  hopper::fence_regs<64>(o);
-  hopper::wgmma_fence();
-  issue_xb<MAX_HDP, NS, 4, kSw>(o, pf, v);
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs<64>(o);
-}
-
-// lse = m + log(l) (natural log) for the rows < T, and o / l out to the
-// tile's rows (bf16 through `buf`, this warpgroup's q tile once every warp's
-// products are done with it).
-template <typename E>
-__device__ __forceinline__ void fwd_end(const FwdArgs<E>& a, float (&o)[64], float (&m)[2],
-                                        float (&l)[2], int qt, size_t rbase, bf16* buf, int t,
-                                        int wg) {
-  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
-  float inv[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
-    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
-    const float lc = fmaxf(l[u], 1e-30f);
-    inv[u] = 1.f / lc;
-    const int row = qt * ROWS + 16 * warp + g + 8 * u;
-    if (q4 == 0 && row < a.T) a.lse[rbase + row] = m[u] * LN2 + logf(lc);
-  }
-  E* out = a.o + (rbase + static_cast<size_t>(qt) * ROWS) * a.hd;
-  const int nrows = min(ROWS, a.T - qt * ROWS);
-  if constexpr (sizeof(E) == 4) {
-    store_tile(out, o, inv, nrows, a.hd, t);
-  } else {
-    wg_sync(wg);
-    store_tile(out, o, inv, buf, nrows, a.hd, t, wg);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // B5, forward, bf16: grid B*H * n for n = ceil(T / 64) query tiles, a (b, h)'s
 // tiles adjacent (they share its K/V in L2); block = one warpgroup on one
@@ -401,12 +317,16 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wide_bf16_kernel(
       __syncthreads();
     }
     const bf16* st = ring + (kt % FWD_STAGES) * 2 * TILE;
-    fwd_step<1, true>(o, m, l, qs, st, st + TILE, hdp >> 4, kt, qt, T, a.causal, scale2, warp, g,
-                      q4);
+    fwd_step<MAX_HDP, 1, true>(o, m, l, qs, st, st + TILE, hdp >> 4, kt, qt, T, a.causal, scale2,
+                               warp, g, q4);
     __syncthreads();   // everyone is done with this stage before it is refilled
     fill(kt + FWD_STAGES);
   }
-  fwd_end(a, o, m, l, qt, rbase, qs, t, 0);   // out through the q tile and the ring
+  float inv[2];
+  fwd_lse(a, inv, l, m, qt, rbase, t);
+  wg_sync(0);   // out through the q tile and the ring, once every product is done with them
+  store_tile(a.o + (rbase + static_cast<size_t>(qt) * ROWS) * a.hd, o, inv, qs,
+             min(ROWS, a.T - qt * ROWS), a.hd, t, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,10 +394,10 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_fwd_wide_f32_kernel(const Fwd
     }
     hopper::cp_async_commit();
     if (kt < my_nkt) {
-      fwd_step<2, false>(o, m, l, qs + 2 * wg * TILE, kv, kv + 2 * TILE, hdp >> 4, kt, qt, T,
-                         a.causal, scale2, warp, g, q4);
+      fwd_step<MAX_HDP, 2, false>(o, m, l, qs + 2 * wg * TILE, kv, kv + 2 * TILE, hdp >> 4, kt,
+                                  qt, T, a.causal, scale2, warp, g, q4);
       if (kt == my_nkt - 1)   // this warpgroup's last tile
-        fwd_end(a, o, m, l, qt, rbase, qs + 2 * wg * TILE, t, wg);
+        fwd_end<MAX_HDP>(a, o, m, l, qt, rbase, t);
     }
   }
 }

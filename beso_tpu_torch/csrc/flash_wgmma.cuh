@@ -1,10 +1,12 @@
 // What the flash kernels on `wgmma` share: flash_attention_wide.cu's
 // (tile width 128: the forward and the backward in both dtypes) and
-// flash_attention_f32.cu's (tile width 64: the f32 backward). 64-row tiles
-// of bf16 8 x 8 core matrices, the f32 operands split into bf16 hi and lo
-// parts, the products (S = Q K^T from shared memory; P or dS as a register
-// A operand against an MN-major B), the f32 output straight from the
-// accumulator fragments, and the tensor maps of the bulk tensor copies.
+// flash_attention_f32.cu's (tile width 64: the f32 forward and backward).
+// 64-row tiles of bf16 8 x 8 core matrices, the f32 operands split into bf16
+// hi and lo parts, the products (S = Q K^T from shared memory; P or dS as a
+// register A operand against an MN-major B), the forward's online-softmax
+// step over one 64-key tile and its end (lse, and the f32 output straight
+// from the accumulator fragments), and the tensor maps of the bulk tensor
+// copies.
 // The functions that depend on the tile width take it as their first
 // template argument, HDP (64 or 128): a core-matrix tile of one part is
 // ROWS x HDP bf16, and an operand's lo part starts that far past its hi part.
@@ -13,8 +15,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
+#include <math.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -142,6 +146,92 @@ __device__ __forceinline__ void store_tile(float* dst, const float (&acc)[N],
         }
       }
     }
+}
+
+// ---- the forward's step and end -------------------------------------------
+// One 64-key tile kt of the online softmax for this warpgroup's query tile
+// qt (q: its core-matrix tile, NS parts; k, v: the key tile's): S = Q K^T on
+// wgmma, the mask (only on the ragged or diagonal tile), one row-max update
+// and one rescale of O, P into registers, O += P V. Thread rows g and
+// g + 8 of its warp's 16; m in log2 units, l this thread's share of the sum.
+template <int HDP, int NS, bool kSw>
+__device__ __forceinline__ void fwd_step(float (&o)[HDP / 2], float (&m)[2], float (&l)[2],
+                                         const bf16* q, const bf16* k, const bf16* v, int nks,
+                                         int kt, int qt, int T, bool causal, float scale2,
+                                         int warp, int g, int q4) {
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  hopper::wgmma_fence();
+  issue_abt<HDP, NS, 64, kSw>(s, q, k, nks);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs<32>(s);
+  // every row keeps key kt * 64 (< T; and <= the row when causal, since kt <= qt)
+  const bool edge = (kt + 1) * ROWS > T || (causal && kt == qt);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int u = (i >> 1) & 1;
+    const int key = kt * ROWS + 8 * (i >> 2) + 2 * q4 + (i & 1);
+    const int row = qt * ROWS + 16 * warp + g + 8 * u;
+    const bool ok = !edge || (key < T && (!causal || key <= row));
+    s[i] = ok ? s[i] * scale2 : -INFINITY;
+    mx[u] = fmaxf(mx[u], s[i]);
+  }
+  float alpha[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+    mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+    const float m_new = fmaxf(m[u], mx[u]);
+    alpha[u] = exp2f(m[u] - m_new);   // 0 on the first tile (m = -inf)
+    m[u] = m_new;
+    l[u] *= alpha[u];
+  }
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int u = (i >> 1) & 1;
+    s[i] = exp2f(s[i] - m[u]);   // P; masked scores give 0
+    l[u] += s[i];
+  }
+  uint32_t pf[NS][4][4];
+  pack_frags<NS, 4>(pf, s);
+  hopper::fence_regs<HDP / 2>(o);
+  hopper::wgmma_fence();
+  issue_xb<HDP, NS, 4, kSw>(o, pf, v);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs<HDP / 2>(o);
+}
+
+// The end of a query tile's forward: l summed over a row's four lanes,
+// lse = m + log(l) (natural log) for the rows < T, and inv = 1 / l, the
+// sum clamped at 1e-30 as in the JAX kernel (:73,75), for rows g, g + 8.
+template <typename E>
+__device__ __forceinline__ void fwd_lse(const FwdArgs<E>& a, float (&inv)[2], float (&l)[2],
+                                        const float (&m)[2], int qt, size_t rbase, int t) {
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    const float lc = fmaxf(l[u], 1e-30f);
+    inv[u] = 1.f / lc;
+    const int row = qt * ROWS + 16 * warp + g + 8 * u;
+    if (q4 == 0 && row < a.T) a.lse[rbase + row] = m[u] * LN2 + logf(lc);
+  }
+}
+
+// f32: lse, and o / l out to the tile's rows straight from the fragments.
+template <int HDP>
+__device__ __forceinline__ void fwd_end(const FwdArgs<float>& a, float (&o)[HDP / 2],
+                                        float (&m)[2], float (&l)[2], int qt, size_t rbase,
+                                        int t) {
+  float inv[2];
+  fwd_lse(a, inv, l, m, qt, rbase, t);
+  store_tile(a.o + (rbase + static_cast<size_t>(qt) * ROWS) * a.hd, o, inv,
+             min(ROWS, a.T - qt * ROWS), a.hd, t);
 }
 
 // ---- tensor maps (host) -----------------------------------------------------

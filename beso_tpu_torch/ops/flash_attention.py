@@ -13,18 +13,19 @@ beside dq, so a backward is exactly two launches.
 What bounds the kernels on the H100, and the design (details in
 `csrc/flash_attention.cu`, `csrc/flash_attention_f32.cu` and
 `csrc/flash_attention_wide.cu`): at the chunked training shape
-[256, 6, 131, 60] a launch reads ~24 MB per tensor and its products take a
-few microseconds at the tensor cores' peak, so it is bound by bytes and
-latency. Up to hd 64 (bf16, and the f32 forward) each warp keeps its 16
-rows' score, P and dS tiles in `mma.sync` fragments (the forward runs its
+[256, 6, 131, 60] a launch reads ~24 MB per tensor in bf16 and its products
+take a few microseconds at the tensor cores' peak, so it is bound by bytes
+and latency. Up to hd 64 in bf16 (`flash_attention.cu`) each warp keeps its
+16 rows' score, P and dS tiles in `mma.sync` fragments (the forward runs its
 online softmax on them), the streamed tiles come in by `cp.async` two
 stages deep, and warps skip the 16-row chunks past T and above the
-diagonal; the f32 backward up to hd 64 runs 64-row tiles on `wgmma`, its
-f32 tiles by bulk tensor copies split in place into bf16 hi/lo parts.
-Above hd 64 all three kernels, in both dtypes, run 64-row tiles on `wgmma`
-(the bf16 kernels' tiles by bulk tensor copies where rows are 16-byte
-aligned). The head dim is zero-padded to a multiple of 16 in shared memory
-and the ragged edge is masked in the kernels, with no padded copies.
+diagonal. Up to hd 64 in f32 (`flash_attention_f32.cu`) all three kernels
+run 64-row tiles on `wgmma`, their f32 tiles by bulk tensor copies (where
+rows are 16-byte aligned) split in place into bf16 hi/lo parts. Above hd 64
+all three kernels, in both dtypes, run 64-row tiles on `wgmma` (the bf16
+kernels' tiles by bulk tensor copies where rows are 16-byte aligned). The
+head dim is zero-padded to a multiple of 16 in shared memory and the ragged
+edge is masked in the kernels, with no padded copies.
 
 The kernels take q, k, v (and o, dO) all bf16 or all f32, as the JAX
 kernels take the model's dtype, and head dims up to 128; the f32

@@ -1,15 +1,16 @@
 """Times the port's CUDA kernels in several checkouts in turn, on one card.
 
-    python3 beso_tpu_torch/scripts/compare_kernels.py --trees build/parent,.,.,build/parent \
-        [--out build/compare_kernels.json]
+    python3 beso_tpu_torch/scripts/compare_kernels.py \
+        --trees build/parent,.,.,build/parent,build/parent,. [--out build/compare_kernels.json]
 
 Each tree is a checkout of this repository (a `git archive` of a commit
 unpacked in a git-ignored directory, or `.`). The kernels of every tree
 are built first, all trees in parallel, each into its own `build/kernels/`.
 Then each entry of `--trees` runs in a process of its own, in the order
-given (parent, change, change, parent compares two commits on one card
-within one call), and times with `chip_smoke.py`'s own helpers of this
-checkout at its shapes, CUDA events after warm-up:
+given (parent, change, change, parent, parent, change compares two
+commits on one card within one call, each three times), and times with
+`chip_smoke.py`'s own helpers of this checkout at its shapes, CUDA events
+after warm-up:
 
 - the flash kernels B5 / B6 (forward, dQ with delta, dK/dV, the backward
   total) at the chunked shape [256, 6, 131, 60], at [256, 3, 131, 128] and

@@ -10,14 +10,15 @@ exits non-zero on failure:
 
 0. device: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
 1. build: compile the kernel library for sm_90a, print seconds, ptxas's
-   registers, stack and spill bytes per kernel (each flash kernel at tile
-   width 64 in bf16 and in f32, and the nine width-128
+   registers, stack and spill bytes per kernel (each bf16 flash kernel at
+   tile width 64, and the nine width-128
    `wgmma` instantiations of flash_attention_wide.cu, all of which must be
-   there; no bf16 flash kernel may spill, and the bf16 width-128 dQ and
-   dK/dV kernels must have HGMMA instructions; the f32 width-64 dQ and
-   dK/dV kernels of flash_attention_f32.cu, each in its bulk-copy and its
-   `cp.async` form, must all be there, none may spill and each must have
-   HGMMA instructions) and, from cuobjdump -sass,
+   there; no bf16 flash kernel may spill, flash_attention.cu must build no
+   f32 forward, and the bf16 width-128 dQ and dK/dV kernels must have
+   HGMMA instructions; the f32 width-64 forward, dQ and dK/dV kernels of
+   flash_attention_f32.cu, each in its bulk-copy and its `cp.async` form,
+   must all be there, none may spill and each must have HGMMA
+   instructions) and, from cuobjdump -sass,
    the HGMMA (wgmma)
    instructions of each of the five instantiations of the bf16 and of the
    f32 fused-layer kernel (tanh: B2's group, the single layer, the timed
@@ -49,16 +50,20 @@ exits non-zero on failure:
    which also computes delta = rowsum(dO * O), and the dK/dV kernel)
    against their plain PyTorch versions, o, lse, dq, delta, dk and dv each
    within 2^-5 of max |ref| in bf16, then the same in f32 within 2^-12, at
-   the chunked training shape [256, 6, 131, 60] (causal), at ragged small
-   shapes ([3, 2, 77, 20] causal and full, T = 16 and 144 at hd 60, hd 18
-   and hd 15) and at the width-128 shapes [2, 4, 131, 128] causal,
+   the chunked training shape [256, 6, 131, 60], at ragged small shapes
+   ([3, 2, 77, 20]; T 16, 63, 65 and 144 at hd 60; T 64 at hd 20; T 65
+   and 131 at hd 18; hd 15: the f32 width-64 kernels' ragged and whole
+   tiles in their bulk-copy and `cp.async` forms), each of these causal
+   and full, and at the width-128 shapes [2, 4, 131, 128] causal,
    [2, 2, 77, 96] full, [2, 3, 131, 120] causal, [2, 2, 65, 100] causal (rows
    not 16-byte aligned), [2, 2, 16, 72] full, and the timed width-128 shapes
    [256, 3, 131, 120] and [256, 3, 131, 128] causal (the 3-head model's
    grid, with blocks sharing SMs); a second launch of each
    kernel must be bit-equal to
    the first; prints the three kernels' resident blocks per SM in both
-   instantiations at both widths; the autograd backward must run exactly
+   instantiations at both widths; one f32 forward at the chunked shape
+   must run exactly one device kernel, flash_attention_f32.cu's
+   `flash_fwd_f32_kernel`, and the autograd backward exactly
    two device kernels, the dQ and the dK/dV kernel, at the chunked shape
    in bf16 and in f32 (flash_attention_f32.cu's `wgmma` kernels) and at
    the 3-head model's hd 120 (torch.profiler; "not measured" if it sees no
@@ -376,8 +381,12 @@ MODEL_GRAD_FRACTION = 2.0 ** -5
 MODEL_LOSS_FRACTION_F32 = 2.0 ** -12
 MODEL_GRAD_FRACTION_F32 = 2.0 ** -10
 FLASH_SHAPES = ((CHUNKED_SHAPE, True), ((3, 2, 77, 20), True), ((3, 2, 77, 20), False),
-                ((2, 3, 16, 60), True), ((2, 3, 144, 60), True), ((2, 3, 131, 18), True),
-                ((2, 2, 50, 15), False), ((2, 4, 131, 128), True), ((2, 2, 77, 96), False),
+                *(((2, 3, T, hd), causal) for T, hd in ((16, 60), (144, 60), (131, 18),
+                                                         (63, 60), (65, 60), (65, 18),
+                                                         (64, 20))
+                  for causal in (True, False)),
+                ((2, 2, 50, 15), False), ((2, 2, 50, 15), True), (CHUNKED_SHAPE, False),
+                ((2, 4, 131, 128), True), ((2, 2, 77, 96), False),
                 ((2, 3, 131, 120), True), ((2, 2, 65, 100), True), ((2, 2, 16, 72), False),
                 (WIDE_MODEL_SHAPE, True), (WIDE_SHAPE, True))
 # phase 17, the multi-device layer: 17a's kitchen rollouts (280 steps cut
@@ -447,12 +456,15 @@ def flash_work(name, B, H, T, hd, elem=2):
             "flash_backward_dkv": (8 * hd * pairs, 4 * n + 2 * stat + 2 * n)}[name]
 
 
-def sass_counts(so, kernel, opcode):
+def sass_counts(so, kernels, opcode):
     """{kernel and template arguments (mangled): number of `opcode`
     instructions} over the functions of the built library whose name holds
-    `kernel` (cuobjdump -sass, beside nvcc)."""
+    `kernels` (a name, or a tuple of names any of which may match; cuobjdump
+    -sass, beside nvcc). A name must not occur in a source file's name:
+    nvcc mangles the anonymous namespace with it (`..._flash_attention_cu_...`)."""
     from beso_tpu_torch.ops.build import find_nvcc
 
+    keys = (kernels,) if isinstance(kernels, str) else kernels
     cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
                          timeout=300).stdout
@@ -461,7 +473,8 @@ def sass_counts(so, kernel, opcode):
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             # the mangled name from the kernel's on: its template arguments
-            fn = name[name.index(kernel):] if kernel in name else None
+            key = next((k for k in keys if k in name), None)
+            fn = name[name.index(key):] if key else None
             fn = fn[:fn.index("EE") + 2] if fn and "EE" in fn else fn
             if fn:
                 counts[fn] = 0
@@ -1173,15 +1186,37 @@ def check_flash(B, H, T, hd, causal, device, gen, dtype, frac):
     }
 
 
-def backward_kernels(device, gen, shape=CHUNKED_SHAPE, dtype=None):
-    """The device kernels that one autograd backward through
-    `flash_attention` runs at `shape` (torch.profiler; in `dtype`, bf16
-    unless given, contiguous cotangent, leaves without a gradient yet), or
-    None where the profiler saw no device kernel."""
+def _device_kernels(run):
+    """The device kernels (no copies or fills) that `run()` launches
+    (torch.profiler), or None where the profiler saw no device kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return names or None
+
+
+def forward_kernels(device, gen, shape=CHUNKED_SHAPE, dtype=None):
+    """The device kernels of one `flash_forward` at `shape` in `dtype`
+    (bf16 unless given), after a warm-up, or None as in `_device_kernels`."""
+    from beso_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_rand(gen, *shape, device=device, dtype=dtype) for _ in range(3))
+    fa.flash_forward(q, k, v)   # warm-up
+    return _device_kernels(lambda: fa.flash_forward(q, k, v))
+
+
+def backward_kernels(device, gen, shape=CHUNKED_SHAPE, dtype=None):
+    """The device kernels that one autograd backward through
+    `flash_attention` runs at `shape` (in `dtype`, bf16 unless given,
+    contiguous cotangent, leaves without a gradient yet), or None as in
+    `_device_kernels`."""
     from beso_tpu_torch.ops import flash_attention as fa
 
     leaves = [_rand(gen, *shape, device=device, dtype=dtype).requires_grad_() for _ in range(3)]
@@ -1190,13 +1225,7 @@ def backward_kernels(device, gen, shape=CHUNKED_SHAPE, dtype=None):
     for t in leaves:
         t.grad = None
     o = fa.flash_attention(*leaves)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        o.backward(do)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset"))]
-    return names or None
+    return _device_kernels(lambda: o.backward(do))
 
 
 def time_flash(device, gen, dtype, shape=CHUNKED_SHAPE):
@@ -3790,34 +3819,41 @@ def main() -> None:
     for name, props in report.items():
         if name.startswith("fused_layer_f32_kernel"):
             print(f"  f32 fused layer {name}: {spill_bytes(props)} spill bytes; {props}")
-    # seven kernels: the bf16 forward, dQ and dK/dV, each with its TMA and
-    # its cp.async instantiation, and the f32 forward, dQ and dK/dV
+    # flash_attention.cu is bf16 only: the f32 forward at tile width 64 is
+    # flash_attention_f32.cu's
+    f32_fwd64 = [n for n in report if n.startswith("flash_fwd_kernel") and "bfloat16" not in n]
+    if f32_fwd64:
+        fail(f"flash_attention.cu built an f32 forward: {f32_fwd64}")
+    # nine width-128 kernels: the bf16 forward, dQ and dK/dV, each with its
+    # TMA and its cp.async instantiation, and the f32 forward, dQ and dK/dV
     wide = {n: p for n, p in report.items() if n.startswith("flash_") and "_wide_" in n}
     if len(wide) != 9:
         fail(f"ptxas reported {len(wide)} width-128 wgmma flash instantiations, not 9")
     for name, props in wide.items():
         print(f"  width-128 flash {name}: {spill_bytes(props)} spill bytes; {props}")
-    hgmma_flash_bwd = sass_counts(so, "flash_bwd_", "HGMMA")
-    hgmma_bwd = {n: c for n, c in hgmma_flash_bwd.items() if "_wide_bf16_" in n}
+    hgmma_flash = sass_counts(so, ("flash_bwd_", "flash_fwd_f32_kernel"), "HGMMA")
+    hgmma_bwd = {n: c for n, c in hgmma_flash.items()
+                 if n.startswith("flash_bwd_") and "_wide_bf16_" in n}
     print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the bf16 width-128 backward: "
           f"{hgmma_bwd}")
     if len(hgmma_bwd) != 4 or not all(hgmma_bwd.values()):
         fail("the bf16 width-128 dQ and dK/dV kernels do not all run their products on wgmma")
-    # the f32 width-64 backward: dQ and dK/dV, each <true> (bulk tensor
-    # copies) and <false> (cp.async)
-    narrow = {n: p for n, p in report.items()
-              if n.startswith(("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel"))}
+    # the f32 width-64 kernels: the forward, dQ and dK/dV, each <true> (bulk
+    # tensor copies) and <false> (cp.async)
+    f32_narrow = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
+    narrow = {n: p for n, p in report.items() if n.startswith(f32_narrow)}
     for name, props in narrow.items():
-        print(f"  f32 width-64 backward {name}: {spill_bytes(props)} spill bytes; {props}")
-    if len(narrow) != 4:
-        fail(f"ptxas reported {len(narrow)} f32 width-64 backward instantiations, not 4")
+        print(f"  f32 width-64 flash {name}: {spill_bytes(props)} spill bytes; {props}")
+    if len(narrow) != 6:
+        fail(f"ptxas reported {len(narrow)} f32 width-64 flash instantiations, not 6")
     if any(spill_bytes(p) for p in narrow.values()):
-        fail("the f32 width-64 backward kernels spill")
-    hgmma_f32_bwd = {n: c for n, c in hgmma_flash_bwd.items() if "_f32_kernel" in n}
-    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the f32 width-64 backward: "
-          f"{hgmma_f32_bwd}")
-    if len(hgmma_f32_bwd) != 4 or not all(hgmma_f32_bwd.values()):
-        fail("the f32 width-64 dQ and dK/dV kernels do not all run their products on wgmma")
+        fail("the f32 width-64 flash kernels spill")
+    hgmma_f32_narrow = {n: c for n, c in hgmma_flash.items() if n.startswith(f32_narrow)}
+    print(f"  cuobjdump -sass, HGMMA (wgmma) instructions of the f32 width-64 kernels: "
+          f"{hgmma_f32_narrow}")
+    if len(hgmma_f32_narrow) != 6 or not all(hgmma_f32_narrow.values()):
+        fail("the f32 width-64 forward, dQ and dK/dV kernels do not all run their products on "
+             "wgmma")
 
     # ---- 2. kernel against its plain version -----------------------------
     print(f"[2] ({since_start()}) kernel vs plain version (bf16, then f32)")
@@ -3908,6 +3944,14 @@ def main() -> None:
         for hd in (64, 128):
             print(f"  resident blocks per SM, {dtype}, tile width {hd} (occupancy "
                   f"calculator): {fa.blocks_per_sm(dtype, hd)}")
+    # one f32 forward at hd 60: flash_attention_f32.cu's kernel alone
+    fwd_kernels = forward_kernels(device, gen, CHUNKED_SHAPE, torch.float32)
+    print(f"  device kernels of one f32 forward at {list(CHUNKED_SHAPE)}: "
+          f"{fwd_kernels if fwd_kernels is not None else 'not measured'}")
+    if fwd_kernels is not None and (len(fwd_kernels) != 1
+                                    or "flash_fwd_f32_kernel" not in fwd_kernels[0]):
+        fail(f"the f32 forward at {list(CHUNKED_SHAPE)} is not exactly one launch of "
+             f"flash_fwd_f32_kernel")
     # at hd 60 the width-64 kernels (bf16: the mma.sync template; f32: the
     # wgmma kernels of flash_attention_f32.cu), at the 3-head model's hd 120
     # the bf16 wgmma kernels of flash_attention_wide.cu
@@ -3938,11 +3982,14 @@ def main() -> None:
               f"{list(CHUNKED_SHAPE)} {tag}: forward {fwd_ms:.4f} ms, backward (forward + "
               f"backward minus forward) {bwd_ms_sdpa:.4f} ms; kernels: {sdpa_kernels} ({card})")
         fwd_k, bwd_k = times["flash_forward"][0], times["backward"][0]
-        bwd_bound = sum(bound(*flash_work(n, *CHUNKED_SHAPE, elem=dtype.itemsize),
-                              PEAK_BF16_FLOPS if suffix == "" else PEAK_F32_BF16X3_FLOPS)[0]
+        peak = PEAK_BF16_FLOPS if suffix == "" else PEAK_F32_BF16X3_FLOPS
+        fwd_bound = bound(*flash_work("flash_forward", *CHUNKED_SHAPE, elem=dtype.itemsize),
+                          peak)[0]
+        bwd_bound = sum(bound(*flash_work(n, *CHUNKED_SHAPE, elem=dtype.itemsize), peak)[0]
                         for n in ("flash_backward_dq", "flash_backward_dkv"))
         print(f"  {tag} forward {fwd_k:.4f} ms against SDPA's forward {fwd_ms:.4f} ms: "
-              f"{fwd_k / fwd_ms:.3f}x; backward total (dQ with delta + dK/dV) {bwd_k:.4f} ms "
+              f"{fwd_k / fwd_ms:.3f}x, {100 * fwd_bound / fwd_k:.1f}% of its {fwd_bound:.4f} ms "
+              f"bound; backward total (dQ with delta + dK/dV) {bwd_k:.4f} ms "
               f"against SDPA's backward {bwd_ms_sdpa:.4f} ms: {bwd_k / bwd_ms_sdpa:.3f}x; "
               f"{100 * bwd_bound / bwd_k:.1f}% of its {bwd_bound:.4f} ms bound ({card})")
         # the width-128 instantiations at WIDE_SHAPE, beside SDPA there
@@ -4302,7 +4349,7 @@ def main() -> None:
                         *erf_ms[suffix]))
     flash_src = "beso_tpu_torch/csrc/flash_attention.cu"
     wide_src = "beso_tpu_torch/csrc/flash_attention_wide.cu"
-    f32_bwd_src = "beso_tpu_torch/csrc/flash_attention_f32.cu"
+    f32_flash_src = "beso_tpu_torch/csrc/flash_attention_f32.cu"
     # the bf16 width-64 kernels: phase 7's training, phase 16b's sweeps and
     # phase 17c's dp and tp steps (per rank), each path's own count printed
     # beside the sum
@@ -4317,10 +4364,10 @@ def main() -> None:
     for key, n_of in flash_counts_of.items():
         for name, line in (("flash_forward", 269), ("flash_backward_dq", 78),
                            ("flash_backward_dkv", 112)):
-            # width 128: every kernel in the wgmma source; width 64: the f32
-            # backward in its own
+            # width 128: every kernel in the wgmma source; width 64: bf16 in
+            # flash_attention.cu, f32 in its own
             src = (wide_src if key.startswith("_hd128") else
-                   f32_bwd_src if key == "_f32" and "backward" in name else flash_src)
+                   f32_flash_src if key == "_f32" else flash_src)
             entries.append((name + key, src, f"beso_tpu/ops/flash_attention.py:{line}",
                             n_of[name], flash_err[name + key], *flash_ms[name + key]))
     kernels = []

@@ -46,6 +46,26 @@ def test_forward_matches_jax(T, hd, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T", [63, 64, 65, 131])
+@pytest.mark.parametrize("hd", [15, 18, 20, 60])
+def test_f32_narrow_forward_plain_matches_jax(hd, T, causal):
+    """The f32 plain forward (o, lse) against `_flash_forward` (Pallas,
+    interpret mode) at the shapes the card holds the f32 width-64 forward
+    to: hd 15 (odd: its 4-byte `cp.async` form), 18 (2 mod 4: 8-byte
+    `cp.async`), 20 (bulk tensor copies, one 32-column box) and 60 (two
+    boxes); T 63 and 65 leave a ragged tile, 64 a whole one, 131 a 3-row
+    last tile."""
+    q, k, v = _qkv(2, 2, T, hd, seed=hd * T + causal)
+    jo, jlse = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                                  True)
+    o, lse = fa.flash_forward(t(q), t(k), t(v), causal)
+    assert o.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [16, 131])
 def test_gradients_match_jax(T, causal):

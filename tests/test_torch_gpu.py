@@ -41,7 +41,11 @@ from beso_tpu_torch.ops import fused_layer as fl
 SHAPES = [((3, 2, 77, 60), True), ((3, 2, 77, 20), False), ((2, 3, 131, 18), True),
           ((1, 2, 2, 60), True), ((2, 2, 128, 64), True), ((2, 3, 131, 60), True),
           ((2, 3, 144, 60), True), ((2, 3, 16, 60), True), ((2, 2, 50, 15), False),
-          ((2, 4, 131, 128), True), ((2, 2, 77, 96), False)]
+          ((2, 4, 131, 128), True), ((2, 2, 77, 96), False),
+          # the f32 width-64 forms at a ragged (63, 65) and a whole (64) tile:
+          # hd 18 the 8-byte `cp.async` copies, hd 20 and 60 bulk tensor copies
+          *(((2, 3, T, hd), causal) for hd in (18, 20, 60) for T in (63, 64, 65)
+            for causal in (True, False))]
 
 
 # max |diff| bound per element type, as a fraction of max |ref|
@@ -69,8 +73,9 @@ def test_flash_kernels_match_plain(shape, causal, dtype):
     """Forward (o, lse), dQ with delta and dK/dV against the plain
     versions, each kernel on the plain forward's o and lse and the plain
     delta; hd 18 takes the bf16 kernels' 4-byte copies, hd 15 plain loads,
-    hd 96 and 128 the width-128 instantiations;
-    T 2, 16, 128, 131 and 144 the tile and 16-row chunk edges (T 2, not 1:
+    and the f32 width-64 kernels' 8-byte and 4-byte `cp.async` form (hd 20
+    and 60 their bulk tensor copies); hd 96 and 128 the width-128 ones;
+    T 2, 16, 63, 64, 65, 128, 131 and 144 the tile and 16-row chunk edges (T 2, not 1:
     with one key dQ and dK are zero in exact arithmetic, and both sides give
     rounding noise). f32 inputs run the f32 kernels and are held to f32
     accuracy."""
@@ -141,19 +146,23 @@ def test_wide_flash_kernels_match_plain(hd, dtype, causal):
     ((2, 3, 131, 120), True, torch.bfloat16), ((2, 3, 131, 120), True, torch.float32),
     ((2, 2, 65, 100), True, torch.bfloat16), ((2, 2, 65, 100), False, torch.float32),
     ((2, 3, 131, 60), True, torch.float32), ((3, 2, 77, 20), False, torch.float32),
-    ((2, 2, 50, 15), False, torch.float32)],
+    ((2, 2, 50, 15), False, torch.float32), ((2, 3, 65, 18), True, torch.float32),
+    ((2, 3, 63, 20), True, torch.float32), ((2, 3, 64, 60), False, torch.float32),
+    ((2, 3, 65, 60), True, torch.float32)],
     ids=["131-60-causal", "77-20-full", "131-128-causal", "77-96-full", "131-128-causal-f32",
          "77-96-full-f32", "131-120-causal", "131-120-causal-f32", "65-100-causal",
-         "65-100-full-f32", "131-60-causal-f32", "77-20-full-f32", "50-15-full-f32"])
+         "65-100-full-f32", "131-60-causal-f32", "77-20-full-f32", "50-15-full-f32",
+         "65-18-causal-f32", "63-20-causal-f32", "64-60-full-f32", "65-60-causal-f32"])
 def test_flash_kernels_deterministic(shape, causal, dtype, kernels):
     """Two launches of the forward, or of each backward kernel, on the same
     inputs give bit-equal o and lse, or dq, delta, dk and dv (no atomics).
-    hd 20 and 60 reach flash_attention.cu's `mma.sync` kernels (in f32 the
-    forward; the f32 backward there is flash_attention_f32.cu's `wgmma`
-    kernels: hd 60 and 20 their bulk tensor copies, hd 15 the `cp.async`
-    form); hd 96 and above flash_attention_wide.cu's `wgmma` ones (bf16 hd
-    100: the `cp.async` form; bf16 hd 96, 120, 128: bulk tensor copies; the
-    bf16 backward's two warpgroups add their dQ halves in a fixed order)."""
+    hd 20 and 60 reach flash_attention.cu's `mma.sync` kernels in bf16 and
+    flash_attention_f32.cu's `wgmma` kernels in f32 (hd 60 and 20 their bulk
+    tensor copies, hd 18 and 15 their 8-byte and 4-byte `cp.async` form; T
+    63, 64, 65 a ragged, whole and one-row-past tile); hd 96 and above
+    flash_attention_wide.cu's `wgmma` ones (bf16 hd 100: the `cp.async`
+    form; bf16 hd 96, 120, 128: bulk tensor copies; the bf16 backward's two
+    warpgroups add their dQ halves in a fixed order)."""
     dev = _cuda()
     rng = np.random.RandomState(len(shape) + shape[2])
     q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
@@ -206,6 +215,22 @@ def test_f32_narrow_backward_blocks_per_sm():
     for name, want in F32_NARROW_BWD_BLOCKS.items():
         assert blocks[name] == want, blocks
         assert blocks[name] * WARPS_PER_BLOCK >= 8, blocks
+
+
+# Resident blocks per SM of the f32 width-64 forward as designed
+# (flash_attention_f32.cu): two 128-thread blocks (one warpgroup, Q and three
+# 32 KB stages, 113 KB each), 8 warps per SM.
+F32_NARROW_FWD_BLOCKS = 2
+
+
+@pytest.mark.gpu
+def test_f32_narrow_forward_blocks_per_sm():
+    """The occupancy calculator gives the f32 width-64 forward the resident
+    blocks its design states, and at least 8 warps per SM."""
+    _cuda()
+    blocks = fa.blocks_per_sm(torch.float32, 64)
+    assert blocks["flash_forward"] == F32_NARROW_FWD_BLOCKS, blocks
+    assert blocks["flash_forward"] * WARPS_PER_BLOCK >= 8, blocks
 
 
 @pytest.mark.gpu
@@ -319,6 +344,23 @@ def test_fused_engines_f32_match_plain_engines(engine):
         assert _close(got, ref, 2 ** -10)
     after = [c.launches for c in counters]
     assert after[engine == "uncached"] == before[engine == "uncached"] + 3 * 2
+
+
+def test_forward_ablation_guards_each_part_once(tmp_path):
+    """`scripts/ablate_flash_f32_fwd.py` finds each part of the f32
+    width-64 forward it switches off exactly once in the kernel's source
+    and guards it there, in its own copy (the checkout's source unchanged).
+    Needs no card: the copy is only written."""
+    from beso_tpu_torch.scripts import ablate_flash_f32_fwd as ab
+
+    src = ab.ROOT / "beso_tpu_torch" / "csrc" / "flash_attention_f32.cu"
+    before = src.read_text()
+    ab.guarded_sources(tmp_path / "csrc")
+    guarded = (tmp_path / "csrc" / "flash_attention_f32.cu").read_text()
+    assert src.read_text() == before and "PROBE" not in before
+    assert guarded.count("PROBE != ") == 2 * len(ab.GUARDS)
+    for _, new in ab.GUARDS:
+        assert guarded.count(new) == 1
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
