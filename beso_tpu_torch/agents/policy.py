@@ -29,6 +29,7 @@ from beso_tpu_torch.models.cfg import cfg_denoise_fn
 from beso_tpu_torch.models.scaler import Scaler
 from beso_tpu_torch.sampling.parallel import sample_picard
 from beso_tpu_torch.sampling.samplers import sample_loop
+from beso_tpu_torch.utils.metrics import span
 
 
 class PolicyState(NamedTuple):
@@ -135,8 +136,25 @@ def policy_predict(denoise: Callable[..., torch.Tensor], scaler: Scaler,
     With `n_action_samples` = n > 1, each env's rows are repeated n times
     (`repeat_interleave`) into one [B*n]-row sampler call and `aggregation`
     picks the action from the n candidates. `generator` draws the action
-    noise, then the sampler's noise.
+    noise, then the sampler's noise. Under a profiler the step is the span
+    `policy.predict`, and each call of `denoise` within it `engine.call`
+    (CFG's stacking and combining stay outside it).
     """
+    with span("policy.predict"):
+        return _predict(denoise, scaler, state, obs, goal, generator, cfg)
+
+
+def _engine_calls(denoise):
+    """`denoise` with each call inside the span `engine.call`."""
+    def call(*args, **kw):
+        with span("engine.call"):
+            return denoise(*args, **kw)
+
+    return call
+
+
+def _predict(denoise, scaler: Scaler, state: PolicyState, obs: torch.Tensor,
+             goal: torch.Tensor, generator: Optional[torch.Generator], cfg: PolicyConfig):
     B = obs.shape[0]
     W = cfg.window_size
     rows = torch.arange(B, device=obs.device)
@@ -160,7 +178,7 @@ def policy_predict(denoise: Callable[..., torch.Tensor], scaler: Scaler,
 
     sigmas = get_noise_schedule(cfg.num_sampling_steps, cfg.sigma_min,
                                 cfg.sigma_max, cfg.rho, cfg.noise_scheduler)
-    dn = cfg_denoise_fn(denoise, cfg.cond_lambda)
+    dn = cfg_denoise_fn(_engine_calls(denoise), cfg.cond_lambda)
     if cfg.sampler_type == "picard":
         def dn_tiled(actions, sigma):
             # the conditioning tiled over the folded [n_grid * Bn] batch

@@ -27,6 +27,7 @@ from beso_tpu_torch.envs.kitchen.env import (kitchen_obs, kitchen_reset,
                                              kitchen_reset_from_qpos,
                                              kitchen_step)
 from beso_tpu_torch.models.scaler import Scaler
+from beso_tpu_torch.utils.metrics import span
 
 
 class RolloutMetrics(NamedTuple):
@@ -59,28 +60,37 @@ def _run_rollout(env_state, step_fn, obs_fn, completed_of, order_of,
                  expected: torch.Tensor, generator, n_steps: int,
                  obs_slice: Optional[int], result_divisor: float,
                  denoise_factory=None) -> RolloutMetrics:
+    """The episode loop. Under a profiler it opens the spans of its layers
+    (`utils.metrics.span`): `rollout.episode` around it all,
+    `engine.prefix_build` around the per-episode engine, `rollout.step` around
+    each env step (its index as `step`), holding `policy.predict` and
+    `physics.step` around `step_fn`."""
     B = expected.shape[0]
     device = expected.device
-    obs_full = obs_fn(env_state)
-    if callable(goals):
-        goals = goals(obs_full)  # goals of the live reset state (the flip fix)
-    if denoise_factory is not None:
-        # per-episode engine (the prefix-KV cache), built once goals are known
-        denoise_fn = denoise_factory(goals)
-    obs = obs_full[:, :obs_slice] if obs_slice is not None else obs_full
-    pstate = policy_reset(B, cfg, device)
-    total_reward = torch.zeros(B, device=device)
-    for _ in range(n_steps):
-        action, pstate = policy_predict(denoise_fn, scaler, pstate, obs,
-                                        goals, generator, cfg)
-        env_state, obs_full, reward, _ = step_fn(env_state, action)
+    with span("rollout.episode"):
+        obs_full = obs_fn(env_state)
+        if callable(goals):
+            goals = goals(obs_full)  # goals of the live reset state (the flip fix)
+        if denoise_factory is not None:
+            # per-episode engine (the prefix-KV cache), built once goals are known
+            with span("engine.prefix_build"):
+                denoise_fn = denoise_factory(goals)
         obs = obs_full[:, :obs_slice] if obs_slice is not None else obs_full
-        total_reward = total_reward + reward
-    completed = completed_of(env_state)
-    results = (completed & expected.bool()).sum(-1).float() / result_divisor
-    return RolloutMetrics(rewards=total_reward, results=results,
-                          completed=completed, env_steps=B * n_steps,
-                          completion_order=order_of(env_state))
+        pstate = policy_reset(B, cfg, device)
+        total_reward = torch.zeros(B, device=device)
+        for t in range(n_steps):
+            with span("rollout.step", {"step": t}):
+                action, pstate = policy_predict(denoise_fn, scaler, pstate, obs,
+                                                goals, generator, cfg)
+                with span("physics.step"):
+                    env_state, obs_full, reward, _ = step_fn(env_state, action)
+                obs = obs_full[:, :obs_slice] if obs_slice is not None else obs_full
+                total_reward = total_reward + reward
+        completed = completed_of(env_state)
+        results = (completed & expected.bool()).sum(-1).float() / result_divisor
+        return RolloutMetrics(rewards=total_reward, results=results,
+                              completed=completed, env_steps=B * n_steps,
+                              completion_order=order_of(env_state))
 
 
 @torch.inference_mode()
