@@ -7,6 +7,11 @@ explicit batch dimension: per-env scalars are [B] tensors (masks are [B, 1]
 where they gate vectors), the `.at[].set/add` loops are indexed writes on a
 clone, and the done-freeze is a `torch.where` per field. `completion_order`
 and `steps` stay int32.
+
+`kitchen_step` runs the step as one CUDA kernel (`ops/kitchen_step.py`,
+`csrc/kitchen_step.cu`) for CUDA inputs that need no gradient, and this
+eager code (`_kitchen_step_eager`) otherwise: on the CPU, and where a
+gradient flows through the step.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import numpy as np
 import torch
 
 from beso_tpu_torch.envs.kitchen import geometry as _G
-from beso_tpu_torch.envs.kitchen.fk import panda_fk
+from beso_tpu_torch.envs.kitchen.fk import mdh_table, panda_fk
+from beso_tpu_torch.ops import kitchen_step as _step_kernel
 
 # task table (kitchen_env.py:10-28)
 ALL_TASKS = (
@@ -169,6 +175,9 @@ class _Consts(NamedTuple):
     obj_hi: torch.Tensor
     primary: torch.Tensor
     secondary_ratio: torch.Tensor
+    secondary: torch.Tensor
+    fk_table: torch.Tensor  # `fk.mdh_table()`, the kernel's forward kinematics
+    base_pos: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,7 +186,8 @@ def _consts(device) -> _Consts:
         return torch.as_tensor(v, device=device)
 
     return _Consts(t(GOAL_VEC), t(TASK_MASKS), t(JOINT_LO), t(JOINT_HI),
-                   t(OBJ_LO), t(OBJ_HI), t(PRIMARY), t(SECONDARY_RATIO))
+                   t(OBJ_LO), t(OBJ_HI), t(PRIMARY), t(SECONDARY_RATIO), t(SECONDARY),
+                   t(mdh_table()), t(np.asarray(KITCHEN_BASE_POS, np.float32)))
 
 
 class KitchenState(NamedTuple):
@@ -295,7 +305,29 @@ def kitchen_step(state: KitchenState, action: torch.Tensor,
                  params: Optional[KitchenParams] = None,
                  ) -> Tuple[KitchenState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One 12.5 Hz control step for B envs. Returns (state, obs30 [B, 30],
-    reward [B], done [B])."""
+    reward [B], done [B]).
+
+    CUDA inputs take the CUDA kernel (one launch, no copy from the host, no
+    wait for the card), unless a gradient would flow through the step; the
+    CPU and the gradient take the eager code, `_kitchen_step_eager`."""
+    dev = state.qpos.device
+    params = params if params is not None else default_kitchen_params(dev)
+    physics = [getattr(params, f.name) for f in dataclasses.fields(params)]
+    if dev.type != "cuda" or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (state.qpos, state.ee_pos, action, *physics))):
+        return _kitchen_step_eager(state, action, params)
+    *fields, reward = _step_kernel.kitchen_step(
+        KitchenState(*(t.contiguous() for t in state)), action.contiguous(), params,
+        _consts(dev), ACT_AMP, CONTROL_DT, BONUS_THRESH)
+    new_state = KitchenState(*fields)
+    return new_state, kitchen_obs(new_state), reward, new_state.done
+
+
+def _kitchen_step_eager(state: KitchenState, action: torch.Tensor,
+                        params: Optional[KitchenParams] = None,
+                        ) -> Tuple[KitchenState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`kitchen_step` in eager operations: the CPU's path, the one a gradient
+    flows through, and the kernel's reference."""
     dev = state.qpos.device
     params = params if params is not None else default_kitchen_params(dev)
     c = _consts(dev)

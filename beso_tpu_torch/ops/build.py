@@ -99,9 +99,10 @@ def error_string(code: int) -> str:
     return library().beso_cuda_error_string(code).decode()
 
 
-def check_tensor(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+def check_tensor(t: torch.Tensor, name: str, shape, dtype, device, align: int = 32) -> None:
     """Raise unless `t` is what a kernel takes: device, dtype, shape,
-    contiguous and 32-byte aligned."""
+    contiguous and `align`-byte aligned (32 for vector loads; a kernel of
+    scalar loads passes 1, as every tensor is aligned to its element)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -110,5 +111,5 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 32:
-        raise ValueError(f"{name} must be 32-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")

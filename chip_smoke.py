@@ -45,7 +45,14 @@ exits non-zero on failure:
 4. main path, serving: a 1024-env x 280-step kitchen rollout with the
    shipped kitchen serving config on the `fused_cached` engine in bf16; the
    kernel's launch counter must move by exactly 280 steps x 3 NFE x 6
-   layers, every metric must be finite;
+   layers, the kitchen step kernel's by exactly 280, every metric must be
+   finite; [4b] the kitchen step kernel (`csrc/kitchen_step.cu`) against
+   the eager step `_kitchen_step_eager` on the same inputs: the states this
+   rollout and a 100-env x 280-step one (the benchmark cells' envs) hand
+   the physics at steps 0, 1, 140 and 279, floats within 1e-6, flags and
+   completion steps equal; both timed per step with CUDA events at 100 and
+   1024 envs, beside a bound from the bytes the kernel moves and the
+   card's per-launch floor (a one-element add, timed the same way);
 5. flash kernels: the forward (B5) and the backward (B6: the dQ kernel,
    which also computes delta = rowsum(dO * O), and the dK/dV kernel)
    against their plain PyTorch versions, o, lse, dq, delta, dk and dv each
@@ -299,6 +306,7 @@ the last line `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -311,6 +319,10 @@ from pathlib import Path
 N_ENVS, N_STEPS, NFE, N_LAYERS = 1024, 280, 3, 6
 ROLLOUT_STEPS = 40    # phase 10's rollouts of the other engine forms (280 cut to 40)
 ERR_FRACTION = 2.0 ** -5   # kernel and engine bound: fraction of max |ref|
+# phase 4b: the benchmark cells' envs, the episode steps whose physics
+# inputs are recorded, and the kitchen step kernel's limit against the
+# eager step on the card
+KS_CELL_ENVS, KS_RECORD_STEPS, KS_LIMIT = 100, (0, 1, 140, 279), 1e-6
 F32_FRACTION = 2.0 ** -12  # the same for the kernels' f32 forms
 # the f32 fused engines against the plain f32 engines: six f32 layers (each
 # within ~2^-16 relative per product) and the preconditioning around them
@@ -1081,6 +1093,91 @@ def token_lanes_false_factory(den, scaler, cfg):
         return make_fused_cached_denoise_fn(den, g_model, sigmas, token_lanes=False)
 
     return factory
+
+
+@contextlib.contextmanager
+def recording_kitchen_steps():
+    """Within: `rollout/rollout.py`'s `kitchen_step` keeps device copies of
+    its inputs (state, action, params) at the episode steps
+    KS_RECORD_STEPS, in the list this yields."""
+    import beso_tpu_torch.rollout.rollout as rollout_mod
+    from beso_tpu_torch.envs.kitchen.env import KitchenState
+
+    real, store, calls = rollout_mod.kitchen_step, [], [0]
+
+    def recording(state, action, params=None):
+        if calls[0] in KS_RECORD_STEPS:
+            store.append((KitchenState(*(f.clone() for f in state)), action.clone(), params))
+        calls[0] += 1
+        return real(state, action, params)
+
+    rollout_mod.kitchen_step = recording
+    try:
+        yield store
+    finally:
+        rollout_mod.kitchen_step = real
+
+
+def check_kitchen_step_on_card(device, card, recorded):
+    """Phase 4b: the kitchen step kernel against `_kitchen_step_eager` on the
+    inputs `recorded` ({envs: [(state, action, params)]}, from
+    `recording_kitchen_steps`): floats within KS_LIMIT, flags and completion
+    steps equal. Times both at each batch with CUDA events (the eager step
+    with its own waits for the card), and bounds the kernel by the larger
+    of its bytes over the memory rate (the state and action read, the new
+    state and reward written, the params and tables staged by each
+    128-thread block) and the card's per-launch floor. Returns the kernels
+    line's fields."""
+    import dataclasses
+
+    import torch
+
+    from beso_tpu_torch.envs.kitchen import env as kenv
+    from beso_tpu_torch.ops import kitchen_step as ks
+
+    names = [*kenv.KitchenState._fields, "reward"]
+    one = torch.zeros(1, device=device)
+    launch_ms = time_ms(lambda: one.add_(1.0), 200, device)
+    worst, ms, plain_ms, bounds = 0.0, {}, {}, {}
+    for n_envs, steps in recorded.items():
+        if len(steps) != len(KS_RECORD_STEPS) or steps[0][0].qpos.shape[0] != n_envs:
+            fail(f"recorded {len(steps)} kitchen steps of {n_envs} envs, expected "
+                 f"{len(KS_RECORD_STEPS)}")
+        for state, action, params in steps:
+            before = ks.kitchen_step.launches
+            got = kenv.kitchen_step(state, action, params)
+            if ks.kitchen_step.launches != before + 1:
+                fail("kitchen_step on the card did not launch the kernel once")
+            ref = kenv._kitchen_step_eager(state, action, params)
+            for name, x, y in zip(names, [*got[0], got[2]], [*ref[0], ref[2]]):
+                if x.dtype.is_floating_point:
+                    worst = max(worst, float((x - y).abs().max()))
+                elif not torch.equal(x, y):
+                    fail(f"the kitchen step kernel's {name} differs from the eager step's "
+                         f"({n_envs} envs)")
+        state, action, params = steps[-1]
+        ms[n_envs] = time_ms(lambda: kenv.kitchen_step(state, action, params), 200, device)
+        plain_ms[n_envs] = time_ms(lambda: kenv._kitchen_step_eager(state, action, params),
+                                   20, device)
+        p = params if params is not None else kenv.default_kitchen_params(device)
+        staged = (sum(getattr(p, f.name).nbytes for f in dataclasses.fields(p))
+                  + sum(getattr(kenv._consts(device), n).nbytes for n, _, _ in ks.TABLES))
+        nbytes = (2 * sum(f.nbytes for f in state) + action.nbytes + 4 * n_envs
+                  + -(-n_envs // 128) * staged)
+        t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+        bounds[n_envs] = (t_mem, "bytes") if t_mem >= launch_ms else (launch_ms, "launch")
+        print(f"  {n_envs} envs, steps {list(KS_RECORD_STEPS)}: kernel {ms[n_envs]:.4f} ms, "
+              f"eager step {plain_ms[n_envs]:.4f} ms per step; {nbytes} bytes, bound "
+              f"{bounds[n_envs][0]:.4f} ms ({bounds[n_envs][1]}; one launch {launch_ms:.4f} ms), "
+              f"{100 * bounds[n_envs][0] / ms[n_envs]:.1f}% of the roofline ({card})")
+    print(f"  max |kernel - eager| over the float fields and the reward: {worst:.3g} "
+          f"(limit {KS_LIMIT:g}); flags and completion steps equal")
+    if worst > KS_LIMIT:
+        fail(f"the kitchen step kernel is {worst:.3g} from the eager step on the card")
+    return {"max_abs_err": worst, "ms": ms[N_ENVS], "plain_ms": plain_ms[N_ENVS],
+            "bound_ms": bounds[N_ENVS][0], "bound_by": bounds[N_ENVS][1],
+            "ms_by_envs": ms, "plain_ms_by_envs": plain_ms,
+            "bound_ms_by_envs": {n: b for n, (b, _) in bounds.items()}}
 
 
 def run_rollout(den, policy_kw, scale_data, n_envs, n_steps, device, seed,
@@ -2221,9 +2318,9 @@ def run_sequential_on_card(agent, ws, device, card):
 def check_kitchen_fidelity_on_card(device):
     """Phase 14d: the scripted batch of tests/kitchen_scenarios.py (microwave
     drags, kettle grasps, tracking and release), its actions found on the
-    CPU, replayed by `kitchen_step` on the card and on the CPU: states within
-    1e-5, the same grasps, and every golden band of the batch held on the
-    card's outcome. The bands on the shipped constants alone do not depend
+    CPU, replayed by `kitchen_step` on the card (one kernel launch per step)
+    and on the CPU: states within 1e-5, the same grasps, and every golden
+    band of the batch held on the card's outcome. The bands on the shipped constants alone do not depend
     on the device and are held on the CPU only
     (tests/test_torch_kitchen_fidelity.py)."""
     import numpy as np
@@ -2231,15 +2328,23 @@ def check_kitchen_fidelity_on_card(device):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import kitchen_scenarios
 
+    from beso_tpu_torch.ops import kitchen_step as ks
+
     script = kitchen_scenarios.script_kitchen_scenarios()
-    cpu, card = (kitchen_scenarios.replay(*script, d) for d in ("cpu", device))
+    cpu = kitchen_scenarios.replay(*script, "cpu")
+    before = ks.kitchen_step.launches
+    card = kitchen_scenarios.replay(*script, device)
+    launches = ks.kitchen_step.launches - before
     err = max(float(np.abs(card.qpos - cpu.qpos).max()), float(np.abs(card.ee - cpu.ee).max()))
     bands = kitchen_scenarios.kitchen_bands(card)
     failed = [name for name, (held, _) in bands.items() if not held]
     print(f"  {kitchen_scenarios.N_STEPS} scripted kitchen_step steps x 6 envs on the card: "
           f"max |card - CPU| {err:.3g} over qpos and fingertip; grasps equal: "
-          f"{bool((card.grasped == cpu.grasped).all())}; {len(bands) - len(failed)} of "
+          f"{bool((card.grasped == cpu.grasped).all())}; {launches} kitchen_step kernel "
+          f"launches; {len(bands) - len(failed)} of "
           f"{len(bands)} bands held: " + json.dumps({k: v for k, (_, v) in bands.items()}))
+    if launches != kitchen_scenarios.N_STEPS:
+        fail(f"{launches} kitchen_step kernel launches, expected one per step")
     if err > 1e-5 or not (card.grasped == cpu.grasped).all():
         fail("kitchen_step on the card left the CPU's trajectory")
     if failed:
@@ -3775,6 +3880,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     from beso_tpu_torch.ops import build
     from beso_tpu_torch.ops import fused_layer as fl
+    from beso_tpu_torch.ops import kitchen_step as ks
     from beso_tpu_torch.rollout import success_rate_histogram
 
     # ---- 0. device --------------------------------------------------------
@@ -3913,20 +4019,38 @@ def main() -> None:
     run_rollout(den, policy_kw, scale_data, N_ENVS, 2, device, seed=1)  # warm-up
     torch.cuda.synchronize()
     fl.fused_layer_prefix.launches = 0
-    t0 = time.perf_counter()
-    metrics = run_rollout(den, policy_kw, scale_data, N_ENVS, N_STEPS, device, seed=2)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ks.kitchen_step.launches = 0
+    with recording_kitchen_steps() as recorded:
+        t0 = time.perf_counter()
+        metrics = run_rollout(den, policy_kw, scale_data, N_ENVS, N_STEPS, device, seed=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = fl.fused_layer_prefix.launches
+    physics_launches = {"phase 4 rollout": ks.kitchen_step.launches}
     expect = N_STEPS * NFE * N_LAYERS
-    print(f"  launches: {launches} (expected {expect})")
+    print(f"  launches: {launches} (expected {expect}); kitchen_step kernel "
+          f"{ks.kitchen_step.launches} (expected {N_STEPS})")
     if launches != expect:
         fail(f"the main path launched the kernel {launches} times, not {expect}")
+    if ks.kitchen_step.launches != N_STEPS:
+        fail(f"the main path launched the kitchen step kernel {ks.kitchen_step.launches} "
+             f"times, not {N_STEPS}")
     check_rollout_metrics(metrics, N_ENVS, N_STEPS)
     hist = success_rate_histogram(metrics.completed.sum(-1).cpu().numpy())
     print(f"  wall {wall:.3f} s, {N_ENVS * N_STEPS / wall:.1f} env-steps/s "
           f"(informational; random weights; {card})")
     print(f"  success_rate_histogram: {json.dumps(hist)}")
+    print(f"[4b] ({since_start()}) kitchen_step kernel vs the eager step on the states of "
+          f"{N_ENVS}- and {KS_CELL_ENVS}-env rollouts")
+    ks.kitchen_step.launches = 0
+    with recording_kitchen_steps() as recorded_cell:
+        run_rollout(den, policy_kw, scale_data, KS_CELL_ENVS, N_STEPS, device, seed=3)
+    physics_launches[f"phase 4b {KS_CELL_ENVS}-env rollout"] = ks.kitchen_step.launches
+    if ks.kitchen_step.launches != N_STEPS:
+        fail(f"the {KS_CELL_ENVS}-env rollout launched the kitchen step kernel "
+             f"{ks.kitchen_step.launches} times, not {N_STEPS}")
+    ks_entry = check_kitchen_step_on_card(device, card,
+                                          {N_ENVS: recorded, KS_CELL_ENVS: recorded_cell})
 
     # ---- 5. flash kernels against their plain versions --------------------
     from beso_tpu_torch.ops import flash_attention as fa
@@ -4385,6 +4509,13 @@ def main() -> None:
         kernels.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / k_ms:.1f}% of the roofline ({card})")
+    # the kitchen step (no TPU kernel: beso_tpu's is jnp that XLA fuses), at
+    # N_ENVS envs, with its times and bound at the cells' 100 beside them
+    kernels.append({"name": "kitchen_step", "route": "cuda",
+                    "source": "beso_tpu_torch/csrc/kitchen_step.cu",
+                    "replaces": "beso_tpu/envs/kitchen/env.py:351 (jnp, no TPU kernel)",
+                    "launches": sum(physics_launches.values()),
+                    "launches_by_path": physics_launches, **ks_entry, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,17 @@
 16 envs for 40 steps; half follow the JAX scripted oracle (so fingertips
 hook handles, drive joints and complete tasks), half take random actions.
 Each step both packages get the same action; qpos agrees to 1e-5, flags
-and completion order exactly.
+and completion order exactly. The same holds for one step of the CUDA
+kernel's case pool (`test_torch_kitchen_kernel._pool`: every branch of the
+step, four physics settings) through the port's eager step.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from torch_parity import t
 
@@ -17,6 +22,7 @@ from beso_tpu.envs.kitchen.fk import panda_fk as jax_fk
 from beso_tpu.envs.kitchen.oracle import kitchen_oracle_policy, oracle_reset
 from beso_tpu_torch.envs.kitchen import env as tenv
 from beso_tpu_torch.envs.kitchen.fk import panda_fk
+from test_torch_kitchen_kernel import SETTINGS, _params, _pool
 
 B, STEPS = 16, 40
 FLAGS = ("tasks_to_complete", "completed", "completion_order",
@@ -69,6 +75,29 @@ def test_kitchen_step_matches_jax():
     # the scripted half really interacts with the furniture
     assert total_reward.sum() >= 1
     assert bool(ts.completed.any())
+
+
+@pytest.mark.parametrize("setting", SETTINGS)
+def test_kitchen_step_matches_jax_on_the_case_pool(setting):
+    """One step of the kernel's 1,000-row case pool (blocked motion, hooked,
+    kept and lost drives, the kettle's engage, capped tracking and both
+    releases, completions with an order already set, frozen envs, task
+    subsets, known starts) under the shipped, the +-20% and the capped-kettle
+    physics: the eager step, which the kernel is held to on the card, and
+    `beso_tpu`'s step, jitted and vmapped over the rows, agree to 1e-5 in
+    the floats and exactly in the flags, completion steps and reward."""
+    state, action = _pool()
+    params = _params(setting, torch.device("cpu"))
+    jparams = jenv.KitchenParams(**{f.name: jnp.asarray(getattr(params, f.name).numpy())
+                                    for f in dataclasses.fields(params)})
+    js = jenv.KitchenState(*(jnp.asarray(f.numpy()) for f in state))
+    jstate, jobs, jrew, jdone = jax.jit(jax.vmap(jenv.kitchen_step, in_axes=(0, 0, None)))(
+        js, jnp.asarray(action.numpy()), jparams)
+    ts, obs, rew, done = tenv._kitchen_step_eager(state, action, params)
+    _assert_same(ts, jstate)
+    np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(rew.numpy(), np.asarray(jrew))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
 
 
 def test_reset_from_qpos_and_task_mask():
